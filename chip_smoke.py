@@ -4,7 +4,8 @@
     python3 chip_smoke.py                 # on a machine with an H100
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
-  1. build    — nvcc builds the sample-window kernel from csrc/ (sm_90a)
+  1. build    — nvcc builds the sample-window kernel and the GRU-layer
+                kernels from csrc/ (sm_90a), one nvcc process each, together
   2. kernel   — at the canonical shape (fs0 20, q 256, dim 1024, B 1/32/128):
                 given-noise f32 samples equal the plain version exactly
                 (TF32 off), bf16 with a sharpened W_o mismatches <= 1 %;
@@ -19,11 +20,32 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   4. serve    — VocoderService + make_server on 127.0.0.1 from a JAX-format
                 .npz written here: /healthz, two /synthesize, two /stream
                 (the kernel's launch count must rise), one bad body (400)
+  5. gru      — the GRU-layer kernels against their plain versions at
+                (T, B, H) = (13, 128, 1024), (52, 128, 1024), a ragged
+                (5, 3, 1024) and (4, 70, 128), which has a partial second row
+                tile and fewer chunks than ring stages: forward (ys, hproj) and the reverse sweep (dxp,
+                dhproj, dh0) with float32 products (tolerance 1e-4 of the
+                largest reference value: another summation order over
+                K = 1024 / 3072, compounded over T steps) and with bfloat16
+                products (3e-2: a sum that differs in its last bits can
+                round h to the neighbouring bf16 value, and the next steps
+                carry that on); the autograd.Function (dx_proj, dw, db, dh0)
+                against autograd through the plain forward; a shape the
+                kernels cannot take raises; kernel / plain / nn.GRU times
+  6. train    — the train step at full width (B 128, seq_len 1040, bf16
+                mixed precision, gru_impl="pallas"): one step with reset,
+                six without, on one fixed batch; losses finite and falling,
+                both GRU kernels launched 4 times per step, params changed,
+                carried state detached; ms per step and samples/s; then two
+                float32 steps with gru_impl="pallas" against gru_impl="xla"
+                from the same weights (cudnn TF32 off: `embed_conv_direct`
+                is the only conv and is not on this path)
 Then one JSON line of kernel numbers, the card's name and power limit, and
 last the {"ok": true, "device": ...} line.
 
 `--rehearse-cpu` runs the same phases on the CPU at dim 32 with the plain
 versions (no build, no timing on the card) and ends without the ok line.
+`--phases=5,6` runs only the named phases (and then prints no result line).
 """
 
 from __future__ import annotations
@@ -433,6 +455,298 @@ def phase_serve(params, exp_cfg, frames_syn, frames_stream):
         thread.join(timeout=30)
 
 
+
+# --------------------------------------------------------------------------
+# phase 5: the GRU-layer kernels against their plain versions
+# --------------------------------------------------------------------------
+
+GRU_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def gru_bound_ms(T, B, H, mxu_dtype, backward):
+    """Least time for one layer sweep: the larger of the bytes it must move
+    (each input read once, each output written once) over HBM bandwidth and
+    its multiply-adds over the peak rate for the products' type."""
+    import torch
+    wbytes = 3 * H * H * (2 if mxu_dtype == torch.bfloat16 else 4)
+    bh = 4 * B * H
+    if backward:   # in x_proj, hproj, ys (h_prev), dy, h0; out dxp, dhproj
+        nbytes = T * bh * (3 + 3 + 1 + 1) + bh + wbytes \
+            + T * bh * (3 + 3) + bh
+    else:          # in x_proj, h0, b_hh; out ys, hproj
+        nbytes = T * bh * 3 + bh + 12 * H + wbytes + T * bh * (1 + 3)
+    ops = 2 * T * B * H * 3 * H
+    peak = PEAK_OPS[str(mxu_dtype).replace("torch.", "")]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def gru_inputs(T, B, H, dev, seed):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *shape: torch.randn(*shape, generator=g, device=dev)  # noqa
+    return {"x_proj": rn(T, B, 3 * H), "w_hh_t": rn(H, 3 * H) / math.sqrt(H),
+            "b_hh": 0.1 * rn(3 * H), "h0": 0.5 * rn(B, H),
+            "dy": rn(T, B, H), "dhT": rn(B, H)}
+
+
+def _rel_err(got, want):
+    """max |got - want| over max(1, max |want|)."""
+    return float((got - want).abs().max()) / max(1.0,
+                                                 float(want.abs().max()))
+
+
+def phase_gru(dev, shapes):
+    import torch
+    from msnv_tpu_torch.kernels import gru_layer as gl
+    on_card = dev.type == "cuda"
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for T, B, H in shapes:
+        x = gru_inputs(T, B, H, dev, seed=T * 1000 + B)
+        w_hh = x["w_hh_t"].t().contiguous()
+        # float32 products (FMA), then bfloat16 ones (tensor cores)
+        for mxu in (torch.float32, torch.bfloat16):
+            name = str(mxu).replace("torch.", "")
+            ys, hproj = gl.gru_layer_forward(
+                x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], mxu)
+            ys_p, hproj_p = gl.gru_layer_reference(
+                x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], mxu)
+            ys_eval, none = gl.gru_layer_forward(
+                x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], mxu,
+                with_residual=False)
+            if none is not None or not torch.equal(ys_eval, ys):
+                raise AssertionError("forward without residual differs")
+            # the reverse sweep on the same saved tensors
+            h_prev = torch.cat([x["h0"][None], ys[:-1]], dim=0)
+            got = gl.gru_layer_backward(x["x_proj"], hproj, x["h0"], ys,
+                                        x["dy"], w_hh, mxu)
+            want = gl.gru_layer_backward_reference(
+                x["x_proj"], hproj, h_prev, x["dy"], w_hh, mxu)
+            if on_card:
+                torch.cuda.synchronize()
+            e_f = max(_rel_err(ys, ys_p), _rel_err(hproj, hproj_p))
+            e_b = max(_rel_err(a, b) for a, b in zip(got, want))
+            log(f"[gru] T={T} B={B} H={H} {name}: forward err {e_f:.2e}, "
+                f"backward err {e_b:.2e} (tolerance {GRU_TOL[name]:.0e})")
+            if not (e_f <= GRU_TOL[name] and e_b <= GRU_TOL[name]):
+                raise AssertionError(f"GRU kernel disagrees at T={T} B={B} "
+                                     f"{name}: {e_f} / {e_b}")
+            if mxu == torch.float32:
+                worst["fwd"] = max(worst["fwd"], e_f)
+                worst["bwd"] = max(worst["bwd"], e_b)
+            else:
+                worst["fwd_bf16"] = max(worst.get("fwd_bf16", 0.0), e_f)
+                worst["bwd_bf16"] = max(worst.get("bwd_bf16", 0.0), e_b)
+        # the autograd.Function against autograd through the plain forward
+        leaves = [x[k].clone().requires_grad_(True)
+                  for k in ("x_proj", "w_hh_t", "b_hh", "h0")]
+        ys, hT = gl.gru_layer(*leaves, torch.float32)
+        got = torch.autograd.grad((ys * x["dy"]).sum() + (hT * x["dhT"]).sum(),
+                                  leaves)
+        ys_p, _ = gl.gru_layer_reference(*leaves, torch.float32)
+        want = torch.autograd.grad(
+            (ys_p * x["dy"]).sum() + (ys_p[-1] * x["dhT"]).sum(), leaves)
+        e_g = max(_rel_err(a, b) for a, b in zip(got, want))
+        log(f"[gru] T={T} B={B} H={H}: Function (dx_proj, dw, db, dh0) vs "
+            f"autograd of the plain forward, err {e_g:.2e}")
+        if not e_g <= GRU_TOL["float32"]:
+            raise AssertionError(f"GRU Function gradients differ: {e_g}")
+        worst["bwd"] = max(worst["bwd"], e_g)
+    RESULTS["gru_err"] = worst
+    if not on_card:
+        return
+    for width, mxu in ((40, torch.float32), (96, torch.bfloat16)):
+        bad = gru_inputs(2, 2, width, dev, seed=1)
+        try:
+            gl.gru_layer_forward(bad["x_proj"], bad["w_hh_t"], bad["b_hh"],
+                                 bad["h0"], mxu)
+        except ValueError as e:
+            log(f"[gru] H={width} raises: {e}")
+        else:
+            raise AssertionError(f"H={width} did not raise")
+
+    # times at the train step's shapes, bf16 products
+    rows = []
+    mxu = torch.bfloat16
+    for T, B, H in shapes:
+        if B != 128:
+            continue
+        x = gru_inputs(T, B, H, dev, seed=T)
+        w_hh = x["w_hh_t"].t().contiguous()
+        ys, hproj = gl.gru_layer_forward(x["x_proj"], x["w_hh_t"], x["b_hh"],
+                                         x["h0"], mxu)
+        h_prev = torch.cat([x["h0"][None], ys[:-1]], dim=0)
+        fwd = cuda_ms(lambda: gl.gru_layer_forward(
+            x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], mxu), 20)
+        bwd = cuda_ms(lambda: gl.gru_layer_backward(
+            x["x_proj"], hproj, x["h0"], ys, x["dy"], w_hh, mxu), 20)
+        fwd32 = cuda_ms(lambda: gl.gru_layer_forward(
+            x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], torch.float32), 10)
+        bwd32 = cuda_ms(lambda: gl.gru_layer_backward(
+            x["x_proj"], hproj, x["h0"], ys, x["dy"], w_hh, torch.float32),
+            10)
+        fwd_plain = cuda_ms(lambda: gl.gru_layer_reference(
+            x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], mxu), 5)
+        bwd_plain = cuda_ms(lambda: gl.gru_layer_backward_reference(
+            x["x_proj"], hproj, h_prev, x["dy"], w_hh, mxu), 5)
+        # the library's yardstick: one nn.GRU layer in bf16, which also does
+        # the input projection that gru_layer leaves outside
+        rnn = torch.nn.GRU(H, H).to(dev, torch.bfloat16)
+        rnn.flatten_parameters()
+        inp = torch.randn(T, B, H, device=dev, dtype=torch.bfloat16,
+                          requires_grad=True)
+        h0 = x["h0"][None].to(torch.bfloat16)
+        with torch.no_grad():
+            lib_fwd = cuda_ms(lambda: rnn(inp, h0), 20)
+
+        def lib_both():
+            out, _ = rnn(inp, h0)
+            out.backward(x["dy"].to(torch.bfloat16))
+        lib_fb = cuda_ms(lib_both, 20)
+        b_f, by_f = gru_bound_ms(T, B, H, mxu, backward=False)
+        b_b, by_b = gru_bound_ms(T, B, H, mxu, backward=True)
+        rows.append({"T": T, "B": B, "H": H, "dtype": "bfloat16",
+                     "fwd_ms": fwd, "bwd_ms": bwd, "fwd_f32_ms": fwd32,
+                     "bwd_f32_ms": bwd32, "fwd_plain_ms": fwd_plain,
+                     "bwd_plain_ms": bwd_plain, "fwd_bound_ms": b_f,
+                     "fwd_bound_by": by_f, "bwd_bound_ms": b_b,
+                     "bwd_bound_by": by_b, "nn_gru_fwd_ms": lib_fwd,
+                     "nn_gru_fwd_bwd_ms": lib_fb})
+        log(f"[gru] T={T} B={B} bf16: forward {fwd:.4f} ms ({fwd / T * 1e3:.1f}"
+            f" us/step; f32 {fwd32:.4f}), plain "
+            f"{fwd_plain:.4f}, bound {b_f:.4f} ({by_f}); backward {bwd:.4f} "
+            f"ms (f32 {bwd32:.4f}), "
+            f"plain {bwd_plain:.4f}, bound {b_b:.4f} ({by_b}); nn.GRU bf16 "
+            f"(with the input projection) forward {lib_fwd:.4f}, forward+"
+            f"backward {lib_fb:.4f}")
+    RESULTS["gru_shapes"] = rows
+
+
+# --------------------------------------------------------------------------
+# phase 6: the train step at full width
+# --------------------------------------------------------------------------
+
+def train_inputs(cfg, batch, seq_len, dev, seed=0):
+    """One fixed batch from a numpy seed: uniform sample levels, targets,
+    conditioner frames and speaker ids."""
+    import torch
+    rng = np.random.RandomState(seed)
+    data = rng.randint(0, 256, (batch, seq_len + cfg.lookback - 1))
+    target = rng.randint(0, 256, (batch, seq_len))
+    cond = rng.rand(batch, seq_len // cfg.lookback,
+                    cfg.effective_cond_dim).astype(np.float32)
+    spk = rng.randint(0, cfg.spk_dim, (batch,))
+    return (torch.from_numpy(data.astype(np.int32)).to(dev),
+            torch.from_numpy(target.astype(np.int32)).to(dev),
+            torch.from_numpy(cond).to(dev),
+            torch.from_numpy(spk.astype(np.int64)).to(dev))
+
+
+def phase_train(exp, dev, batch, seq_len, steps):
+    import dataclasses
+
+    import torch
+    from msnv_tpu_torch.kernels.gru_layer import (gru_layer_backward,
+                                                  gru_layer_forward)
+    from msnv_tpu_torch.models.samplernn import init_params, init_tier_state
+    from msnv_tpu_torch.training.optim import make_optimizer
+    from msnv_tpu_torch.tree import tree_leaves, tree_map
+    from msnv_tpu_torch.training.step import loss_and_grads, make_train_step
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = dataclasses.replace(exp.model, gru_impl="pallas")
+    data, target, cond, spk = train_inputs(cfg, batch, seq_len, dev)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    before = [p.clone() for p in tree_leaves(params)]
+    optimizer = make_optimizer(exp.train)
+    opt_state = optimizer.init(params)
+    state = init_tier_state(cfg, batch, device=dev)
+    step = make_train_step(cfg, optimizer, compute_dtype=torch.bfloat16)
+    gru_layer_forward.launches = 0          # the main path starts here
+    gru_layer_backward.launches = 0
+    losses, walls = [], []
+    for i in range(1 + steps):
+        sync()
+        t0 = time.perf_counter()
+        params, opt_state, state, loss = step(
+            params, opt_state, state, data, i == 0, target, cond, spk)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = (gru_layer_forward.launches, gru_layer_backward.launches)
+    log(f"[train] bf16 losses (bits): {[round(x, 4) for x in losses]}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite loss")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the loss did not fall on the fixed batch")
+    per_step = cfg.n_tiers * cfg.n_rnn
+    if on_card and launches != (per_step * (1 + steps),) * 2:
+        raise AssertionError(f"GRU kernel launches {launches}, expected "
+                             f"{per_step} per step each")
+    if not any(not torch.equal(a, b)
+               for a, b in zip(before, tree_leaves(params))):
+        raise AssertionError("params did not change")
+    if any(s.grad_fn is not None or s.requires_grad for s in state):
+        raise AssertionError("the carried state is attached to a graph")
+    ms = statistics.median(walls[2:]) * 1e3
+    rate = batch * seq_len / (ms / 1e3)
+    RESULTS["train"] = {"batch": batch, "seq_len": seq_len, "dtype": "bf16",
+                        "steps": 1 + steps, "ms_per_step": ms,
+                        "samples_per_s": rate, "first_step_ms": walls[0] * 1e3,
+                        "losses": losses, "gru_fwd_launches": launches[0],
+                        "gru_bwd_launches": launches[1]}
+    log(f"[train] B={batch} seq_len={seq_len} bf16 gru_impl=pallas: "
+        f"{ms:.3f} ms/step = {rate:.0f} samples/s (median of the last "
+        f"{len(walls) - 2} steps; first step {walls[0] * 1e3:.1f} ms); GRU "
+        f"kernel launches fwd {launches[0]}, bwd {launches[1]}")
+
+    # float32: the kernel path against the loop path from the same weights,
+    # both held against the loop path in float64. Tolerances: losses 1e-4
+    # bits; a gradient leaf's error (max |g - g64| over max |g64|) on the
+    # kernel path at most 3 times the loop path's worst leaf. A fixed
+    # tolerance does not fit: a leaf's gradient is a sum over B * seq_len
+    # positions that largely cancel, so float32 sums taken in another order
+    # move it by far more than one rounding relative to its own size.
+    params0 = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    fresh_state = lambda: init_tier_state(cfg, batch, device=dev)  # noqa
+    _, _, g64 = loss_and_grads(
+        tree_map(torch.clone, params0),
+        dataclasses.replace(cfg, gru_impl="xla"), fresh_state(), data, True,
+        target, cond, spk, compute_dtype=torch.float64)
+    ref = tree_leaves(g64)
+    losses32, errs = {}, {}
+    for impl in ("pallas", "xla"):
+        c = dataclasses.replace(cfg, gru_impl=impl)
+        p = tree_map(torch.clone, params0)
+        st = fresh_state()
+        _, _, grads = loss_and_grads(p, c, st, data, True, target, cond, spk)
+        errs[impl] = max(
+            float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+            for g, r in zip(tree_leaves(grads), ref))
+        opt = make_optimizer(exp.train)
+        o = opt.init(p)
+        f32_step = make_train_step(c, opt)
+        losses32[impl] = []
+        for i in range(2):
+            p, o, st, loss = f32_step(p, o, st, data, i == 0, target, cond,
+                                      spk)
+            losses32[impl].append(float(loss))
+    sync()
+    d_loss = max(abs(a - b)
+                 for a, b in zip(losses32["pallas"], losses32["xla"]))
+    log(f"[train] f32 pallas vs xla: losses {losses32['pallas']} vs "
+        f"{losses32['xla']} (max diff {d_loss:.2e}); worst gradient leaf "
+        f"against float64: pallas {errs['pallas']:.2e}, xla "
+        f"{errs['xla']:.2e}")
+    if not d_loss <= 1e-4:
+        raise AssertionError(f"f32 losses differ by {d_loss}")
+    if not errs["pallas"] <= 3 * errs["xla"] + 1e-7:
+        raise AssertionError(f"f32 gradients on the kernel path are off: "
+                             f"{errs}")
+    RESULTS["train"]["f32_loss_diff"] = d_loss
+    RESULTS["train"]["f32_grad_err_vs_f64"] = errs
+
 # --------------------------------------------------------------------------
 
 def card_line():
@@ -446,56 +760,38 @@ def card_line():
         return f"nvidia-smi unavailable ({e})"
 
 
-def main(argv):
-    import torch
-    rehearse = "--rehearse-cpu" in argv
-    if not rehearse and not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    import dataclasses
+def build_kernels():
+    """Phase 1: one nvcc process per source, all started together."""
+    from msnv_tpu_torch.kernels import gru_layer, sample_window
+    t0 = time.perf_counter()
+    errors = []
 
-    from msnv_tpu_torch.config import preset
-    from msnv_tpu_torch.kernels import sample_window as sw
-    from msnv_tpu_torch.models.samplernn import init_params
+    def run(mod):
+        try:
+            mod.build()
+        except Exception as e:              # re-raised below, in the caller
+            errors.append(e)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    exp = preset("samplernn")
-    if rehearse:
-        global DIM
-        exp = dataclasses.replace(exp, model=dataclasses.replace(
-            exp.model, dim=32))
-        DIM = 32
-        dev = torch.device("cpu")
-    else:
-        dev = torch.device("cuda")
-        log(f"[device] {torch.cuda.get_device_name(0)}; torch "
-            f"{torch.__version__}, CUDA {torch.version.cuda}")
-        t0 = time.perf_counter()
-        sw.build()
-        RESULTS["build_s"] = time.perf_counter() - t0
-        log(f"[build] sample_window.cu in {RESULTS['build_s']:.1f} s")
-        for line in sw.build_log.splitlines():
+    threads = [threading.Thread(target=run, args=(m,))
+               for m in (sample_window, gru_layer)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    RESULTS["build_s"] = time.perf_counter() - t0
+    log(f"[build] sample_window.cu and gru_layer.cu in "
+        f"{RESULTS['build_s']:.1f} s")
+    for mod in (sample_window, gru_layer):
+        for line in mod.build_log.splitlines():
             if "registers" in line or "spill" in line:
-                log(f"[build] {line.strip()}")
-    cfg = exp.model
-    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
-    t0 = time.perf_counter()
-    phase_kernel(params, (1, 32, 128) if not rehearse else (1, 4))
-    log(f"[phase] kernel {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase_generate(params, cfg, 128 if not rehearse else 2,
-                   16 if not rehearse else 2)
-    log(f"[phase] generate {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase_serve(params, exp, 4, 8 if not rehearse else 2)
-    log(f"[phase] serve {time.perf_counter() - t0:.1f} s")
-    if rehearse:
-        log("rehearsal on the CPU passed (no card: no result line)")
-        return 1
+                log(f"[build] {mod.SOURCE.name}: {line.strip()}")
 
+
+def kernel_entries():
     main_shape = next(r for r in RESULTS["shapes"] if r["batch"] == 1)
-    kernels = [{
+    window = {
         "name": "sample_window",
         "route": "cuda",
         "source": "msnv_tpu_torch/csrc/sample_window.cu",
@@ -514,10 +810,100 @@ def main(argv):
         "main_shape": {"batch": 1, "fs0": FS0, "q": Q, "dim": DIM,
                        "dtype": "bfloat16", "mode": "philox"},
         "shapes": RESULTS["shapes"],
-    }]
-    print(json.dumps({"kernels": kernels,
+    }
+    # the GRU kernels at the bottom tier's sweep (T 52), where a train step
+    # spends most of its GRU time; one "launch" is one layer sweep
+    row = next(r for r in RESULTS["gru_shapes"] if r["T"] == 52)
+    shape = {k: row[k] for k in ("T", "B", "H", "dtype")}
+    gru = [{
+        "name": f"gru_layer_{d}",
+        "route": "cuda",
+        "source": "msnv_tpu_torch/csrc/gru_layer.cu",
+        "replaces": f"msnv_tpu/pallas/gru_kernel.py:{line}",
+        "launches": RESULTS["train"][f"gru_{d}_launches"],
+        # against the plain version, in the working type of the main path
+        # (bf16 products); largest |kernel - plain| over max(1, |plain|)
+        "max_abs_err": RESULTS["gru_err"][f"{d}_bf16"],
+        "max_abs_err_f32": RESULTS["gru_err"][d],
+        "ms": row[f"{d}_ms"],
+        "plain_ms": row[f"{d}_plain_ms"],
+        "bound_ms": row[f"{d}_bound_ms"],
+        "bound_by": row[f"{d}_bound_by"],
+        "library_ms": lib,
+        "library_note": note,
+        "main_shape": shape,
+        "shapes": RESULTS["gru_shapes"],
+    } for d, line, lib, note in (
+        ("fwd", 111, row["nn_gru_fwd_ms"],
+         "torch.nn.GRU(1024, 1024) forward in bf16; it also does the input "
+         "projection"),
+        ("bwd", 167, row["nn_gru_fwd_bwd_ms"] - row["nn_gru_fwd_ms"],
+         "torch.nn.GRU forward+backward minus forward, bf16; it also "
+         "computes the input projection's and the weights' gradients"))]
+    return [window] + gru
+
+
+def main(argv):
+    import torch
+    rehearse = "--rehearse-cpu" in argv
+    phases = set(range(1, 7))
+    for a in argv:
+        if a.startswith("--phases="):
+            phases = {int(x) for x in a.split("=", 1)[1].split(",")} | {1}
+    if not rehearse and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import dataclasses
+
+    from msnv_tpu_torch.config import preset
+    from msnv_tpu_torch.models.samplernn import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    exp = preset("samplernn")
+    if rehearse:
+        global DIM
+        exp = dataclasses.replace(exp, model=dataclasses.replace(
+            exp.model, dim=32))
+        DIM = 32
+        dev = torch.device("cpu")
+    else:
+        dev = torch.device("cuda")
+        log(f"[device] {torch.cuda.get_device_name(0)}; torch "
+            f"{torch.__version__}, CUDA {torch.version.cuda}")
+        build_kernels()
+    cfg = exp.model
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+
+    def timed(number, name, fn, *args):
+        if number not in phases:
+            return
+        t0 = time.perf_counter()
+        fn(*args)
+        log(f"[phase] {name} {time.perf_counter() - t0:.1f} s")
+
+    timed(2, "kernel", phase_kernel, params,
+          (1, 32, 128) if not rehearse else (1, 4))
+    timed(3, "generate", phase_generate, params, cfg,
+          128 if not rehearse else 2, 16 if not rehearse else 2)
+    timed(4, "serve", phase_serve, params, exp, 4, 8 if not rehearse else 2)
+    del params
+    timed(5, "gru", phase_gru, dev,
+          ((13, 128, DIM), (52, 128, DIM), (5, 3, DIM), (4, 70, 128))
+          if not rehearse else ((3, 4, DIM), (5, 8, DIM), (5, 3, DIM)))
+    timed(6, "train", phase_train, exp, dev, 128 if not rehearse else 4,
+          exp.train.seq_len if not rehearse else 2 * cfg.lookback, 6)
+    if rehearse:
+        log("rehearsal on the CPU passed (no card: no result line)")
+        return 1
+    if phases != set(range(1, 7)):
+        log(f"phases {sorted(phases)} passed (not all: no result line)")
+        return 1
+
+    print(json.dumps({"kernels": kernel_entries(),
                       "generate": RESULTS["generate"],
                       "streams": RESULTS["streams"],
+                      "train": RESULTS["train"],
                       "build_s": RESULTS["build_s"]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -90,3 +90,19 @@ def params_to_numpy(params) -> dict:
     """The inverse: {checkpoint key: float32 array} for an npz writer."""
     return {PREFIX + _keystr(path): t.detach().float().cpu().numpy()
             for path, t in _leaves(params)}
+
+
+def opt_state_to_numpy(opt_state) -> dict:
+    """{"count": int, "mu": {key: array}, "nu": {key: array}} of the
+    optimizer state of training/optim.py, the moments under their
+    parameters' checkpoint keys."""
+    return {"count": int(opt_state["count"]),
+            "mu": params_to_numpy(opt_state["mu"]),
+            "nu": params_to_numpy(opt_state["nu"])}
+
+
+def opt_state_from_numpy(flat: dict, cfg: ModelConfig, device=None):
+    """The inverse of `opt_state_to_numpy`."""
+    return {"count": int(flat["count"]),
+            "mu": params_from_numpy(flat["mu"], cfg, device=device),
+            "nu": params_from_numpy(flat["nu"], cfg, device=device)}

@@ -34,33 +34,19 @@ library is built with nvcc at first use into msnv_tpu_torch/build/.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "sample_window.cu"
-BUILD_DIR = _PKG / "build"
+from msnv_tpu_torch.kernels.build import CSRC, build_library
+
+SOURCE = CSRC / "sample_window.cu"
 TILES = (1, 2, 4, 8)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
 _lib_lock = threading.Lock()
 build_log = ""      # nvcc's -Xptxas -v report of the last build
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    found = path if os.path.exists(path) else shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME)")
-    return found
 
 
 def build() -> ctypes.CDLL:
@@ -70,21 +56,7 @@ def build() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is not None:
             return _lib
-        src = SOURCE.read_bytes()
-        digest = hashlib.sha256(src).hexdigest()[:16]
-        so = BUILD_DIR / f"libsample_window-{digest}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed:\n{build_log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
+        lib, build_log = build_library(SOURCE)
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.sample_window_launch.argtypes = [ci, ci] + [vp] * 10 + [ci] * 4 \
             + [vp]

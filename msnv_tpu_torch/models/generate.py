@@ -44,20 +44,20 @@ from msnv_tpu_torch.models.samplernn import (dequantize, fused_embed_conv,
 from msnv_tpu_torch.ops.linear import dense_apply, dense_weight
 from msnv_tpu_torch.ops.quantize import q_zero
 from msnv_tpu_torch.ops.upsample import upsample_step
+from msnv_tpu_torch.tree import tree_map
 
 __all__ = ["cast_float_tree", "fused_embed_conv", "generate_fn",
            "streaming_fn", "teacher_forced_log_probs"]
 
 
 def cast_float_tree(tree, dtype):
-    """Cast floating leaves to `dtype` (bf16 generation path); ints kept."""
-    if isinstance(tree, dict):
-        return {k: cast_float_tree(v, dtype) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(cast_float_tree(v, dtype) for v in tree)
-    if torch.is_tensor(tree) and tree.is_floating_point():
-        return tree.to(dtype)
-    return tree
+    """Cast floating leaves to `dtype` (differentiably: the mixed-precision
+    train step takes gradients through it); ints kept."""
+    def cast(x):
+        if torch.is_tensor(x) and x.is_floating_point():
+            return x.to(dtype)
+        return x
+    return tree_map(cast, tree)
 
 
 def _device(params) -> torch.device:

@@ -12,8 +12,12 @@ written by the JAX trainer loads leaf for leaf (msnv_tpu_torch/interop.py):
                   "spk_expand"}
   mlp: {"embedding" (q, q), "conv_in" (fs0, q, dim), "hidden", "out"}
 
-The forward is forward-only here (no custom backward: the reassociated
-embed+conv gradient belongs to the training slice).
+`predictor_apply` is differentiable end to end (the train step,
+training/step.py, takes gradients through it): the sample MLP's input stage
+goes through ops/embed_conv.py, whose backward is reassociated through the
+fused table unless cfg.mlp_grad_impl is "direct", and with
+cfg.gru_impl="pallas" the tier GRUs' sweeps run in the fused kernel, forward
+and backward (kernels/gru_layer.py).
 
 Deliberate reference-quirk parity, as in the JAX package: tier inputs are
 `2 * dequantize(x)`, only the top tier is conditioned, the speaker
@@ -32,6 +36,7 @@ from msnv_tpu_torch.config import ModelConfig
 from msnv_tpu_torch.device import resolve_device
 from msnv_tpu_torch.models.conditioner import (conditioner_apply,
                                                conditioner_init)
+from msnv_tpu_torch.ops.embed_conv import embed_conv, embed_conv_direct
 from msnv_tpu_torch.ops.gru import gru_apply, gru_cell, gru_init
 from msnv_tpu_torch.ops.linear import (dense_apply, dense_init,
                                        kaiming_uniform, lecun_uniform, normal)
@@ -172,16 +177,13 @@ def sample_mlp_logits(mlp_params, cfg: ModelConfig, samples, upper_cond):
     """Sample-level MLP over a whole chunk, pre-softmax (ref model.py:266-325).
 
     samples (B, L + fs0 - 1) int; upper_cond (B, L, dim). Returns f32
-    logits (B, L, q). The embed + valid conv is the sum over window
-    positions p of fused-table rows T[p][samples[:, p:p+L]].
+    logits (B, L, q). The embed + valid conv is `embed_conv` (a gather of
+    fused-table rows forward, the reassociated gradient backward) or, with
+    cfg.mlp_grad_impl="direct", the plain embed-then-conv.
     """
-    table = fused_embed_conv(mlp_params)
-    fs0 = table.shape[0]
-    length = samples.shape[1] - fs0 + 1
-    x = upper_cond
-    for p in range(fs0):
-        x = x + table[p][samples[:, p:p + length]]
-    x = torch.relu(x)
+    w = mlp_conv_weight(mlp_params)                          # (fs0, q, dim)
+    impl = embed_conv if cfg.mlp_grad_impl == "fused" else embed_conv_direct
+    x = torch.relu(impl(mlp_params["embedding"], w, samples) + upper_cond)
     x = torch.relu(dense_apply(mlp_params["hidden"], x))
     return dense_apply(mlp_params["out"], x).to(torch.float32)
 

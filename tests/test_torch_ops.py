@@ -121,10 +121,12 @@ def test_gru_apply_matches_jax(n_layers):
     np.testing.assert_allclose(h_t.numpy(), _np(h_j), atol=ATOL)
 
 
-@pytest.mark.parametrize("impl", ["pallas", "wavefront"])
+@pytest.mark.parametrize("impl", ["cudnn", "scan"])
 def test_gru_unported_impls_raise(impl):
+    """"pallas" and "wavefront" are ported (tests/test_torch_gru_layer.py);
+    a name that is no schedule is refused, not silently run as the loop."""
     _, tp = _gru_pair(2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="gru_impl"):
         tgru.gru_apply(tp, torch.zeros(1, 2, 6), torch.zeros(2, 1, 8), impl)
 
 
