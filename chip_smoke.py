@@ -21,21 +21,29 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 .npz written here: /healthz, two /synthesize, two /stream
                 (the kernel's launch count must rise), one bad body (400)
   5. gru      — the GRU-layer kernels against their plain versions at
-                (T, B, H) = (13, 128, 1024), (52, 128, 1024), a ragged
-                (5, 3, 1024) and (4, 70, 128), which has a partial second row
-                tile and fewer chunks than ring stages: forward (ys, hproj) and the reverse sweep (dxp,
-                dhproj, dh0) with float32 products (tolerance 1e-4 of the
-                largest reference value: another summation order over
-                K = 1024 / 3072, compounded over T steps) and with bfloat16
-                products (3e-2: a sum that differs in its last bits can
-                round h to the neighbouring bf16 value, and the next steps
-                carry that on); the autograd.Function (dx_proj, dw, db, dh0)
-                against autograd through the plain forward; a shape the
-                kernels cannot take raises; kernel / plain / nn.GRU times
+                (T, B, H) = (13, 128, 1024), (52, 128, 1024), the ragged
+                (5, 3, 1024), (5, 70, 1024), (4, 70, 128) and (3, 8, 256)
+                (partial row tiles; K-slices that arrive in 1, 2 or 4
+                chunks), which all take the persistent kernels, and
+                (3, 300, 1024), whose grid cannot be resident at once and
+                takes the per-step ones:
+                forward (ys, hproj) and the reverse sweep (dxp, dhproj, dh0)
+                with float32 products (tolerance 1e-4 of the largest
+                reference value: another summation order over K = 1024 /
+                3072, compounded over T steps) and with bfloat16 products
+                on the persistent and on the per-step kernels (3e-2: a sum
+                that differs in its last bits can round h to the
+                neighbouring bf16 value, and the next steps carry that on);
+                two runs bit-equal; the autograd.Function (dx_proj, dw, db,
+                dh0) in float32 and bfloat16 against autograd through the
+                plain forward; a shape the kernels cannot take raises;
+                persistent / per-step / empty-sweep / plain / nn.GRU times,
+                each the median over runs of 10 calls in a row
   6. train    — the train step at full width (B 128, seq_len 1040, bf16
                 mixed precision, gru_impl="pallas"): one step with reset,
                 six without, on one fixed batch; losses finite and falling,
-                both GRU kernels launched 4 times per step, params changed,
+                4 forward and 4 backward sweeps per step, every one
+                through the persistent kernels, params changed,
                 carried state detached; ms per step and samples/s; then two
                 float32 steps with gru_impl="pallas" against gru_impl="xla"
                 from the same weights (cudnn TF32 off: `embed_conv_direct`
@@ -73,8 +81,11 @@ def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters, warmup=3):
-    """Median per-call device time from CUDA events around each call."""
+def cuda_ms(fn, iters, warmup=3, batch=1):
+    """Median per-call device time from CUDA events around `batch` calls
+    in a row. With batch 1 a call's time includes what the host takes to
+    launch it on an idle card; a longer run hides that behind the calls
+    before, as a train step does."""
     import torch
     for _ in range(warmup):
         fn()
@@ -83,10 +94,11 @@ def cuda_ms(fn, iters, warmup=3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -501,61 +513,100 @@ def phase_gru(dev, shapes):
     import torch
     from msnv_tpu_torch.kernels import gru_layer as gl
     on_card = dev.type == "cuda"
-    worst = {"fwd": 0.0, "bwd": 0.0}
+    worst = {"fwd": 0.0, "bwd": 0.0, "fwd_bf16": 0.0, "bwd_bf16": 0.0}
+    paths = {}
     for T, B, H in shapes:
         x = gru_inputs(T, B, H, dev, seed=T * 1000 + B)
         w_hh = x["w_hh_t"].t().contiguous()
-        # float32 products (FMA), then bfloat16 ones (tensor cores)
-        for mxu in (torch.float32, torch.bfloat16):
+        # float32 products (FMA, per step), then bfloat16 ones (tensor
+        # cores) on the kernels the shape's plan names and, where that is
+        # the persistent kernels, on the per-step ones as well
+        runs = [(torch.float32, None), (torch.bfloat16, None)]
+        if on_card:
+            paths[(T, B, H)] = gl.sweep_plan(
+                T, B, H, torch.bfloat16, *gl.device_limits(dev, H)).path
+            if paths[(T, B, H)] == "persistent":
+                runs.append((torch.bfloat16, "per_step"))
+        for mxu, path in runs:
             name = str(mxu).replace("torch.", "")
+            kw = {"path": path} if on_card else {}
             ys, hproj = gl.gru_layer_forward(
-                x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], mxu)
+                x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], mxu, **kw)
             ys_p, hproj_p = gl.gru_layer_reference(
                 x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], mxu)
             ys_eval, none = gl.gru_layer_forward(
                 x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], mxu,
-                with_residual=False)
+                with_residual=False, **kw)
             if none is not None or not torch.equal(ys_eval, ys):
                 raise AssertionError("forward without residual differs")
             # the reverse sweep on the same saved tensors
             h_prev = torch.cat([x["h0"][None], ys[:-1]], dim=0)
             got = gl.gru_layer_backward(x["x_proj"], hproj, x["h0"], ys,
-                                        x["dy"], w_hh, mxu)
+                                        x["dy"], w_hh, mxu, **kw)
             want = gl.gru_layer_backward_reference(
                 x["x_proj"], hproj, h_prev, x["dy"], w_hh, mxu)
+            # two runs on the same inputs give the same bits, also with the
+            # final state's cotangent handed over beside dy
+            again = gl.gru_layer_backward(x["x_proj"], hproj, x["h0"], ys,
+                                          x["dy"], w_hh, mxu, **kw)
+            folded = x["dy"].clone()
+            folded[-1] += x["dhT"]
+            with_dhT = gl.gru_layer_backward(
+                x["x_proj"], hproj, x["h0"], ys, x["dy"], w_hh, mxu,
+                dhT=x["dhT"], **kw)
+            want_dhT = gl.gru_layer_backward_reference(
+                x["x_proj"], hproj, h_prev, folded, w_hh, mxu)
             if on_card:
                 torch.cuda.synchronize()
+            if not (torch.equal(ys_eval, ys)
+                    and all(torch.equal(a, b) for a, b in zip(got, again))):
+                raise AssertionError(f"two runs differ at T={T} B={B} {name}")
             e_f = max(_rel_err(ys, ys_p), _rel_err(hproj, hproj_p))
-            e_b = max(_rel_err(a, b) for a, b in zip(got, want))
-            log(f"[gru] T={T} B={B} H={H} {name}: forward err {e_f:.2e}, "
-                f"backward err {e_b:.2e} (tolerance {GRU_TOL[name]:.0e})")
+            e_b = max(_rel_err(a, b) for a, b in
+                      list(zip(got, want)) + list(zip(with_dhT, want_dhT)))
+            which = ("plain" if not on_card else "per_step"
+                     if mxu == torch.float32 else path or paths[(T, B, H)])
+            log(f"[gru] T={T} B={B} H={H} {name} {which}: forward err "
+                f"{e_f:.2e}, backward err {e_b:.2e} (tolerance "
+                f"{GRU_TOL[name]:.0e}); two runs bit-equal")
             if not (e_f <= GRU_TOL[name] and e_b <= GRU_TOL[name]):
                 raise AssertionError(f"GRU kernel disagrees at T={T} B={B} "
-                                     f"{name}: {e_f} / {e_b}")
-            if mxu == torch.float32:
-                worst["fwd"] = max(worst["fwd"], e_f)
-                worst["bwd"] = max(worst["bwd"], e_b)
-            else:
-                worst["fwd_bf16"] = max(worst.get("fwd_bf16", 0.0), e_f)
-                worst["bwd_bf16"] = max(worst.get("bwd_bf16", 0.0), e_b)
-        # the autograd.Function against autograd through the plain forward
-        leaves = [x[k].clone().requires_grad_(True)
-                  for k in ("x_proj", "w_hh_t", "b_hh", "h0")]
-        ys, hT = gl.gru_layer(*leaves, torch.float32)
-        got = torch.autograd.grad((ys * x["dy"]).sum() + (hT * x["dhT"]).sum(),
-                                  leaves)
-        ys_p, _ = gl.gru_layer_reference(*leaves, torch.float32)
-        want = torch.autograd.grad(
-            (ys_p * x["dy"]).sum() + (ys_p[-1] * x["dhT"]).sum(), leaves)
-        e_g = max(_rel_err(a, b) for a, b in zip(got, want))
-        log(f"[gru] T={T} B={B} H={H}: Function (dx_proj, dw, db, dh0) vs "
-            f"autograd of the plain forward, err {e_g:.2e}")
-        if not e_g <= GRU_TOL["float32"]:
-            raise AssertionError(f"GRU Function gradients differ: {e_g}")
-        worst["bwd"] = max(worst["bwd"], e_g)
+                                     f"{name} {which}: {e_f} / {e_b}")
+            suffix = "" if mxu == torch.float32 else "_bf16"
+            worst["fwd" + suffix] = max(worst["fwd" + suffix], e_f)
+            worst["bwd" + suffix] = max(worst["bwd" + suffix], e_b)
+        # the autograd.Function against autograd through the plain forward,
+        # with float32 products and with bfloat16 ones (the train step's)
+        for mxu in (torch.float32, torch.bfloat16):
+            name = str(mxu).replace("torch.", "")
+            leaves = [x[k].clone().requires_grad_(True)
+                      for k in ("x_proj", "w_hh_t", "b_hh", "h0")]
+            ys, hT = gl.gru_layer(*leaves, mxu)
+            got = torch.autograd.grad(
+                (ys * x["dy"]).sum() + (hT * x["dhT"]).sum(), leaves)
+            ys_p, _ = gl.gru_layer_reference(*leaves, mxu)
+            want = torch.autograd.grad(
+                (ys_p * x["dy"]).sum() + (ys_p[-1] * x["dhT"]).sum(), leaves)
+            e_g = max(_rel_err(a, b) for a, b in zip(got, want))
+            log(f"[gru] T={T} B={B} H={H} {name}: Function (dx_proj, dw, "
+                f"db, dh0) vs autograd of the plain forward, err {e_g:.2e}")
+            if not e_g <= GRU_TOL[name]:
+                raise AssertionError(f"GRU Function gradients differ: {e_g}")
+            suffix = "" if mxu == torch.float32 else "_bf16"
+            worst["bwd" + suffix] = max(worst["bwd" + suffix], e_g)
     RESULTS["gru_err"] = worst
     if not on_card:
         return
+    for H in sorted({shape[2] for shape in shapes}):
+        held, smem = gl.device_limits(dev, H)
+        log(f"[gru] H={H}: CTAs of the persistent kernels that the card "
+            f"holds at once: {held}, with {gl.persistent_smem_bytes(H)} of "
+            f"{smem} bytes of shared memory each")
+    for T, B, H in shapes:
+        want = "persistent" if B <= 128 else "per_step"
+        if paths[(T, B, H)] != want:
+            raise AssertionError(f"({T}, {B}, {H}) took the "
+                                 f"{paths[(T, B, H)]} kernels, not {want}")
     for width, mxu in ((40, torch.float32), (96, torch.bfloat16)):
         bad = gru_inputs(2, 2, width, dev, seed=1)
         try:
@@ -566,26 +617,52 @@ def phase_gru(dev, shapes):
         else:
             raise AssertionError(f"H={width} did not raise")
 
-    # times at the train step's shapes, bf16 products
+    # times at the train step's shapes, bf16 products: the persistent
+    # kernels, the per-step kernels and the empty sweep (the barriers of a
+    # sweep and nothing else) in turns, the weight handed over as the train
+    # step hands it over (the transposed view of a stored bf16 (3H, H))
     rows = []
     mxu = torch.bfloat16
     for T, B, H in shapes:
         if B != 128:
             continue
         x = gru_inputs(T, B, H, dev, seed=T)
-        w_hh = x["w_hh_t"].t().contiguous()
-        ys, hproj = gl.gru_layer_forward(x["x_proj"], x["w_hh_t"], x["b_hh"],
+        w_hh = x["w_hh_t"].t().contiguous().to(mxu)
+        w_hh_t = w_hh.t()
+        ys, hproj = gl.gru_layer_forward(x["x_proj"], w_hh_t, x["b_hh"],
                                          x["h0"], mxu)
         h_prev = torch.cat([x["h0"][None], ys[:-1]], dim=0)
-        fwd = cuda_ms(lambda: gl.gru_layer_forward(
-            x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], mxu), 20)
-        bwd = cuda_ms(lambda: gl.gru_layer_backward(
-            x["x_proj"], hproj, x["h0"], ys, x["dy"], w_hh, mxu), 20)
+
+        def fwd_on(path):
+            return lambda: gl.gru_layer_forward(
+                x["x_proj"], w_hh_t, x["b_hh"], x["h0"], mxu, path=path)
+
+        def bwd_on(path):
+            return lambda: gl.gru_layer_backward(
+                x["x_proj"], hproj, x["h0"], ys, x["dy"], w_hh, mxu,
+                path=path)
+
+        # runs of 10 calls, per-step / persistent / persistent / per-step
+        run = {"iters": 5, "batch": 10}
+        fwd_step = cuda_ms(fwd_on("per_step"), **run)
+        fwd = cuda_ms(fwd_on("persistent"), **run)
+        fwd = min(fwd, cuda_ms(fwd_on("persistent"), **run))
+        fwd_step = min(fwd_step, cuda_ms(fwd_on("per_step"), **run))
+        bwd_step = cuda_ms(bwd_on("per_step"), **run)
+        bwd = cuda_ms(bwd_on("persistent"), **run)
+        bwd = min(bwd, cuda_ms(bwd_on("persistent"), **run))
+        bwd_step = min(bwd_step, cuda_ms(bwd_on("per_step"), **run))
+        empty = cuda_ms(lambda: gl.empty_sweep(T, B, H, dev), **run)
+        # one call at a time: with the launch on an idle card
+        fwd_alone = cuda_ms(fwd_on("persistent"), 20)
+        bwd_alone = cuda_ms(bwd_on("persistent"), 20)
+        w32_t = x["w_hh_t"]
         fwd32 = cuda_ms(lambda: gl.gru_layer_forward(
-            x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], torch.float32), 10)
+            x["x_proj"], w32_t, x["b_hh"], x["h0"], torch.float32), 3,
+            batch=5)
         bwd32 = cuda_ms(lambda: gl.gru_layer_backward(
-            x["x_proj"], hproj, x["h0"], ys, x["dy"], w_hh, torch.float32),
-            10)
+            x["x_proj"], hproj, x["h0"], ys, x["dy"],
+            w32_t.t().contiguous(), torch.float32), 3, batch=5)
         fwd_plain = cuda_ms(lambda: gl.gru_layer_reference(
             x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], mxu), 5)
         bwd_plain = cuda_ms(lambda: gl.gru_layer_backward_reference(
@@ -598,28 +675,38 @@ def phase_gru(dev, shapes):
                           requires_grad=True)
         h0 = x["h0"][None].to(torch.bfloat16)
         with torch.no_grad():
-            lib_fwd = cuda_ms(lambda: rnn(inp, h0), 20)
+            lib_fwd = cuda_ms(lambda: rnn(inp, h0), **run)
 
         def lib_both():
             out, _ = rnn(inp, h0)
             out.backward(x["dy"].to(torch.bfloat16))
-        lib_fb = cuda_ms(lib_both, 20)
+        lib_fb = cuda_ms(lib_both, **run)
         b_f, by_f = gru_bound_ms(T, B, H, mxu, backward=False)
         b_b, by_b = gru_bound_ms(T, B, H, mxu, backward=True)
         rows.append({"T": T, "B": B, "H": H, "dtype": "bfloat16",
-                     "fwd_ms": fwd, "bwd_ms": bwd, "fwd_f32_ms": fwd32,
+                     "fwd_ms": fwd, "bwd_ms": bwd,
+                     "fwd_per_step_ms": fwd_step, "bwd_per_step_ms": bwd_step,
+                     "empty_sweep_ms": empty, "fwd_alone_ms": fwd_alone,
+                     "bwd_alone_ms": bwd_alone, "fwd_f32_ms": fwd32,
                      "bwd_f32_ms": bwd32, "fwd_plain_ms": fwd_plain,
                      "bwd_plain_ms": bwd_plain, "fwd_bound_ms": b_f,
                      "fwd_bound_by": by_f, "bwd_bound_ms": b_b,
                      "bwd_bound_by": by_b, "nn_gru_fwd_ms": lib_fwd,
                      "nn_gru_fwd_bwd_ms": lib_fb})
-        log(f"[gru] T={T} B={B} bf16: forward {fwd:.4f} ms ({fwd / T * 1e3:.1f}"
-            f" us/step; f32 {fwd32:.4f}), plain "
-            f"{fwd_plain:.4f}, bound {b_f:.4f} ({by_f}); backward {bwd:.4f} "
-            f"ms (f32 {bwd32:.4f}), "
-            f"plain {bwd_plain:.4f}, bound {b_b:.4f} ({by_b}); nn.GRU bf16 "
-            f"(with the input projection) forward {lib_fwd:.4f}, forward+"
-            f"backward {lib_fb:.4f}")
+        log(f"[gru] T={T} B={B} bf16: forward {fwd:.4f} ms "
+            f"({fwd / T * 1e3:.1f} us/step; one call alone {fwd_alone:.4f}; "
+            f"per-step kernels {fwd_step:.4f}; f32 {fwd32:.4f}), plain "
+            f"{fwd_plain:.4f}, "
+            f"bound {b_f:.4f} ({by_f}); backward {bwd:.4f} ms "
+            f"({bwd / (T + 1) * 1e3:.1f} us/step; one call alone "
+            f"{bwd_alone:.4f}; per-step kernels {bwd_step:.4f}; f32 "
+            f"{bwd32:.4f}), plain {bwd_plain:.4f}, "
+            f"bound {b_b:.4f} ({by_b}); empty sweep of {T} barriers "
+            f"{empty:.4f} ms; nn.GRU bf16 (with the input projection) "
+            f"forward {lib_fwd:.4f}, forward+backward {lib_fb:.4f}")
+        if T == 52 and not (fwd < fwd_step and bwd < bwd_step):
+            raise AssertionError("the persistent kernels are not faster than "
+                                 "the per-step ones")
     RESULTS["gru_shapes"] = rows
 
 
@@ -663,8 +750,9 @@ def phase_train(exp, dev, batch, seq_len, steps):
     opt_state = optimizer.init(params)
     state = init_tier_state(cfg, batch, device=dev)
     step = make_train_step(cfg, optimizer, compute_dtype=torch.bfloat16)
-    gru_layer_forward.launches = 0          # the main path starts here
-    gru_layer_backward.launches = 0
+    for wrapper in (gru_layer_forward, gru_layer_backward):
+        wrapper.launches = 0                # the main path starts here
+        wrapper.persistent = wrapper.per_step = 0
     losses, walls = [], []
     for i in range(1 + steps):
         sync()
@@ -675,6 +763,7 @@ def phase_train(exp, dev, batch, seq_len, steps):
         walls.append(time.perf_counter() - t0)
         losses.append(float(loss))
     launches = (gru_layer_forward.launches, gru_layer_backward.launches)
+    persistent = (gru_layer_forward.persistent, gru_layer_backward.persistent)
     log(f"[train] bf16 losses (bits): {[round(x, 4) for x in losses]}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError("non-finite loss")
@@ -684,6 +773,9 @@ def phase_train(exp, dev, batch, seq_len, steps):
     if on_card and launches != (per_step * (1 + steps),) * 2:
         raise AssertionError(f"GRU kernel launches {launches}, expected "
                              f"{per_step} per step each")
+    if on_card and persistent != launches:
+        raise AssertionError(f"only {persistent} of {launches} GRU sweeps "
+                             f"went through the persistent kernels")
     if not any(not torch.equal(a, b)
                for a, b in zip(before, tree_leaves(params))):
         raise AssertionError("params did not change")
@@ -695,11 +787,14 @@ def phase_train(exp, dev, batch, seq_len, steps):
                         "steps": 1 + steps, "ms_per_step": ms,
                         "samples_per_s": rate, "first_step_ms": walls[0] * 1e3,
                         "losses": losses, "gru_fwd_launches": launches[0],
-                        "gru_bwd_launches": launches[1]}
+                        "gru_bwd_launches": launches[1],
+                        "gru_fwd_persistent": persistent[0],
+                        "gru_bwd_persistent": persistent[1]}
     log(f"[train] B={batch} seq_len={seq_len} bf16 gru_impl=pallas: "
         f"{ms:.3f} ms/step = {rate:.0f} samples/s (median of the last "
         f"{len(walls) - 2} steps; first step {walls[0] * 1e3:.1f} ms); GRU "
-        f"kernel launches fwd {launches[0]}, bwd {launches[1]}")
+        f"sweeps fwd {launches[0]}, bwd {launches[1]}, of which through the "
+        f"persistent kernels {persistent[0]}, {persistent[1]}")
 
     # float32: the kernel path against the loop path from the same weights,
     # both held against the loop path in float64. Tolerances: losses 1e-4
@@ -826,6 +921,8 @@ def kernel_entries():
         "max_abs_err": RESULTS["gru_err"][f"{d}_bf16"],
         "max_abs_err_f32": RESULTS["gru_err"][d],
         "ms": row[f"{d}_ms"],
+        "ms_per_step_kernels": row[f"{d}_per_step_ms"],
+        "empty_sweep_ms": row["empty_sweep_ms"],
         "plain_ms": row[f"{d}_plain_ms"],
         "bound_ms": row[f"{d}_bound_ms"],
         "bound_by": row[f"{d}_bound_by"],
@@ -889,7 +986,8 @@ def main(argv):
     timed(4, "serve", phase_serve, params, exp, 4, 8 if not rehearse else 2)
     del params
     timed(5, "gru", phase_gru, dev,
-          ((13, 128, DIM), (52, 128, DIM), (5, 3, DIM), (4, 70, 128))
+          ((13, 128, DIM), (52, 128, DIM), (5, 3, DIM), (4, 70, 128),
+           (5, 70, DIM), (3, 8, 256), (3, 300, DIM))
           if not rehearse else ((3, 4, DIM), (5, 8, DIM), (5, 3, DIM)))
     timed(6, "train", phase_train, exp, dev, 128 if not rehearse else 4,
           exp.train.seq_len if not rehearse else 2 * cfg.lookback, 6)

@@ -19,26 +19,63 @@
 // products) or bfloat16 (the mixed-precision train step).
 //
 // What bounds it on the H100. Per layer and step the product is 0.8 GFLOP
-// at B 128, H 1024 against 6 MB of bf16 weights (L2-resident across the
-// steps) and 1.5-3 MB of streamed f32 activations, so neither the memory
-// rate nor the arithmetic rate is near: at T = 13 / 52 the device-wide
-// dependence between steps (every column of h' needs all of h) and the
-// launch per step bound it. On the TPU the grid is sequential and h stays in
-// VMEM beside the whole weight; here no SM holds the weight and a step
-// cannot stay inside one CTA.
+// at B 128, H 1024 (under a microsecond of tensor-core time) against 6 MB of
+// bf16 weights and 1.5-3 MB of streamed f32 activations, so neither the
+// memory rate nor the arithmetic rate is near: the chain of T steps, each of
+// which needs all of the previous h (resp. dhproj) on every SM, bounds a
+// sweep. On the TPU the grid is sequential and h stays in VMEM beside the
+// whole weight; here no SM holds the weight and a step cannot stay inside
+// one CTA. What a step costs is what it does besides the product: starting
+// and draining a launch, fetching the weight again, fetching the left
+// operand, and handing the result to the other SMs.
 //
-// Design of this first version (right and simple): ONE LAUNCH PER TIMESTEP,
-// ordered by the stream, all enqueued by one C call. Forward: a grid over
-// (16-column slices of H) x (64-row tiles of B); a CTA computes the three
-// gate columns j, H+j, 2H+j of hproj for its rows, then the gate math, and
-// writes ys[t] reading ys[t-1] (or h0): no buffer is read and written by one
-// launch, so no grid barrier is needed. Backward: T + 1 launches; launch t
-// fuses the product of step t+1 (dhproj[t+1] @ W_hh, restricted to the
-// CTA's own columns) with the elementwise part of step t, which needs only
-// those columns of dh; dh_total * z passes between launches in a (B, H)
-// scratch each element of which is read and rewritten by the same thread.
-// The product inside a launch, by the weight's type, both with sums in a
-// fixed order (no atomics: results do not vary from run to run):
+// Design for bfloat16 products (the train step): ONE PERSISTENT KERNEL PER
+// SWEEP, launched cooperatively. The grid is (H / 16 column slices) x (row
+// tiles of B), one CTA per SM, in clusters of neighbouring column slices.
+//  - Weights resident. A cluster of C CTAs shares the product of its C
+//    slices' columns and splits its depth K: every CTA holds, for the whole
+//    sweep, its K-slice of the cluster's columns of W_hh (96 * H bytes:
+//    96 KB at H 1024, whatever C is), read from the weight as stored,
+//    (3H, H): the forward's operand rows are rows of W_hh; the backward
+//    transposes its columns on the way in. Splitting K rather than the
+//    columns makes the products wide (wgmma m64n96k16 forward, m64n128k16
+//    backward, both operands from shared memory in the no-swizzle K-major
+//    layout, float32 accumulators in registers) and cuts what a CTA
+//    fetches of the left operand by C. The C partial sums of a CTA's own
+//    columns come through distributed shared memory and are added in rank
+//    order; the gate math follows in registers.
+//  - A grid barrier per step (an atomic counter and a bounded spin), not a
+//    launch. What crosses it is a bf16 copy of h (resp. dhproj), written by
+//    every CTA for its own columns straight in the tiled order of the
+//    readers' shared memory, one slab per step, so no slab is read and
+//    written in the same step and a reader's whole K-slice is one
+//    contiguous block: the thread that sees the barrier complete asks the
+//    TMA for it (bulk copies through L2, which is where other SMs' writes
+//    are visible; L1 is not coherent between SMs), an mbarrier per chunk
+//    reports its arrival, and a chunk's products run while the next ones
+//    land. The float32 state of a CTA's own tile never leaves its
+//    registers.
+//  - Only that slab is written before a CTA arrives at the barrier. The
+//    outputs that no CTA reads during the sweep (ys, hproj, the row-major
+//    bf16 copy for the weight-gradient product; backward dxp, dhproj) are
+//    written, and the next step's inputs from device memory are fetched,
+//    between the arrival and the wait.
+// Sums are in a fixed order and there are no float atomics: two runs give
+// the same bits. Shapes the persistent kernels cannot hold (a grid that is
+// not resident at once, a slice larger than shared memory) and float32
+// products take the per-step version below; the caller chooses by shape.
+//
+// The per-step version: ONE LAUNCH PER TIMESTEP, ordered by the stream, all
+// enqueued by one C call. Forward: a grid over (16-column slices of H) x
+// (64-row tiles of B); a CTA computes the three gate columns j, H+j, 2H+j
+// of hproj for its rows, then the gate math, and writes ys[t] reading
+// ys[t-1] (or h0): no buffer is read and written by one launch, so no grid
+// barrier is needed. Backward: T + 1 launches; launch t fuses the product
+// of step t+1 (dhproj[t+1] @ W_hh, restricted to the CTA's own columns)
+// with the elementwise part of step t, which needs only those columns of
+// dh; dh_total * z passes between launches in a (B, H) scratch each element
+// of which is read and rewritten by the same thread. The product inside a
+// launch, by the weight's type, both with sums in a fixed order:
 //  - float32: FMA, a register-tiled loop (4 x 4 outputs per thread) over
 //    32-deep chunks staged in shared memory, the chunk split over thread
 //    groups whose partial sums are added in order. Exact float32 products.
@@ -46,11 +83,7 @@
 //    float32 accumulators) over chunks that a ring of cp.async stages keeps
 //    in flight; the left operand comes from a bf16 copy of h (resp. of
 //    dhproj) that the previous launch's epilogue wrote beside the float32
-//    one, so the staging moves 2 bytes a value and converts nothing. The
-//    chunk's depth is split over two warp groups, added in order.
-// wgmma and TMA, a persistent cooperative kernel with the weights split over
-// the SMs' shared memory, and a CUDA graph over the launches are left to
-// later work.
+//    one. The chunk's depth is split over two warp groups, added in order.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -58,6 +91,8 @@
 #include <math.h>
 #include <mma.h>
 #include <stddef.h>
+#include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
@@ -543,6 +578,888 @@ bool bad_shape(int T, int B, int H, int dtype) {
   return T < 1 || B < 1 || H < m || H % m != 0;
 }
 
+// ---------------------------------------------------------------------------
+// Persistent version (bfloat16 operands): one cooperative launch per sweep
+// ---------------------------------------------------------------------------
+//
+// A cluster of C CTAs (neighbours along the column slices, same row tile)
+// shares one product: ROWS rows x (C slices' columns), with the depth K
+// split over the CTAs. Shared memory of a CTA: its K-slice of the cluster's
+// columns of W_hh for the whole sweep (96 * H bytes whatever C is), then
+// one region that holds its K-slice of the left operand (ROWS x K/C,
+// bf16) while a step's products run and its partial sums (ROWS x N, f32)
+// after, which the other CTAs of the cluster read through distributed
+// shared memory. Both operands are laid out for wgmma without
+// swizzle, K-major: 8 rows x 16 bytes form a core matrix of 128 contiguous
+// bytes; core matrices that are neighbours along K lie kCoreBytes apart
+// (the descriptor's leading byte offset), groups of 8 rows one `sbo` apart
+// (its stride byte offset).
+//
+// The left operand crosses the grid barrier in device memory ALREADY IN
+// THAT LAYOUT: beside the row-major bf16 copy of h (resp. dhproj) that the
+// weight-gradient product reads afterwards, every CTA writes its columns
+// into a tiled copy in which each (row tile, K-slice) is one contiguous
+// block, cut into chunks along K. The reader then needs no per-thread
+// copies (cp.async through the load/store unit was several times slower
+// than the TMA on an H100): one thread asks the TMA for a bulk copy per
+// chunk, an mbarrier per chunk reports its arrival, and the products of a
+// chunk start while the later chunks are on their way.
+
+constexpr int kCoreBytes = 128;
+constexpr unsigned kSpinLimit = 1u << 24;           // polls before a trap
+
+// NPER operand rows per column slice (3 * TN forward, TN backward), K the
+// whole depth (H forward, 3H backward); clusters of C CTAs of ROWS_ batch
+// rows each, a warpgroup per 64 rows. The shapes are chosen by what must be
+// resident at once. A cluster lies inside one GPC, so an H100 of 132 SMs
+// may hold only 30 clusters of 4 or 15 of 8 (the occupancy API's answer on
+// an NVIDIA H100 80GB HBM3), but 66 of 2: a (B 128, H 1024) sweep fits as
+// 64 clusters of 2 x 64 rows or as 8 clusters of 8 x 128 rows, and the
+// backward's deeper K-slice only fits shared memory when split eight ways.
+// What the other CTAs' partial sums cost over the SM-to-SM network, which
+// is slow, grows with C - 1: the forward takes the smallest C that fits.
+template <int NPER, int C_, int ROWS_>
+struct ClusterPlan {
+  static constexpr int C = C_;
+  static constexpr int ROWS = ROWS_;
+  static constexpr int THREADS = 2 * ROWS_;
+  static constexpr int N = NPER * C;       // width of the cluster's product
+  // the partial sums, [owner CTA's rank][row][its NPER columns + 4]: what
+  // one CTA fetches from another is one block, and the 8 rows of a warp's
+  // access are spread evenly over the banks
+  static constexpr int P_LD = NPER + 4;
+  static constexpr int P_BLOCK = ROWS * P_LD;
+  __host__ __device__ static size_t w_bytes(int K) {
+    return (size_t)N * (K / C) * sizeof(bf16);
+  }
+  __host__ __device__ static size_t bytes(int K) {
+    const size_t a = (size_t)ROWS * (K / C) * sizeof(bf16);
+    const size_t p = (size_t)C * P_BLOCK * sizeof(float);
+    return w_bytes(K) + (a > p ? a : p);
+  }
+};
+using FwdPlan = ClusterPlan<3 * TN, 2, 64>;
+using BwdPlan = ClusterPlan<TN, 8, 128>;
+
+// The tiled copy of a (steps, B, K) left operand for clusters of C: per
+// step and row tile rows * K elements, [K-slice][chunk][8-row group]
+// [8-column group of the chunk][row of 8][column of 8]: a chunk of a slice
+// is the shared-memory image of that part of the operand.
+constexpr int kMaxChunks = 4;
+struct Tiling {
+  int rows;           // of a row tile
+  int kslice;         // depth of a CTA's slice
+  int chunks;         // per slice: 4, 2 or 1, as the slice divides
+  int kgc;            // 8-column groups per chunk (even: whole k16 steps)
+  int chunk_elems;
+  __host__ __device__ Tiling(int K, int C, int rows_) {
+    rows = rows_;
+    kslice = K / C;
+    const int kgs = kslice / 8;
+    chunks = kgs % 8 == 0 ? 4 : kgs % 4 == 0 ? 2 : 1;
+    kgc = kgs / chunks;
+    chunk_elems = rows * kgc * 8;
+  }
+  // where (row of the tile, column of K) lies in its row tile's block
+  __device__ size_t offset(int row, int col) const {
+    const int kg = col % kslice / 8;
+    return (size_t)(col / kslice) * rows * kslice +
+           (size_t)(kg / kgc) * chunk_elems +
+           ((row >> 3) * kgc + kg % kgc) * 64 + (row & 7) * 8 + (col & 7);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory (the weight slice, once)
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// shared memory written by this thread becomes visible to wgmma's reads
+// and ordered before the TMA's writes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbarrier_init(uint32_t bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(arrivals)
+               : "memory");
+}
+
+// One bulk copy (the TMA, no tensor map) of `bytes` contiguous bytes from
+// global to shared memory, reported to the mbarrier `bar`, on which this
+// thread is the one arrival. The copy reads through L2, so it sees what
+// other SMs wrote before the last grid barrier (request_slice's proxy fence
+// orders it after those writes).
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// wait until the mbarrier's phase of the given parity has completed;
+// bounded like the grid barrier's spin
+__device__ __forceinline__ void mbarrier_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (unsigned spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (spins > kSpinLimit) {
+      printf("gru_layer: a bulk copy never arrived (CTA %d,%d)\n", blockIdx.x,
+             blockIdx.y);
+      __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// no-swizzle K-major operand descriptor (offsets in bytes)
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// d (64 x 128, f32) = or += a (64 x 16, bf16) * b^T (b: 128 x 16, K-major)
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 96, f32) = or += a (64 x 16, bf16) * b^T (b: 96 x 16, K-major)
+__device__ __forceinline__ void wgmma_bf16(float (&d)[48], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// all threads of all CTAs of the cluster; shared-memory writes before it
+// are visible to the cluster's reads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// four floats at shared-memory address `addr` of the cluster's CTA `rank`
+// (another CTA's: through the SM-to-SM network)
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr, unsigned rank) {
+  uint32_t remote;
+  float4 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// The grid barrier, in two halves so that loads which need not be ordered
+// by it can be started between them. Every CTA arrives; none passes the wait
+// before all have arrived. `target` is the count after this barrier (CTAs x
+// barriers so far): the counter only grows during a sweep and the launcher
+// zeroes it before. Writes made before the arrival are visible, through L2,
+// to every CTA after the wait; the thread that sees the barrier complete
+// runs `on_pass` at once. A barrier that is never completed traps instead
+// of hanging.
+__device__ __forceinline__ void grid_arrive(unsigned* counter) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1u);
+  }
+}
+
+template <class F>
+__device__ __forceinline__ void grid_wait(unsigned* counter, unsigned target,
+                                          F on_pass) {
+  if (threadIdx.x == 0) {
+    unsigned seen, spins = 0;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(seen)
+                   : "l"(counter)
+                   : "memory");
+      if (++spins > kSpinLimit) {
+        printf("gru_layer: grid barrier stuck at %u of %u (CTA %d,%d)\n", seen,
+               target, blockIdx.x, blockIdx.y);
+        __trap();
+      }
+    } while (seen < target);
+    __threadfence();
+    on_pass();      // thread 0, as soon as it knows that all have arrived
+  }
+  __syncthreads();
+}
+
+// Thread 0 asks the TMA for this CTA's K-slice of the left operand (rows
+// x kslice, tiled, at `src` in device memory), a bulk copy per chunk. The
+// full proxy fence orders the copies after the other SMs' (generic) writes
+// of `src` as this thread came to know them at the grid barrier, and after
+// this CTA's reads of the partial sums that lay at `asm_`.
+__device__ __forceinline__ void request_slice(const bf16* src,
+                                              const Tiling& tl, uint32_t asm_,
+                                              uint32_t bars) {
+  const uint32_t chunk_bytes = tl.chunk_elems * sizeof(bf16);
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+  for (int c = 0; c < tl.chunks; ++c)
+    bulk_load(asm_ + c * chunk_bytes, src + (size_t)c * tl.chunk_elems,
+              chunk_bytes, bars + 8 * c);
+}
+
+// acc (64 x N, f32, in wgmma's register layout; the warpgroup's 64 of the
+// CTA's rows) = a * w^T: this CTA's share of the cluster's product, a the
+// slice that request_slice asked for, w (N x kslice) resident at `wsm`.
+// Everyone waits for each chunk on its mbarrier (phase `parity`); the
+// (asynchronous) products of a chunk run while the later chunks arrive.
+// Ends with a __syncthreads: the operand at `asm_` is free.
+template <int N>
+__device__ __forceinline__ void slice_product(const Tiling& tl, uint32_t asm_,
+                                              uint32_t wsm, uint32_t bars,
+                                              uint32_t parity,
+                                              float (&acc)[N / 2]) {
+  const uint32_t chunk_bytes = tl.chunk_elems * sizeof(bf16);
+  const uint32_t sbo_a = tl.kgc * kCoreBytes;
+  const uint32_t sbo_w = (tl.kslice / 8) * kCoreBytes;
+  const uint32_t mine = asm_ + (threadIdx.x / 128) * 8 * sbo_a;  // 64 rows on
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+  for (int c = 0; c < tl.chunks; ++c) {
+    mbarrier_wait(bars + 8 * c, parity);
+    wgmma_fence();
+    for (int s = 0; s < tl.kgc / 2; ++s)
+      wgmma_bf16(acc,
+                 wgmma_desc(mine + c * chunk_bytes + s * 2 * kCoreBytes,
+                            kCoreBytes, sbo_a),
+                 wgmma_desc(wsm + (c * tl.kgc + 2 * s) * kCoreBytes,
+                            kCoreBytes, sbo_w),
+                 (c | s) != 0);
+    wgmma_commit();
+  }
+  wgmma_wait_all();
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+  __syncthreads();
+}
+
+__device__ __forceinline__ void st2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void st4(bf16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+__device__ __forceinline__ void add4(float (&s)[4], const float4& v) {
+  s[0] += v.x;
+  s[1] += v.y;
+  s[2] += v.z;
+  s[3] += v.w;
+}
+
+// the gates on the fast exponential (ex2.approx and an approximate
+// division, a few float32 roundings off the accurate functions, far inside
+// what rounding the products' operands to bf16 costs): one or two
+// warpgroups per SM cannot hide the accurate versions' long dependent chains
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.0f, 1.0f + __expf(-x));
+}
+
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 2.0f * sigmoid_fast(2.0f * x) - 1.0f;
+}
+
+// Where wgmma leaves a warpgroup's product: the 8-column tile i holds rows
+// row(hr), hr in {0, 1}, columns 8 * i + col() + {0, 1}, at
+// acc[4 * i + 2 * hr + {0, 1}].
+struct AccThread {
+  int warp, lane;
+  __device__ AccThread() : warp(threadIdx.x >> 5), lane(threadIdx.x & 31) {}
+  __device__ int row(int hr) const { return warp * 16 + (lane >> 2) + 8 * hr; }
+  __device__ int col() const { return (lane & 3) * 2; }
+};
+
+// What a thread owns of the CTA's ROWS x TN tile of the state, after the
+// partial sums are added: rows row(0) and row(1), columns col() .. col() +
+// 3. A warp then touches 8 rows x 64 bytes of float32 per access, whole
+// sectors, with half the requests that wgmma's own layout would need.
+template <int ROWS>
+struct TileThread {
+  int r, q;
+  __device__ TileThread() : r(threadIdx.x >> 2), q(threadIdx.x & 3) {}
+  __device__ int row(int hr) const { return r + (ROWS / 2) * hr; }
+  __device__ int col() const { return 4 * q; }
+};
+
+// the partial sums, as wgmma left them, into the CTA's own buffer (which
+// lies over the left operand: slice_product has ended), each owner's
+// columns into its block
+template <class P>
+__device__ __forceinline__ void store_partials(float* partial,
+                                               const float (&acc)[P::N / 2]) {
+  constexpr int NPER = P::P_LD - 4;      // columns per owner
+  const AccThread at;
+#pragma unroll
+  for (int i = 0; i < P::N / 8; ++i)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+      st2(partial + (8 * i / NPER) * P::P_BLOCK + at.row(hr) * P::P_LD +
+              8 * i % NPER + at.col(),
+          acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1]);
+}
+
+// The forward sweep of one layer. w is W_hh as stored, (3H, H) bf16: column
+// j of gate g is its row g * H + j, contiguous along K. hb (T + 1, B, H)
+// bf16 receives h0 and every ys[t] rounded to bf16, and hbt the same tiled
+// (T + 1 steps x row tiles x ROWS * H): step t reads hbt[t] (all columns,
+// written by all CTAs before the last barrier) and writes hbt[t + 1] (its
+// own columns). Of the cluster's product the CTA of rank q
+// computes the K-slice q for all C slices' columns (operand row
+// q' * 3 TN + g * TN + cc is column cc of gate g of slice q'), then adds
+// the C partial sums of its own columns in rank order and does their gate
+// math. The CTA's own tile of h stays in registers as float32. Only hbt
+// has to be written before the barrier's arrival; hb, ys and hproj are
+// written and x_proj[t + 1] is fetched between the arrival and the wait.
+__global__ void __launch_bounds__(FwdPlan::THREADS, 1)
+    gru_fwd_persistent(const float* __restrict__ x_proj,
+                       const bf16* __restrict__ w,
+                       const float* __restrict__ b_hh,
+                       const float* __restrict__ h0, float* __restrict__ ys,
+                       float* __restrict__ hproj, bf16* __restrict__ hb,
+                       bf16* hbt, unsigned* counter, int T, int B, int H) {
+  using P = FwdPlan;
+  constexpr int C = P::C, ROWS = P::ROWS, THREADS = P::THREADS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) unsigned long long arrival[kMaxChunks];
+  const Tiling tl(H, C, ROWS);
+  const int kslice = tl.kslice;
+  const uint32_t bars = smem_addr(arrival);
+  const uint32_t wsm = smem_addr(smem);
+  const uint32_t asm_ = wsm + (uint32_t)P::w_bytes(H);
+  float* const partial = reinterpret_cast<float*>(smem + P::w_bytes(H));
+  const uint32_t sbo = (kslice / 8) * kCoreBytes;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const TileThread<ROWS> me;
+  const unsigned rank = cluster_rank();
+  const int j0 = blockIdx.x * TN;
+  const int jc0 = j0 - (int)rank * TN;       // the cluster's first column
+  const int row0 = blockIdx.y * ROWS;
+  const int rows = min(ROWS, B - row0);
+  const unsigned nblocks = gridDim.x * gridDim.y;
+  // this row tile's block of step t in hbt: + t * step
+  const size_t step = (size_t)gridDim.y * ROWS * H;
+  bf16* const tile = hbt + (size_t)blockIdx.y * ROWS * H;
+
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < kMaxChunks; ++c) mbarrier_init(bars + 8 * c, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int u = warp; u < P::N / 8 * (kslice / 32); u += THREADS / 32) {
+    const int n8 = u % (P::N / 8);
+    const int kg = (u / (P::N / 8)) * 4 + (lane >> 3);
+    const int n = n8 * 8 + (lane & 7);
+    const int col = jc0 + n / (3 * TN) * TN + n % TN;
+    const int gate = n % (3 * TN) / TN;
+    cp_async_16(wsm + n8 * sbo + kg * kCoreBytes + (lane & 7) * 16,
+                w + ((size_t)gate * H + col) * H + rank * kslice + kg * 8);
+  }
+  cp_async_commit();
+
+  // rows past the batch compute on row 0's inputs and store nothing
+  const int j = j0 + me.col();
+  bool live[2];
+  size_t brow[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    live[hr] = me.row(hr) < rows;
+    brow[hr] = row0 + (live[hr] ? me.row(hr) : 0);
+  }
+  float h[2][4];
+  float4 bias[3], xp[2][3];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) bias[g] = ld4(b_hh + g * H + j);
+  auto fetch_xp = [&](int t) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        xp[hr][g] = ld4(x_proj + ((size_t)t * B + brow[hr]) * 3 * H + g * H + j);
+  };
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const float4 v = ld4(h0 + brow[hr] * H + j);
+    h[hr][0] = v.x, h[hr][1] = v.y, h[hr][2] = v.z, h[hr][3] = v.w;
+    if (live[hr]) {
+      st4(tile + tl.offset(me.row(hr), j), h[hr]);
+      st4(hb + brow[hr] * H + j, h[hr]);
+    }
+  }
+  cp_async_wait_all();
+  fence_proxy_async();
+  grid_arrive(counter);
+  fetch_xp(0);
+  grid_wait(counter, nblocks, [&] {
+    request_slice(tile + (size_t)rank * ROWS * kslice, tl, asm_, bars);
+  });
+
+  float hp[2][3][4];
+  // hb, ys and hproj of step t, which no CTA reads during the sweep
+  auto write_outputs = [&](int t) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      if (!live[hr]) continue;
+      const size_t b = (size_t)t * B + brow[hr];
+      st4(hb + (b + B) * H + j, h[hr]);
+      st4(ys + b * H + j, h[hr]);
+      if (hproj != nullptr) {
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          st4(hproj + b * 3 * H + g * H + j, hp[hr][g]);
+      }
+    }
+  };
+
+  for (int t = 0; t < T; ++t) {
+    {
+      float acc[P::N / 2];
+      slice_product<P::N>(tl, asm_, wsm, bars, t & 1, acc);
+      store_partials<P>(partial, acc);
+    }
+    cluster_sync();
+    // every load is under way before the first sum waits for one
+    float4 part[C][2][3];
+#pragma unroll
+    for (int q = 0; q < C; ++q)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+        {
+          const float* const mine = partial + rank * P::P_BLOCK +
+                                    me.row(hr) * P::P_LD + g * TN + me.col();
+          part[q][hr][g] =
+              q == rank ? ld4(mine) : ld_cluster4(smem_addr(mine), q);
+        }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        hp[hr][g][0] = bias[g].x, hp[hr][g][1] = bias[g].y;
+        hp[hr][g][2] = bias[g].z, hp[hr][g][3] = bias[g].w;
+#pragma unroll
+        for (int q = 0; q < C; ++q) add4(hp[hr][g], part[q][hr][g]);
+      }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float xr[4] = {xp[hr][0].x, xp[hr][0].y, xp[hr][0].z, xp[hr][0].w};
+      const float xz[4] = {xp[hr][1].x, xp[hr][1].y, xp[hr][1].z, xp[hr][1].w};
+      const float xn[4] = {xp[hr][2].x, xp[hr][2].y, xp[hr][2].z, xp[hr][2].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float r = sigmoid_fast(xr[e] + hp[hr][0][e]);
+        const float z = sigmoid_fast(xz[e] + hp[hr][1][e]);
+        const float n = tanh_fast(xn[e] + r * hp[hr][2][e]);
+        h[hr][e] = (1.0f - z) * n + z * h[hr][e];
+      }
+      if (live[hr])
+        st4(tile + (t + 1) * step + tl.offset(me.row(hr), j), h[hr]);
+    }
+    if (t + 1 == T) {
+      write_outputs(t);
+      break;
+    }
+    // the TMA's next writes land where the partial sums were read
+    fence_proxy_async();
+    grid_arrive(counter);
+    write_outputs(t);
+    fetch_xp(t + 1);
+    grid_wait(counter, nblocks * (t + 2), [&] {
+      request_slice(tile + (t + 1) * step + (size_t)rank * ROWS * kslice,
+                    tl, asm_, bars);
+    });
+  }
+  cluster_sync();   // no CTA leaves while another may read its partial sums
+}
+
+// 16 bits of v: element n (0..7) of the 8 bf16 values it holds
+__device__ __forceinline__ uint32_t bf16_bits(const uint4& v, int n) {
+  const uint32_t word = n / 2 == 0 ? v.x : n / 2 == 1 ? v.y
+                        : n / 2 == 2 ? v.z : v.w;
+  return n % 2 ? word >> 16 : word & 0xFFFFu;
+}
+
+// The reverse sweep of one layer, T + 1 steps (t = T - 1 .. -1) as in the
+// per-step version: step t adds the product of step t + 1 (dhb[t + 1] times
+// the columns of W_hh) to the carried dh_total * z, which stays in
+// registers, then does the elementwise part of step t. dhb (T, B, 3H) bf16
+// receives every dhproj[t] rounded to bf16, dhbt the same tiled (T steps x
+// row tiles x ROWS * 3H). The product is split over the
+// cluster as in the forward; the operand is the cluster's C * TN columns
+// of the CTA's K-slice of W_hh's rows, transposed on the way into shared
+// memory (K contiguous), once. dhT, if given, is the final state's
+// cotangent: it starts the carry, so dy need not be copied to fold it in.
+// Only dhbt has to be written before the barrier's arrival; dhb, dxp and
+// dhproj are written and the saved tensors of step t - 1 are fetched
+// between the arrival and the wait.
+__global__ void __launch_bounds__(BwdPlan::THREADS, 1)
+    gru_bwd_persistent(const float* __restrict__ x_proj,
+                       const float* __restrict__ hproj,
+                       const float* __restrict__ h0,
+                       const float* __restrict__ ys,
+                       const float* __restrict__ dy,
+                       const float* __restrict__ dhT,
+                       const bf16* __restrict__ w, float* __restrict__ dxp,
+                       float* __restrict__ dhproj, bf16* __restrict__ dhb,
+                       bf16* dhbt, float* __restrict__ dh0,
+                       unsigned* counter, int T, int B, int H) {
+  using P = BwdPlan;
+  constexpr int C = P::C, ROWS = P::ROWS, THREADS = P::THREADS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) unsigned long long arrival[kMaxChunks];
+  const Tiling tl(3 * H, C, ROWS);
+  const int kslice = tl.kslice;
+  const uint32_t bars = smem_addr(arrival);
+  const uint32_t wsm = smem_addr(smem);
+  const uint32_t asm_ = wsm + (uint32_t)P::w_bytes(3 * H);
+  float* const partial = reinterpret_cast<float*>(smem + P::w_bytes(3 * H));
+  const uint32_t sbo = (kslice / 8) * kCoreBytes;
+  const TileThread<ROWS> me;
+  const unsigned rank = cluster_rank();
+  const int j0 = blockIdx.x * TN;
+  const int jc0 = j0 - (int)rank * TN;
+  const int row0 = blockIdx.y * ROWS;
+  const int rows = min(ROWS, B - row0);
+  const unsigned nblocks = gridDim.x * gridDim.y;
+  const size_t bh = (size_t)B * H;
+  // this row tile's block of step t in dhbt: + t * step
+  const size_t step = (size_t)gridDim.y * ROWS * 3 * H;
+  bf16* const tile = dhbt + (size_t)blockIdx.y * ROWS * 3 * H;
+
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < kMaxChunks; ++c) mbarrier_init(bars + 8 * c, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // operand row n (< C * TN), depth k: W_hh[rank * kslice + k][jc0 + n]. A
+  // thread transposes 8 x 8 blocks: 8 depths of 8 columns in, 8 columns of
+  // 8 depths out.
+  for (int u = threadIdx.x; u < (P::N / 8) * (kslice / 8); u += THREADS) {
+    const int n8 = u % (P::N / 8);
+    const int kg = u / (P::N / 8);
+    uint4 in[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      in[i] = *reinterpret_cast<const uint4*>(
+          w + (size_t)(rank * kslice + kg * 8 + i) * H + jc0 + n8 * 8);
+    uint4* const out = reinterpret_cast<uint4*>(smem + (size_t)n8 * sbo +
+                                                (size_t)kg * kCoreBytes);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      out[n] = make_uint4(bf16_bits(in[0], n) | bf16_bits(in[1], n) << 16,
+                          bf16_bits(in[2], n) | bf16_bits(in[3], n) << 16,
+                          bf16_bits(in[4], n) | bf16_bits(in[5], n) << 16,
+                          bf16_bits(in[6], n) | bf16_bits(in[7], n) << 16);
+  }
+  fence_proxy_async();   // the first barrier's __syncthreads completes this
+
+  // rows past the batch compute on row 0's inputs and store nothing
+  const int j = j0 + me.col();
+  bool live[2];
+  size_t brow[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    live[hr] = me.row(hr) < rows;
+    brow[hr] = row0 + (live[hr] ? me.row(hr) : 0);
+  }
+  float dhz[2][4];
+  float4 xp[2][3], hp[2][3], hprev[2], dyv[2];
+  auto fetch = [&](int t) {
+    const float* const prev = t == 0 ? h0 : ys + (t - 1) * bh;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const size_t b = (size_t)t * B + brow[hr];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        xp[hr][g] = ld4(x_proj + b * 3 * H + g * H + j);
+        hp[hr][g] = ld4(hproj + b * 3 * H + g * H + j);
+      }
+      hprev[hr] = ld4(prev + brow[hr] * H + j);
+      dyv[hr] = ld4(dy + b * H + j);
+    }
+  };
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const float4 v = dhT != nullptr ? ld4(dhT + brow[hr] * H + j)
+                                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    dhz[hr][0] = v.x, dhz[hr][1] = v.y, dhz[hr][2] = v.z, dhz[hr][3] = v.w;
+  }
+  fetch(T - 1);
+
+  float dr_pre[2][4], dz_pre[2][4], dn_pre[2][4], dnr[2][4];
+  // dhb, dxp and dhproj of step t, which no CTA reads during the sweep
+  auto write_outputs = [&](int t) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      if (!live[hr]) continue;
+      const size_t at = ((size_t)t * B + brow[hr]) * 3 * H + j;
+      st4(dhb + at, dr_pre[hr]);
+      st4(dhb + at + H, dz_pre[hr]);
+      st4(dhb + at + 2 * H, dnr[hr]);
+      st4(dxp + at, dr_pre[hr]);
+      st4(dxp + at + H, dz_pre[hr]);
+      st4(dxp + at + 2 * H, dn_pre[hr]);
+      st4(dhproj + at, dr_pre[hr]);
+      st4(dhproj + at + H, dz_pre[hr]);
+      st4(dhproj + at + 2 * H, dnr[hr]);
+    }
+  };
+
+  for (int t = T - 1; t >= -1; --t) {
+    if (t < T - 1) {
+      {
+        float acc[P::N / 2];
+        slice_product<P::N>(tl, asm_, wsm, bars, (T - t) & 1, acc);
+        store_partials<P>(partial, acc);
+      }
+      cluster_sync();
+      float4 part[C][2];
+#pragma unroll
+      for (int q = 0; q < C; ++q)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+        {
+          const float* const mine =
+              partial + rank * P::P_BLOCK + me.row(hr) * P::P_LD + me.col();
+          part[q][hr] = q == rank ? ld4(mine) : ld_cluster4(smem_addr(mine), q);
+        }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+        for (int q = 0; q < C; ++q) add4(dhz[hr], part[q][hr]);
+    }
+    // dhz now holds dh, the carry into step t
+    if (t < 0) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        if (live[hr]) st4(dh0 + brow[hr] * H + j, dhz[hr]);
+      break;
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float xr[4] = {xp[hr][0].x, xp[hr][0].y, xp[hr][0].z, xp[hr][0].w};
+      const float xz[4] = {xp[hr][1].x, xp[hr][1].y, xp[hr][1].z, xp[hr][1].w};
+      const float xn[4] = {xp[hr][2].x, xp[hr][2].y, xp[hr][2].z, xp[hr][2].w};
+      const float pr[4] = {hp[hr][0].x, hp[hr][0].y, hp[hr][0].z, hp[hr][0].w};
+      const float pz[4] = {hp[hr][1].x, hp[hr][1].y, hp[hr][1].z, hp[hr][1].w};
+      const float hn[4] = {hp[hr][2].x, hp[hr][2].y, hp[hr][2].z, hp[hr][2].w};
+      const float hv[4] = {hprev[hr].x, hprev[hr].y, hprev[hr].z, hprev[hr].w};
+      const float dv[4] = {dyv[hr].x, dyv[hr].y, dyv[hr].z, dyv[hr].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float r = sigmoid_fast(xr[e] + pr[e]);
+        const float z = sigmoid_fast(xz[e] + pz[e]);
+        const float n = tanh_fast(xn[e] + r * hn[e]);
+        const float dh_total = dv[e] + dhz[hr][e];
+        dn_pre[hr][e] = dh_total * (1.0f - z) * (1.0f - n * n);
+        dz_pre[hr][e] = dh_total * (hv[e] - n) * z * (1.0f - z);
+        dr_pre[hr][e] = dn_pre[hr][e] * hn[e] * r * (1.0f - r);
+        dnr[hr][e] = dn_pre[hr][e] * r;
+        dhz[hr][e] = dh_total * z;
+      }
+      if (live[hr]) {
+        bf16* const gb = tile + t * step;
+        st4(gb + tl.offset(me.row(hr), j), dr_pre[hr]);
+        st4(gb + tl.offset(me.row(hr), H + j), dz_pre[hr]);
+        st4(gb + tl.offset(me.row(hr), 2 * H + j), dnr[hr]);
+      }
+    }
+    // the TMA's next writes land where the partial sums were read
+    fence_proxy_async();
+    grid_arrive(counter);
+    write_outputs(t);
+    if (t >= 1) fetch(t - 1);
+    grid_wait(counter, nblocks * (T - t), [&] {
+      request_slice(tile + t * step + (size_t)rank * ROWS * kslice, tl,
+                    asm_, bars);
+    });
+  }
+  cluster_sync();   // no CTA leaves while another may read its partial sums
+}
+
+// `steps` grid barriers and nothing else: what a sweep of that many steps
+// costs before it loads, multiplies or stores anything.
+__global__ void __launch_bounds__(FwdPlan::THREADS, 1)
+    gru_empty_sweep(unsigned* counter, int steps) {
+  const unsigned nblocks = gridDim.x * gridDim.y;
+  for (int s = 0; s < steps; ++s) {
+    grid_arrive(counter);
+    grid_wait(counter, nblocks * (s + 1), [] {});
+  }
+}
+
+bool bad_persistent_shape(int T, int B, int H) {
+  return T < 1 || B < 1 || H < 128 || H % 128 != 0;
+}
+
+struct PersistentLaunch {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attrs[2];
+  // Clusters of `cluster` CTAs along x, launched cooperatively: the runtime
+  // refuses a grid that cannot be resident all at once, so a barrier never
+  // waits for a CTA that has not started.
+  PersistentLaunch(int B, int H, int cluster, int rows, size_t smem,
+                   cudaStream_t stream) {
+    config = cudaLaunchConfig_t{};
+    config.gridDim = dim3(H / TN, (B + rows - 1) / rows);
+    config.blockDim = dim3(2 * rows);
+    config.dynamicSmemBytes = smem;
+    config.stream = stream;
+    attrs[0].id = cudaLaunchAttributeClusterDimension;
+    attrs[0].val.clusterDim.x = cluster;
+    attrs[0].val.clusterDim.y = 1;
+    attrs[0].val.clusterDim.z = 1;
+    attrs[1].id = cudaLaunchAttributeCooperative;
+    attrs[1].val.cooperative = 1;
+    config.attrs = attrs;
+    config.numAttrs = 2;
+  }
+};
+
+// zero the barrier's counter, then launch
+template <class P>
+cudaError_t launch_persistent(const void* kernel, void** args,
+                              unsigned* counter, int B, int H, int K,
+                              cudaStream_t stream) {
+  const size_t smem = P::bytes(K);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(counter, 0, sizeof(unsigned), stream);
+  if (err != cudaSuccess) return err;
+  PersistentLaunch launch(B, H, P::C, P::ROWS, smem, stream);
+  return cudaLaunchKernelExC(&launch.config, kernel, args);
+}
+
+// CTAs of `kernel` that the device holds at once, in whole clusters; minus
+// the cudaError_t on failure
+template <class P>
+int resident_ctas(const void* kernel, int H, int K) {
+  const size_t smem = P::bytes(K);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return -(int)err;
+  // the occupancy depends on the cluster's shape and the CTA's resources,
+  // not on the grid: ask with one cluster's worth of batch rows
+  PersistentLaunch launch(P::ROWS, H, P::C, P::ROWS, smem, nullptr);
+  launch.config.numAttrs = 1;            // the cluster's shape only
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &launch.config);
+  if (err != cudaSuccess) return -(int)err;
+  return clusters * P::C;
+}
+
 }  // namespace
 
 extern "C" {
@@ -604,6 +1521,90 @@ int gru_layer_bwd_launch(int dtype, const void* x_proj, const void* hproj,
                        o_dhp, o_dh0, scratch, static_cast<bf16*>(scratch_b),
                        T, B, H, s);
   return cudaErrorInvalidValue;
+}
+
+// The persistent sweeps (bfloat16 products only): ONE cooperative launch
+// each. w_hh is (3H, H) bf16 as stored, for both directions. hb (T + 1, B,
+// H) and dhb (T, B, 3H) are bf16 outputs: h0 and ys, resp. dhproj, rounded
+// to bf16 (the left operands of the weight-gradient product outside). hbt
+// and dhbt are scratch for the same values in the kernels' own tiled
+// order: (T + 1) steps x ceil(B / 64) row tiles x 64 x H resp. T steps x
+// ceil(B / 128) row tiles x 128 x 3H bf16. counter is one 32-bit word of
+// scratch. hproj may be null (no residual),
+// and so may dhT (no cotangent of the final state; else it is added to
+// dy[T-1]'s). H must be a multiple of 128 and the grid must be resident at
+// once (gru_layer_persistent_capacity): forward (H / 16) x ceil(B / 64)
+// CTAs in clusters of 2, backward (H / 16) x ceil(B / 128) in clusters of
+// 8, with gru_layer_persistent_smem bytes each. The launch fails otherwise.
+int gru_layer_fwd_persistent_launch(const void* x_proj, const void* w_hh,
+                                    const void* b_hh, const void* h0,
+                                    void* ys, void* hproj, void* hb,
+                                    void* hbt, void* counter, int T, int B,
+                                    int H, void* stream) {
+  if (bad_persistent_shape(T, B, H)) return cudaErrorInvalidValue;
+  void* args[] = {&x_proj, &w_hh, &b_hh,    &h0, &ys, &hproj,
+                  &hb,     &hbt,  &counter, &T,  &B,  &H};
+  return launch_persistent<FwdPlan>(
+      reinterpret_cast<const void*>(gru_fwd_persistent), args,
+      static_cast<unsigned*>(counter), B, H, H,
+      static_cast<cudaStream_t>(stream));
+}
+
+int gru_layer_bwd_persistent_launch(const void* x_proj, const void* hproj,
+                                    const void* h0, const void* ys,
+                                    const void* dy, const void* dhT,
+                                    const void* w_hh, void* dxp, void* dhproj,
+                                    void* dhb, void* dhbt, void* dh0,
+                                    void* counter, int T, int B, int H,
+                                    void* stream) {
+  if (bad_persistent_shape(T, B, H)) return cudaErrorInvalidValue;
+  void* args[] = {&x_proj, &hproj, &h0,   &ys,  &dy,      &dhT, &w_hh, &dxp,
+                  &dhproj, &dhb,   &dhbt, &dh0, &counter, &T,   &B,    &H};
+  return launch_persistent<BwdPlan>(
+      reinterpret_cast<const void*>(gru_bwd_persistent), args,
+      static_cast<unsigned*>(counter), B, H, 3 * H,
+      static_cast<cudaStream_t>(stream));
+}
+
+// `steps` grid barriers on the persistent sweeps' grid for (B, H), with
+// their shared memory, and no other work.
+int gru_layer_empty_sweep_launch(void* counter, int steps, int B, int H,
+                                 void* stream) {
+  if (bad_persistent_shape(steps, B, H)) return cudaErrorInvalidValue;
+  void* args[] = {&counter, &steps};
+  return launch_persistent<FwdPlan>(
+      reinterpret_cast<const void*>(gru_empty_sweep), args,
+      static_cast<unsigned*>(counter), B, H, H,
+      static_cast<cudaStream_t>(stream));
+}
+
+// the shared memory a CTA of the persistent forward (backward != 0: the
+// backward) sweep asks for
+int gru_layer_persistent_smem(int H, int backward) {
+  return (int)(backward ? BwdPlan::bytes(3 * H) : FwdPlan::bytes(H));
+}
+
+// The most dynamic shared memory a CTA of the current device may ask for.
+int gru_layer_smem_limit(int* smem_optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(smem_optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return err;
+}
+
+// How many CTAs of the persistent forward (backward != 0: backward) sweep
+// the current device holds at once at width H, in whole clusters, from the
+// occupancy API: what the choice between the persistent and the per-step
+// sweeps is made from. Negative: minus the cudaError_t.
+int gru_layer_persistent_capacity(int H, int backward) {
+  if (bad_persistent_shape(1, 1, H)) return -(int)cudaErrorInvalidValue;
+  return backward
+             ? resident_ctas<BwdPlan>(
+                   reinterpret_cast<const void*>(gru_bwd_persistent), H, 3 * H)
+             : resident_ctas<FwdPlan>(
+                   reinterpret_cast<const void*>(gru_fwd_persistent), H, H);
 }
 
 const char* gru_layer_error_string(int err) {

@@ -13,31 +13,47 @@ backward: `dw = einsum("tbh,tbg->hg", h_prev, dhproj)` and
 `db = dhproj.sum((0, 1))`.
 
 What bounds them on the H100, and what the design does about it: per step
-the product is small (0.8 GFLOP at B 128, H 1024, with the 6 MB bf16 weight
-L2-resident), so the dependence between steps and the launch per step bound
-a layer, not bytes or operations. The design is one launch per timestep,
-all enqueued by one C call, with the product inside a launch on the tensor
-cores for bfloat16 operands (warp-level mma over a ring of cp.async stages)
-and as an exact FMA loop for float32 ones (see the source's header).
+the product is small (0.8 GFLOP at B 128, H 1024, against a 6 MB bf16
+weight), so neither bytes nor operations bound a layer: the chain of T
+steps does, each of which needs all of the previous step's h on every SM.
+For bfloat16 products (the train step) a sweep is therefore ONE persistent
+kernel, launched cooperatively. Clusters of CTAs split the depth of one
+product between them and keep their slices of W_hh in shared memory for the
+whole sweep (read from the weight as stored, (3H, H)); the steps are
+separated by a grid barrier instead of a launch; the bf16 copy of h (resp.
+dhproj) crosses the barrier in the tiled order of the readers' shared
+memory, so that one TMA bulk copy per chunk brings it in; the product runs
+on wgmma, the partial sums meet through distributed shared memory, and only
+what the next step needs is written before the barrier (see the source's
+header). Shapes whose grid cannot be resident at once, and float32 products
+(exact FMA sums), take the per-step kernels: one launch per timestep, all
+enqueued by one C call. `sweep_plan` chooses by shape, before anything is
+launched.
 
 Layouts (the JAX kernel's): x_proj (T, B, 3H) f32 incl. b_ih, gate order
-[r, z, n]; w_hh_t (H, 3H); b_hh (3H,); h0 (B, H). Returns (ys (T, B, H),
-hT (B, H)), float32. `mxu_dtype` is the type both operands of the
-recurrent products are rounded to (sums are float32): torch.bfloat16 on the
-mixed-precision train path, torch.float32 for exactness. On a GPU H must be
-a multiple of 128 for bfloat16 products and of 32 for float32 ones.
+[r, z, n]; w_hh_t (H, 3H), float32 or bfloat16, also as the transposed view
+of a stored (3H, H) weight, which the persistent kernels read without a
+copy; b_hh (3H,); h0 (B, H). Returns (ys (T, B, H), hT (B, H)), float32.
+`mxu_dtype` is the type both operands of the recurrent products are rounded
+to (sums are float32): torch.bfloat16 on the mixed-precision train path,
+torch.float32 for exactness. On a GPU H must be a multiple of 128 for
+bfloat16 products and of 32 for float32 ones.
 
 On CPU tensors `gru_layer` runs the plain versions (`gru_layer_reference`,
 `gru_layer_backward_reference`); on CUDA tensors it launches the kernels or
 raises. `gru_layer_forward.launches` / `gru_layer_backward.launches` count
-the wrapper calls that launched (one per layer sweep, T resp. T + 1 kernel
-launches each).
+the wrapper calls that launched (one per layer sweep); `.persistent` and
+`.per_step` count them by path (one kernel launch per sweep, resp. T or
+T + 1). Every call brings its own barrier counter and scratch, so sweeps on
+two streams do not disturb each other; a cooperative launch waits until its
+whole grid fits, so they run one after the other.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -48,6 +64,14 @@ SOURCE = CSRC / "gru_layer.cu"
 # (FMA), 128 for bfloat16 products (tensor cores)
 H_MULTIPLE = {torch.float32: 32, torch.bfloat16: 128}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# a CTA's tile of the (B, H) state: batch rows (per-step kernels; the
+# persistent forward and backward kernels) x columns, and how many CTAs
+# (neighbouring column slices) form a cluster of a persistent kernel and
+# split one product between them
+TILE_ROWS = {"per_step": 64, "forward": 64, "backward": 128}
+TILE_COLS = 16
+CLUSTER = {"forward": 2, "backward": 8}
+DIRECTIONS = ("forward", "backward")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -67,6 +91,20 @@ def build() -> ctypes.CDLL:
         lib.gru_layer_fwd_launch.restype = ci
         lib.gru_layer_bwd_launch.argtypes = [ci] + [vp] * 11 + [ci] * 3 + [vp]
         lib.gru_layer_bwd_launch.restype = ci
+        lib.gru_layer_fwd_persistent_launch.argtypes = (
+            [vp] * 9 + [ci] * 3 + [vp])
+        lib.gru_layer_fwd_persistent_launch.restype = ci
+        lib.gru_layer_bwd_persistent_launch.argtypes = (
+            [vp] * 13 + [ci] * 3 + [vp])
+        lib.gru_layer_bwd_persistent_launch.restype = ci
+        lib.gru_layer_empty_sweep_launch.argtypes = [vp, ci, ci, ci, vp]
+        lib.gru_layer_empty_sweep_launch.restype = ci
+        lib.gru_layer_persistent_smem.argtypes = [ci, ci]
+        lib.gru_layer_persistent_smem.restype = ci
+        lib.gru_layer_smem_limit.argtypes = [ctypes.POINTER(ci)]
+        lib.gru_layer_smem_limit.restype = ci
+        lib.gru_layer_persistent_capacity.argtypes = [ci, ci]
+        lib.gru_layer_persistent_capacity.restype = ci
         lib.gru_layer_error_string.argtypes = [ci]
         lib.gru_layer_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -131,6 +169,103 @@ def gru_layer_backward_reference(x_proj, hproj, h_prev, dy, w_hh,
 
 
 # --------------------------------------------------------------------------
+# which kernels a sweep takes
+# --------------------------------------------------------------------------
+
+class SweepPlan(NamedTuple):
+    path: str            # "persistent" or "per_step"
+    grids: dict          # direction -> CTAs (column slices of H, row tiles)
+    smem_bytes: dict     # direction -> shared memory of a persistent CTA
+
+
+def _grids(B, H, rows_of):
+    return {d: (H // TILE_COLS, -(-B // rows_of(d))) for d in DIRECTIONS}
+
+
+def persistent_smem_bytes(H: int) -> dict:
+    """direction -> shared memory a CTA of that persistent sweep needs: its
+    slice of W_hh (96 H bytes) and one region for its K-slice of a step's
+    left operand (forward 64 rows x H / 2, backward 128 rows x 3H / 8,
+    bf16) and, after the products, the cluster's partial sums (a block of
+    rows x (3 * 16 resp. 16 columns + 4) floats for each CTA of the
+    cluster)."""
+    depth = {"forward": H, "backward": 3 * H}
+    cols = {"forward": 3 * TILE_COLS, "backward": TILE_COLS}
+    return {d: 3 * TILE_COLS * H * 2 + max(
+        TILE_ROWS[d] * (depth[d] // CLUSTER[d]) * 2,
+        CLUSTER[d] * TILE_ROWS[d] * (cols[d] + 4) * 4) for d in DIRECTIONS}
+
+
+def sweep_plan(T, B, H, dtype, resident_ctas, smem_bytes) -> SweepPlan:
+    """Choose the kernels for a (T, B, H) sweep with products in `dtype`
+    on a device whose CTAs may use `smem_bytes` of shared memory and which
+    holds `resident_ctas[direction]` CTAs of that persistent kernel at once
+    at this width (on a card: from the occupancy API, in whole clusters).
+    The persistent kernels need bfloat16 products, their operands inside
+    one CTA's shared memory, and the whole grid resident at once, because
+    its CTAs wait for each other; if either direction's does not fit, both
+    take the per-step kernels. Raises for a shape no kernel takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"mxu_dtype must be float32 or bfloat16, got {dtype}")
+    if T < 1 or B < 1:
+        raise ValueError(f"empty sweep: T={T}, B={B}")
+    if H < H_MULTIPLE[dtype] or H % H_MULTIPLE[dtype]:
+        raise ValueError(
+            f"the GRU kernels need H to be a multiple of "
+            f"{H_MULTIPLE[dtype]} for {dtype} products, got {H}")
+    grids = _grids(B, H, TILE_ROWS.get)
+    need = persistent_smem_bytes(H)
+    if dtype == torch.bfloat16 and all(
+            need[d] <= smem_bytes
+            and grids[d][0] * grids[d][1] <= resident_ctas[d]
+            for d in DIRECTIONS):
+        return SweepPlan("persistent", grids, need)
+    return SweepPlan("per_step", _grids(B, H, lambda d: TILE_ROWS["per_step"]),
+                     dict.fromkeys(DIRECTIONS, 0))
+
+
+_limits = {}        # (device index, H) -> (resident CTAs, shared memory)
+
+
+def device_limits(device, H):
+    """(direction -> CTAs of that persistent sweep which a CUDA device holds
+    at once at width H, most dynamic shared memory of a CTA): sweep_plan's
+    last two arguments. 0 CTAs where H is no width of the persistent
+    kernels."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    if (index, H) not in _limits:
+        lib = build()
+        smem = ctypes.c_int()
+        held = dict.fromkeys(DIRECTIONS, 0)
+        with torch.cuda.device(index):
+            _raise_on(lib, lib.gru_layer_smem_limit(ctypes.byref(smem)),
+                      "device query")
+            need = persistent_smem_bytes(H)
+            if (H >= H_MULTIPLE[torch.bfloat16]
+                    and H % H_MULTIPLE[torch.bfloat16] == 0
+                    and max(need.values()) <= smem.value):
+                for back, d in enumerate(DIRECTIONS):
+                    if lib.gru_layer_persistent_smem(H, back) != need[d]:
+                        raise RuntimeError("the kernels' shared-memory plan "
+                                           "differs from persistent_smem_bytes")
+                    held[d] = lib.gru_layer_persistent_capacity(H, back)
+                    _raise_on(lib, max(-held[d], 0), "occupancy query")
+        _limits[index, H] = (held, smem.value)
+    return _limits[index, H]
+
+
+def _plan_on(device, T, B, H, mxu_dtype, path):
+    plan = sweep_plan(T, B, H, mxu_dtype, *device_limits(device, H))
+    if path is None or path == plan.path:
+        return plan
+    if path == "per_step":
+        return sweep_plan(T, B, H, mxu_dtype, dict.fromkeys(DIRECTIONS, 0), 0)
+    raise ValueError(f"a ({T}, {B}, {H}) sweep in {mxu_dtype} cannot take "
+                     f"the {path!r} kernels")
+
+
+# --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
 
@@ -156,11 +291,7 @@ def _check(x_proj, w, b_hh, h0, mxu_dtype, w_shape_of):
     return T, B, H
 
 
-def _check_cuda(H, mxu_dtype, *tensors):
-    if H % H_MULTIPLE[mxu_dtype]:
-        raise ValueError(
-            f"the GRU kernels need H to be a multiple of "
-            f"{H_MULTIPLE[mxu_dtype]} for {mxu_dtype} products, got {H}")
+def _check_cuda(*tensors):
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
@@ -179,80 +310,173 @@ def _raise_on(lib, err, what):
                            + lib.gru_layer_error_string(err).decode())
 
 
-def gru_layer_forward(x_proj, w_hh_t, b_hh, h0, mxu_dtype=torch.bfloat16,
-                      with_residual=True):
-    """The forward sweep -> (ys (T, B, H), hproj (T, B, 3H) or None).
+def _tiled_scratch(steps, plan, direction, K, device):
+    """Room for a persistent kernel's own tiled bf16 copy of its (steps, B,
+    K) left operand: whole row tiles."""
+    return torch.empty((steps, plan.grids[direction][1], TILE_ROWS[direction],
+                        K), dtype=torch.bfloat16, device=device)
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+
+def _count(wrapper, plan):
+    wrapper.launches += 1
+    if plan.path == "persistent":
+        wrapper.persistent += 1
+    else:
+        wrapper.per_step += 1
+
+
+def _forward(x_proj, w_hh_t, b_hh, h0, mxu_dtype, with_residual, path=None):
+    """gru_layer_forward, and what the persistent kernel leaves for the
+    backward: -> (ys, hproj or None, kept), kept = (w_hh (3H, H) bf16,
+    hb (T + 1, B, H) bf16 holding h0 and ys) or None."""
     T, B, H = _check(x_proj, w_hh_t, b_hh, h0, mxu_dtype,
                      lambda H: (H, 3 * H))
     if x_proj.device.type == "cpu":
         ys, hproj = gru_layer_reference(x_proj, w_hh_t, b_hh, h0, mxu_dtype)
-        return ys, (hproj if with_residual else None)
+        return ys, (hproj if with_residual else None), None
     if x_proj.device.type != "cuda":
         raise ValueError(f"unsupported device {x_proj.device}")
-    _check_cuda(H, mxu_dtype, x_proj, b_hh, h0)
-    w = w_hh_t.to(mxu_dtype).contiguous()
-    lib = build()
+    _check_cuda(x_proj, b_hh, h0)
     dev = x_proj.device
+    plan = _plan_on(dev, T, B, H, mxu_dtype, path)
+    lib = build()
     ys = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     hproj = (torch.empty((T, B, 3 * H), dtype=torch.float32, device=dev)
              if with_residual else None)
-    scratch = None
-    if mxu_dtype == torch.bfloat16:   # bf16 copies of h, used in turn
-        scratch = torch.empty((2, B, H), dtype=torch.bfloat16, device=dev)
-        scratch[0].copy_(h0)
+    hproj_ptr = None if hproj is None else hproj.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.gru_layer_fwd_launch(
-        _DTYPES[mxu_dtype], x_proj.data_ptr(), w.data_ptr(),
-        b_hh.data_ptr(), h0.data_ptr(), ys.data_ptr(),
-        None if hproj is None else hproj.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), T, B, H, stream)
+    kept = None
+    if plan.path == "persistent":
+        # the weight as stored: no copy when w_hh_t is the transposed view
+        # of a bf16 (3H, H) parameter
+        w = w_hh_t.t().to(torch.bfloat16).contiguous()
+        hb = torch.empty((T + 1, B, H), dtype=torch.bfloat16, device=dev)
+        tiled = _tiled_scratch(T + 1, plan, "forward", H, dev)
+        counter = torch.empty((1,), dtype=torch.int32, device=dev)
+        err = lib.gru_layer_fwd_persistent_launch(
+            x_proj.data_ptr(), w.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
+            ys.data_ptr(), hproj_ptr, hb.data_ptr(), tiled.data_ptr(),
+            counter.data_ptr(), T, B, H, stream)
+        kept = (w, hb)
+    else:
+        w = w_hh_t.to(mxu_dtype).contiguous()
+        scratch = None
+        if mxu_dtype == torch.bfloat16:   # bf16 copies of h, used in turn
+            scratch = torch.empty((2, B, H), dtype=torch.bfloat16, device=dev)
+            scratch[0].copy_(h0)
+        err = lib.gru_layer_fwd_launch(
+            _DTYPES[mxu_dtype], x_proj.data_ptr(), w.data_ptr(),
+            b_hh.data_ptr(), h0.data_ptr(), ys.data_ptr(), hproj_ptr,
+            None if scratch is None else scratch.data_ptr(), T, B, H, stream)
     _raise_on(lib, err, "gru_layer forward")
-    gru_layer_forward.launches += 1
+    _count(gru_layer_forward, plan)
+    return ys, hproj, kept
+
+
+def gru_layer_forward(x_proj, w_hh_t, b_hh, h0, mxu_dtype=torch.bfloat16,
+                      with_residual=True, path=None):
+    """The forward sweep -> (ys (T, B, H), hproj (T, B, 3H) or None).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernels
+    that `sweep_plan` names. `path="per_step"` asks for the per-step kernels
+    where the persistent one would run (to time them side by side)."""
+    ys, hproj, _ = _forward(x_proj, w_hh_t, b_hh, h0, mxu_dtype,
+                            with_residual, path)
     return ys, hproj
 
 
 gru_layer_forward.launches = 0
+gru_layer_forward.persistent = 0
+gru_layer_forward.per_step = 0
 
 
-def gru_layer_backward(x_proj, hproj, h0, ys, dy, w_hh,
-                       mxu_dtype=torch.bfloat16):
-    """The reverse sweep -> (dxp, dhproj (T, B, 3H), dh0 (B, H)).
-
-    h_prev[t] is h0 for t = 0 and ys[t-1] after; dy (T, B, H) holds the
-    output cotangents with the final state's folded into dy[-1]; w_hh is
-    (3H, H). CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+def _backward(x_proj, hproj, h0, ys, dy, w_hh, mxu_dtype, dhT=None,
+              path=None, w_bf16=None):
+    """gru_layer_backward -> (dxp, dhproj, dh0, dhb), dhb (T, B, 3H) bf16 =
+    dhproj rounded, from the persistent kernel, else None. `w_bf16` is the
+    forward's bf16 (3H, H) copy of the weight, if it kept one."""
     T, B, H = _check(x_proj, w_hh, None, h0, mxu_dtype, lambda H: (3 * H, H))
-    if x_proj.device.type == "cpu":
+    on_cpu = x_proj.device.type == "cpu"
+    if not on_cpu:
+        if x_proj.device.type != "cuda":
+            raise ValueError(f"unsupported device {x_proj.device}")
+        _check_cuda(x_proj, hproj, h0, ys, dy, *(() if dhT is None
+                                                 else (dhT,)))
+        dev = x_proj.device
+        plan = _plan_on(dev, T, B, H, mxu_dtype, path)
+    if (on_cpu or plan.path != "persistent") and dhT is not None:
+        # fold the final state's cotangent into the last step's output's
+        dy = dy.clone()
+        dy[-1] += dhT
+    if on_cpu:
         h_prev = torch.cat([h0[None], ys[:-1]], dim=0)
         return gru_layer_backward_reference(x_proj, hproj, h_prev, dy, w_hh,
-                                            mxu_dtype)
-    if x_proj.device.type != "cuda":
-        raise ValueError(f"unsupported device {x_proj.device}")
-    _check_cuda(H, mxu_dtype, x_proj, hproj, h0, ys, dy)
-    w = w_hh.to(mxu_dtype).contiguous()
+                                            mxu_dtype) + (None,)
     lib = build()
-    dev = x_proj.device
-    scratch = (torch.empty((2, B, 3 * H), dtype=torch.bfloat16, device=dev)
-               if mxu_dtype == torch.bfloat16 else None)   # of dhproj[t]
     dxp = torch.empty_like(x_proj)
     dhproj = torch.empty_like(x_proj)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
-    dhz = torch.empty((B, H), dtype=torch.float32, device=dev)   # scratch
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.gru_layer_bwd_launch(
-        _DTYPES[mxu_dtype], x_proj.data_ptr(), hproj.data_ptr(),
-        h0.data_ptr(), ys.data_ptr(), dy.data_ptr(), w.data_ptr(),
-        dxp.data_ptr(), dhproj.data_ptr(), dh0.data_ptr(), dhz.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), T, B, H, stream)
+    dhb = None
+    if plan.path == "persistent":
+        w = (w_hh.to(torch.bfloat16).contiguous() if w_bf16 is None
+             else w_bf16)
+        dhb = torch.empty((T, B, 3 * H), dtype=torch.bfloat16, device=dev)
+        tiled = _tiled_scratch(T, plan, "backward", 3 * H, dev)
+        counter = torch.empty((1,), dtype=torch.int32, device=dev)
+        err = lib.gru_layer_bwd_persistent_launch(
+            x_proj.data_ptr(), hproj.data_ptr(), h0.data_ptr(), ys.data_ptr(),
+            dy.data_ptr(), None if dhT is None else dhT.data_ptr(),
+            w.data_ptr(), dxp.data_ptr(), dhproj.data_ptr(), dhb.data_ptr(),
+            tiled.data_ptr(), dh0.data_ptr(), counter.data_ptr(), T, B, H,
+            stream)
+    else:
+        w = w_hh.to(mxu_dtype).contiguous()
+        scratch = (torch.empty((2, B, 3 * H), dtype=torch.bfloat16,
+                               device=dev)
+                   if mxu_dtype == torch.bfloat16 else None)   # of dhproj[t]
+        dhz = torch.empty((B, H), dtype=torch.float32, device=dev)  # scratch
+        err = lib.gru_layer_bwd_launch(
+            _DTYPES[mxu_dtype], x_proj.data_ptr(), hproj.data_ptr(),
+            h0.data_ptr(), ys.data_ptr(), dy.data_ptr(), w.data_ptr(),
+            dxp.data_ptr(), dhproj.data_ptr(), dh0.data_ptr(),
+            dhz.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), T, B, H, stream)
     _raise_on(lib, err, "gru_layer backward")
-    gru_layer_backward.launches += 1
-    return dxp, dhproj, dh0
+    _count(gru_layer_backward, plan)
+    return dxp, dhproj, dh0, dhb
+
+
+def gru_layer_backward(x_proj, hproj, h0, ys, dy, w_hh,
+                       mxu_dtype=torch.bfloat16, dhT=None, path=None):
+    """The reverse sweep -> (dxp, dhproj (T, B, 3H), dh0 (B, H)).
+
+    h_prev[t] is h0 for t = 0 and ys[t-1] after; dy (T, B, H) holds the
+    output cotangents and dhT (B, H), if given, the final state's, which
+    counts as added to dy[-1]; w_hh is (3H, H). CPU tensors take the plain
+    version; CUDA tensors launch the kernels that `sweep_plan` names (or
+    the per-step ones with `path="per_step"`)."""
+    return _backward(x_proj, hproj, h0, ys, dy, w_hh, mxu_dtype, dhT,
+                     path)[:3]
 
 
 gru_layer_backward.launches = 0
+gru_layer_backward.persistent = 0
+gru_layer_backward.per_step = 0
+
+
+def empty_sweep(steps, B, H, device):
+    """Launch the persistent sweeps' grid for (B, H) through `steps` grid
+    barriers and no other work: the cost of a sweep's step-to-step
+    dependence alone, for timing beside the real sweeps."""
+    plan = _plan_on(device, steps, B, H, torch.bfloat16, "persistent")
+    lib = build()
+    counter = torch.empty((1,), dtype=torch.int32, device=device)
+    err = lib.gru_layer_empty_sweep_launch(
+        counter.data_ptr(), steps, B, H,
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(lib, err, "empty sweep")
+    return plan
 
 
 class _GruLayer(torch.autograd.Function):
@@ -262,32 +486,36 @@ class _GruLayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x_proj, w_hh_t, b_hh, h0, mxu_dtype):
         train = any(ctx.needs_input_grad[:4])
-        ys, hproj = gru_layer_forward(x_proj, w_hh_t, b_hh, h0, mxu_dtype,
-                                      with_residual=train)
+        ys, hproj, kept = _forward(x_proj, w_hh_t, b_hh, h0, mxu_dtype,
+                                   with_residual=train)
         ctx.mxu_dtype = mxu_dtype
         if train:
-            ctx.save_for_backward(x_proj, w_hh_t, h0, ys, hproj)
+            ctx.save_for_backward(x_proj, w_hh_t, h0, ys, hproj,
+                                  *(kept or ()))
         return ys, ys[-1].clone()
 
     @staticmethod
     def backward(ctx, dys, dhT):
-        x_proj, w_hh_t, h0, ys, hproj = ctx.saved_tensors
+        x_proj, w_hh_t, h0, ys, hproj, *kept = ctx.saved_tensors
         mxu_dtype = ctx.mxu_dtype
         T, B, H3 = x_proj.shape
-        # fold the final state's cotangent into the last step's output's
-        dy = (torch.zeros_like(ys) if dys is None else
-              dys.to(torch.float32).clone(
-                  memory_format=torch.contiguous_format))
+        dy = (torch.zeros_like(ys) if dys is None
+              else dys.to(torch.float32).contiguous())
         if dhT is not None:
-            dy[-1] += dhT
-        dxp, dhproj, dh0 = gru_layer_backward(
-            x_proj, hproj, h0, ys, dy, w_hh_t.t(), mxu_dtype)
+            dhT = dhT.to(torch.float32).contiguous()
+        dxp, dhproj, dh0, dhb = _backward(
+            x_proj, hproj, h0, ys, dy, w_hh_t.t(), mxu_dtype, dhT,
+            w_bf16=kept[0] if kept else None)
         # weight/bias gradients: one time-parallel contraction outside the
-        # kernel, in the products' type (f32 sums)
-        h_prev = torch.cat([h0[None], ys[:-1]], dim=0)
-        dw = torch.matmul(
-            h_prev.reshape(T * B, -1).to(mxu_dtype).t(),
-            dhproj.reshape(T * B, H3).to(mxu_dtype)).to(w_hh_t.dtype)
+        # kernel, in the products' type (f32 sums). The persistent kernels
+        # have left both operands in that type already.
+        if dhb is not None and kept:
+            h_prev, dhp = kept[1][:-1], dhb
+        else:
+            h_prev = torch.cat([h0[None], ys[:-1]], dim=0).to(mxu_dtype)
+            dhp = dhproj.to(mxu_dtype)
+        dw = torch.matmul(h_prev.reshape(T * B, -1).t(),
+                          dhp.reshape(T * B, H3)).to(w_hh_t.dtype)
         db = dhproj.sum(dim=(0, 1))
         return dxp, dw, db, dh0, None
 

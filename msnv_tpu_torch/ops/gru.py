@@ -73,10 +73,15 @@ def _layer_apply(p, x, h0, impl: str = "xla"):
     x_proj = torch.matmul(x, p["w_ih"].T) + p["b_ih"]   # all timesteps
     if impl == "pallas":
         mxu = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+        # the weight goes in as the transposed view of what is stored, in
+        # the products' type when it already has it: the kernel's wrapper
+        # then reads it where it lies
+        w_hh_t = p["w_hh"].T
+        if w_hh_t.dtype != mxu:
+            w_hh_t = w_hh_t.float()
         ys, hT = gru_layer(
-            x_proj.transpose(0, 1).float().contiguous(),
-            p["w_hh"].T.float(), p["b_hh"].float(), h0.float().contiguous(),
-            mxu)
+            x_proj.transpose(0, 1).float().contiguous(), w_hh_t,
+            p["b_hh"].float(), h0.float().contiguous(), mxu)
         return ys.transpose(0, 1).to(x.dtype), hT.to(x.dtype)
     w_hh_t = p["w_hh"].T
     h = h0

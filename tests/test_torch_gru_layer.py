@@ -135,6 +135,25 @@ def test_function_handles_missing_cotangents():
             np.testing.assert_allclose(g.numpy(), w_.numpy(), atol=ATOL)
 
 
+def test_backward_takes_the_final_state_cotangent_beside_dy():
+    """gru_layer_backward(dhT=...) counts dhT as added to dy[-1] and leaves
+    the caller's dy as it was."""
+    x = _inputs(4, 3, 32, seed=9)
+    xp, w, b, h0 = (t(x[k]) for k in ("xp", "w", "b", "h0"))
+    ys, hproj = gl.gru_layer_forward(xp, w, b, h0, torch.float32)
+    dy, dhT = t(x["cy"]), t(x["ch"])
+    kept = dy.clone()
+    got = gl.gru_layer_backward(xp, hproj, h0, ys, dy, w.t(), torch.float32,
+                                dhT=dhT)
+    folded = dy.clone()
+    folded[-1] += dhT
+    want = gl.gru_layer_backward(xp, hproj, h0, ys, folded, w.t(),
+                                 torch.float32)
+    assert torch.equal(dy, kept)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+
+
 def test_no_grad_forward_saves_no_residual():
     x = _inputs(3, 2, 32)
     args = [t(x[k]) for k in ("xp", "w", "b", "h0")]
@@ -237,3 +256,126 @@ def test_gru_apply_pallas_bf16_keeps_dtype():
                           "pallas")
     assert y.dtype == h.dtype == torch.bfloat16
     assert y.shape == (2, 4, 32) and h.shape == (2, 2, 32)
+
+
+# --------------------------------------------------------------------------
+# which kernels a sweep takes (sweep_plan is plain Python: no card needed)
+# --------------------------------------------------------------------------
+
+SMEM = 232448                               # a CTA's most on an H100
+HELD = {"forward": 132, "backward": 120}    # CTAs resident at once at H 1024
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("T,B,H,dtype,held,smem,want", [
+    (52, 128, 1024, BF16, HELD, SMEM, "persistent"),   # the train step's
+    (13, 128, 1024, BF16, HELD, SMEM, "persistent"),   # two tiers
+    (1, 3, 1024, BF16, HELD, SMEM, "persistent"),      # T = 1, ragged B
+    (4, 70, 128, BF16, HELD, SMEM, "persistent"),
+    (52, 128, 1024, F32, HELD, SMEM, "per_step"),      # exact products
+    (52, 129, 1024, BF16, HELD, SMEM, "per_step"),     # 192 CTAs forward
+    (3, 300, 1024, BF16, HELD, SMEM, "per_step"),
+    (52, 128, 1024, BF16, {"forward": 132, "backward": 56}, SMEM,
+     "per_step"),                                      # backward not resident
+    (52, 128, 1024, BF16, {"forward": 120, "backward": 120}, SMEM,
+     "per_step"),                                      # forward not resident
+    (52, 128, 2048, BF16, HELD, SMEM, "per_step"),     # slice > shared memory
+    (52, 128, 1024, BF16, HELD, 160 * 1024, "per_step"),
+])
+def test_sweep_plan_chooses_by_shape(T, B, H, dtype, held, smem, want):
+    plan = gl.sweep_plan(T, B, H, dtype, held, smem)
+    assert plan.path == want
+    cols = H // 16
+    if want == "persistent":
+        assert plan.grids == {"forward": (cols, -(-B // 64)),
+                              "backward": (cols, -(-B // 128))}
+        assert plan.smem_bytes == gl.persistent_smem_bytes(H)
+        assert all(plan.grids[d][0] * plan.grids[d][1] <= held[d]
+                   and plan.smem_bytes[d] <= smem for d in gl.DIRECTIONS)
+    else:
+        assert plan.grids == dict.fromkeys(gl.DIRECTIONS, (cols, -(-B // 64)))
+        assert plan.smem_bytes == dict.fromkeys(gl.DIRECTIONS, 0)
+
+
+@pytest.mark.parametrize("T,B,H,dtype,error", [
+    (4, 8, 96, BF16, ValueError),       # H not a multiple of 128
+    (4, 8, 64, BF16, ValueError),
+    (4, 8, 40, F32, ValueError),        # H not a multiple of 32
+    (0, 8, 128, BF16, ValueError),      # empty sweeps
+    (4, 0, 128, F32, ValueError),
+    (4, 8, 128, torch.float16, TypeError),
+])
+def test_sweep_plan_rejects_what_no_kernel_takes(T, B, H, dtype, error):
+    with pytest.raises(error):
+        gl.sweep_plan(T, B, H, dtype, HELD, SMEM)
+
+
+def test_persistent_shared_memory_at_the_train_width():
+    """At H 1024 both persistent kernels fit an H100's CTA; the cluster
+    shapes in the module and the formula agree with what the source's plan
+    states for them (forward 96 H + 64 rows x H / 2 x 2 bytes, backward
+    96 H + 128 rows x 3H / 8 x 2 bytes)."""
+    need = gl.persistent_smem_bytes(1024)
+    assert need == {"forward": 96 * 1024 + 64 * 512 * 2,
+                    "backward": 96 * 1024 + 128 * 384 * 2}
+    assert max(need.values()) <= SMEM
+    # a narrow layer: the partial sums, not the operand, set the size
+    assert gl.persistent_smem_bytes(128)["backward"] == (
+        96 * 128 + 8 * 128 * (16 + 4) * 4)
+
+
+@pytest.mark.parametrize("dtype,atol", [
+    # float32: one rounding per product against XLA's CPU dot, as above
+    (torch.float32, ATOL),
+    # bfloat16 weights and inputs, as the mixed-precision train step passes
+    # them: both round the products' operands to bf16, but the JAX scan
+    # carries h in bf16 from step to step where the kernel's wrapper carries
+    # float32, and the gradients are rounded to bf16 (2^-9 of values up to
+    # about 4) at different points of the two graphs; measured 1.4e-2 on y
+    (torch.bfloat16, 6e-2),
+])
+def test_layer_apply_pallas_matches_jax_values_and_gradients(dtype, atol):
+    """ops/gru._layer_apply(impl="pallas") on the CPU, which hands the
+    kernel's wrapper the weight as the transposed view of what is stored,
+    against the JAX package's _layer_apply (float32: through its kernel in
+    interpret mode; bfloat16: through autograd of its scan, since its
+    interpret mode computes in float32)."""
+    B, T, d_in, H = 8, 5, 16, 128
+    jp, tp = _gru_pair(1, d_in, H, seed=7)
+    rng = np.random.RandomState(8)
+    x = rng.randn(B, T, d_in).astype(np.float32)
+    h0 = (rng.randn(B, H) * 0.5).astype(np.float32)
+    cy = rng.randn(B, T, H).astype(np.float32)
+    ch = rng.randn(B, H).astype(np.float32)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    keys = ("w_ih", "w_hh", "b_ih", "b_hh")
+
+    def jax_loss(p, xx, hh):
+        p = {k: v.astype(jdt) for k, v in p.items()}
+        y, hT = jgru._layer_apply(
+            p, xx.astype(jdt), hh.astype(jdt),
+            impl="pallas" if dtype == torch.float32 else "xla")
+        y, hT = y.astype(jnp.float32), hT.astype(jnp.float32)
+        return jnp.sum(y * cy) + jnp.sum(hT * ch), (y, hT)
+
+    (_, (y_j, hT_j)), (gp_j, gx_j, gh_j) = jax.value_and_grad(
+        jax_loss, argnums=(0, 1, 2), has_aux=True)(
+            jp[0], jnp.asarray(x), jnp.asarray(h0))
+
+    p = {k: tp[0][k].clone().requires_grad_(True) for k in keys}
+    xx = t(x).requires_grad_(True)
+    hh = t(h0).requires_grad_(True)
+    y, hT = tgru._layer_apply({k: v.to(dtype) for k, v in p.items()},
+                              xx.to(dtype), hh.to(dtype), impl="pallas")
+    assert y.dtype == hT.dtype == dtype
+    loss = (y.float() * t(cy)).sum() + (hT.float() * t(ch)).sum()
+    grads = torch.autograd.grad(loss, [p[k] for k in keys] + [xx, hh])
+    np.testing.assert_allclose(y.float().detach().numpy(), np.asarray(y_j),
+                               atol=atol)
+    np.testing.assert_allclose(hT.float().detach().numpy(), np.asarray(hT_j),
+                               atol=atol)
+    want = [gp_j[k] for k in keys] + [gx_j, gh_j]
+    for g, w_, name in zip(grads, want, keys + ("x", "h0")):
+        scale = max(1.0, float(np.abs(np.asarray(w_)).max()))
+        np.testing.assert_allclose(g.numpy(), np.asarray(w_, np.float32),
+                                   atol=atol * scale, err_msg=name)
