@@ -151,19 +151,47 @@ def kernel_inputs(params, batch, dtype, seed):
     return table, wh, bh, wo, bo, slots, buf, g
 
 
-def phase_kernel(params, batches):
+def random_window_inputs(fs0, q, dim, batch, dtype, dev, seed):
+    """Window inputs at a shape no preset has, from a seed."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *shape: torch.randn(*shape, generator=g, device=dev)  # noqa
+    table = (rn(fs0 * q, dim) / math.sqrt(fs0)).to(dtype)
+    wh = (rn(dim, dim) / math.sqrt(dim)).to(dtype)
+    wo = (rn(dim, q) / math.sqrt(dim)).to(dtype)
+    buf = torch.randint(0, q, (batch, fs0), generator=g, device=dev,
+                        dtype=torch.int32)
+    return (table, wh, 0.1 * rn(dim), wo, 0.1 * rn(q),
+            rn(batch, fs0, dim).to(dtype), buf, g)
+
+
+def sharpened(wo, bo, dtype):
+    """W_o and b_o times 100: the argmax dominates the noise, so that a
+    sum taken in another order moves a draw only at a near-tie."""
+    return (wo.float() * 100).to(dtype), bo * 100
+
+
+RAGGED = (3, 17, 130)
+
+
+def phase_kernel(params, batches, narrow):
     import torch
     from msnv_tpu_torch.kernels import sample_window as sw
     dev = params["mlp"]["embedding"].device
     on_card = dev.type == "cuda"
+    bf16 = torch.bfloat16
     max_err = 0
+    counts = lambda: (sw.sample_window.resident,              # noqa: E731
+                      sw.sample_window.tiled)
     # given noise, f32: exact equality with the plain version, every tile
+    # of the tiled kernel (which the plan names for float32)
     for batch in batches:
         table, wh, bh, wo, bo, slots, buf, g = kernel_inputs(
             params, batch, torch.float32, seed=batch)
         noise = sw.gumbel_noise((batch, FS0, Q), g, dev)
         want = sw.sample_window_reference(table, wh, bh, wo, bo, slots, buf,
                                           noise)
+        before = counts()
         for tile in (sw.TILES if on_card else (None,)):
             got = sw.sample_window(table, wh, bh, wo, bo, slots, buf,
                                    noise=noise, tile=tile)
@@ -173,69 +201,127 @@ def phase_kernel(params, batches):
                 raise AssertionError(
                     f"f32 kernel != plain at B={batch} tile={tile}: "
                     f"{float((got != want).float().mean()):.4%} differ")
+        if on_card and counts() != (before[0], before[1] + len(sw.TILES)):
+            raise AssertionError("float32 did not take the tiled kernel")
         log(f"[kernel] f32 given-noise B={batch}: equal to the plain "
             f"version at tiles {list(sw.TILES) if on_card else 'cpu'}")
-    # bf16, sharpened W_o: mismatch <= 1 %
+
+    # bf16 (the resident kernel by plan), given noise and Philox, sharpened
+    # W_o: mismatch <= 1 %. Not exact: the tensor cores add a column's
+    # products in another order than the plain version's matmul, which can
+    # move a near-tie, and a lane that differs once differs from there on.
+    # At the canonical shape and at a narrow one, whole and ragged batches.
+    def bf16_cases():
+        for batch in tuple(batches) + ((1024,) + RAGGED if on_card else ()):
+            yield (FS0, Q, DIM, batch) + kernel_inputs(
+                params, batch, bf16, seed=100 + batch)
+        fs0, q, dim = narrow
+        for batch in (1, 32) + RAGGED[:2] if on_card else (3,):
+            yield (fs0, q, dim, batch) + random_window_inputs(
+                fs0, q, dim, batch, bf16, dev, seed=150 + batch)
+
+    philox = {}
+    worst = 0.0
+    for fs0, q, dim, batch, table, wh, bh, wo, bo, slots, buf, g in \
+            bf16_cases():
+        wo, bo = sharpened(wo, bo, bf16)
+        noise = sw.gumbel_noise((batch, fs0, q), g, dev)
+        seed = torch.randint(0, 2 ** 62, (1,), generator=g, device=dev,
+                             dtype=torch.int64)
+        args = (table, wh, bh, wo, bo, slots, buf)
+        before = counts()
+        results = {}
+        for mode, kw, given in (
+                ("given noise", {"noise": noise}, noise),
+                ("Philox", {"seed": seed},
+                 sw.philox_gumbel_noise(seed, batch, fs0, q))):
+            want = sw.sample_window_reference(*args, given)
+            got = sw.sample_window(*args, **kw)
+            again = sw.sample_window(*args, **kw)
+            if not torch.equal(got, again):
+                raise AssertionError(f"two runs differ at B={batch} {mode}")
+            results[mode] = float((got != want).float().mean())
+        if on_card and counts() != (before[0] + 4, before[1]):
+            raise AssertionError(f"bf16 at dim {dim} did not take the "
+                                 f"resident kernel")
+        log(f"[kernel] bf16 sharpened (fs0 {fs0}, dim {dim}) B={batch}: "
+            f"mismatch vs plain, given noise {results['given noise']:.4%}, "
+            f"Philox {results['Philox']:.4%}; two runs bit-equal")
+        worst = max(worst, *results.values())
+        if dim == DIM:
+            philox[f"bfloat16_B{batch}"] = results["Philox"]
+        if max(results.values()) > 0.01:
+            raise AssertionError(f"bf16 mismatch {results} > 1 %")
+    # Philox mode in float32 (tiled kernel): exact
     for batch in batches:
         table, wh, bh, wo, bo, slots, buf, g = kernel_inputs(
-            params, batch, torch.bfloat16, seed=100 + batch)
-        wo = (wo.float() * 100).to(torch.bfloat16)
-        noise = sw.gumbel_noise((batch, FS0, Q), g, dev)
-        want = sw.sample_window_reference(table, wh, bh, wo, bo * 100,
-                                          slots, buf, noise)
-        got = sw.sample_window(table, wh, bh, wo, bo * 100, slots, buf,
-                               noise=noise)
-        mismatch = float((got != want).float().mean())
-        log(f"[kernel] bf16 sharpened B={batch}: mismatch {mismatch:.4%}")
-        if mismatch > 0.01:
-            raise AssertionError(f"bf16 mismatch {mismatch:.4%} > 1 %")
-    # Philox mode (what generation and /stream run) against the plain
-    # version on the same Philox noise: f32 exact, bf16 mismatch <= 1 %
-    philox = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for batch in batches:
-            table, wh, bh, wo, bo, slots, buf, g = kernel_inputs(
-                params, batch, dtype, seed=300 + batch)
-            seed = torch.randint(0, 2 ** 62, (1,), generator=g, device=dev,
-                                 dtype=torch.int64)
-            want = sw.sample_window_reference(
-                table, wh, bh, wo, bo, slots, buf,
-                sw.philox_gumbel_noise(seed, batch, FS0, Q))
-            got = sw.sample_window(table, wh, bh, wo, bo, slots, buf,
-                                   seed=seed)
-            mismatch = float((got != want).float().mean())
-            name = str(dtype).replace("torch.", "")
-            philox[f"{name}_B{batch}"] = mismatch
-            log(f"[kernel] Philox {name} B={batch}: mismatch vs plain "
-                f"{mismatch:.4%}")
-            if dtype == torch.float32:
-                max_err = max(max_err, int((got - want).abs().max()))
-                if mismatch:
-                    raise AssertionError("f32 Philox kernel != plain")
-            elif mismatch > 0.01:
-                raise AssertionError(f"bf16 Philox mismatch {mismatch:.4%}")
+            params, batch, torch.float32, seed=300 + batch)
+        seed = torch.randint(0, 2 ** 62, (1,), generator=g, device=dev,
+                             dtype=torch.int64)
+        want = sw.sample_window_reference(
+            table, wh, bh, wo, bo, slots, buf,
+            sw.philox_gumbel_noise(seed, batch, FS0, Q))
+        got = sw.sample_window(table, wh, bh, wo, bo, slots, buf, seed=seed)
+        max_err = max(max_err, int((got - want).abs().max()))
+        philox[f"float32_B{batch}"] = float((got != want).float().mean())
+        log(f"[kernel] Philox float32 B={batch}: mismatch vs plain "
+            f"{philox[f'float32_B{batch}']:.4%}")
+        if philox[f"float32_B{batch}"]:
+            raise AssertionError("f32 Philox kernel != plain")
     RESULTS["max_abs_err"] = max_err
+    RESULTS["bf16_mismatch"] = worst
     RESULTS["philox_mismatch"] = philox
     if not on_card:
         return
-    # Philox: chi-square of ~1e5 draws from a fixed logits row
+
+    # what the card grants, and a width that no cluster holds
+    held, smem, sms = sw.device_limits(dev, FS0, Q, DIM)
+    plan = sw.window_plan(128, FS0, Q, DIM, bf16, held, smem, sms)
+    RESULTS["window_plan"] = {"max_clusters": held, "cluster": plan.cluster,
+                              "smem_bytes": plan.smem_bytes,
+                              "smem_limit": smem}
+    log(f"[kernel] the card holds {held} clusters of {plan.cluster} CTAs of "
+        f"the resident kernel at once, {plan.smem_bytes} of {smem} bytes of "
+        f"shared memory each; B=128: {plan}")
+    if plan.path != "resident":
+        raise AssertionError("no cluster of the resident kernel is granted")
+    wide = random_window_inputs(4, Q, 2 * DIM, 5, bf16, dev, seed=9)
+    wo, bo = sharpened(wide[3], wide[4], bf16)
+    args = wide[:3] + (wo, bo) + wide[5:7]
+    noise = sw.gumbel_noise((5, 4, Q), wide[7], dev)
+    before = counts()
+    got = sw.sample_window(*args, noise=noise)
+    mismatch = float((got != sw.sample_window_reference(
+        *args, noise)).float().mean())
+    if counts() != (before[0], before[1] + 1) or mismatch > 0.01:
+        raise AssertionError(f"dim {2 * DIM} bf16: counts {counts()} after "
+                             f"{before}, mismatch {mismatch:.4%}")
+    try:
+        sw.sample_window(*args, noise=noise, path="resident")
+    except ValueError as e:
+        log(f"[kernel] dim {2 * DIM} takes the tiled kernel by plan "
+            f"(mismatch {mismatch:.4%}); path='resident' raises: {e}")
+    else:
+        raise AssertionError("a width no cluster holds did not raise")
+
+    # Philox: chi-square of ~1e5 draws from a fixed logits row, resident
     g = torch.Generator(device=dev).manual_seed(7)
     lanes = 1024
     logits = 0.8 * torch.randn(Q, generator=g, device=dev)
-    zeros = dict(table=torch.zeros(FS0 * Q, DIM, device=dev),
-                 wh=torch.zeros(DIM, DIM, device=dev),
+    zeros = dict(table=torch.zeros(FS0 * Q, DIM, device=dev, dtype=bf16),
+                 wh=torch.zeros(DIM, DIM, device=dev, dtype=bf16),
                  bh=torch.zeros(DIM, device=dev),
-                 wo=torch.zeros(DIM, Q, device=dev), bo=logits,
-                 slots=torch.zeros(lanes, FS0, DIM, device=dev),
+                 wo=torch.zeros(DIM, Q, device=dev, dtype=bf16), bo=logits,
+                 slots=torch.zeros(lanes, FS0, DIM, device=dev, dtype=bf16),
                  buf=torch.zeros(lanes, FS0, dtype=torch.int32, device=dev))
-    counts = torch.zeros(Q, dtype=torch.float64, device=dev)
+    counts_q = torch.zeros(Q, dtype=torch.float64, device=dev)
     for s in range(5):
         seed = torch.tensor([1000 + s], dtype=torch.int64, device=dev)
         draws = sw.sample_window(*zeros.values(), seed=seed)
-        counts += torch.bincount(draws.flatten().long(), minlength=Q)
-    n = float(counts.sum())
+        counts_q += torch.bincount(draws.flatten().long(), minlength=Q)
+    n = float(counts_q.sum())
     expected = n * torch.softmax(logits.double(), 0)
-    chi2 = float(((counts - expected) ** 2 / expected).sum())
+    chi2 = float(((counts_q - expected) ** 2 / expected).sum())
     dof = Q - 1
     # Wilson-Hilferty: chi2/dof ~ N(1 - 2/(9 dof), 2/(9 dof)); 6 sigma
     limit = dof * (1 - 2 / (9 * dof) + 6 * math.sqrt(2 / (9 * dof))) ** 3
@@ -243,47 +329,75 @@ def phase_kernel(params, batches):
         f"(dof {dof}, limit {limit:.1f})")
     if chi2 > limit:
         raise AssertionError(f"Philox draws fail chi-square: {chi2:.1f}")
+    # the same draws whatever the plan: one cluster, the most granted, and
+    # the tiled kernel at every tile, in bf16 and in float32
     seed = torch.tensor([99], dtype=torch.int64, device=dev)
-    by_tile = [sw.sample_window(*zeros.values(), seed=seed, tile=tile)
-               for tile in sw.TILES]
-    if any(not torch.equal(d, by_tile[0]) for d in by_tile[1:]):
-        raise AssertionError("Philox draws depend on the tile")
-    log("[kernel] Philox draws identical across tiles")
+    first = sw.sample_window(*zeros.values(), seed=seed, clusters=1)
+    zeros32 = {k: (v.float() if v.dtype == bf16 else v)
+               for k, v in zeros.items()}
+    others = [sw.sample_window(*zeros.values(), seed=seed)]
+    others += [sw.sample_window(*z.values(), seed=seed, tile=tile,
+                                path="tiled")
+               for z in (zeros, zeros32) for tile in sw.TILES]
+    if any(not torch.equal(d, first) for d in others):
+        raise AssertionError("Philox draws depend on the plan")
+    log(f"[kernel] Philox draws identical with 1 and {held} clusters and "
+        f"equal to the tiled kernel's at every tile")
 
-    # times: bf16 Philox mode (what generation and /stream run)
+    # times: bf16, Philox mode (what generation and /stream run) and given
+    # noise; medians over runs of 10 calls, tiled / resident / resident /
+    # tiled
+    run = {"iters": 5, "batch": 10}
     shapes = []
     for batch in sorted(set(batches) | {1024}):
         table, wh, bh, wo, bo, slots, buf, g = kernel_inputs(
-            params, batch, torch.bfloat16, seed=200 + batch)
+            params, batch, bf16, seed=200 + batch)
+        args = (table, wh, bh, wo, bo, slots, buf)
+        packed = sw.resident_weights(wh, wo, FS0)
         seed = torch.tensor([5], dtype=torch.int64, device=dev)
         noise = sw.gumbel_noise((batch, FS0, Q), g, dev)
-        out = sw.sample_window(table, wh, bh, wo, bo, slots, buf, seed=seed)
-        tiles = {t: cuda_ms(lambda t=t: sw.sample_window(
-            table, wh, bh, wo, bo, slots, buf, seed=seed, tile=t), 10)
-            for t in sw.TILES}
-        ms = cuda_ms(lambda: sw.sample_window(table, wh, bh, wo, bo, slots,
-                                              buf, seed=seed), 20)
-        plain = cuda_ms(lambda: sw.sample_window_reference(
-            table, wh, bh, wo, bo, slots, buf, noise), 5)
-        bound, by = window_bound_ms(table, wh, bh, wo, bo, slots, buf, out)
+        out = sw.sample_window(*args, seed=seed, packed=packed)
+        resident = lambda **kw: sw.sample_window(        # noqa: E731
+            *args, packed=packed, **kw)
+        tiled = lambda **kw: sw.sample_window(           # noqa: E731
+            *args, path="tiled", **kw)
+        first_ms = cuda_ms(lambda: tiled(seed=seed), **run)
+        ms = cuda_ms(lambda: resident(seed=seed), **run)
+        ms = min(ms, cuda_ms(lambda: resident(seed=seed), **run))
+        first_ms = min(first_ms, cuda_ms(lambda: tiled(seed=seed), **run))
+        alone = cuda_ms(lambda: resident(seed=seed), 20)
+        empty = cuda_ms(lambda: sw.empty_window(batch, FS0, Q, DIM, dev),
+                        **run)
+        plain = cuda_ms(lambda: sw.sample_window_reference(*args, noise), 5)
+        bound, by = window_bound_ms(*args, out)
         # the given-noise mode (the TPU's v1 kernel): noise read from memory
-        noise_out = sw.sample_window(table, wh, bh, wo, bo, slots, buf,
-                                     noise=noise)
-        noise_ms = cuda_ms(lambda: sw.sample_window(
-            table, wh, bh, wo, bo, slots, buf, noise=noise), 20)
-        noise_bound, noise_by = window_bound_ms(table, wh, bh, wo, bo, slots,
-                                                buf, noise_out, noise)
+        noise_out = resident(noise=noise)
+        noise_ms = cuda_ms(lambda: resident(noise=noise), **run)
+        noise_first = cuda_ms(lambda: tiled(noise=noise), **run)
+        noise_bound, noise_by = window_bound_ms(*args, noise_out, noise)
+        plan = sw.window_plan(batch, FS0, Q, DIM, bf16, held, smem, sms)
         row = {"batch": batch, "dtype": "bfloat16", "mode": "philox",
-               "tile": sw.default_tile(batch, dev), "ms": ms,
-               "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-               "ms_by_tile": tiles, "given_noise_ms": noise_ms,
+               "path": plan.path, "cluster": plan.cluster,
+               "clusters": plan.clusters,
+               "lanes_per_cluster": plan.lanes_per_cluster, "ms": ms,
+               "ms_first_kernel": first_ms, "alone_ms": alone,
+               "empty_window_ms": empty, "plain_ms": plain,
+               "bound_ms": bound, "bound_by": by,
+               "given_noise_ms": noise_ms,
+               "given_noise_ms_first_kernel": noise_first,
                "given_noise_bound_ms": noise_bound,
                "given_noise_bound_by": noise_by}
         shapes.append(row)
-        log(f"[kernel] B={batch} bf16: kernel {ms:.4f} ms/window "
-            f"(tile {row['tile']}; by tile {tiles}), plain {plain:.4f} ms, "
-            f"bound {bound:.5f} ms ({by}); given noise {noise_ms:.4f} ms, "
-            f"bound {noise_bound:.5f} ms ({noise_by})")
+        log(f"[kernel] B={batch} bf16: resident {ms:.4f} ms/window "
+            f"({plan.clusters} clusters of {plan.cluster}, "
+            f"{ms / FS0 * 1e3:.1f} us/sample; one call alone {alone:.4f}), "
+            f"tiled kernel {first_ms:.4f}, empty window {empty:.4f}, plain "
+            f"{plain:.4f}, bound {bound:.5f} ({by}); given noise "
+            f"{noise_ms:.4f} (tiled {noise_first:.4f}), bound "
+            f"{noise_bound:.5f} ({noise_by})")
+        if not ms < first_ms:
+            raise AssertionError("the resident kernel is not faster than "
+                                 "the tiled one")
     RESULTS["shapes"] = shapes
 
 
@@ -338,7 +452,7 @@ def phase_generate(params, cfg, batch, frames):
     cond = torch.rand(batch, frames, C, generator=g, device=dev)
     spk = torch.randint(0, cfg.spk_dim, (batch,), generator=g, device=dev)
     gen(cond[:, :1], spk, torch.Generator(device=dev).manual_seed(0))  # warm
-    before = sample_window.launches
+    before = (sample_window.launches, sample_window.resident)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -346,23 +460,26 @@ def phase_generate(params, cfg, batch, frames):
     if dev.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = sample_window.launches - before
+    launches = sample_window.launches - before[0]
+    resident = sample_window.resident - before[1]
     n = batch * frames * cfg.lookback
     if tuple(audio.shape) != (batch, frames * cfg.lookback):
         raise AssertionError(f"audio shape {tuple(audio.shape)}")
     if not (torch.isfinite(audio).all() and audio.abs().max() <= 1.0
             and seq.min() >= 0 and seq.max() < cfg.q_levels):
         raise AssertionError("generated audio out of range")
-    if dev.type == "cuda" and launches != frames * cfg.frame_sizes[-1]:
-        raise AssertionError(f"{launches} kernel launches, expected "
+    if dev.type == "cuda" and not (
+            launches == resident == frames * cfg.frame_sizes[-1]):
+        raise AssertionError(f"{launches} kernel launches, {resident} of "
+                             f"them resident, expected "
                              f"{frames * cfg.frame_sizes[-1]}")
     rate = n / 16000 / wall
     RESULTS["generate"] = {"batch": batch, "frames": frames,
                            "seconds": wall, "audio_s_per_s": rate,
-                           "launches": launches}
+                           "launches": launches, "resident": resident}
     log(f"[generate] B={batch} x {frames} frames bf16 kernel path: "
         f"{wall:.3f} s for {n / 16000:.2f} audio-s = {rate:.2f} "
-        f"audio-s/s; {launches} kernel launches")
+        f"audio-s/s; {launches} kernel launches, {resident} resident")
 
 
 # --------------------------------------------------------------------------
@@ -410,6 +527,7 @@ def phase_serve(params, exp_cfg, frames_syn, frames_stream):
     C = cfg.effective_cond_dim
     try:
         sample_window.launches = 0          # the main path starts here
+        sample_window.resident = sample_window.tiled = 0
         c = http.client.HTTPConnection(*addr, timeout=60)
         c.request("GET", "/healthz")
         r = c.getresponse()
@@ -431,27 +549,30 @@ def phase_serve(params, exp_cfg, frames_syn, frames_stream):
             log(f"[serve] /synthesize {frames_syn} frames: {wall:.3f} s")
         streams = []
         for i in range(2):
-            before = sample_window.launches
+            before = sample_window.resident
             cond = rng.rand(frames_stream, C).astype(np.float32)
             t0 = time.perf_counter()
             r, pcm = _post(addr, "/stream",
                            {"cond": cond.tolist(), "spk": i, "seed": i})
             wall = time.perf_counter() - t0
             want = 2 * frames_stream * cfg.lookback
-            rose = sample_window.launches - before
+            rose = sample_window.resident - before
             audio = np.frombuffer(pcm, "<i2")
             if r.status != 200 or len(pcm) != want:
                 raise AssertionError(f"/stream {r.status}, {len(pcm)} bytes,"
                                      f" expected {want}")
-            if dev.type == "cuda" and rose < 1:
-                raise AssertionError("/stream did not launch the kernel")
+            windows = frames_stream * cfg.frame_sizes[-1]
+            if dev.type == "cuda" and rose != windows:
+                raise AssertionError(f"/stream launched the resident kernel "
+                                     f"{rose} times, expected {windows}")
             if np.all(audio == audio[0]):
                 raise AssertionError("/stream returned constant audio")
             rtf = frames_stream * cfg.lookback / 16000 / wall
             streams.append({"frames": frames_stream, "seconds": wall,
                             "realtime_factor": rtf, "launches": rose})
             log(f"[serve] /stream {frames_stream} frames: {wall:.3f} s "
-                f"(realtime x{rtf:.2f}), {rose} kernel launches")
+                f"(realtime x{rtf:.2f}), {rose} launches of the resident "
+                f"kernel")
         r, _ = _post(addr, "/synthesize", None, raw="{not json")
         if r.status != 400:
             raise AssertionError(f"bad body answered {r.status}")
@@ -460,6 +581,12 @@ def phase_serve(params, exp_cfg, frames_syn, frames_stream):
             raise AssertionError(f"bad cond answered {r.status}")
         log("[serve] bad bodies answered 400")
         RESULTS["launches"] = sample_window.launches   # main path count
+        RESULTS["resident_launches"] = sample_window.resident
+        if dev.type == "cuda" and (sample_window.tiled
+                                   or sample_window.resident
+                                   != sample_window.launches):
+            raise AssertionError("a window of the serving path did not take "
+                                 "the resident kernel")
         RESULTS["streams"] = streams
     finally:
         server.shutdown()
@@ -894,10 +1021,18 @@ def kernel_entries():
         "also_replaces": ["msnv_tpu/pallas/sample_kernel.py:44",
                           "msnv_tpu/pallas/sample_kernel.py:183"],
         "launches": RESULTS["launches"],
+        "resident_launches": RESULTS["resident_launches"],
+        # float32 (tiled kernel): samples equal to the plain version's;
+        # bf16 (resident kernel): share of samples that differ on
+        # sharpened logits, tolerance 1 %
         "exact": RESULTS["max_abs_err"] == 0,
         "max_abs_err": RESULTS["max_abs_err"],
+        "bf16_mismatch": RESULTS["bf16_mismatch"],
         "philox_mismatch": RESULTS["philox_mismatch"],
+        "window_plan": RESULTS["window_plan"],
         "ms": main_shape["ms"],
+        "ms_first_kernel": main_shape["ms_first_kernel"],
+        "empty_window_ms": main_shape["empty_window_ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
@@ -980,7 +1115,8 @@ def main(argv):
         log(f"[phase] {name} {time.perf_counter() - t0:.1f} s")
 
     timed(2, "kernel", phase_kernel, params,
-          (1, 32, 128) if not rehearse else (1, 4))
+          (1, 32, 128) if not rehearse else (1, 4),
+          (4, Q, 128) if not rehearse else (4, Q, 16))
     timed(3, "generate", phase_generate, params, cfg,
           128 if not rehearse else 2, 16 if not rehearse else 2)
     timed(4, "serve", phase_serve, params, exp, 4, 8 if not rehearse else 2)

@@ -1,7 +1,7 @@
-// Sample-window kernel: the bottom tier's fs0 sequential samples for a tile
-// of lanes, in one launch.
+// Sample-window kernels: the bottom tier's fs0 sequential samples of every
+// lane, in one launch per window.
 //
-// Replaces the JAX package's pallas/sample_kernel.py `_window_kernel` (v1,
+// Replace the JAX package's pallas/sample_kernel.py `_window_kernel` (v1,
 // noise given as input), `_window_kernel_v2` and `_window_kernel_v3`
 // (in-kernel PRNG). Per lane and per sample k in [0, fs0):
 //
@@ -12,36 +12,72 @@
 //   win    = win[1:] ++ [s]
 //
 // and the final window (B, fs0) int32 is the output: after fs0 steps it
-// holds exactly the fs0 new samples. W is float or bf16 (template). The
-// temperature is folded into W_o / b_o by the caller.
+// holds exactly the fs0 new samples. W is float or bf16. The temperature is
+// folded into W_o / b_o by the caller. The window is read as fs0 columns of
+// a wider buffer through a row stride, the slot rows through two strides.
 //
 // Noise: either given as (B, fs0, q) f32 Gumbel noise (the v1 mode and
 // the CPU reference's mode), or drawn here from Philox-4x32-10 keyed on a
 // 64-bit seed read from device memory, with counter (class/4, k, lane, 0)
-// — so a draw depends on (seed, lane, step, class) only, never on the
-// tiling. u = ((bits >> 8) + 0.5) / 2^24 as in the TPU kernel's draw.
+// — so a draw depends on (seed, lane, step, class) only, never on how the
+// lanes are spread over CTAs or clusters, and both kernels below draw the
+// same bits. u = ((bits >> 8) + 0.5) / 2^24 as in the TPU kernel's draw.
 //
-// What bounds it on the H100: per sample, every lane needs the full W_h
-// (dim x dim) and W_o (dim x q) — 2.5 MB in bf16 at dim 1024, q 256 — and
-// only fs0 table rows. At small batch the work is a matrix-vector product:
-// the weight stream from L2 (13 MB of weights fit the 50 MB L2) into one
-// SM bounds it, far above the HBM bound of reading the weights once. At
-// large batch it is operation-bound (2 * (dim^2 + dim*q) per lane-sample).
+// What bounds it on the H100. Per sample every lane needs the whole W_h
+// (dim x dim) and W_o (dim x q), 2.5 MB in bf16 at dim 1024, q 256, and
+// only fs0 table rows; the fs0 samples of a lane depend on each other. A
+// window's least time (the weights once from device memory, or its
+// multiply-adds at the tensor cores' rate) is microseconds, so neither
+// bytes nor operations bound it: the chain of fs0 dependent samples does,
+// and what one sample costs besides its products.
 //
-// Design of this first version (right and simple): one CTA of 256 threads
-// per tile of TILE lanes (1..8). The window, x, h and logits rows stay in
-// shared memory for all fs0 steps; weights are read from global memory
-// (L2-resident) with 16-byte loads, each weight reused across the TILE
-// lanes of the CTA. Lanes are independent, so the sequential dependence
-// between samples needs only __syncthreads inside the CTA. Sums over a
-// column are split over `groups` thread groups and reduced in a fixed
-// order (no atomics: results do not vary from run to run). Tensor cores,
-// TMA and a split of the weights over a cluster are left to later work.
+// The resident kernel (bf16; `window_resident`). On the TPU the weights sit
+// in VMEM for the whole window; here no SM holds them, but a thread-block
+// cluster does. A cluster of C CTAs (16 at dim 1024: 16 x 160 KB) keeps W_h
+// and W_o in its shared memory for all fs0 steps and for every lane it
+// walks through:
+//  - Each CTA owns dim / C output columns of W_h and q / C of W_o, all of
+//    the depth, so no partial sum crosses the SM-to-SM network. The caller
+//    packs the weights once (not per window) so that a CTA's slice is one
+//    contiguous block, already in the register order of the tensor-core
+//    instruction: one thread asks the TMA for it in bulk copies reported to
+//    an mbarrier (bounded wait, traps), and a product's thread fetches its
+//    whole A fragment with one conflict-free 16-byte shared-memory load.
+//  - A cluster takes a contiguous share of the lanes and walks through it
+//    in sub-tiles of 8 lanes: the lanes are the narrow side (n = 8) of
+//    `mma.sync` m16n8k16 (bf16 in, f32 sums), the weights' columns its 16
+//    rows. A sub-tile this narrow is not worth a warpgroup's `wgmma`, and 16
+//    lanes of activations do not fit beside 160 KB of weights. 16 warps
+//    split a product by 16-column tile and by depth; the partial sums over
+//    depth are added in a fixed order, so two runs give the same bits.
+//  - What crosses the network per sample is small and is pushed, not
+//    fetched (remote loads stall on the network's latency, stores do not):
+//    every CTA gathers its columns of x (fs0 table rows per lane from L2,
+//    summed in position order in f32), computes its columns of h and of the
+//    logits, and writes each into the shared memory of all C peers.
+//  - Three hardware cluster barriers per sample (after x, h and the logits)
+//    take the place of `__syncthreads`; no grid barrier, no launch per
+//    sample. Every CTA repeats the draw on its own copy of the logits, so
+//    the new sample needs no fourth exchange. No CTA leaves before the last
+//    barrier: nobody writes into the shared memory of a CTA that is gone.
+// Which C, how many clusters and lanes each: chosen by the caller from the
+// shapes and the occupancy API's answer, before the launch.
+//
+// The tiled kernel (float32 and bf16; `sample_window_kernel`), the first
+// version: one CTA of 256 threads per tile of TILE lanes (1..8). The
+// window, x, h and logits rows stay in shared memory for all fs0 steps;
+// the weights are read from global memory (L2-resident) with 16-byte loads
+// for every sample, each weight reused across the TILE lanes. Sums over a
+// column are FMA in float32, split over thread groups and reduced in a
+// fixed order: exact float32 products, which the tensor cores do not give.
+// It is bound by the latency of its own weight loads (about 19 GB/s into an
+// SM) and stays for float32 and for widths whose weights no cluster holds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
 
 #include <algorithm>
 
@@ -150,6 +186,71 @@ __device__ __forceinline__ float gumbel(uint32_t bits) {
   return -logf(-logf(u));
 }
 
+__device__ __forceinline__ uint2 philox_key(const float* noise,
+                                            const int64_t* seed) {
+  if (noise != nullptr) return make_uint2(0u, 0u);
+  const uint64_t s = (uint64_t)seed[0];
+  return make_uint2((uint32_t)s, (uint32_t)(s >> 32));
+}
+
+// The Gumbel-max draw of one warp for one lane: argmax over the q classes
+// of logits[c] + g[c], first index on ties, with g from `noise` (global
+// lane gl, step k) or from Philox. Every thread of the warp returns it.
+__device__ __forceinline__ int warp_draw(const float* logits, int q,
+                                         const float* __restrict__ noise,
+                                         uint2 key, int gl, int k, int fs0) {
+  const int lane_id = threadIdx.x % 32;
+  float best = -INFINITY;
+  int best_i = 0;
+  for (int c0 = lane_id * 4; c0 < q; c0 += 128) {
+    float g[4];
+    if (noise != nullptr) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        g[e] = c0 + e < q ? noise[((size_t)gl * fs0 + k) * q + c0 + e] : 0.f;
+    } else {
+      const uint4 r = philox(
+          make_uint4((uint32_t)(c0 / 4), (uint32_t)k, (uint32_t)gl, 0u), key);
+      g[0] = gumbel(r.x);
+      g[1] = gumbel(r.y);
+      g[2] = gumbel(r.z);
+      g[3] = gumbel(r.w);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = c0 + e;
+      if (c < q) {
+        const float v = logits[c] + g[e];
+        if (v > best) {
+          best = v;
+          best_i = c;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, best, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, best_i, off);
+    if (ov > best || (ov == best && oi < best_i)) {
+      best = ov;
+      best_i = oi;
+    }
+  }
+  return best_i;
+}
+
+// Where the window and the slot rows lie: lane b's window is buf[b *
+// buf_ld + 0 .. fs0), its slot row of step k slots[b * slot_ld_b + k *
+// slot_ld_k + 0 .. dim) (strides in elements).
+struct Strides {
+  long long buf_ld, slot_ld_b, slot_ld_k;
+};
+
+// ---------------------------------------------------------------------------
+// The tiled kernel: one CTA per tile of lanes, weights streamed from L2
+// ---------------------------------------------------------------------------
+
 template <int TILE, typename W>
 __global__ void __launch_bounds__(kThreads)
     sample_window_kernel(const W* __restrict__ table,
@@ -162,7 +263,7 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ noise,
                          const int64_t* __restrict__ seed,
                          int* __restrict__ out, int batch, int fs0, int q,
-                         int dim) {
+                         int dim, Strides st) {
   extern __shared__ float smem[];
   const int red_size = max(reduce_groups(dim) * TILE * dim,
                            reduce_groups(q) * TILE * q);
@@ -180,13 +281,9 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int i = tid; i < TILE * fs0; i += blockDim.x) {
     const int l = i / fs0;
-    win[i] = l < nl ? buf[(size_t)(lane0 + l) * fs0 + i % fs0] : 0;
+    win[i] = l < nl ? buf[(size_t)(lane0 + l) * st.buf_ld + i % fs0] : 0;
   }
-  uint2 key = make_uint2(0u, 0u);
-  if (noise == nullptr) {
-    const uint64_t s = (uint64_t)seed[0];
-    key = make_uint2((uint32_t)s, (uint32_t)(s >> 32));
-  }
+  const uint2 key = philox_key(noise, seed);
   __syncthreads();
 
   for (int k = 0; k < fs0; ++k) {
@@ -199,7 +296,8 @@ __global__ void __launch_bounds__(kThreads)
         float acc = 0.f;
         for (int p = 0; p < fs0; ++p)
           acc += to_f32(table[((size_t)p * q + win[l * fs0 + p]) * dim + d]);
-        x = acc + to_f32(slots[((size_t)(lane0 + l) * fs0 + k) * dim + d]);
+        x = acc + to_f32(slots[(size_t)(lane0 + l) * st.slot_ld_b +
+                               (size_t)k * st.slot_ld_k + d]);
       }
       xs[idx] = round_to(fmaxf(x, 0.f), wtag);
     }
@@ -211,51 +309,10 @@ __global__ void __launch_bounds__(kThreads)
     matvec<TILE, W>(hs, dim, wo, bo, q, red, logits);
 
     // Gumbel-max draw: one warp per lane
-    const int warp = tid / 32;
-    const int lane_id = tid % 32;
-    for (int l = warp; l < nl; l += blockDim.x / 32) {
-      const int gl = lane0 + l;
-      float best = -INFINITY;
-      int best_i = 0;
-      for (int c0 = lane_id * 4; c0 < q; c0 += 128) {
-        float g[4];
-        if (noise != nullptr) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            g[e] = c0 + e < q
-                       ? noise[((size_t)gl * fs0 + k) * q + c0 + e]
-                       : 0.f;
-        } else {
-          const uint4 r = philox(
-              make_uint4((uint32_t)(c0 / 4), (uint32_t)k, (uint32_t)gl, 0u),
-              key);
-          g[0] = gumbel(r.x);
-          g[1] = gumbel(r.y);
-          g[2] = gumbel(r.z);
-          g[3] = gumbel(r.w);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = c0 + e;
-          if (c < q) {
-            const float v = logits[l * q + c] + g[e];
-            if (v > best) {
-              best = v;
-              best_i = c;
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, best, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, best_i, off);
-        if (ov > best || (ov == best && oi < best_i)) {
-          best = ov;
-          best_i = oi;
-        }
-      }
-      if (lane_id == 0) drawn[l] = best_i;
+    for (int l = tid / 32; l < nl; l += blockDim.x / 32) {
+      const int s = warp_draw(logits + l * q, q, noise, key, lane0 + l, k,
+                              fs0);
+      if (tid % 32 == 0) drawn[l] = s;
     }
     __syncthreads();
     if (tid < nl) {
@@ -282,7 +339,7 @@ template <int TILE, typename W>
 cudaError_t launch(const void* table, const void* wh, const void* bh,
                    const void* wo, const void* bo, const void* slots,
                    const void* buf, const void* noise, const void* seed,
-                   void* out, int batch, int fs0, int q, int dim,
+                   void* out, int batch, int fs0, int q, int dim, Strides st,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes<TILE>(fs0, q, dim);
   cudaError_t err = cudaFuncSetAttribute(
@@ -296,7 +353,7 @@ cudaError_t launch(const void* table, const void* wh, const void* bh,
       static_cast<const float*>(bo), static_cast<const W*>(slots),
       static_cast<const int*>(buf), static_cast<const float*>(noise),
       static_cast<const int64_t*>(seed), static_cast<int*>(out), batch, fs0,
-      q, dim);
+      q, dim, st);
   return cudaGetLastError();
 }
 
@@ -305,51 +362,485 @@ cudaError_t launch_tile(int tile, const void* table, const void* wh,
                         const void* bh, const void* wo, const void* bo,
                         const void* slots, const void* buf,
                         const void* noise, const void* seed, void* out,
-                        int batch, int fs0, int q, int dim,
+                        int batch, int fs0, int q, int dim, Strides st,
                         cudaStream_t stream) {
   switch (tile) {
     case 1:
       return launch<1, W>(table, wh, bh, wo, bo, slots, buf, noise, seed,
-                          out, batch, fs0, q, dim, stream);
+                          out, batch, fs0, q, dim, st, stream);
     case 2:
       return launch<2, W>(table, wh, bh, wo, bo, slots, buf, noise, seed,
-                          out, batch, fs0, q, dim, stream);
+                          out, batch, fs0, q, dim, st, stream);
     case 4:
       return launch<4, W>(table, wh, bh, wo, bo, slots, buf, noise, seed,
-                          out, batch, fs0, q, dim, stream);
+                          out, batch, fs0, q, dim, st, stream);
     case 8:
       return launch<8, W>(table, wh, bh, wo, bo, slots, buf, noise, seed,
-                          out, batch, fs0, q, dim, stream);
+                          out, batch, fs0, q, dim, st, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The resident kernel (bf16): weights in a cluster's shared memory
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kLanes = 8;            // lanes per sub-tile: the mma's n
+constexpr int kResWarps = 16;
+constexpr int kResThreads = kResWarps * 32;
+constexpr int kActPad = 8;           // bf16 per activation row: rows of a
+                                     // B fragment's 8 lanes fall in 8 banks
+constexpr int kRedPad = 4;           // floats per row of partial sums
+constexpr int kFragBytes = 512;      // one 16 x 16 bf16 A tile, as 32 lanes
+                                     // x 16 bytes in register order
+constexpr uint32_t kBulkBytes = 32768;    // of one bulk copy
+constexpr unsigned kSpinLimit = 1u << 24;  // polls before a trap
+constexpr int kMaxCluster = 16;
+
+// over how many warps the depth of a product with `mtiles` 16-column tiles
+// and `ksteps` 16-deep steps is split
+__host__ __device__ inline int depth_split(int mtiles, int ksteps) {
+  int s = 1;
+  while (mtiles * s * 2 <= kResWarps && ksteps % (s * 2) == 0) s *= 2;
+  return s;
+}
+
+// Shared memory of one CTA of a cluster of C (byte offsets): its slice of
+// the packed weights (W_h's tiles, then W_o's), the sub-tile's x and h rows
+// (bf16, all of dim, padded), its logits (f32, all of q), the partial sums
+// of a product over the depth split, the sub-tile's samples (the window,
+// then the fs0 new ones), the mbarrier of the weights' arrival.
+struct ResidentLayout {
+  int mh, mo;              // columns of W_h and of W_o that this CTA owns
+  int ksteps;              // dim / 16
+  int split_h, split_o;    // depth splits of the two products
+  int act_ld;              // elements per row of x and h
+  uint32_t w_bytes, wo_off, x_off, h_off, logits_off, red_off, seq_off,
+      bar_off, total;
+  __host__ __device__ ResidentLayout(int fs0, int q, int dim, int C) {
+    mh = dim / C;
+    mo = q / C;
+    ksteps = dim / 16;
+    split_h = depth_split(mh / 16, ksteps);
+    split_o = depth_split(mo / 16, ksteps);
+    act_ld = dim + kActPad;
+    wo_off = (uint32_t)mh * dim * sizeof(bf16);
+    w_bytes = (uint32_t)(mh + mo) * dim * sizeof(bf16);
+    x_off = w_bytes;
+    h_off = x_off + kLanes * act_ld * sizeof(bf16);
+    logits_off = h_off + kLanes * act_ld * sizeof(bf16);
+    red_off = logits_off + kLanes * q * sizeof(float);
+    const int red_h = split_h * kLanes * (mh + kRedPad);
+    const int red_o = split_o * kLanes * (mo + kRedPad);
+    seq_off = red_off + (red_h > red_o ? red_h : red_o) * sizeof(float);
+    bar_off = (seq_off + kLanes * 2 * fs0 * sizeof(int) + 15) / 16 * 16;
+    total = bar_off + 16;
+  }
+};
+
+// the largest power of two of CTAs that can split both weights in whole
+// 16-column tiles, and whether such a cluster exists at all
+__host__ bool resident_shape_ok(int fs0, int q, int dim, int C) {
+  if (fs0 < 1 || q < 16 || dim < 16 || dim % 16 != 0) return false;
+  if (C < 1 || C > kMaxCluster || (C & (C - 1)) != 0) return false;
+  return dim % (16 * C) == 0 && q % (16 * C) == 0;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_size() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// all threads of all CTAs of the cluster; writes before it (also those
+// into other CTAs' shared memory) are visible to the cluster after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the address of this CTA's shared-memory address `addr` in the cluster's
+// CTA `rank` (this CTA's own rank included)
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, unsigned rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  return remote;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t remote, uint2 v) {
+  asm volatile("st.shared::cluster.v2.b32 [%0], {%1, %2};\n" ::"r"(remote),
+               "r"(v.x), "r"(v.y)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t remote, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   remote),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// v into every CTA of the cluster, at this CTA's address `addr`
+template <class V>
+__device__ __forceinline__ void push_to_cluster(uint32_t addr, unsigned C,
+                                                V v) {
+  for (unsigned r = 0; r < C; ++r) st_cluster(map_to_rank(addr, r), v);
+}
+
+__device__ __forceinline__ uint2 pack_bf16x4(const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                    *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+__device__ __forceinline__ void add_bf16x4(float (&acc)[4], uint2 v) {
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  acc[0] += lo.x;
+  acc[1] += lo.y;
+  acc[2] += hi.x;
+  acc[3] += hi.y;
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, its
+// columns contiguous): the warp-level tensor-core product
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint4& a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// wait until the weights' mbarrier has completed its first phase; bounded
+__device__ __forceinline__ void wait_for_weights(uint32_t bar) {
+  uint32_t done = 0;
+  for (unsigned spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(0u)
+        : "memory");
+    if (spins > kSpinLimit) {
+      printf("sample_window: the weights never arrived (CTA %d)\n",
+             blockIdx.x);
+      __trap();
+    }
+  }
+}
+
+// Thread 0: ask the TMA for this CTA's `bytes` of packed weights at `src`,
+// in bulk copies that report to the mbarrier at `bar` (one arrival, the
+// bytes of all copies expected).
+__device__ __forceinline__ void request_weights(uint32_t dst, const void* src,
+                                                uint32_t bytes, uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+  for (uint32_t at = 0; at < bytes; at += kBulkBytes) {
+    const uint32_t n = bytes - at < kBulkBytes ? bytes - at : kBulkBytes;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(dst + at),
+        "l"(static_cast<const unsigned char*>(src) + at), "r"(n), "r"(bar)
+        : "memory");
+  }
+}
+
+// red[s][n][m] (rows of ld floats) = the partial sum over the s-th part of
+// the depth of  sum_k act[n][k] * w[k][column m of this CTA],  n < 8 lanes,
+// m < 16 * mtiles. `frags` holds the CTA's columns as [tile][k-step] blocks
+// of 512 bytes in the mma's register order; `act` the lanes' rows. A warp
+// takes one (tile, part of the depth) at a time and keeps two chains of
+// dependent products going.
+__device__ __forceinline__ void resident_product(const unsigned char* frags,
+                                                 int mtiles, int ksteps,
+                                                 int split, const bf16* act,
+                                                 int act_ld, float* red,
+                                                 int ld) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int ksub = ksteps / split;
+  for (int task = warp; task < mtiles * split; task += kResWarps) {
+    const int mt = task % mtiles, s = task / mtiles;
+    const uint4* a = reinterpret_cast<const uint4*>(frags) +
+                     ((size_t)mt * ksteps + s * ksub) * 32 + lane;
+    const bf16* b = act + g * act_ld + s * ksub * 16 + tig * 2;
+    float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+    int kk = 0;
+#pragma unroll 2
+    for (; kk + 1 < ksub; kk += 2) {
+      mma_bf16(c0, a[kk * 32],
+               *reinterpret_cast<const uint32_t*>(b + kk * 16),
+               *reinterpret_cast<const uint32_t*>(b + kk * 16 + 8));
+      mma_bf16(c1, a[(kk + 1) * 32],
+               *reinterpret_cast<const uint32_t*>(b + (kk + 1) * 16),
+               *reinterpret_cast<const uint32_t*>(b + (kk + 1) * 16 + 8));
+    }
+    if (kk < ksub)
+      mma_bf16(c0, a[kk * 32],
+               *reinterpret_cast<const uint32_t*>(b + kk * 16),
+               *reinterpret_cast<const uint32_t*>(b + kk * 16 + 8));
+    // the thread holds columns mt * 16 + g (+ 8) of lanes 2 tig (+ 1)
+    float* const o = red + ((size_t)s * kLanes + 2 * tig) * ld + mt * 16 + g;
+    o[0] = c0[0] + c1[0];
+    o[ld] = c0[1] + c1[1];
+    o[8] = c0[2] + c1[2];
+    o[ld + 8] = c0[3] + c1[3];
+  }
+}
+
+// bias + the partial sums of four neighbouring columns of one lane, added
+// in the order of the depth's parts
+__device__ __forceinline__ void reduce4(const float* red, int split, int ld,
+                                        int n, int m, const float* bias,
+                                        float (&v)[4]) {
+  const float4 b = *reinterpret_cast<const float4*>(bias);
+  v[0] = b.x, v[1] = b.y, v[2] = b.z, v[3] = b.w;
+  for (int s = 0; s < split; ++s) {
+    const float4 p = *reinterpret_cast<const float4*>(
+        red + ((size_t)s * kLanes + n) * ld + m);
+    v[0] += p.x, v[1] += p.y, v[2] += p.z, v[3] += p.w;
+  }
+}
+
+// how the lanes are spread over the clusters: contiguous shares that differ
+// by at most one lane
+struct LaneShare {
+  int begin, count;
+  __host__ __device__ LaneShare(int batch, int clusters, int cluster) {
+    const int base = batch / clusters, rem = batch % clusters;
+    begin = cluster * base + (cluster < rem ? cluster : rem);
+    count = base + (cluster < rem ? 1 : 0);
+  }
+};
+
+__global__ void __launch_bounds__(kResThreads, 1)
+    window_resident(const bf16* __restrict__ table,
+                    const unsigned char* __restrict__ packed,
+                    const float* __restrict__ bh,
+                    const float* __restrict__ bo,
+                    const bf16* __restrict__ slots,
+                    const int* __restrict__ buf,
+                    const float* __restrict__ noise,
+                    const int64_t* __restrict__ seed, int* __restrict__ out,
+                    int batch, int fs0, int q, int dim, Strides st) {
+  extern __shared__ __align__(128) unsigned char rsm[];
+  const unsigned C = cluster_size(), rank = cluster_rank();
+  const ResidentLayout lay(fs0, q, dim, (int)C);
+  bf16* const xs = reinterpret_cast<bf16*>(rsm + lay.x_off);
+  bf16* const hs = reinterpret_cast<bf16*>(rsm + lay.h_off);
+  float* const logits = reinterpret_cast<float*>(rsm + lay.logits_off);
+  float* const red = reinterpret_cast<float*>(rsm + lay.red_off);
+  int* const seq = reinterpret_cast<int*>(rsm + lay.seq_off);
+  const uint32_t bar = smem_addr(rsm + lay.bar_off);
+  const int tid = threadIdx.x;
+  const int mh = lay.mh, mo = lay.mo;
+  const int ld_h = mh + kRedPad, ld_o = mo + kRedPad;
+  const LaneShare share(batch, gridDim.x / C, blockIdx.x / C);
+  const uint2 key = philox_key(noise, seed);
+
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    request_weights(smem_addr(rsm), packed + (size_t)rank * lay.w_bytes,
+                    lay.w_bytes, bar);
+  }
+  // every CTA of the cluster runs before any writes into another's memory
+  cluster_sync();
+  bool weights_here = false;
+
+  for (int sub = 0; sub < share.count; sub += kLanes) {
+    const int lane0 = share.begin + sub;
+    const int nl = min(kLanes, share.count - sub);
+    // seq[l] = the lane's window, then room for its fs0 new samples
+    for (int i = tid; i < kLanes * fs0; i += kResThreads) {
+      const int l = i / fs0, p = i % fs0;
+      seq[l * 2 * fs0 + p] =
+          l < nl ? buf[(size_t)(lane0 + l) * st.buf_ld + p] : 0;
+    }
+    __syncthreads();
+
+    for (int k = 0; k < fs0; ++k) {
+      // this CTA's columns of x = relu(sum of fs0 table rows + slot row),
+      // four columns of one lane a thread, into every CTA's xs. All loads
+      // of a half of the rows are under way before the first is added.
+      for (int task = tid; task < kLanes * (mh / 4); task += kResThreads) {
+        const int l = task / (mh / 4);
+        const int col = (int)rank * mh + task % (mh / 4) * 4;
+        float x[4] = {0.f, 0.f, 0.f, 0.f};
+        if (l < nl) {
+          const int* const w = seq + l * 2 * fs0 + k;
+          constexpr int kBatch = 10;
+          for (int p0 = 0; p0 < fs0; p0 += kBatch) {
+            uint2 rows[kBatch];
+#pragma unroll
+            for (int j = 0; j < kBatch; ++j)
+              if (p0 + j < fs0)
+                rows[j] = __ldg(reinterpret_cast<const uint2*>(
+                    table + ((size_t)(p0 + j) * q + w[p0 + j]) * dim + col));
+#pragma unroll
+            for (int j = 0; j < kBatch; ++j)
+              if (p0 + j < fs0) add_bf16x4(x, rows[j]);
+          }
+          add_bf16x4(x, __ldg(reinterpret_cast<const uint2*>(
+                            slots + (size_t)(lane0 + l) * st.slot_ld_b +
+                            (size_t)k * st.slot_ld_k + col)));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[e] = fmaxf(x[e], 0.f);
+        }
+        push_to_cluster(smem_addr(xs + l * lay.act_ld + col), C,
+                        pack_bf16x4(x));
+      }
+      cluster_sync();                                   // x is complete
+      if (!weights_here) {
+        wait_for_weights(bar);
+        weights_here = true;
+      }
+
+      // this CTA's columns of h = relu(x @ W_h + b_h), into every CTA's hs
+      resident_product(rsm, mh / 16, lay.ksteps, lay.split_h, xs,
+                       lay.act_ld, red, ld_h);
+      __syncthreads();
+      for (int task = tid; task < kLanes * (mh / 4); task += kResThreads) {
+        const int l = task / (mh / 4), m = task % (mh / 4) * 4;
+        const int col = (int)rank * mh + m;
+        float h[4];
+        reduce4(red, lay.split_h, ld_h, l, m, bh + col, h);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) h[e] = fmaxf(h[e], 0.f);
+        push_to_cluster(smem_addr(hs + l * lay.act_ld + col), C,
+                        pack_bf16x4(h));
+      }
+      cluster_sync();                                   // h is complete
+
+      // this CTA's columns of the logits, into every CTA's copy
+      resident_product(rsm + lay.wo_off, mo / 16, lay.ksteps, lay.split_o,
+                       hs, lay.act_ld, red, ld_o);
+      __syncthreads();
+      for (int task = tid; task < kLanes * (mo / 4); task += kResThreads) {
+        const int l = task / (mo / 4), m = task % (mo / 4) * 4;
+        const int col = (int)rank * mo + m;
+        float v[4];
+        reduce4(red, lay.split_o, ld_o, l, m, bo + col, v);
+        push_to_cluster(smem_addr(logits + l * q + col), C,
+                        make_float4(v[0], v[1], v[2], v[3]));
+      }
+      cluster_sync();                                   // logits complete
+
+      // every CTA draws every lane's sample: a warp per lane
+      for (int l = tid / 32; l < nl; l += kResWarps) {
+        const int s = warp_draw(logits + l * q, q, noise, key, lane0 + l, k,
+                                fs0);
+        if (tid % 32 == 0) seq[l * 2 * fs0 + fs0 + k] = s;
+      }
+      __syncthreads();
+    }
+
+    if (rank == 0)
+      for (int i = tid; i < nl * fs0; i += kResThreads)
+        out[(size_t)(lane0 + i / fs0) * fs0 + i % fs0] =
+            seq[(i / fs0) * 2 * fs0 + fs0 + i % fs0];
+    __syncthreads();       // seq is read before the next sub-tile's window
+  }
+  if (!weights_here) wait_for_weights(bar);   // no copy outlives its CTA
+  cluster_sync();   // nobody writes into the memory of a CTA that has left
+}
+
+// The cluster barriers of a resident window over the same grid, and
+// nothing else: three per sample and sub-tile.
+__global__ void __launch_bounds__(kResThreads, 1)
+    window_empty(int batch, int fs0) {
+  const unsigned C = cluster_size();
+  const LaneShare share(batch, gridDim.x / C, blockIdx.x / C);
+  cluster_sync();
+  for (int sub = 0; sub < share.count; sub += kLanes)
+    for (int k = 0; k < 3 * fs0; ++k) cluster_sync();
+  cluster_sync();
+}
+
+struct ResidentLaunch {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attrs[1];
+  ResidentLaunch(int cluster, int clusters, size_t smem,
+                 cudaStream_t stream) {
+    config = cudaLaunchConfig_t{};
+    config.gridDim = dim3(cluster * clusters);
+    config.blockDim = dim3(kResThreads);
+    config.dynamicSmemBytes = smem;
+    config.stream = stream;
+    attrs[0].id = cudaLaunchAttributeClusterDimension;
+    attrs[0].val.clusterDim.x = cluster;
+    attrs[0].val.clusterDim.y = 1;
+    attrs[0].val.clusterDim.z = 1;
+    config.attrs = attrs;
+    config.numAttrs = 1;
+  }
+};
+
+// shared memory and, above the portable 8, the cluster size a kernel may ask
+cudaError_t allow(const void* kernel, size_t smem, int cluster) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 weights/table/slots, 1 = bfloat16. tile: lanes per
-// CTA (1, 2, 4 or 8). Exactly one of noise / seed is non-null. Returns the
+// The tiled kernel. dtype: 0 = float32 weights/table/slots, 1 = bfloat16.
+// tile: lanes per CTA (1, 2, 4 or 8). Exactly one of noise / seed is
+// non-null. Strides in elements: lane b's window at buf + b * buf_ld, its
+// slot row of step k at slots + b * slot_ld_b + k * slot_ld_k. Returns the
 // cudaError_t of the launch (0 on success).
 int sample_window_launch(int dtype, int tile, const void* table,
                          const void* wh, const void* bh, const void* wo,
                          const void* bo, const void* slots, const void* buf,
                          const void* noise, const void* seed, void* out,
-                         int batch, int fs0, int q, int dim, void* stream) {
+                         int batch, int fs0, int q, int dim,
+                         long long buf_ld, long long slot_ld_b,
+                         long long slot_ld_k, void* stream) {
   if ((noise == nullptr) == (seed == nullptr)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Strides st{buf_ld, slot_ld_b, slot_ld_k};
   if (dtype == 0)
     return launch_tile<float>(tile, table, wh, bh, wo, bo, slots, buf, noise,
-                              seed, out, batch, fs0, q, dim, s);
+                              seed, out, batch, fs0, q, dim, st, s);
   if (dtype == 1)
     return launch_tile<__nv_bfloat16>(tile, table, wh, bh, wo, bo, slots,
                                       buf, noise, seed, out, batch, fs0, q,
-                                      dim, s);
+                                      dim, st, s);
   return cudaErrorInvalidValue;
 }
 
-// dynamic shared memory one launch takes, for the wrapper's checks
+// dynamic shared memory one launch of the tiled kernel takes
 long long sample_window_smem_bytes(int tile, int fs0, int q, int dim) {
   switch (tile) {
     case 1: return (long long)smem_bytes<1>(fs0, q, dim);
@@ -358,6 +849,96 @@ long long sample_window_smem_bytes(int tile, int fs0, int q, int dim) {
     case 8: return (long long)smem_bytes<8>(fs0, q, dim);
     default: return -1;
   }
+}
+
+// The resident kernel (bfloat16 only): `clusters` clusters of `cluster`
+// CTAs. packed: `cluster` slices of (dim / cluster + q / cluster) * dim
+// bf16, slice r holding columns r * dim / cluster .. of W_h and then
+// r * q / cluster .. of W_o as [16-column tile][16-deep step][32 lanes]
+// [8 values] in the register order of mma m16n8k16's A operand. The
+// other arguments as for the tiled kernel.
+int sample_window_resident_launch(const void* table, const void* packed,
+                                  const void* bh, const void* bo,
+                                  const void* slots, const void* buf,
+                                  const void* noise, const void* seed,
+                                  void* out, int batch, int fs0, int q,
+                                  int dim, long long buf_ld,
+                                  long long slot_ld_b, long long slot_ld_k,
+                                  int cluster, int clusters, void* stream) {
+  if ((noise == nullptr) == (seed == nullptr) || batch < 1 || clusters < 1 ||
+      clusters > batch || !resident_shape_ok(fs0, q, dim, cluster))
+    return cudaErrorInvalidValue;
+  const ResidentLayout lay(fs0, q, dim, cluster);
+  const void* kernel = reinterpret_cast<const void*>(window_resident);
+  cudaError_t err = allow(kernel, lay.total, cluster);
+  if (err != cudaSuccess) return err;
+  ResidentLaunch launch(cluster, clusters, lay.total,
+                        static_cast<cudaStream_t>(stream));
+  Strides st{buf_ld, slot_ld_b, slot_ld_k};
+  void* args[] = {&table, &packed, &bh,    &bo,  &slots, &buf, &noise,
+                  &seed,  &out,    &batch, &fs0, &q,     &dim, &st};
+  return cudaLaunchKernelExC(&launch.config, kernel, args);
+}
+
+// the resident kernel's grid, clusters and shared memory through the
+// cluster barriers of a window of `batch` lanes, and no other work
+int sample_window_empty_launch(int batch, int fs0, int q, int dim,
+                               int cluster, int clusters, void* stream) {
+  if (batch < 1 || clusters < 1 || clusters > batch ||
+      !resident_shape_ok(fs0, q, dim, cluster))
+    return cudaErrorInvalidValue;
+  const ResidentLayout lay(fs0, q, dim, cluster);
+  const void* kernel = reinterpret_cast<const void*>(window_empty);
+  cudaError_t err = allow(kernel, lay.total, cluster);
+  if (err != cudaSuccess) return err;
+  ResidentLaunch launch(cluster, clusters, lay.total,
+                        static_cast<cudaStream_t>(stream));
+  void* args[] = {&batch, &fs0};
+  return cudaLaunchKernelExC(&launch.config, kernel, args);
+}
+
+// shared memory of one CTA of the resident kernel in a cluster of
+// `cluster`; -1 where that cluster cannot split the weights
+long long sample_window_resident_smem(int fs0, int q, int dim, int cluster) {
+  if (!resident_shape_ok(fs0, q, dim, cluster)) return -1;
+  return (long long)ResidentLayout(fs0, q, dim, cluster).total;
+}
+
+// How many clusters of `cluster` CTAs of the resident kernel the current
+// device holds at once (the occupancy API's answer; 0: such a cluster is
+// not granted). Negative: minus the cudaError_t.
+int sample_window_max_clusters(int fs0, int q, int dim, int cluster) {
+  if (!resident_shape_ok(fs0, q, dim, cluster))
+    return -(int)cudaErrorInvalidValue;
+  const ResidentLayout lay(fs0, q, dim, cluster);
+  const void* kernel = reinterpret_cast<const void*>(window_resident);
+  cudaError_t err = allow(kernel, lay.total, cluster);
+  if (err != cudaSuccess) return -(int)err;
+  int sms = 0, dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return -(int)err;
+  // the answer does not depend on the grid as long as it is large enough
+  ResidentLaunch launch(cluster, sms / cluster > 0 ? sms / cluster : 1,
+                        lay.total, nullptr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &launch.config);
+  if (err != cudaSuccess) return -(int)err;
+  return clusters;
+}
+
+// the most dynamic shared memory a CTA of the current device may ask for,
+// and its number of SMs
+int sample_window_device(int* smem_optin, int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(smem_optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
 }
 
 const char* sample_window_error_string(int err) {

@@ -1,40 +1,58 @@
-"""Sample-window kernel wrapper, plain version and build.
+"""Sample-window kernels: wrapper, plain version, launch plan and build.
 
-The kernel (msnv_tpu_torch/csrc/sample_window.cu) replaces the TPU kernels
+The kernels (msnv_tpu_torch/csrc/sample_window.cu) replace the TPU kernels
 `_window_kernel`, `_window_kernel_v2` and `_window_kernel_v3` of the JAX
-package's pallas/sample_kernel.py: for each lane it makes the bottom
+package's pallas/sample_kernel.py: for each lane they make the bottom
 tier's fs0 samples one after another (fused-table gather + slot row ->
 ReLU -> W_h -> ReLU -> W_o -> argmax(logits + Gumbel) -> shift the window)
-in one launch. Its two noise modes cover the three TPU variants: Gumbel noise given
-as input (v1) or drawn in the kernel from Philox (v2/v3).
+in one launch. Two noise modes cover the three TPU variants: Gumbel noise
+given as input (v1) or drawn in the kernel from Philox (v2/v3).
 
-What bounds it on the H100, and what the design does about it: each
+What bounds a window on the H100, and what the design does about it: each
 sample needs the whole W_h and W_o (2.5 MB in bf16 at the canonical width)
-for every lane, so at small batch it is a matrix-vector product limited by
-how fast one SM streams the L2-resident weights, and at large batch by
-arithmetic. The first version keeps the window and the activations of a
-tile of lanes in shared memory for all fs0 steps, reuses each weight load
-across the tile, and spreads tiles over the SMs (see the source's header).
+and depends on the sample before, so a window is a chain of fs0 steps whose
+products are tiny; what a step costs besides them decides. Two kernels:
+
+- "resident" (bf16): a thread-block cluster keeps W_h and W_o in its shared
+  memory for the whole window (16 CTAs x 160 KB at dim 1024), each CTA
+  owning a slice of the output columns of both layers, brought in once by
+  bulk copies from weights packed once per sampler (`pack_window_weights`).
+  A cluster walks through its share of the lanes in sub-tiles of 8 (the
+  narrow side of the tensor cores' m16n8k16); x, h and the logits are
+  pushed into every CTA's shared memory and three cluster barriers per
+  sample order the steps (see the source's header).
+- "tiled" (float32 and bf16), the first version: one CTA per tile of 1-8
+  lanes, weights read from L2 for every sample, float32 FMA sums in a
+  fixed order. It stays for float32 (exact products) and for widths whose
+  weights no cluster holds.
+
+`window_plan` chooses between them by shape, type and what the device
+grants, before anything is launched; a CUDA tensor launches the planned
+kernel or raises.
 
 Layouts (the port's choice, lane-major so one CTA reads contiguous rows):
   table (fs0*q, dim)   fused embed+conv, position-major (fused_embed_conv)
   wh (dim, dim), wo (dim, q)   x @ W layout, same dtype as table
   bh (dim,), bo (q,)   float32
-  slots (B, fs0, dim)  bottom-tier slot rows, table dtype
-  buf (B, fs0) int32   the last fs0 samples
+  slots (B, fs0, dim)  bottom-tier slot rows, table dtype; rows may be
+                       strided (last dimension contiguous)
+  buf (B, fs0) int32   the last fs0 samples; may be the last fs0 columns
+                       of a wider buffer (a view, not copied)
   noise (B, fs0, q) float32 Gumbel noise, or seed (1,) int64 for Philox
 Returns (B, fs0) int32: the fs0 new samples.
 
 On a CPU tensor `sample_window` runs `sample_window_reference` (in the
-Philox mode on the noise `philox_gumbel_noise` computes: the numbers the
-kernel draws); on a CUDA tensor it launches the kernel or raises. The
-library is built with nvcc at first use into msnv_tpu_torch/build/.
+Philox mode on the noise `philox_gumbel_noise` computes: the numbers both
+kernels draw). `sample_window.launches` counts the calls that launched a
+kernel, `.resident` and `.tiled` by kernel. The library is built with nvcc
+at first use into msnv_tpu_torch/build/.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -42,7 +60,16 @@ from msnv_tpu_torch.kernels.build import CSRC, build_library
 
 SOURCE = CSRC / "sample_window.cu"
 TILES = (1, 2, 4, 8)
+PATHS = ("resident", "tiled")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the resident kernel: lanes per sub-tile, warps per CTA, the cluster sizes
+# it may take, padding of its activation rows (bf16) and partial sums (f32)
+SUBTILE = 8
+RESIDENT_WARPS = 16
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+_ACT_PAD, _RED_PAD = 8, 4
+# the tiled kernel: threads per CTA, columns per load
+_TILED_THREADS, _TILED_VEC = 256, 8
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -50,19 +77,30 @@ build_log = ""      # nvcc's -Xptxas -v report of the last build
 
 
 def build() -> ctypes.CDLL:
-    """Compile the kernel for sm_90a (once per source content) and load
-    it. The shared library has a plain C interface, bound with ctypes."""
+    """Compile the kernels for sm_90a (once per source content) and load
+    them. The shared library has a plain C interface, bound with ctypes."""
     global _lib, build_log
     with _lib_lock:
         if _lib is not None:
             return _lib
         lib, build_log = build_library(SOURCE)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.sample_window_launch.argtypes = [ci, ci] + [vp] * 10 + [ci] * 4 \
-            + [vp]
+        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.sample_window_launch.argtypes = (
+            [ci, ci] + [vp] * 10 + [ci] * 4 + [ll] * 3 + [vp])
         lib.sample_window_launch.restype = ci
         lib.sample_window_smem_bytes.argtypes = [ci] * 4
-        lib.sample_window_smem_bytes.restype = ctypes.c_longlong
+        lib.sample_window_smem_bytes.restype = ll
+        lib.sample_window_resident_launch.argtypes = (
+            [vp] * 9 + [ci] * 4 + [ll] * 3 + [ci, ci, vp])
+        lib.sample_window_resident_launch.restype = ci
+        lib.sample_window_empty_launch.argtypes = [ci] * 6 + [vp]
+        lib.sample_window_empty_launch.restype = ci
+        lib.sample_window_resident_smem.argtypes = [ci] * 4
+        lib.sample_window_resident_smem.restype = ll
+        lib.sample_window_max_clusters.argtypes = [ci] * 4
+        lib.sample_window_max_clusters.restype = ci
+        lib.sample_window_device.argtypes = [ctypes.POINTER(ci)] * 2
+        lib.sample_window_device.restype = ci
         lib.sample_window_error_string.argtypes = [ci]
         lib.sample_window_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -147,18 +185,243 @@ def sample_window_reference(table, wh, bh, wo, bo, slots, buf, noise):
     return win
 
 
+# --------------------------------------------------------------------------
+# the resident kernel's weights: packed once, a CTA's slice contiguous
+# --------------------------------------------------------------------------
+
+def _fragment_index(depth: int, cols: int, cluster: int):
+    """Flat indices into a (depth, cols) row-major weight, shaped (cluster,
+    cols / cluster / 16, depth / 16, 32, 8): for each CTA of the cluster
+    its 16-column tiles, for each tile its 16-deep steps, and for each step
+    the 8 values that each of a warp's 32 threads holds of the 16 x 16
+    operand A[m][k] = w[16 step + k][column m] of mma m16n8k16: rows
+    g = thread / 4 and g + 8, depths 2 (thread % 4) + {0, 1} and + {8, 9}."""
+    thread = torch.arange(32)
+    m = (thread // 4)[:, None] + torch.tensor([0, 0, 8, 8, 0, 0, 8, 8])
+    k = 2 * (thread % 4)[:, None] + torch.tensor([0, 1, 0, 1, 8, 9, 8, 9])
+    per = cols // cluster
+    rank = torch.arange(cluster).view(-1, 1, 1, 1, 1)
+    tile = torch.arange(per // 16).view(1, -1, 1, 1, 1)
+    step = torch.arange(depth // 16).view(1, 1, -1, 1, 1)
+    return (step * 16 + k) * cols + rank * per + tile * 16 + m
+
+
+def _check_packable(wh, wo, cluster):
+    dim, q = wo.shape
+    if tuple(wh.shape) != (dim, dim):
+        raise ValueError(f"wh {tuple(wh.shape)} does not match wo "
+                         f"{tuple(wo.shape)}")
+    if cluster < 1 or dim % (16 * cluster) or q % (16 * cluster):
+        raise ValueError(f"a cluster of {cluster} cannot split dim {dim} "
+                         f"and q {q} in tiles of 16 columns")
+    return dim, q
+
+
+def pack_window_weights(wh, wo, cluster: int):
+    """wh (dim, dim) and wo (dim, q) -> (cluster, (dim + q) / cluster * dim)
+    in the order the resident kernel reads: row r is what CTA r of a
+    cluster keeps in its shared memory, its dim / cluster columns of W_h
+    and then its q / cluster columns of W_o, each as [16-column tile]
+    [16-deep step][thread][8 values] (`_fragment_index`), so that one bulk
+    copy brings the slice in and a thread's operand is one 16-byte load."""
+    dim, q = _check_packable(wh, wo, cluster)
+    dev = wh.device
+    parts = [w.contiguous().reshape(-1)[
+        _fragment_index(dim, n, cluster).to(dev)].reshape(cluster, -1)
+        for w, n in ((wh, dim), (wo, q))]
+    return torch.cat(parts, dim=1)
+
+
+def unpack_window_weights(packed, dim: int, q: int, cluster: int):
+    """The inverse of `pack_window_weights`: -> (wh (dim, dim), wo (dim,
+    q))."""
+    if tuple(packed.shape) != (cluster, (dim + q) // cluster * dim):
+        raise ValueError(f"packed weights have shape {tuple(packed.shape)}")
+    split = dim // cluster * dim
+    out = []
+    for part, n in ((packed[:, :split], dim), (packed[:, split:], q)):
+        w = torch.empty(dim * n, dtype=packed.dtype, device=packed.device)
+        w[_fragment_index(dim, n, cluster).reshape(-1).to(packed.device)] = \
+            part.reshape(-1)
+        out.append(w.reshape(dim, n))
+    return tuple(out)
+
+
+# --------------------------------------------------------------------------
+# which kernel a window takes
+# --------------------------------------------------------------------------
+
+class WindowPlan(NamedTuple):
+    path: str               # "resident" or "tiled"
+    cluster: int            # CTAs per cluster (tiled: 1)
+    clusters: int           # clusters (tiled: CTAs)
+    lanes_per_cluster: int  # the most lanes one cluster walks through
+    subtile: int            # lanes in flight at once in a cluster
+    smem_bytes: int         # dynamic shared memory of a CTA
+
+
+def _depth_split(mtiles: int, ksteps: int) -> int:
+    """Over how many warps the resident kernel splits a product's depth."""
+    s = 1
+    while mtiles * s * 2 <= RESIDENT_WARPS and ksteps % (s * 2) == 0:
+        s *= 2
+    return s
+
+
+def resident_smem_bytes(fs0: int, q: int, dim: int, cluster: int) -> int:
+    """Shared memory of one CTA of the resident kernel: its slice of both
+    weights, 8 lanes' x and h rows (bf16, padded), their logits (f32), the
+    partial sums of the larger product, the window and the new samples,
+    the weights' mbarrier."""
+    mh, mo, ksteps = dim // cluster, q // cluster, dim // 16
+    weights = (mh + mo) * dim * 2
+    acts = 2 * SUBTILE * (dim + _ACT_PAD) * 2 + SUBTILE * q * 4
+    red = 4 * SUBTILE * max(
+        _depth_split(mh // 16, ksteps) * (mh + _RED_PAD),
+        _depth_split(mo // 16, ksteps) * (mo + _RED_PAD))
+    seq = SUBTILE * 2 * fs0 * 4
+    return -(-(weights + acts + red + seq) // 16) * 16 + 16
+
+
+def tiled_smem_bytes(tile: int, fs0: int, q: int, dim: int) -> int:
+    """Shared memory of one CTA of the tiled kernel: x, h, logits and the
+    partial sums of `tile` lanes (f32), their windows."""
+    def groups(n):
+        chunks = n // _TILED_VEC
+        return 1 if chunks >= _TILED_THREADS else _TILED_THREADS // chunks
+    red = max(groups(dim) * tile * dim, groups(q) * tile * q)
+    return (2 * tile * dim + tile * q + red) * 4 + (tile * fs0 + tile) * 4
+
+
+def resident_cluster(fs0: int, q: int, dim: int, smem_bytes: int) -> int:
+    """The smallest cluster whose CTAs can hold W_h and W_o (dim x dim,
+    dim x q, bf16) between them in whole 16-column tiles; 0: none. Small,
+    because what the CTAs exchange grows with their number."""
+    if fs0 < 1 or dim < 16 or dim % 16:
+        return 0
+    for c in CLUSTER_SIZES:
+        if (dim % (16 * c) == 0 and q % (16 * c) == 0
+                and resident_smem_bytes(fs0, q, dim, c) <= smem_bytes):
+            return c
+    return 0
+
+
+def _tile_for(batch: int, sms: int) -> int:
+    for tile in TILES:
+        if -(-batch // tile) <= 4 * sms:
+            return tile
+    return TILES[-1]
+
+
+def window_plan(B, fs0, q, dim, dtype, max_clusters, smem_bytes,
+                sms=132) -> WindowPlan:
+    """Choose the kernel and its launch for a window of B lanes, on a
+    device whose CTAs may use `smem_bytes` of shared memory, which has
+    `sms` SMs and holds `max_clusters` clusters of the resident kernel at
+    once (of the size `resident_cluster` names; on a card: the occupancy
+    API's answer). The resident kernel needs bf16 weights, a cluster that
+    holds them and at least one such cluster granted; its clusters share
+    the lanes evenly and walk through them 8 at a time. Everything else
+    takes the tiled kernel: the smallest tile that keeps the CTAs within
+    four per SM. Raises for what neither takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"weights must be float32 or bfloat16, got {dtype}")
+    if B < 1 or fs0 < 1:
+        raise ValueError(f"empty window: B={B}, fs0={fs0}")
+    if dim % 8 or q % 8:
+        raise ValueError(f"dim ({dim}) and q ({q}) must be multiples of 8")
+    cluster = (resident_cluster(fs0, q, dim, smem_bytes)
+               if dtype == torch.bfloat16 and max_clusters >= 1 else 0)
+    if cluster:
+        clusters = min(max_clusters, -(-B // SUBTILE))
+        return WindowPlan("resident", cluster, clusters, -(-B // clusters),
+                          SUBTILE, resident_smem_bytes(fs0, q, dim, cluster))
+    want = _tile_for(B, sms)
+    for tile in reversed([t for t in TILES if t <= want]):
+        need = tiled_smem_bytes(tile, fs0, q, dim)
+        if need <= smem_bytes:
+            return WindowPlan("tiled", 1, -(-B // tile), tile, tile, need)
+    raise ValueError(f"a window at dim {dim}, q {q} needs "
+                     f"{tiled_smem_bytes(1, fs0, q, dim)} B of shared "
+                     f"memory; the device allows {smem_bytes}")
+
+
+def plan_lanes(plan: WindowPlan, B: int):
+    """[(first lane, lanes)] of each cluster (tiled: each CTA), as the
+    kernels compute it: contiguous shares that differ by at most one."""
+    if plan.path == "tiled":
+        return [(c * plan.subtile, min(plan.subtile, B - c * plan.subtile))
+                for c in range(plan.clusters)]
+    base, rem = divmod(B, plan.clusters)
+    return [(c * base + min(c, rem), base + (c < rem))
+            for c in range(plan.clusters)]
+
+
+_limits = {}   # (device index, fs0, q, dim) -> (max clusters, smem, SMs)
+
+
+def device_limits(device, fs0, q, dim):
+    """(clusters of the resident kernel that a CUDA device holds at once at
+    these shapes, most dynamic shared memory of a CTA, SMs): window_plan's
+    last three arguments. 0 clusters where no cluster holds the weights."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    key = (index, fs0, q, dim)
+    if key not in _limits:
+        lib = build()
+        smem, sms = ctypes.c_int(), ctypes.c_int()
+        held = 0
+        with torch.cuda.device(index):
+            _raise_on(lib, lib.sample_window_device(ctypes.byref(smem),
+                                                    ctypes.byref(sms)),
+                      "device query")
+            cluster = resident_cluster(fs0, q, dim, smem.value)
+            if cluster:
+                if (lib.sample_window_resident_smem(fs0, q, dim, cluster)
+                        != resident_smem_bytes(fs0, q, dim, cluster)):
+                    raise RuntimeError("the kernel's shared-memory plan "
+                                       "differs from resident_smem_bytes")
+                held = lib.sample_window_max_clusters(fs0, q, dim, cluster)
+                _raise_on(lib, max(-held, 0), "occupancy query")
+        _limits[key] = (held, smem.value, sms.value)
+    return _limits[key]
+
+
 def default_tile(batch: int, device) -> int:
-    """Smallest tile that keeps the CTA count within four per SM.
+    """The tiled kernel's tile: the smallest that keeps the CTA count
+    within four per SM.
 
     A CTA is bound by how many weight loads it keeps in flight, not by its
     arithmetic, so more CTAs beat wider tiles until the SMs are several
     deep: on an H100 at dim 1024 one lane per CTA is fastest up to B = 128
     and two lanes per CTA at B = 1024 (chip_smoke.py's tile sweep)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    for tile in TILES:
-        if -(-batch // tile) <= 4 * sms:
-            return tile
-    return TILES[-1]
+    return _tile_for(
+        batch, torch.cuda.get_device_properties(device).multi_processor_count)
+
+
+def resident_weights(wh, wo, fs0: int):
+    """What a sampler makes once and hands to every `sample_window` call as
+    `packed=`: the packed weights where windows of these weights take the
+    resident kernel, else None (CPU tensors, float32, widths no cluster
+    holds)."""
+    if wh.device.type != "cuda" or wh.dtype not in _DTYPES:
+        return None
+    dim, q = wo.shape
+    plan = window_plan(1, fs0, q, dim, wh.dtype,
+                       *device_limits(wh.device, fs0, q, dim))
+    if plan.path != "resident":
+        return None
+    return pack_window_weights(wh, wo, plan.cluster)
+
+
+# --------------------------------------------------------------------------
+# the wrapper
+# --------------------------------------------------------------------------
+
+def _raise_on(lib, err, what):
+    if err != 0:
+        raise RuntimeError(f"sample_window {what} failed: "
+                           + lib.sample_window_error_string(err).decode())
 
 
 def _check(table, wh, bh, wo, bo, slots, buf, noise, seed):
@@ -193,17 +456,54 @@ def _check(table, wh, bh, wo, bo, slots, buf, noise, seed):
                if t is not None]
     if any(t.device != table.device for t in tensors):
         raise ValueError("all inputs must be on one device")
-    return tensors, batch, fs0, q, dim
+    return batch, fs0, q, dim
+
+
+def _check_cuda(table, wh, bh, wo, bo, slots, buf, noise, seed, packed):
+    for t in (table, wh, bh, wo, bo, noise, seed, packed):
+        if t is not None and not t.is_contiguous():
+            raise ValueError("inputs other than buf and slots must be "
+                             "contiguous")
+    if buf.stride(1) != 1 or slots.stride(2) != 1:
+        raise ValueError("the rows of buf and slots must be contiguous")
+    if slots.stride(0) % 8 or slots.stride(1) % 8:
+        raise ValueError("the strides of slots must be multiples of 8")
+    for t in (table, wh, wo, bh, bo, slots, packed):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("weights, biases and slots must be 16-byte "
+                             "aligned")
+
+
+def _plan_on(device, batch, fs0, q, dim, dtype, path):
+    limits = device_limits(device, fs0, q, dim)
+    plan = window_plan(batch, fs0, q, dim, dtype, *limits)
+    if path is None or path == plan.path:
+        return plan
+    if path == "tiled":
+        return window_plan(batch, fs0, q, dim, dtype, 0, *limits[1:])
+    raise ValueError(f"a window at dim {dim}, q {q} in {dtype} cannot take "
+                     f"the {path!r} kernel")
 
 
 def sample_window(table, wh, bh, wo, bo, slots, buf, *, noise=None,
-                  seed=None, tile=None):
+                  seed=None, tile=None, path=None, packed=None,
+                  clusters=None):
     """fs0 samples per lane -> (B, fs0) int32 (layouts in the module
     docstring), with Gumbel `noise` given or drawn from Philox keyed on
     `seed`. CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
-    tensors, batch, fs0, q, dim = _check(table, wh, bh, wo, bo, slots, buf,
-                                         noise, seed)
+    kernel that `window_plan` names.
+
+    path: "tiled" asks for the tiled kernel where the resident one would
+      run (to time them side by side); "resident" raises where the plan
+      says tiled. tile: the tiled kernel's lanes per CTA (default: by
+      batch). packed: `resident_weights(wh, wo, fs0)`, made once by a
+      caller that samples many windows; without it the resident kernel's
+      weights are packed in this call. clusters: fewer clusters than the
+      plan's (the draws do not depend on it)."""
+    if path is not None and path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS}, got {path!r}")
+    batch, fs0, q, dim = _check(table, wh, bh, wo, bo, slots, buf, noise,
+                                seed)
     if table.device.type == "cpu":
         if noise is None:
             noise = philox_gumbel_noise(seed, batch, fs0, q)
@@ -211,42 +511,69 @@ def sample_window(table, wh, bh, wo, bo, slots, buf, *, noise=None,
                                        noise)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
-    if table.dtype not in _DTYPES:
-        raise TypeError(f"weights must be float32 or bfloat16, got "
-                        f"{table.dtype}")
-    if dim % 8 or q % 8:
-        raise ValueError(f"dim ({dim}) and q ({q}) must be multiples of 8")
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError("inputs must be contiguous")
-    for t in (table, wh, wo):
-        if t.data_ptr() % 16:
-            raise ValueError("weights must be 16-byte aligned")
-    lib = build()
-    tile = default_tile(batch, table.device) if tile is None else tile
-    if tile not in TILES:
-        raise ValueError(f"tile must be one of {TILES}, got {tile}")
-    smem = lib.sample_window_smem_bytes(tile, fs0, q, dim)
-    # 227 KB on Hopper where the property is missing from older builds
-    limit = getattr(torch.cuda.get_device_properties(table.device),
-                    "shared_memory_per_block_optin", 232448)
-    if smem > limit:
-        raise ValueError(f"tile {tile} at dim {dim} needs {smem} B of shared "
-                         f"memory; the card allows {limit}")
-    out = torch.empty((batch, fs0), dtype=torch.int32, device=table.device)
+    dev = table.device
+    out = torch.empty((batch, fs0), dtype=torch.int32, device=dev)
     if batch == 0:
         return out
-    stream = torch.cuda.current_stream(table.device).cuda_stream
+    plan = _plan_on(dev, batch, fs0, q, dim, table.dtype, path)
+    _check_cuda(table, wh, bh, wo, bo, slots, buf, noise, seed, packed)
+    lib = build()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = lib.sample_window_launch(
-        _DTYPES[table.dtype], tile, ptr(table), ptr(wh), ptr(bh), ptr(wo),
-        ptr(bo), ptr(slots), ptr(buf), ptr(noise), ptr(seed), ptr(out),
-        batch, fs0, q, dim, stream)
-    if err != 0:
-        raise RuntimeError("sample_window launch failed: "
-                           + lib.sample_window_error_string(err).decode())
+    strides = (buf.stride(0), slots.stride(0), slots.stride(1))
+    if plan.path == "resident":
+        if tile is not None:
+            raise ValueError("tile= belongs to the tiled kernel")
+        if clusters is not None and not 1 <= clusters <= plan.clusters:
+            raise ValueError(f"clusters must be in 1..{plan.clusters}, got "
+                             f"{clusters}")
+        if packed is None:
+            packed = pack_window_weights(wh, wo, plan.cluster)
+        elif (packed.dtype != table.dtype or packed.device != dev
+              or tuple(packed.shape) != (plan.cluster,
+                                         (dim + q) // plan.cluster * dim)):
+            raise ValueError("packed does not hold these weights for a "
+                             f"cluster of {plan.cluster}")
+        err = lib.sample_window_resident_launch(
+            ptr(table), ptr(packed), ptr(bh), ptr(bo), ptr(slots), ptr(buf),
+            ptr(noise), ptr(seed), ptr(out), batch, fs0, q, dim, *strides,
+            plan.cluster, clusters or plan.clusters, stream)
+    else:
+        if clusters is not None:
+            raise ValueError("clusters= belongs to the resident kernel")
+        if tile is None:
+            tile = plan.subtile
+        elif tile not in TILES:
+            raise ValueError(f"tile must be one of {TILES}, got {tile}")
+        smem = lib.sample_window_smem_bytes(tile, fs0, q, dim)
+        limit = device_limits(dev, fs0, q, dim)[1]
+        if smem > limit:
+            raise ValueError(f"tile {tile} at dim {dim} needs {smem} B of "
+                             f"shared memory; the card allows {limit}")
+        err = lib.sample_window_launch(
+            _DTYPES[table.dtype], tile, ptr(table), ptr(wh), ptr(bh),
+            ptr(wo), ptr(bo), ptr(slots), ptr(buf), ptr(noise), ptr(seed),
+            ptr(out), batch, fs0, q, dim, *strides, stream)
+    _raise_on(lib, err, f"{plan.path} launch")
     sample_window.launches += 1
+    setattr(sample_window, plan.path, getattr(sample_window, plan.path) + 1)
     return out
 
 
 sample_window.launches = 0
+sample_window.resident = 0
+sample_window.tiled = 0
+
+
+def empty_window(batch, fs0, q, dim, device):
+    """Launch the resident kernel's grid for a window of `batch` lanes
+    through its cluster barriers (three per sample and sub-tile) and no
+    other work: the cost of a window's step-to-step dependence alone, for
+    timing beside the real kernel. Returns the plan."""
+    plan = _plan_on(device, batch, fs0, q, dim, torch.bfloat16, "resident")
+    lib = build()
+    err = lib.sample_window_empty_launch(
+        batch, fs0, q, dim, plan.cluster, plan.clusters,
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(lib, err, "empty window launch")
+    return plan

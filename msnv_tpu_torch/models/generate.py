@@ -19,8 +19,9 @@ Randomness comes from an explicit `torch.Generator` on the params' device
 Temperature 0 is greedy argmax and draws nothing.
 
 With `use_kernel=True` the bottom tier's fs0 samples per slot window run in
-the CUDA sample-window kernel (msnv_tpu_torch/kernels/sample_window.py)
-with its Philox draw keyed on a seed drawn from the generator. On CPU
+the CUDA sample-window kernel (msnv_tpu_torch/kernels/sample_window.py:
+bf16 weights resident in a cluster's shared memory, float32 through the
+tiled kernel) with its Philox draw keyed on a seed drawn from the generator. On CPU
 tensors the same call runs the kernel's plain version on the same Philox
 noise (the counterpart of the JAX interpret mode).
 
@@ -37,7 +38,9 @@ import math
 import torch
 
 from msnv_tpu_torch.config import ModelConfig
-from msnv_tpu_torch.kernels.sample_window import gumbel_noise, sample_window
+from msnv_tpu_torch.kernels.sample_window import (gumbel_noise,
+                                                  resident_weights,
+                                                  sample_window)
 from msnv_tpu_torch.models.conditioner import conditioner_apply
 from msnv_tpu_torch.models.samplernn import (dequantize, fused_embed_conv,
                                              rnn_cell)
@@ -128,14 +131,20 @@ def _kernel_window_sampler(params, cfg: ModelConfig, fused_table,
         bo = bo * (1.0 / temperature)
     wo = wo.to(table.dtype).contiguous()
     bo = bo.contiguous()
+    # once per sampler: the weights in the order the resident kernel keeps
+    # them in shared memory (None where windows take the tiled kernel or
+    # the plain version)
+    packed = resident_weights(wh, wo, fs0)
 
     def run(buf, generator, slots):
         # the seed stays on the device: no host sync per window
         seed = torch.randint(0, 2 ** 62, (1,), generator=generator,
                              device=table.device, dtype=torch.int64)
-        samples = sample_window(table, wh, bh, wo, bo,
-                                slots.to(table.dtype).contiguous(),
-                                buf[:, -fs0:].contiguous(), seed=seed)
+        if slots.dtype != table.dtype:
+            slots = slots.to(table.dtype)
+        # the window is read in place: the last fs0 columns of buf
+        samples = sample_window(table, wh, bh, wo, bo, slots,
+                                buf[:, -fs0:], seed=seed, packed=packed)
         return torch.cat([buf[:, fs0:], samples], dim=1), samples
 
     return run
