@@ -389,16 +389,20 @@ cudaError_t launch_tile(int tile, const void* table, const void* wh,
 using bf16 = __nv_bfloat16;
 
 constexpr int kLanes = 8;            // lanes per sub-tile: the mma's n
-constexpr int kResWarps = 16;
-constexpr int kResThreads = kResWarps * 32;
+constexpr int kResWarps = 16;        // warps that multiply, reduce and draw
+constexpr int kComputeThreads = kResWarps * 32;
+constexpr int kGatherThreads = 128;  // warps that fetch table rows
+constexpr int kResThreads = kComputeThreads + kGatherThreads;
+constexpr int kMaxOwnH = 64;         // columns of W_h a CTA may own: four
+                                     // a gather thread, 8 lanes
+constexpr int kMaxOwnO = 256;        // columns of W_o: a tile a warp
 constexpr int kActPad = 8;           // bf16 per activation row: rows of a
                                      // B fragment's 8 lanes fall in 8 banks
 constexpr int kRedPad = 4;           // floats per row of partial sums
-constexpr int kFragBytes = 512;      // one 16 x 16 bf16 A tile, as 32 lanes
-                                     // x 16 bytes in register order
 constexpr uint32_t kBulkBytes = 32768;    // of one bulk copy
 constexpr unsigned kSpinLimit = 1u << 24;  // polls before a trap
 constexpr int kMaxCluster = 16;
+constexpr int kGatherRows = 10;      // table rows a thread fetches at once
 
 // over how many warps the depth of a product with `mtiles` 16-column tiles
 // and `ksteps` 16-deep steps is split
@@ -408,18 +412,24 @@ __host__ __device__ inline int depth_split(int mtiles, int ksteps) {
   return s;
 }
 
+// the mbarriers of a CTA: the weights' arrival, then one for each of the
+// three rows of activations that the cluster's CTAs write into each other
+enum Bar { kBarWeights = 0, kBarX, kBarH, kBarLogits, kBars };
+// the named barriers of a CTA: 0 is __syncthreads
+enum Named { kNamedDrawn = 1, kNamedCompute = 2, kNamedGather = 3 };
+
 // Shared memory of one CTA of a cluster of C (byte offsets): its slice of
 // the packed weights (W_h's tiles, then W_o's), the sub-tile's x and h rows
-// (bf16, all of dim, padded), its logits (f32, all of q), the partial sums
-// of a product over the depth split, the sub-tile's samples (the window,
-// then the fs0 new ones), the mbarrier of the weights' arrival.
+// (bf16, all of dim, padded), its logits and its Gumbel noise (f32, all of
+// q), the partial sums of a product over the depth split, the sub-tile's
+// samples (the window, then the fs0 new ones), the mbarriers.
 struct ResidentLayout {
   int mh, mo;              // columns of W_h and of W_o that this CTA owns
   int ksteps;              // dim / 16
   int split_h, split_o;    // depth splits of the two products
   int act_ld;              // elements per row of x and h
-  uint32_t w_bytes, wo_off, x_off, h_off, logits_off, red_off, seq_off,
-      bar_off, total;
+  uint32_t w_bytes, wo_off, x_off, h_off, logits_off, noise_off, red_off,
+      seq_off, bar_off, total;
   __host__ __device__ ResidentLayout(int fs0, int q, int dim, int C) {
     mh = dim / C;
     mo = q / C;
@@ -432,21 +442,23 @@ struct ResidentLayout {
     x_off = w_bytes;
     h_off = x_off + kLanes * act_ld * sizeof(bf16);
     logits_off = h_off + kLanes * act_ld * sizeof(bf16);
-    red_off = logits_off + kLanes * q * sizeof(float);
+    noise_off = logits_off + kLanes * q * sizeof(float);
+    red_off = noise_off + kLanes * q * sizeof(float);
     const int red_h = split_h * kLanes * (mh + kRedPad);
     const int red_o = split_o * kLanes * (mo + kRedPad);
     seq_off = red_off + (red_h > red_o ? red_h : red_o) * sizeof(float);
     bar_off = (seq_off + kLanes * 2 * fs0 * sizeof(int) + 15) / 16 * 16;
-    total = bar_off + 16;
+    total = bar_off + 8 * kBars;
   }
 };
 
-// the largest power of two of CTAs that can split both weights in whole
-// 16-column tiles, and whether such a cluster exists at all
+// whether a cluster of C CTAs can split both weights in whole 16-column
+// tiles, few enough of them for a CTA's threads
 __host__ bool resident_shape_ok(int fs0, int q, int dim, int C) {
   if (fs0 < 1 || q < 16 || dim < 16 || dim % 16 != 0) return false;
   if (C < 1 || C > kMaxCluster || (C & (C - 1)) != 0) return false;
-  return dim % (16 * C) == 0 && q % (16 * C) == 0;
+  return dim % (16 * C) == 0 && q % (16 * C) == 0 && dim / C <= kMaxOwnH &&
+         q / C <= kMaxOwnO;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -465,11 +477,21 @@ __device__ __forceinline__ unsigned cluster_size() {
   return r;
 }
 
-// all threads of all CTAs of the cluster; writes before it (also those
-// into other CTAs' shared memory) are visible to the cluster after it
+// all threads of all CTAs of the cluster (about 0.8 us in a cluster of 16
+// on an H100: used at the start and at the end of a launch only)
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// a barrier of `threads` threads of this CTA: all of them wait ...
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ... or some only announce that they have come
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // the address of this CTA's shared-memory address `addr` in the cluster's
@@ -482,24 +504,54 @@ __device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, unsigned rank) {
   return remote;
 }
 
-__device__ __forceinline__ void st_cluster(uint32_t remote, uint2 v) {
-  asm volatile("st.shared::cluster.v2.b32 [%0], {%1, %2};\n" ::"r"(remote),
-               "r"(v.x), "r"(v.y)
-               : "memory");
+// An asynchronous store into another CTA's shared memory that reports its
+// bytes to an mbarrier of that CTA: the reader waits for the bytes it
+// expects, and the data is visible to it when the wait ends.
+__device__ __forceinline__ void st_async(uint32_t remote, uint2 v,
+                                         uint32_t remote_bar) {
+  asm volatile(
+      "st.async.weak.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 "
+      "[%0], {%1, %2}, [%3];\n" ::"r"(remote),
+      "r"(v.x), "r"(v.y), "r"(remote_bar)
+      : "memory");
 }
 
-__device__ __forceinline__ void st_cluster(uint32_t remote, float4 v) {
-  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                   remote),
-               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
-               : "memory");
+__device__ __forceinline__ void st_async(uint32_t remote, float4 v,
+                                         uint32_t remote_bar) {
+  asm volatile(
+      "st.async.weak.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+      "[%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(remote),
+      "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
+      "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(remote_bar)
+      : "memory");
 }
 
-// v into every CTA of the cluster, at this CTA's address `addr`
+// How a row of values goes to every CTA of the cluster: each of `tasks`
+// values (four columns of a lane) is held by `groups` threads, each of
+// which sends it to its own C / groups of the CTAs, so that no thread has
+// many stores to issue one after the other.
+struct Spread {
+  bool active;
+  int task;
+  unsigned first, count;     // the CTAs this thread writes to
+  __device__ Spread(int thread, int threads, int tasks, unsigned C) {
+    unsigned groups = 1;
+    while (tasks * groups * 2 <= (unsigned)threads && groups * 2 <= C)
+      groups *= 2;
+    active = thread < tasks * (int)groups;
+    task = thread % tasks;
+    count = C / groups;
+    first = thread / tasks * count;
+  }
+};
+
+// v into this thread's CTAs of the cluster, at this CTA's address `addr`,
+// reported to each CTA's mbarrier at this CTA's address `bar`
 template <class V>
-__device__ __forceinline__ void push_to_cluster(uint32_t addr, unsigned C,
-                                                V v) {
-  for (unsigned r = 0; r < C; ++r) st_cluster(map_to_rank(addr, r), v);
+__device__ __forceinline__ void push(const Spread& to, uint32_t addr,
+                                     uint32_t bar, V v) {
+  for (unsigned r = to.first; r < to.first + to.count; ++r)
+    st_async(map_to_rank(addr, r), v, map_to_rank(bar, r));
 }
 
 __device__ __forceinline__ uint2 pack_bf16x4(const float (&v)[4]) {
@@ -520,6 +572,20 @@ __device__ __forceinline__ void add_bf16x4(float (&acc)[4], uint2 v) {
   acc[3] += hi.y;
 }
 
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
 // c (16 x 8, f32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, its
 // columns contiguous): the warp-level tensor-core product
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint4& a,
@@ -531,33 +597,42 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint4& a,
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
-// wait until the weights' mbarrier has completed its first phase; bounded
-__device__ __forceinline__ void wait_for_weights(uint32_t bar) {
+// One thread, once per phase: this CTA expects `bytes` on its mbarrier
+// `bar` in the phase that has begun, and is its one arrival.
+__device__ __forceinline__ void expect_bytes(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __noinline__ void never_arrived(const char* what) {
+  printf("sample_window: %s never arrived (CTA %d)\n", what, blockIdx.x);
+  __trap();
+}
+
+// wait until the mbarrier's phase of the given parity has completed: all
+// the bytes it expected are there, and visible. Bounded: traps.
+__device__ __forceinline__ void wait_for_bytes(uint32_t bar, uint32_t parity,
+                                               const char* what) {
   uint32_t done = 0;
   for (unsigned spins = 0; !done; ++spins) {
     asm volatile(
         "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
-        : "r"(bar), "r"(0u)
+        : "r"(bar), "r"(parity)
         : "memory");
-    if (spins > kSpinLimit) {
-      printf("sample_window: the weights never arrived (CTA %d)\n",
-             blockIdx.x);
-      __trap();
-    }
+    if (spins > kSpinLimit) never_arrived(what);
   }
 }
 
 // Thread 0: ask the TMA for this CTA's `bytes` of packed weights at `src`,
-// in bulk copies that report to the mbarrier at `bar` (one arrival, the
-// bytes of all copies expected).
+// in bulk copies that report to the mbarrier at `bar`.
 __device__ __forceinline__ void request_weights(uint32_t dst, const void* src,
                                                 uint32_t bytes, uint32_t bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes)
-               : "memory");
+  expect_bytes(bar, bytes);
   for (uint32_t at = 0; at < bytes; at += kBulkBytes) {
     const uint32_t n = bytes - at < kBulkBytes ? bytes - at : kBulkBytes;
     asm volatile(
@@ -568,61 +643,100 @@ __device__ __forceinline__ void request_weights(uint32_t dst, const void* src,
   }
 }
 
-// red[s][n][m] (rows of ld floats) = the partial sum over the s-th part of
-// the depth of  sum_k act[n][k] * w[k][column m of this CTA],  n < 8 lanes,
-// m < 16 * mtiles. `frags` holds the CTA's columns as [tile][k-step] blocks
-// of 512 bytes in the mma's register order; `act` the lanes' rows. A warp
-// takes one (tile, part of the depth) at a time and keeps two chains of
-// dependent products going.
-__device__ __forceinline__ void resident_product(const unsigned char* frags,
-                                                 int mtiles, int ksteps,
-                                                 int split, const bf16* act,
-                                                 int act_ld, float* red,
-                                                 int ld) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int ksub = ksteps / split;
-  for (int task = warp; task < mtiles * split; task += kResWarps) {
-    const int mt = task % mtiles, s = task / mtiles;
-    const uint4* a = reinterpret_cast<const uint4*>(frags) +
-                     ((size_t)mt * ksteps + s * ksub) * 32 + lane;
-    const bf16* b = act + g * act_ld + s * ksub * 16 + tig * 2;
+// One warp's share of a product: a 16-column tile of this CTA's columns
+// times a part of the depth, for the sub-tile's 8 lanes.
+//   red[part][n][m] = sum over the part's k of act[n][k] * w[k][column m]
+// The tile's operand lies at `a` as 512-byte blocks, one per 16-deep step,
+// in the mma's register order (a thread's 16 bytes at + 16 * thread); the
+// lanes' rows at `b`. Four steps' operands are fetched before their
+// products start; two chains of dependent products.
+struct ProductTask {
+  bool active;
+  uint32_t a, b;     // shared-memory addresses of this thread's operands
+  float* out;        // where its four sums go
+  int ksub, ld;
+  __device__ ProductTask(uint32_t frags, int mtiles, int ksteps, int split,
+                         uint32_t act, int act_ld, float* red, int ld_) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, tig = lane & 3;
+    active = warp < mtiles * split;
+    const int mt = warp % mtiles, s = warp / mtiles;
+    ksub = ksteps / split;
+    ld = ld_;
+    a = frags + ((mt * ksteps + s * ksub) * 32 + lane) * 16;
+    b = act + (g * act_ld + s * ksub * 16 + tig * 2) * (int)sizeof(bf16);
+    // the thread holds columns mt * 16 + g (+ 8) of lanes 2 tig (+ 1)
+    out = red + ((size_t)s * kLanes + 2 * tig) * ld + mt * 16 + g;
+  }
+  __device__ __forceinline__ void run() const {
+    if (!active) return;
     float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
     int kk = 0;
-#pragma unroll 2
-    for (; kk + 1 < ksub; kk += 2) {
-      mma_bf16(c0, a[kk * 32],
-               *reinterpret_cast<const uint32_t*>(b + kk * 16),
-               *reinterpret_cast<const uint32_t*>(b + kk * 16 + 8));
-      mma_bf16(c1, a[(kk + 1) * 32],
-               *reinterpret_cast<const uint32_t*>(b + (kk + 1) * 16),
-               *reinterpret_cast<const uint32_t*>(b + (kk + 1) * 16 + 8));
+    for (; kk + 4 <= ksub; kk += 4) {
+      uint4 av[4];
+      uint32_t b0[4], b1[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        av[j] = lds128(a + (kk + j) * 512);
+        b0[j] = lds32(b + (kk + j) * 32);
+        b1[j] = lds32(b + (kk + j) * 32 + 16);
+      }
+      mma_bf16(c0, av[0], b0[0], b1[0]);
+      mma_bf16(c1, av[1], b0[1], b1[1]);
+      mma_bf16(c0, av[2], b0[2], b1[2]);
+      mma_bf16(c1, av[3], b0[3], b1[3]);
     }
-    if (kk < ksub)
-      mma_bf16(c0, a[kk * 32],
-               *reinterpret_cast<const uint32_t*>(b + kk * 16),
-               *reinterpret_cast<const uint32_t*>(b + kk * 16 + 8));
-    // the thread holds columns mt * 16 + g (+ 8) of lanes 2 tig (+ 1)
-    float* const o = red + ((size_t)s * kLanes + 2 * tig) * ld + mt * 16 + g;
-    o[0] = c0[0] + c1[0];
-    o[ld] = c0[1] + c1[1];
-    o[8] = c0[2] + c1[2];
-    o[ld + 8] = c0[3] + c1[3];
+    for (; kk < ksub; ++kk)
+      mma_bf16(c0, lds128(a + kk * 512), lds32(b + kk * 32),
+               lds32(b + kk * 32 + 16));
+    out[0] = c0[0] + c1[0];
+    out[ld] = c0[1] + c1[1];
+    out[8] = c0[2] + c1[2];
+    out[ld + 8] = c0[3] + c1[3];
   }
-}
+};
 
 // bias + the partial sums of four neighbouring columns of one lane, added
 // in the order of the depth's parts
 __device__ __forceinline__ void reduce4(const float* red, int split, int ld,
-                                        int n, int m, const float* bias,
-                                        float (&v)[4]) {
-  const float4 b = *reinterpret_cast<const float4*>(bias);
-  v[0] = b.x, v[1] = b.y, v[2] = b.z, v[3] = b.w;
+                                        const float4& bias, float (&v)[4]) {
+  v[0] = bias.x, v[1] = bias.y, v[2] = bias.z, v[3] = bias.w;
   for (int s = 0; s < split; ++s) {
-    const float4 p = *reinterpret_cast<const float4*>(
-        red + ((size_t)s * kLanes + n) * ld + m);
+    const float4 p =
+        *reinterpret_cast<const float4*>(red + (size_t)s * kLanes * ld);
     v[0] += p.x, v[1] += p.y, v[2] += p.z, v[3] += p.w;
   }
+}
+
+__device__ __forceinline__ uint2 table_row(const bf16* __restrict__ table,
+                                           int p, int sample, int q, int dim,
+                                           int col) {
+  return __ldg(reinterpret_cast<const uint2*>(
+      table + ((size_t)p * q + sample) * dim + col));
+}
+
+// acc += rows 0 .. last - 1 of the fused table for the window w, in
+// position order, up to kGatherRows loads under way at once
+__device__ __forceinline__ void add_table_rows(float (&acc)[4],
+                                               const bf16* __restrict__ table,
+                                               const int* w, int last, int q,
+                                               int dim, int col) {
+  for (int p0 = 0; p0 < last; p0 += kGatherRows) {
+    uint2 rows[kGatherRows];
+#pragma unroll
+    for (int j = 0; j < kGatherRows; ++j)
+      if (p0 + j < last)
+        rows[j] = table_row(table, p0 + j, w[p0 + j], q, dim, col);
+#pragma unroll
+    for (int j = 0; j < kGatherRows; ++j)
+      if (p0 + j < last) add_bf16x4(acc, rows[j]);
+  }
+}
+
+// order-preserving map of a float's bits to an unsigned integer
+__device__ __forceinline__ uint32_t ordered(float v) {
+  const uint32_t u = __float_as_uint(v);
+  return u ^ ((u >> 31) ? 0xFFFFFFFFu : 0x80000000u);
 }
 
 // how the lanes are spread over the clusters: contiguous shares that differ
@@ -636,6 +750,20 @@ struct LaneShare {
   }
 };
 
+// A CTA has 16 warps that multiply, reduce and draw and 4 that gather. One
+// sample k of a sub-tile, in every CTA:
+//   gather warps: wait until sample k - 1 is drawn; add its table row (the
+//     window's last) and the slot row to the sum of the other rows, which
+//     they fetched a step ahead; x to all CTAs; then fetch and add the
+//     rows of the next step, off the others' path
+//   the others: this step's Gumbel noise while x is on its way; wait for
+//     all of x; product with W_h; h to all CTAs; wait for all of h; product
+//     with W_o; logits to all CTAs; wait for all logits; draw.
+// Only the live lanes of a sub-tile are sent. A buffer is never written
+// while a CTA still reads it: x of the next step is sent by CTAs that have
+// drawn, so they had everyone's logits, which a CTA sends after its
+// products; h of the next step by CTAs that have all of the next x, sent
+// after the draw; the logits likewise after the next h.
 __global__ void __launch_bounds__(kResThreads, 1)
     window_resident(const bf16* __restrict__ table,
                     const unsigned char* __restrict__ packed,
@@ -652,133 +780,240 @@ __global__ void __launch_bounds__(kResThreads, 1)
   bf16* const xs = reinterpret_cast<bf16*>(rsm + lay.x_off);
   bf16* const hs = reinterpret_cast<bf16*>(rsm + lay.h_off);
   float* const logits = reinterpret_cast<float*>(rsm + lay.logits_off);
+  float* const gum = reinterpret_cast<float*>(rsm + lay.noise_off);
   float* const red = reinterpret_cast<float*>(rsm + lay.red_off);
   int* const seq = reinterpret_cast<int*>(rsm + lay.seq_off);
-  const uint32_t bar = smem_addr(rsm + lay.bar_off);
+  const uint32_t bars = smem_addr(rsm + lay.bar_off);
+  const uint32_t bar_w = bars + 8 * kBarWeights, bar_x = bars + 8 * kBarX,
+                 bar_h = bars + 8 * kBarH, bar_l = bars + 8 * kBarLogits;
   const int tid = threadIdx.x;
   const int mh = lay.mh, mo = lay.mo;
   const int ld_h = mh + kRedPad, ld_o = mo + kRedPad;
   const LaneShare share(batch, gridDim.x / C, blockIdx.x / C);
-  const uint2 key = philox_key(noise, seed);
+  const bool gatherer = tid >= kComputeThreads;
 
+  // rows of dead lanes are multiplied too: keep them finite
+  for (uint32_t i = tid; i < (lay.logits_off - lay.x_off) / 4;
+       i += kResThreads)
+    reinterpret_cast<uint32_t*>(rsm + lay.x_off)[i] = 0u;
   if (tid == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-                 : "memory");
+    const int nl = min(kLanes, share.count);
+    for (int b = 0; b < kBars; ++b)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bars +
+                                                                    8 * b)
+                   : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     request_weights(smem_addr(rsm), packed + (size_t)rank * lay.w_bytes,
-                    lay.w_bytes, bar);
+                    lay.w_bytes, bar_w);
+    expect_bytes(bar_x, nl * dim * sizeof(bf16));
+    expect_bytes(bar_h, nl * dim * sizeof(bf16));
+    expect_bytes(bar_l, nl * q * sizeof(float));
   }
-  // every CTA of the cluster runs before any writes into another's memory
+  // every CTA of the cluster runs, its mbarriers ready, before any writes
+  // into another's memory
   cluster_sync();
-  bool weights_here = false;
 
-  for (int sub = 0; sub < share.count; sub += kLanes) {
-    const int lane0 = share.begin + sub;
-    const int nl = min(kLanes, share.count - sub);
-    // seq[l] = the lane's window, then room for its fs0 new samples
-    for (int i = tid; i < kLanes * fs0; i += kResThreads) {
-      const int l = i / fs0, p = i % fs0;
-      seq[l * 2 * fs0 + p] =
-          l < nl ? buf[(size_t)(lane0 + l) * st.buf_ld + p] : 0;
-    }
-    __syncthreads();
-
-    for (int k = 0; k < fs0; ++k) {
-      // this CTA's columns of x = relu(sum of fs0 table rows + slot row),
-      // four columns of one lane a thread, into every CTA's xs. All loads
-      // of a half of the rows are under way before the first is added.
-      for (int task = tid; task < kLanes * (mh / 4); task += kResThreads) {
-        const int l = task / (mh / 4);
-        const int col = (int)rank * mh + task % (mh / 4) * 4;
-        float x[4] = {0.f, 0.f, 0.f, 0.f};
-        if (l < nl) {
-          const int* const w = seq + l * 2 * fs0 + k;
-          constexpr int kBatch = 10;
-          for (int p0 = 0; p0 < fs0; p0 += kBatch) {
-            uint2 rows[kBatch];
+  if (gatherer) {
+    // ------------------------------------------------------------------
+    // the gather warps: this CTA's columns of x, four of a lane a thread
+    // ------------------------------------------------------------------
+    const int gt = tid - kComputeThreads;
+    for (int sub = 0; sub < share.count; sub += kLanes) {
+      const int lane0 = share.begin + sub;
+      const int nl = min(kLanes, share.count - sub);
+      const Spread to(gt, kGatherThreads, nl * (mh / 4), C);
+      const int l = to.task / (mh / 4);
+      const int col = (int)rank * mh + to.task % (mh / 4) * 4;
+      int* const window = seq + l * 2 * fs0;
+      const bf16* const slot =
+          slots + (size_t)(lane0 + l) * st.slot_ld_b + col;
+      const uint32_t dst = smem_addr(xs + l * lay.act_ld + col);
+      // the lanes' windows; the fs0 new samples follow them
+      for (int i = gt; i < nl * fs0; i += kGatherThreads)
+        seq[i / fs0 * 2 * fs0 + i % fs0] =
+            buf[(size_t)(lane0 + i / fs0) * st.buf_ld + i % fs0];
+      named_sync(kNamedGather, kGatherThreads);
+      float ahead[4] = {0.f, 0.f, 0.f, 0.f};
+      if (to.active)
+        add_table_rows(ahead, table, window, fs0 - 1, q, dim, col);
+      for (int k = 0; k < fs0; ++k) {
+        // sample k - 1 is drawn (the others only announce it)
+        if (k > 0) named_sync(kNamedDrawn, kResThreads);
+        if (!to.active) continue;
+        const uint2 last = table_row(table, fs0 - 1, window[k + fs0 - 1], q,
+                                     dim, col);
+        const uint2 srow = __ldg(reinterpret_cast<const uint2*>(
+            slot + (size_t)k * st.slot_ld_k));
+        float x[4] = {ahead[0], ahead[1], ahead[2], ahead[3]};
+        add_bf16x4(x, last);
+        add_bf16x4(x, srow);
 #pragma unroll
-            for (int j = 0; j < kBatch; ++j)
-              if (p0 + j < fs0)
-                rows[j] = __ldg(reinterpret_cast<const uint2*>(
-                    table + ((size_t)(p0 + j) * q + w[p0 + j]) * dim + col));
+        for (int e = 0; e < 4; ++e) x[e] = fmaxf(x[e], 0.f);
+        push(to, dst, bar_x, pack_bf16x4(x));
+        if (k + 1 < fs0) {
 #pragma unroll
-            for (int j = 0; j < kBatch; ++j)
-              if (p0 + j < fs0) add_bf16x4(x, rows[j]);
-          }
-          add_bf16x4(x, __ldg(reinterpret_cast<const uint2*>(
-                            slots + (size_t)(lane0 + l) * st.slot_ld_b +
-                            (size_t)k * st.slot_ld_k + col)));
-#pragma unroll
-          for (int e = 0; e < 4; ++e) x[e] = fmaxf(x[e], 0.f);
+          for (int e = 0; e < 4; ++e) ahead[e] = 0.f;
+          add_table_rows(ahead, table, window + k + 1, fs0 - 1, q, dim, col);
         }
-        push_to_cluster(smem_addr(xs + l * lay.act_ld + col), C,
-                        pack_bf16x4(x));
       }
-      cluster_sync();                                   // x is complete
-      if (!weights_here) {
-        wait_for_weights(bar);
-        weights_here = true;
-      }
-
-      // this CTA's columns of h = relu(x @ W_h + b_h), into every CTA's hs
-      resident_product(rsm, mh / 16, lay.ksteps, lay.split_h, xs,
-                       lay.act_ld, red, ld_h);
-      __syncthreads();
-      for (int task = tid; task < kLanes * (mh / 4); task += kResThreads) {
-        const int l = task / (mh / 4), m = task % (mh / 4) * 4;
-        const int col = (int)rank * mh + m;
-        float h[4];
-        reduce4(red, lay.split_h, ld_h, l, m, bh + col, h);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) h[e] = fmaxf(h[e], 0.f);
-        push_to_cluster(smem_addr(hs + l * lay.act_ld + col), C,
-                        pack_bf16x4(h));
-      }
-      cluster_sync();                                   // h is complete
-
-      // this CTA's columns of the logits, into every CTA's copy
-      resident_product(rsm + lay.wo_off, mo / 16, lay.ksteps, lay.split_o,
-                       hs, lay.act_ld, red, ld_o);
-      __syncthreads();
-      for (int task = tid; task < kLanes * (mo / 4); task += kResThreads) {
-        const int l = task / (mo / 4), m = task % (mo / 4) * 4;
-        const int col = (int)rank * mo + m;
-        float v[4];
-        reduce4(red, lay.split_o, ld_o, l, m, bo + col, v);
-        push_to_cluster(smem_addr(logits + l * q + col), C,
-                        make_float4(v[0], v[1], v[2], v[3]));
-      }
-      cluster_sync();                                   // logits complete
-
-      // every CTA draws every lane's sample: a warp per lane
-      for (int l = tid / 32; l < nl; l += kResWarps) {
-        const int s = warp_draw(logits + l * q, q, noise, key, lane0 + l, k,
-                                fs0);
-        if (tid % 32 == 0) seq[l * 2 * fs0 + fs0 + k] = s;
-      }
-      __syncthreads();
+      // the others have drawn the last sample of the sub-tile, so every
+      // CTA had this CTA's last x: the windows may be overwritten
+      named_sync(kNamedDrawn, kResThreads);
     }
+  } else {
+    // ------------------------------------------------------------------
+    // the other warps: products, reductions, the draw
+    // ------------------------------------------------------------------
+    const uint2 key = philox_key(noise, seed);
+    const ProductTask product_h(smem_addr(rsm), mh / 16, lay.ksteps,
+                                lay.split_h, smem_addr(xs), lay.act_ld, red,
+                                ld_h);
+    const ProductTask product_o(smem_addr(rsm + lay.wo_off), mo / 16,
+                                lay.ksteps, lay.split_o, smem_addr(hs),
+                                lay.act_ld, red, ld_o);
+    uint32_t parity = 0;
+    bool weights_here = false;
+    const int warp = tid >> 5, lane_id = tid & 31;
 
-    if (rank == 0)
-      for (int i = tid; i < nl * fs0; i += kResThreads)
-        out[(size_t)(lane0 + i / fs0) * fs0 + i % fs0] =
-            seq[(i / fs0) * 2 * fs0 + fs0 + i % fs0];
-    __syncthreads();       // seq is read before the next sub-tile's window
+    for (int sub = 0; sub < share.count; sub += kLanes) {
+      const int lane0 = share.begin + sub;
+      const int nl = min(kLanes, share.count - sub);
+      const int next_nl = min(kLanes, share.count - sub - kLanes);
+      const Spread to_h(tid, kComputeThreads, nl * (mh / 4), C);
+      const Spread to_o(tid, kComputeThreads, nl * (mo / 4), C);
+      const int l_h = to_h.task / (mh / 4), m_h = to_h.task % (mh / 4) * 4;
+      const int l_o = to_o.task / (mo / 4), m_o = to_o.task % (mo / 4) * 4;
+      const float* const red_h = red + l_h * ld_h + m_h;
+      const float* const red_o = red + l_o * ld_o + m_o;
+      const float4 bias_h =
+          *reinterpret_cast<const float4*>(bh + rank * mh + m_h);
+      const float4 bias_o =
+          *reinterpret_cast<const float4*>(bo + rank * mo + m_o);
+      const uint32_t dst_h =
+          smem_addr(hs + l_h * lay.act_ld + (int)rank * mh + m_h);
+      const uint32_t dst_o = smem_addr(logits + l_o * q + (int)rank * mo + m_o);
+
+      for (int k = 0; k < fs0; ++k, parity ^= 1) {
+        // the live lanes of the next phase (none after the last sample)
+        const int after = k + 1 < fs0 ? nl : next_nl;
+        // this step's Gumbel noise for every live lane, four classes a
+        // thread, while x is on its way
+        for (int i = tid; i < nl * (q / 4); i += kComputeThreads) {
+          const int l = i / (q / 4), c0 = i % (q / 4) * 4;
+          float4 g;
+          if (noise != nullptr) {
+            g = *reinterpret_cast<const float4*>(
+                noise + ((size_t)(lane0 + l) * fs0 + k) * q + c0);
+          } else {
+            const uint4 r = philox(
+                make_uint4((uint32_t)(c0 / 4), (uint32_t)k,
+                           (uint32_t)(lane0 + l), 0u),
+                key);
+            g = make_float4(gumbel(r.x), gumbel(r.y), gumbel(r.z),
+                            gumbel(r.w));
+          }
+          *reinterpret_cast<float4*>(gum + l * q + c0) = g;
+        }
+        wait_for_bytes(bar_x, parity, "x");
+        if (tid == 0 && after > 0) expect_bytes(bar_x, after * dim * sizeof(bf16));
+        if (!weights_here) {
+          wait_for_bytes(bar_w, 0, "the weights");
+          weights_here = true;
+        }
+
+        // this CTA's columns of h = relu(x @ W_h + b_h), to every CTA
+        product_h.run();
+        named_sync(kNamedCompute, kComputeThreads);
+        if (to_h.active) {
+          float h[4];
+          reduce4(red_h, lay.split_h, ld_h, bias_h, h);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) h[e] = fmaxf(h[e], 0.f);
+          push(to_h, dst_h, bar_h, pack_bf16x4(h));
+        }
+        wait_for_bytes(bar_h, parity, "h");
+        if (tid == 0 && after > 0) expect_bytes(bar_h, after * dim * sizeof(bf16));
+
+        // this CTA's columns of the logits, to every CTA
+        product_o.run();
+        named_sync(kNamedCompute, kComputeThreads);
+        if (to_o.active) {
+          float v[4];
+          reduce4(red_o, lay.split_o, ld_o, bias_o, v);
+          push(to_o, dst_o, bar_l, make_float4(v[0], v[1], v[2], v[3]));
+        }
+        wait_for_bytes(bar_l, parity, "the logits");
+        if (tid == 0 && after > 0) expect_bytes(bar_l, after * q * sizeof(float));
+
+        // every CTA draws every lane's sample: a warp per lane, argmax of
+        // logits + noise, first index on ties
+        if (warp < nl) {
+          float best = -INFINITY;
+          int best_i = 0;
+          for (int c0 = lane_id * 4; c0 < q; c0 += 128) {
+            const float4 a =
+                *reinterpret_cast<const float4*>(logits + warp * q + c0);
+            const float4 g =
+                *reinterpret_cast<const float4*>(gum + warp * q + c0);
+            const float v[4] = {a.x + g.x, a.y + g.y, a.z + g.z, a.w + g.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (v[e] > best) {
+                best = v[e];
+                best_i = c0 + e;
+              }
+          }
+          const uint32_t mine = ordered(best);
+          const uint32_t top = __reduce_max_sync(0xffffffffu, mine);
+          const uint32_t first = __reduce_min_sync(
+              0xffffffffu, mine == top ? (uint32_t)best_i : 0xFFFFFFFFu);
+          if (lane_id == 0) seq[warp * 2 * fs0 + fs0 + k] = (int)first;
+        }
+        __threadfence_block();
+        named_arrive(kNamedDrawn, kResThreads);   // the gather warps wait
+        named_sync(kNamedCompute, kComputeThreads);
+      }
+
+      if (rank == 0)
+        for (int i = tid; i < nl * fs0; i += kComputeThreads)
+          out[(size_t)(lane0 + i / fs0) * fs0 + i % fs0] =
+              seq[(i / fs0) * 2 * fs0 + fs0 + i % fs0];
+      named_sync(kNamedCompute, kComputeThreads);   // seq has been read
+    }
+    if (!weights_here) wait_for_bytes(bar_w, 0, "the weights");
   }
-  if (!weights_here) wait_for_weights(bar);   // no copy outlives its CTA
   cluster_sync();   // nobody writes into the memory of a CTA that has left
 }
 
-// The cluster barriers of a resident window over the same grid, and
-// nothing else: three per sample and sub-tile.
+// What a resident window costs before it loads, multiplies or draws: per
+// sample and sub-tile three rounds in which every CTA sends 8 bytes to
+// every CTA of its cluster and waits for everyone's, on the same grid.
 __global__ void __launch_bounds__(kResThreads, 1)
     window_empty(int batch, int fs0) {
+  __shared__ __align__(8) unsigned long long bar_mem;
+  __shared__ uint2 inbox[kMaxCluster];
   const unsigned C = cluster_size();
   const LaneShare share(batch, gridDim.x / C, blockIdx.x / C);
+  const uint32_t bar = smem_addr(&bar_mem);
+  const uint32_t bytes = 8 * C;
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    expect_bytes(bar, bytes);
+  }
   cluster_sync();
+  uint32_t parity = 0;
   for (int sub = 0; sub < share.count; sub += kLanes)
-    for (int k = 0; k < 3 * fs0; ++k) cluster_sync();
+    for (int k = 0; k < 3 * fs0; ++k, parity ^= 1) {
+      if (threadIdx.x < C)
+        st_async(map_to_rank(smem_addr(inbox + cluster_rank()), threadIdx.x),
+                 make_uint2(k, sub), map_to_rank(bar, threadIdx.x));
+      wait_for_bytes(bar, parity, "a round of the empty window");
+      if (threadIdx.x == 0) expect_bytes(bar, bytes);
+      __syncthreads();
+    }
   cluster_sync();
 }
 

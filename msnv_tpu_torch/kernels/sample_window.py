@@ -68,6 +68,9 @@ SUBTILE = 8
 RESIDENT_WARPS = 16
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 _ACT_PAD, _RED_PAD = 8, 4
+# the most columns of W_h and of W_o that one of its CTAs owns (four columns
+# of a lane a gather thread; a 16-column tile a warp)
+_MAX_OWN_H, _MAX_OWN_O = 64, 256
 # the tiled kernel: threads per CTA, columns per load
 _TILED_THREADS, _TILED_VEC = 256, 8
 
@@ -270,17 +273,17 @@ def _depth_split(mtiles: int, ksteps: int) -> int:
 
 def resident_smem_bytes(fs0: int, q: int, dim: int, cluster: int) -> int:
     """Shared memory of one CTA of the resident kernel: its slice of both
-    weights, 8 lanes' x and h rows (bf16, padded), their logits (f32), the
-    partial sums of the larger product, the window and the new samples,
-    the weights' mbarrier."""
+    weights, 8 lanes' x and h rows (bf16, padded), their logits and their
+    Gumbel noise (f32), the partial sums of the larger product, the window
+    and the new samples, four mbarriers."""
     mh, mo, ksteps = dim // cluster, q // cluster, dim // 16
     weights = (mh + mo) * dim * 2
-    acts = 2 * SUBTILE * (dim + _ACT_PAD) * 2 + SUBTILE * q * 4
+    acts = 2 * SUBTILE * (dim + _ACT_PAD) * 2 + 2 * SUBTILE * q * 4
     red = 4 * SUBTILE * max(
         _depth_split(mh // 16, ksteps) * (mh + _RED_PAD),
         _depth_split(mo // 16, ksteps) * (mo + _RED_PAD))
     seq = SUBTILE * 2 * fs0 * 4
-    return -(-(weights + acts + red + seq) // 16) * 16 + 16
+    return -(-(weights + acts + red + seq) // 16) * 16 + 4 * 8
 
 
 def tiled_smem_bytes(tile: int, fs0: int, q: int, dim: int) -> int:
@@ -295,12 +298,14 @@ def tiled_smem_bytes(tile: int, fs0: int, q: int, dim: int) -> int:
 
 def resident_cluster(fs0: int, q: int, dim: int, smem_bytes: int) -> int:
     """The smallest cluster whose CTAs can hold W_h and W_o (dim x dim,
-    dim x q, bf16) between them in whole 16-column tiles; 0: none. Small,
-    because what the CTAs exchange grows with their number."""
+    dim x q, bf16) between them in whole 16-column tiles, few enough for
+    a CTA's threads; 0: none. Small, because what the CTAs exchange grows
+    with their number."""
     if fs0 < 1 or dim < 16 or dim % 16:
         return 0
     for c in CLUSTER_SIZES:
         if (dim % (16 * c) == 0 and q % (16 * c) == 0
+                and dim // c <= _MAX_OWN_H and q // c <= _MAX_OWN_O
                 and resident_smem_bytes(fs0, q, dim, c) <= smem_bytes):
             return c
     return 0
@@ -468,10 +473,10 @@ def _check_cuda(table, wh, bh, wo, bo, slots, buf, noise, seed, packed):
         raise ValueError("the rows of buf and slots must be contiguous")
     if slots.stride(0) % 8 or slots.stride(1) % 8:
         raise ValueError("the strides of slots must be multiples of 8")
-    for t in (table, wh, wo, bh, bo, slots, packed):
+    for t in (table, wh, wo, bh, bo, slots, noise, packed):
         if t is not None and t.data_ptr() % 16:
-            raise ValueError("weights, biases and slots must be 16-byte "
-                             "aligned")
+            raise ValueError("weights, biases, slots and noise must be "
+                             "16-byte aligned")
 
 
 def _plan_on(device, batch, fs0, q, dim, dtype, path):
