@@ -4,22 +4,32 @@
     python3 chip_smoke.py                 # on a machine with an H100
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
-  1. build    — nvcc builds the sample-window kernel and the GRU-layer
+  1. build    — nvcc builds the sample-window kernels and the GRU-layer
                 kernels from csrc/ (sm_90a), one nvcc process each, together
-  2. kernel   — at the canonical shape (fs0 20, q 256, dim 1024, B 1/32/128):
-                given-noise f32 samples equal the plain version exactly
-                (TF32 off), bf16 with a sharpened W_o mismatches <= 1 %;
-                the Philox mode equals the plain version on the same Philox
-                noise (f32 exact, bf16 <= 1 %), passes a chi-square test
-                against the softmax and does not depend on the tile;
-                kernel / plain times and the bound
+  2. kernel   — the sample-window kernels against the plain version at the
+                canonical shape (fs0 20, q 256, dim 1024): float32 (the
+                tiled kernel by plan), given noise and Philox, B 1/32/128,
+                every tile: samples equal exactly (TF32 off); bf16 (the
+                resident kernel by plan: weights in a cluster's shared
+                memory), given noise and Philox, B 1/32/128/1024 and the
+                ragged 3/17/130, and at the narrow (fs0 4, dim 128): on a
+                sharpened W_o mismatch <= 1 % (the tensor cores add in
+                another order than the plain matmul, which can move a
+                near-tie), two runs bit-equal; a width no cluster holds
+                (dim 2048) takes the tiled kernel by plan; the Philox draws
+                pass a chi-square test against the softmax and are the same
+                with 1 cluster, with the most the card grants and from the
+                tiled kernel at every tile; times as medians over runs of
+                10 calls: resident / tiled kernel / empty window / plain /
+                bound
   3. generate — full-width `samplernn` from a seeded init: the model stack
                 on the card agrees with its teacher-forced predictor and with
                 greedy decoding on a small input, then generate_fn with the
-                kernel (bf16, B 128, 16 frames, T 1) — audio-seconds/second
+                kernel (bf16, B 128, 16 frames, T 1), every window through
+                the resident kernel — audio-seconds/second
   4. serve    — VocoderService + make_server on 127.0.0.1 from a JAX-format
                 .npz written here: /healthz, two /synthesize, two /stream
-                (the kernel's launch count must rise), one bad body (400)
+                (every window through the resident kernel), bad bodies (400)
   5. gru      — the GRU-layer kernels against their plain versions at
                 (T, B, H) = (13, 128, 1024), (52, 128, 1024), the ragged
                 (5, 3, 1024), (5, 70, 1024), (4, 70, 128) and (3, 8, 256)

@@ -39,10 +39,10 @@
 //  - Each CTA owns dim / C output columns of W_h and q / C of W_o, all of
 //    the depth, so no partial sum crosses the SM-to-SM network. The caller
 //    packs the weights once (not per window) so that a CTA's slice is one
-//    contiguous block, already in the register order of the tensor-core
-//    instruction: one thread asks the TMA for it in bulk copies reported to
-//    an mbarrier (bounded wait, traps), and a product's thread fetches its
-//    whole A fragment with one conflict-free 16-byte shared-memory load.
+//    contiguous block, already in the register order of the tensor cores'
+//    `mma`: one thread asks the TMA for it in bulk copies reported to
+//    an mbarrier, and a product's thread fetches its whole A operand with
+//    one conflict-free 16-byte shared-memory load.
 //  - A cluster takes a contiguous share of the lanes and walks through it
 //    in sub-tiles of 8 lanes: the lanes are the narrow side (n = 8) of
 //    `mma.sync` m16n8k16 (bf16 in, f32 sums), the weights' columns its 16
@@ -51,15 +51,25 @@
 //    split a product by 16-column tile and by depth; the partial sums over
 //    depth are added in a fixed order, so two runs give the same bits.
 //  - What crosses the network per sample is small and is pushed, not
-//    fetched (remote loads stall on the network's latency, stores do not):
-//    every CTA gathers its columns of x (fs0 table rows per lane from L2,
-//    summed in position order in f32), computes its columns of h and of the
-//    logits, and writes each into the shared memory of all C peers.
-//  - Three hardware cluster barriers per sample (after x, h and the logits)
-//    take the place of `__syncthreads`; no grid barrier, no launch per
-//    sample. Every CTA repeats the draw on its own copy of the logits, so
-//    the new sample needs no fourth exchange. No CTA leaves before the last
-//    barrier: nobody writes into the shared memory of a CTA that is gone.
+//    fetched (remote loads stall on the network's latency): every CTA
+//    computes its columns of x, of h and of the logits for the live lanes
+//    and writes each into the shared memory of all C CTAs with `st.async`,
+//    a store that reports its bytes to an mbarrier of the receiving CTA. A
+//    CTA goes on when the bytes it expects of a row have arrived (bounded
+//    wait, traps): three such exchanges per sample take the place of
+//    `__syncthreads`, at about a third of what a hardware cluster barrier
+//    costs in a cluster of 16. Each value is sent by several threads, each
+//    to a few of the CTAs, so no thread has many stores in a row. Every
+//    CTA repeats the draw on its own copy of the logits, so the new sample
+//    needs no fourth exchange. A cluster barrier at the start (every CTA
+//    runs, its mbarriers ready) and one at the end (nobody writes into the
+//    shared memory of a CTA that is gone) are all that is left of them.
+//  - A step is a chain of short dependent pieces, so what counts is how
+//    few operations lie on it. Four extra warps only gather: x is the sum
+//    of fs0 table rows from L2 (in position order, f32) plus the slot row,
+//    and all but the last row are known a step ahead, so the gather warps
+//    add those while the others multiply; when a sample is drawn, one
+//    table row and the slot row are all that is left to fetch.
 // Which C, how many clusters and lanes each: chosen by the caller from the
 // shapes and the occupancy API's answer, before the launch.
 //
@@ -529,7 +539,7 @@ __device__ __forceinline__ void st_async(uint32_t remote, float4 v,
 // How a row of values goes to every CTA of the cluster: each of `tasks`
 // values (four columns of a lane) is held by `groups` threads, each of
 // which sends it to its own C / groups of the CTAs, so that no thread has
-// many stores to issue one after the other.
+// many stores to make one after the other.
 struct Spread {
   bool active;
   int task;
@@ -916,7 +926,8 @@ __global__ void __launch_bounds__(kResThreads, 1)
           *reinterpret_cast<float4*>(gum + l * q + c0) = g;
         }
         wait_for_bytes(bar_x, parity, "x");
-        if (tid == 0 && after > 0) expect_bytes(bar_x, after * dim * sizeof(bf16));
+        if (tid == 0 && after > 0)
+          expect_bytes(bar_x, after * dim * sizeof(bf16));
         if (!weights_here) {
           wait_for_bytes(bar_w, 0, "the weights");
           weights_here = true;
@@ -933,7 +944,8 @@ __global__ void __launch_bounds__(kResThreads, 1)
           push(to_h, dst_h, bar_h, pack_bf16x4(h));
         }
         wait_for_bytes(bar_h, parity, "h");
-        if (tid == 0 && after > 0) expect_bytes(bar_h, after * dim * sizeof(bf16));
+        if (tid == 0 && after > 0)
+          expect_bytes(bar_h, after * dim * sizeof(bf16));
 
         // this CTA's columns of the logits, to every CTA
         product_o.run();
@@ -944,7 +956,8 @@ __global__ void __launch_bounds__(kResThreads, 1)
           push(to_o, dst_o, bar_l, make_float4(v[0], v[1], v[2], v[3]));
         }
         wait_for_bytes(bar_l, parity, "the logits");
-        if (tid == 0 && after > 0) expect_bytes(bar_l, after * q * sizeof(float));
+        if (tid == 0 && after > 0)
+          expect_bytes(bar_l, after * q * sizeof(float));
 
         // every CTA draws every lane's sample: a warp per lane, argmax of
         // logits + noise, first index on ties
@@ -1116,7 +1129,7 @@ int sample_window_resident_launch(const void* table, const void* packed,
 }
 
 // the resident kernel's grid, clusters and shared memory through the
-// cluster barriers of a window of `batch` lanes, and no other work
+// exchanges of a window of `batch` lanes, and no other work
 int sample_window_empty_launch(int batch, int fs0, int q, int dim,
                                int cluster, int clusters, void* stream) {
   if (batch < 1 || clusters < 1 || clusters > batch ||

@@ -19,8 +19,10 @@ products are tiny; what a step costs besides them decides. Two kernels:
   bulk copies from weights packed once per sampler (`pack_window_weights`).
   A cluster walks through its share of the lanes in sub-tiles of 8 (the
   narrow side of the tensor cores' m16n8k16); x, h and the logits are
-  pushed into every CTA's shared memory and three cluster barriers per
-  sample order the steps (see the source's header).
+  pushed into every CTA's shared memory by asynchronous stores that report
+  to the receiver's mbarrier (three exchanges per sample, no barrier), and
+  four warps of every CTA gather table rows a step ahead (see the source's
+  header).
 - "tiled" (float32 and bf16), the first version: one CTA per tile of 1-8
   lanes, weights read from L2 for every sample, float32 FMA sums in a
   fixed order. It stays for float32 (exact products) and for widths whose
@@ -312,6 +314,11 @@ def resident_cluster(fs0: int, q: int, dim: int, smem_bytes: int) -> int:
 
 
 def _tile_for(batch: int, sms: int) -> int:
+    """The tiled kernel's tile: the smallest that keeps the CTA count
+    within four per SM. A CTA is bound by how many weight loads it keeps in
+    flight, not by its arithmetic, so more CTAs beat wider tiles until the
+    SMs are several deep: on an H100 at dim 1024 one lane per CTA is fastest
+    up to B = 128 and two lanes per CTA at B = 1024."""
     for tile in TILES:
         if -(-batch // tile) <= 4 * sms:
             return tile
@@ -390,18 +397,6 @@ def device_limits(device, fs0, q, dim):
                 _raise_on(lib, max(-held, 0), "occupancy query")
         _limits[key] = (held, smem.value, sms.value)
     return _limits[key]
-
-
-def default_tile(batch: int, device) -> int:
-    """The tiled kernel's tile: the smallest that keeps the CTA count
-    within four per SM.
-
-    A CTA is bound by how many weight loads it keeps in flight, not by its
-    arithmetic, so more CTAs beat wider tiles until the SMs are several
-    deep: on an H100 at dim 1024 one lane per CTA is fastest up to B = 128
-    and two lanes per CTA at B = 1024 (chip_smoke.py's tile sweep)."""
-    return _tile_for(
-        batch, torch.cuda.get_device_properties(device).multi_processor_count)
 
 
 def resident_weights(wh, wo, fs0: int):
@@ -572,7 +567,8 @@ sample_window.tiled = 0
 
 def empty_window(batch, fs0, q, dim, device):
     """Launch the resident kernel's grid for a window of `batch` lanes
-    through its cluster barriers (three per sample and sub-tile) and no
+    through its exchanges (three per sample and sub-tile: every CTA sends
+    8 bytes to every CTA of its cluster and waits for everyone's) and no
     other work: the cost of a window's step-to-step dependence alone, for
     timing beside the real kernel. Returns the plan."""
     plan = _plan_on(device, batch, fs0, q, dim, torch.bfloat16, "resident")

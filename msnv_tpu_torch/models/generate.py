@@ -21,9 +21,9 @@ Temperature 0 is greedy argmax and draws nothing.
 With `use_kernel=True` the bottom tier's fs0 samples per slot window run in
 the CUDA sample-window kernel (msnv_tpu_torch/kernels/sample_window.py:
 bf16 weights resident in a cluster's shared memory, float32 through the
-tiled kernel) with its Philox draw keyed on a seed drawn from the generator. On CPU
-tensors the same call runs the kernel's plain version on the same Philox
-noise (the counterpart of the JAX interpret mode).
+tiled kernel) with its Philox draw keyed on a seed drawn from the
+generator. On CPU tensors the same call runs the kernel's plain version on
+the same Philox noise (the counterpart of the JAX interpret mode).
 
 The JAX package also has `generate_fn_dynamic` / `streaming_fn_dynamic`,
 which exist only because jit folds closed-over weights into the

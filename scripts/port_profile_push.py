@@ -6,8 +6,9 @@
 Builds the canonical `samplernn` at full width from a seeded init, makes
 the /stream push (bf16 weights + the sample-window kernel, one frame per
 push) and times `--pushes` pushes: host wall per push, then a
-torch.profiler trace of the same pushes summed by device kernel name, and
-the share of the wall the device was busy. Needs a CUDA device.
+torch.profiler trace of the same pushes summed by device kernel name, the
+device kernels per push and the share of the wall the device was busy.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -76,19 +77,23 @@ def main(argv=None):
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
+    launches = sum(r[2] for r in rows) / args.pushes
     audio_s = cfg.lookback / 16000
     print(f"{torch.cuda.get_device_name(0)}: B={args.batch}, "
           f"{args.pushes} pushes of one frame ({audio_s * 1e3:.0f} ms audio)")
     print(f"wall per push {wall * 1e3:.3f} ms (realtime x"
           f"{audio_s / wall:.2f}); traced wall {traced * 1e3:.3f} ms, device "
           f"busy {busy_us / 1e3:.3f} ms = "
-          f"{busy_us / 1e6 / traced:.1%} of it")
+          f"{busy_us / 1e6 / traced:.1%} of it; {launches:.1f} device "
+          f"kernels per push")
     for dev_us, key, count in rows[:10]:
         print(f"  {dev_us / 1e3 / args.pushes:9.4f} ms/push  {count:6d}x  "
               f"{key[:90]}")
     print(json.dumps({"batch": args.batch, "pushes": args.pushes,
                       "wall_ms_per_push": wall * 1e3,
                       "device_busy_share": busy_us / 1e6 / traced,
+                      "device_ms_per_push": busy_us / 1e3 / args.pushes,
+                      "kernels_per_push": launches,
                       "top": [{"name": k[:90], "ms_per_push":
                                d / 1e3 / args.pushes, "count": c}
                               for d, k, c in rows[:10]]}))
