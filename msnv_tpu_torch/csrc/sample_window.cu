@@ -60,8 +60,9 @@
 //    `__syncthreads`, at about a third of what a hardware cluster barrier
 //    costs in a cluster of 16. Each value is sent by several threads, each
 //    to a few of the CTAs, so no thread has many stores in a row. Every
-//    CTA repeats the draw on its own copy of the logits, so the new sample
-//    needs no fourth exchange. A cluster barrier at the start (every CTA
+//    CTA adds the Gumbel noise of its own columns to its logits before it
+//    sends them, and every CTA repeats the argmax on its own copy, so the
+//    new sample needs no fourth exchange. A cluster barrier at the start (every CTA
 //    runs, its mbarriers ready) and one at the end (nobody writes into the
 //    shared memory of a CTA that is gone) are all that is left of them.
 //  - A step is a chain of short dependent pieces, so what counts is how
@@ -430,9 +431,10 @@ enum Named { kNamedDrawn = 1, kNamedCompute = 2, kNamedGather = 3 };
 
 // Shared memory of one CTA of a cluster of C (byte offsets): its slice of
 // the packed weights (W_h's tiles, then W_o's), the sub-tile's x and h rows
-// (bf16, all of dim, padded), its logits and its Gumbel noise (f32, all of
-// q), the partial sums of a product over the depth split, the sub-tile's
-// samples (the window, then the fs0 new ones), the mbarriers.
+// (bf16, all of dim, padded), its logits (f32, all of q), the Gumbel noise
+// of its own columns of the logits (f32), the partial sums of a product
+// over the depth split, the sub-tile's samples (the window, then the fs0
+// new ones), the mbarriers.
 struct ResidentLayout {
   int mh, mo;              // columns of W_h and of W_o that this CTA owns
   int ksteps;              // dim / 16
@@ -453,7 +455,7 @@ struct ResidentLayout {
     h_off = x_off + kLanes * act_ld * sizeof(bf16);
     logits_off = h_off + kLanes * act_ld * sizeof(bf16);
     noise_off = logits_off + kLanes * q * sizeof(float);
-    red_off = noise_off + kLanes * q * sizeof(float);
+    red_off = noise_off + kLanes * mo * sizeof(float);
     const int red_h = split_h * kLanes * (mh + kRedPad);
     const int red_o = split_o * kLanes * (mo + kRedPad);
     seq_off = red_off + (red_h > red_o ? red_h : red_o) * sizeof(float);
@@ -555,10 +557,34 @@ struct Spread {
   }
 };
 
+// The same where the value is a sum that its threads also share: `group`
+// neighbouring threads (a power of two, at most 16) hold a task, split the
+// parts of the sum between them (reduce4_shared) and then the CTAs to
+// write to. Threads past the last task repeat it and send nothing.
+struct SharedSpread {
+  bool active;
+  int task, group, g;
+  unsigned first, count;
+  __device__ SharedSpread(int thread, int threads, int tasks, int split,
+                          unsigned C) {
+    const int want = (int)C > split ? (int)C : split;
+    group = 1;
+    while (tasks * group * 2 <= threads && group * 2 <= want && group < 16)
+      group *= 2;
+    g = thread % group;
+    const int t = thread / group;
+    task = t < tasks ? t : tasks - 1;
+    const unsigned senders = (unsigned)group < C ? (unsigned)group : C;
+    count = C / senders;
+    first = g * count;
+    active = t < tasks && (unsigned)g < senders;
+  }
+};
+
 // v into this thread's CTAs of the cluster, at this CTA's address `addr`,
 // reported to each CTA's mbarrier at this CTA's address `bar`
-template <class V>
-__device__ __forceinline__ void push(const Spread& to, uint32_t addr,
+template <class To, class V>
+__device__ __forceinline__ void push(const To& to, uint32_t addr,
                                      uint32_t bar, V v) {
   for (unsigned r = to.first; r < to.first + to.count; ++r)
     st_async(map_to_rank(addr, r), v, map_to_rank(bar, r));
@@ -718,6 +744,30 @@ __device__ __forceinline__ void reduce4(const float* red, int split, int ld,
   }
 }
 
+// The same for a product whose depth has many parts: `group` neighbouring
+// threads (a power of two, at most 16, aligned) share the parts, each adds
+// its own in order, thread 0 of the group also the bias, and a butterfly
+// of shuffles leaves the whole sum in all of them. Every thread of the
+// warp must call it.
+__device__ __forceinline__ void reduce4_shared(const float* red, int split,
+                                               int ld, const float4& bias,
+                                               int group, int g,
+                                               float (&v)[4]) {
+  v[0] = v[1] = v[2] = v[3] = 0.f;
+  if (g == 0) v[0] = bias.x, v[1] = bias.y, v[2] = bias.z, v[3] = bias.w;
+  const int parts = group < split ? group : split;
+  if (g < parts)
+    for (int s = g * (split / parts); s < (g + 1) * (split / parts); ++s) {
+      const float4 p =
+          *reinterpret_cast<const float4*>(red + (size_t)s * kLanes * ld);
+      v[0] += p.x, v[1] += p.y, v[2] += p.z, v[3] += p.w;
+    }
+  for (int off = 1; off < group; off <<= 1)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] += __shfl_xor_sync(0xffffffffu, v[e], off);
+}
+
 __device__ __forceinline__ uint2 table_row(const bf16* __restrict__ table,
                                            int p, int sample, int q, int dim,
                                            int col) {
@@ -766,9 +816,10 @@ struct LaneShare {
 //     window's last) and the slot row to the sum of the other rows, which
 //     they fetched a step ahead; x to all CTAs; then fetch and add the
 //     rows of the next step, off the others' path
-//   the others: this step's Gumbel noise while x is on its way; wait for
-//     all of x; product with W_h; h to all CTAs; wait for all of h; product
-//     with W_o; logits to all CTAs; wait for all logits; draw.
+//   the others: the Gumbel noise of this CTA's own columns of the logits
+//     while x is on its way; wait for all of x; product with W_h; h to all
+//     CTAs; wait for all of h; product with W_o; logits + noise to all
+//     CTAs; wait for all of them; draw (an argmax).
 // Only the live lanes of a sub-tile are sent. A buffer is never written
 // while a CTA still reads it: x of the next step is sent by CTAs that have
 // drawn, so they had everyone's logits, which a CTA sends after its
@@ -885,13 +936,18 @@ __global__ void __launch_bounds__(kResThreads, 1)
     uint32_t parity = 0;
     bool weights_here = false;
     const int warp = tid >> 5, lane_id = tid & 31;
+    // the class of this CTA's columns whose noise the thread makes, for
+    // lanes noise_l0, noise_l0 + noise_step, ...
+    const int noise_class = (int)rank * mo + tid % mo;
+    const int noise_step = kComputeThreads / mo, noise_l0 = tid / mo;
 
     for (int sub = 0; sub < share.count; sub += kLanes) {
       const int lane0 = share.begin + sub;
       const int nl = min(kLanes, share.count - sub);
       const int next_nl = min(kLanes, share.count - sub - kLanes);
       const Spread to_h(tid, kComputeThreads, nl * (mh / 4), C);
-      const Spread to_o(tid, kComputeThreads, nl * (mo / 4), C);
+      const SharedSpread to_o(tid, kComputeThreads, nl * (mo / 4),
+                              lay.split_o, C);
       const int l_h = to_h.task / (mh / 4), m_h = to_h.task % (mh / 4) * 4;
       const int l_o = to_o.task / (mo / 4), m_o = to_o.task % (mo / 4) * 4;
       const float* const red_h = red + l_h * ld_h + m_h;
@@ -907,24 +963,23 @@ __global__ void __launch_bounds__(kResThreads, 1)
       for (int k = 0; k < fs0; ++k, parity ^= 1) {
         // the live lanes of the next phase (none after the last sample)
         const int after = k + 1 < fs0 ? nl : next_nl;
-        // this step's Gumbel noise for every live lane, four classes a
-        // thread, while x is on its way
-        for (int i = tid; i < nl * (q / 4); i += kComputeThreads) {
-          const int l = i / (q / 4), c0 = i % (q / 4) * 4;
-          float4 g;
-          if (noise != nullptr) {
-            g = *reinterpret_cast<const float4*>(
-                noise + ((size_t)(lane0 + l) * fs0 + k) * q + c0);
-          } else {
-            const uint4 r = philox(
-                make_uint4((uint32_t)(c0 / 4), (uint32_t)k,
-                           (uint32_t)(lane0 + l), 0u),
-                key);
-            g = make_float4(gumbel(r.x), gumbel(r.y), gumbel(r.z),
-                            gumbel(r.w));
+        // the Gumbel noise of this CTA's columns of the logits, a class
+        // of a lane a thread, while x is on its way
+        if (noise_l0 < noise_step)
+          for (int l = noise_l0; l < nl; l += noise_step) {
+            float g;
+            if (noise != nullptr) {
+              g = noise[((size_t)(lane0 + l) * fs0 + k) * q + noise_class];
+            } else {
+              const uint4 r = philox(
+                  make_uint4((uint32_t)(noise_class / 4), (uint32_t)k,
+                             (uint32_t)(lane0 + l), 0u),
+                  key);
+              const int j = noise_class % 4;
+              g = gumbel(j == 0 ? r.x : j == 1 ? r.y : j == 2 ? r.z : r.w);
+            }
+            gum[l * mo + tid % mo] = g;
           }
-          *reinterpret_cast<float4*>(gum + l * q + c0) = g;
-        }
         wait_for_bytes(bar_x, parity, "x");
         if (tid == 0 && after > 0)
           expect_bytes(bar_x, after * dim * sizeof(bf16));
@@ -947,29 +1002,34 @@ __global__ void __launch_bounds__(kResThreads, 1)
         if (tid == 0 && after > 0)
           expect_bytes(bar_h, after * dim * sizeof(bf16));
 
-        // this CTA's columns of the logits, to every CTA
+        // this CTA's columns of the logits, with their noise, to every CTA
         product_o.run();
         named_sync(kNamedCompute, kComputeThreads);
-        if (to_o.active) {
+        {
           float v[4];
-          reduce4(red_o, lay.split_o, ld_o, bias_o, v);
-          push(to_o, dst_o, bar_l, make_float4(v[0], v[1], v[2], v[3]));
+          reduce4_shared(red_o, lay.split_o, ld_o, bias_o, to_o.group,
+                         to_o.g, v);
+          if (to_o.active) {
+            const float4 g =
+                *reinterpret_cast<const float4*>(gum + l_o * mo + m_o);
+            push(to_o, dst_o, bar_l,
+                 make_float4(v[0] + g.x, v[1] + g.y, v[2] + g.z,
+                             v[3] + g.w));
+          }
         }
         wait_for_bytes(bar_l, parity, "the logits");
         if (tid == 0 && after > 0)
           expect_bytes(bar_l, after * q * sizeof(float));
 
         // every CTA draws every lane's sample: a warp per lane, argmax of
-        // logits + noise, first index on ties
+        // the logits with their noise, first index on ties
         if (warp < nl) {
           float best = -INFINITY;
           int best_i = 0;
           for (int c0 = lane_id * 4; c0 < q; c0 += 128) {
             const float4 a =
                 *reinterpret_cast<const float4*>(logits + warp * q + c0);
-            const float4 g =
-                *reinterpret_cast<const float4*>(gum + warp * q + c0);
-            const float v[4] = {a.x + g.x, a.y + g.y, a.z + g.z, a.w + g.w};
+            const float v[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               if (v[e] > best) {

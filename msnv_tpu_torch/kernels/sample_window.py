@@ -275,12 +275,13 @@ def _depth_split(mtiles: int, ksteps: int) -> int:
 
 def resident_smem_bytes(fs0: int, q: int, dim: int, cluster: int) -> int:
     """Shared memory of one CTA of the resident kernel: its slice of both
-    weights, 8 lanes' x and h rows (bf16, padded), their logits and their
-    Gumbel noise (f32), the partial sums of the larger product, the window
-    and the new samples, four mbarriers."""
+    weights, 8 lanes' x and h rows (bf16, padded), their logits and the
+    Gumbel noise of its own columns of them (f32), the partial sums of the
+    larger product, the window and the new samples, four mbarriers."""
     mh, mo, ksteps = dim // cluster, q // cluster, dim // 16
     weights = (mh + mo) * dim * 2
-    acts = 2 * SUBTILE * (dim + _ACT_PAD) * 2 + 2 * SUBTILE * q * 4
+    acts = (2 * SUBTILE * (dim + _ACT_PAD) * 2 + SUBTILE * q * 4
+            + SUBTILE * mo * 4)
     red = 4 * SUBTILE * max(
         _depth_split(mh // 16, ksteps) * (mh + _RED_PAD),
         _depth_split(mo // 16, ksteps) * (mo + _RED_PAD))

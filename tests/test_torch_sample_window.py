@@ -250,10 +250,10 @@ def test_resident_cluster_is_the_smallest_that_fits(dim, want):
 
 
 def test_resident_smem_formula_at_the_canonical_shape():
-    # 160 KB of weights, x and h (8 x 1032 bf16 each), logits and noise
-    # (8 x 256 f32 each), partial sums (16 x 8 x 20 f32), 8 x 40 samples,
-    # four mbarriers
-    want = (163840 + 2 * 16512 + 2 * 8192 + 10240 + 1280 + 32)
+    # 160 KB of weights, x and h (8 x 1032 bf16 each), logits (8 x 256
+    # f32), the CTA's own noise (8 x 16 f32), partial sums (16 x 8 x 20
+    # f32), 8 x 40 samples, four mbarriers
+    want = (163840 + 2 * 16512 + 8192 + 512 + 10240 + 1280 + 32)
     assert sw.resident_smem_bytes(20, 256, 1024, 16) == want <= SMEM
 
 
