@@ -469,10 +469,10 @@ def _check_cuda(table, wh, bh, wo, bo, slots, buf, noise, seed, packed):
         raise ValueError("the rows of buf and slots must be contiguous")
     if slots.stride(0) % 8 or slots.stride(1) % 8:
         raise ValueError("the strides of slots must be multiples of 8")
-    for t in (table, wh, wo, bh, bo, slots, noise, packed):
+    for t in (table, wh, wo, bh, bo, slots, packed):
         if t is not None and t.data_ptr() % 16:
-            raise ValueError("weights, biases, slots and noise must be "
-                             "16-byte aligned")
+            raise ValueError("weights, biases and slots must be 16-byte "
+                             "aligned")
 
 
 def _plan_on(device, batch, fs0, q, dim, dtype, path):
