@@ -58,12 +58,34 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 float32 steps with gru_impl="pallas" against gru_impl="xla"
                 from the same weights (cudnn TF32 off: `embed_conv_direct`
                 is the only conv and is not on this path)
+  7. loop     — the training loop at full width through the port's CLIs
+                (`main(argv)` in-process, in a temporary directory under
+                msnv_tpu_torch/build/, removed at the end): a synthetic
+                corpus of 6 speakers x 25 utterances x ~1000 frames (one
+                packing unit: 86 chunks an epoch at B 128, seq_len 1040);
+                cli.train (`samplernn` widths, look-ahead, norm_ind, bf16)
+                run A to 3 epochs, run B to 2 and resumed to 3: losses
+                finite and falling, checkpoints and stats.json written,
+                "resumed from", every train-step GRU sweep persistent (the
+                f32 validation sweeps take the per-step kernels), run B's
+                epoch-3 losses equal to run A's (bit for bit, else within
+                2e-3 bits); cli.evaluate on A's last checkpoint equal to the
+                trainer's last validation loss (1e-4 bits); cli.generate
+                --engine auto for 2 utterances: WAV names and lengths, every
+                window resident. Corpus build, epoch wall and trainer
+                samples/s, checkpoint write/read and size, evaluation wall
+                and generation audio-s/s
 Then one JSON line of kernel numbers, the card's name and power limit, and
-last the {"ok": true, "device": ...} line.
+last the {"ok": true, "device": ...} line. The kernels' `launches` add up
+the counts of every path that drives them: K1 the serving path (phase 4)
+and the generate CLI (phase 7), K2 the train steps (phase 6) and the
+training loop (phase 7), each count set to 0 just before its path and read
+just after.
 
 `--rehearse-cpu` runs the same phases on the CPU at dim 32 with the plain
-versions (no build, no timing on the card) and ends without the ok line.
-`--phases=5,6` runs only the named phases (and then prints no result line).
+versions (no build, no timing on the card; phase 7 at B 4 on a small
+corpus) and ends without the ok line. `--phases=5,6` or `--phases=7` runs
+only the named phases (and then prints no result line).
 """
 
 from __future__ import annotations
@@ -980,6 +1002,276 @@ def phase_train(exp, dev, batch, seq_len, steps):
     RESULTS["train"]["f32_grad_err_vs_f64"] = errs
 
 # --------------------------------------------------------------------------
+# phase 7: the training loop through the CLIs
+# --------------------------------------------------------------------------
+
+class Clock:
+    """Wall times of the calls to patched functions, each call between two
+    synchronizes; `restore` puts the originals back."""
+
+    def __init__(self, sync):
+        self.sync = sync
+        self.times = {}
+        self._undo = []
+
+    def wrap(self, owner, name):
+        fn = getattr(owner, name)
+        times = self.times.setdefault(name, [])
+
+        def timed(*args, **kwargs):
+            self.sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.sync()
+            times.append(time.perf_counter() - t0)
+            return out
+
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, fn))
+
+    def restore(self):
+        for owner, name, fn in reversed(self._undo):
+            setattr(owner, name, fn)
+
+
+def run_cli(main, argv):
+    """A CLI's main(argv) with its standard output captured (and shown);
+    sys.stdout is restored (the train CLI tees it into its log)."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    stdout = sys.stdout
+    try:
+        with contextlib.redirect_stdout(out):
+            main(argv)
+    finally:
+        sys.stdout = stdout
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("epoch ", "resumed", "warm", "device",
+                            "validation", "generation", "wrote")):
+            log(f"[loop]   {line.strip()}")
+    return text
+
+
+def _stats(results):
+    (tag,) = os.listdir(results)
+    with open(os.path.join(results, tag, "stats.json")) as f:
+        return json.load(f), os.path.join(results, tag)
+
+
+def phase_loop(dev, dim, batch, seq_len, utts, frames):
+    import shutil
+    import tempfile
+
+    import torch
+    from msnv_tpu_torch.cli import evaluate as cli_evaluate
+    from msnv_tpu_torch.cli import generate as cli_generate
+    from msnv_tpu_torch.cli import train as cli_train
+    from msnv_tpu_torch.data.corpus import (CorpusConfig, build_corpus,
+                                            load_cond_tracks)
+    from msnv_tpu_torch.data.synthetic import make_synthetic_corpus
+    from msnv_tpu_torch.data.wavio import read_wav
+    from msnv_tpu_torch.kernels.gru_layer import (gru_layer_backward,
+                                                  gru_layer_forward)
+    from msnv_tpu_torch.kernels.sample_window import sample_window
+    from msnv_tpu_torch.training import checkpoint as ckpt
+    from msnv_tpu_torch.training.trainer import Trainer
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    build = os.path.join(REPO, "msnv_tpu_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="loop-", dir=build)
+    out = {}
+    try:
+        data = os.path.join(work, "datasets")
+        t0 = time.perf_counter()
+        _, _, names = make_synthetic_corpus(
+            data, n_speakers=6, utts_per_speaker=utts,
+            frames_per_utt=frames, cond_len=80,
+            partitions=("train", "validation"), interleave=True)
+        out["corpus_write_s"] = time.perf_counter() - t0
+        # the cache the CLIs then load: the corpus build the train CLI runs
+        ccfg = CorpusConfig(
+            datasets_path=data, wav_path=os.path.join(data, "wav/"),
+            cond_path=os.path.join(data, "cond/"), overlap_len=80,
+            seq_len=seq_len, batch_size=batch, look_ahead=True,
+            cache_dir=os.path.join(data, "npy_datasets"))
+        t0 = time.perf_counter()
+        for part in ("train", "validation"):
+            corpus = build_corpus(ccfg, part)
+        out["corpus_build_s"] = time.perf_counter() - t0
+        out["corpus_samples"] = int(corpus.data.size)
+        log(f"[loop] corpus: {len(names)} utterances written in "
+            f"{out['corpus_write_s']:.1f} s, train + validation built in "
+            f"{out['corpus_build_s']:.1f} s ({out['corpus_samples']} samples "
+            f"a partition, {corpus.data.shape[1]} a lane)")
+
+        args = ["--exp", "samplernn", "--frame_sizes", "20", "4",
+                "--n_rnn", "2", "--dim", str(dim), "--look_ahead", "true",
+                "--seq_len", str(seq_len), "--batch_size", str(batch),
+                "--learning_rate", "1e-4", "--bf16", "true",
+                "--datasets_path", data, "--device", dev.type]
+        clock = Clock(sync)
+        for owner, name in ((Trainer, "train_epoch"), (Trainer, "evaluate"),
+                            (ckpt, "save_checkpoint"),
+                            (ckpt, "load_checkpoint")):
+            clock.wrap(owner, name)
+        for wrapper in (gru_layer_forward, gru_layer_backward):
+            wrapper.launches = 0            # the loop's path starts here
+            wrapper.persistent = wrapper.per_step = 0
+        try:
+            run_a, run_b = (os.path.join(work, "results_a"),
+                            os.path.join(work, "results_b"))
+            run_cli(cli_train.main,
+                    args + ["--results_path", run_a, "--epoch_limit", "3"])
+            run_cli(cli_train.main,
+                    args + ["--results_path", run_b, "--epoch_limit", "2"])
+            resumed = run_cli(cli_train.main, args + [
+                "--results_path", run_b, "--epoch_limit", "3"])
+        finally:
+            clock.restore()
+        fwd = (gru_layer_forward.launches, gru_layer_forward.persistent,
+               gru_layer_forward.per_step)
+        bwd = (gru_layer_backward.launches, gru_layer_backward.persistent)
+        stats_a, dir_a = _stats(run_a)
+        stats_b, dir_b = _stats(run_b)
+        chunks = len(stats_a["training_loss"]) // 3
+        losses = stats_a["training_loss"]
+        log(f"[loop] run A: {chunks} chunks an epoch, losses (bits) "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}, validation "
+            f"{stats_a['validation_loss']}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError("non-finite training loss")
+        head, tail = (statistics.mean(losses[:max(chunks // 4, 1)]),
+                      statistics.mean(losses[-max(chunks // 4, 1):]))
+        if not tail < head:
+            raise AssertionError(f"the smoothed training loss did not fall: "
+                                 f"{head} -> {tail}")
+        ckpts = os.listdir(os.path.join(dir_a, "checkpoints"))
+        if not (any(c.startswith("ep3-it") for c in ckpts)
+                and any(c.startswith("best-") for c in ckpts)
+                and os.path.isfile(os.path.join(dir_a, "stats.json"))):
+            raise AssertionError(f"run A wrote {ckpts}")
+        if "resumed from" not in resumed:
+            raise AssertionError("run B did not resume")
+        # resume: run B's epoch 3 against run A's
+        got, want = stats_b["training_loss"], losses[-chunks:]
+        if len(got) != chunks:
+            raise AssertionError(f"the resumed run took {len(got)} steps")
+        diff = max(abs(a - b) for a, b in zip(got, want))
+        out["resume_max_diff_bits"] = diff
+        log(f"[loop] resumed epoch 3 vs uninterrupted: "
+            f"{'bit-equal' if diff == 0 else f'max |diff| {diff:.3e} bits'}")
+        if diff > 2e-3:
+            raise AssertionError(f"resume differs by {diff} bits")
+        # every GRU sweep of a train step through the persistent kernels;
+        # the float32 validation sweeps take the per-step kernels
+        steps = 3 * chunks + 2 * chunks + chunks
+        evals = len(clock.times["evaluate"])
+        sweeps = 4                            # 2 tiers x n_rnn 2
+        log(f"[loop] GRU sweeps: forward {fwd[0]} ({fwd[1]} persistent, "
+            f"{fwd[2]} per-step), backward {bwd[0]} ({bwd[1]} persistent) "
+            f"for {steps} train steps and {evals} evaluations of {chunks} "
+            f"chunks")
+        if on_card and not (bwd == (sweeps * steps,) * 2
+                            and fwd[1] == sweeps * steps
+                            and fwd[2] == sweeps * evals * chunks
+                            and fwd[0] == fwd[1] + fwd[2]):
+            raise AssertionError("a train-step GRU sweep did not take the "
+                                 "persistent kernels")
+        out.update(gru_fwd_launches=fwd[0], gru_fwd_persistent=fwd[1],
+                   gru_fwd_per_step=fwd[2], gru_bwd_launches=bwd[0],
+                   gru_bwd_persistent=bwd[1], train_steps=steps,
+                   chunks_per_epoch=chunks, evaluations=evals)
+        epoch_s = clock.times["train_epoch"]
+        rate = [chunks * batch * seq_len / s for s in epoch_s]
+        writes = clock.times["save_checkpoint"]
+        size = os.path.getsize(os.path.join(dir_a, "checkpoints", sorted(
+            c for c in ckpts if c.startswith("ep"))[-1]))
+        out.update(epoch_train_s=epoch_s, trainer_samples_per_s=rate,
+                   evaluate_s=clock.times["evaluate"], ckpt_write_s=writes,
+                   ckpt_read_s=clock.times["load_checkpoint"],
+                   ckpt_bytes=size, epoch_wall_s=stats_a["time"])
+        bare = RESULTS.get("train", {}).get("samples_per_s")
+        log(f"[loop] epoch: train {statistics.median(epoch_s):.3f} s "
+            f"(median of {len(epoch_s)}) = "
+            f"{statistics.median(rate):.0f} samples/s (bare train step, "
+            f"phase 6: {bare if bare is None else round(bare)}); with "
+            f"validation and checkpoints, run A's epochs ended at "
+            f"{[round(t, 1) for t in stats_a['time']]} s")
+        log(f"[loop] checkpoint {size} bytes: write "
+            f"{statistics.median(writes):.3f} s (median of {len(writes)}), "
+            f"read {statistics.median(clock.times['load_checkpoint']):.3f} s")
+        log(f"[loop] evaluation in the trainer (float32, {chunks} chunks): "
+            f"{statistics.median(clock.times['evaluate']):.3f} s (median of "
+            f"{evals})")
+
+        # evaluate: the last checkpoint of run A against its trainer
+        last = os.path.join(dir_a, "checkpoints", sorted(
+            c for c in ckpts if c.startswith("ep"))[-1])
+        t0 = time.perf_counter()
+        text = run_cli(cli_evaluate.main, [
+            "--model", last, "--datasets_path", data,
+            "--partitions", "validation", "--device", dev.type])
+        sync()
+        out["evaluate_cli_s"] = time.perf_counter() - t0
+        nll = json.loads(text.strip().splitlines()[-1])[
+            "validation"]["nll_bits"]
+        trainer_nll = stats_a["validation_loss"][-1]
+        out.update(evaluate_nll=nll, trainer_validation_nll=trainer_nll)
+        log(f"[loop] cli.evaluate: {nll:.6f} bits in "
+            f"{out['evaluate_cli_s']:.2f} s; the trainer's last validation "
+            f"loss {trainer_nll:.6f}")
+        if not abs(nll - trainer_nll) <= 1e-4:
+            raise AssertionError("cli.evaluate disagrees with the trainer")
+
+        # generate: 2 utterances of the corpus, every window resident
+        utt = names[:2]
+        lists = os.path.join(work, "gen_cond.list"), os.path.join(
+            work, "gen_spk.list")
+        with open(lists[0], "w") as f:
+            f.write("\n".join(utt))
+        with open(lists[1], "w") as f:
+            f.write("0\n1\n")
+        lens = [load_cond_tracks(os.path.join(data, "cond"), n)[0].shape[0]
+                for n in utt]
+        gen_dir = os.path.join(work, "gen")
+        sample_window.launches = 0           # the generate path starts here
+        sample_window.resident = sample_window.tiled = 0
+        t0 = time.perf_counter()
+        run_cli(cli_generate.main, [
+            "--model", last, "--cond_path", os.path.join(data, "cond"),
+            "--cond_list", lists[0], "--spk_list", lists[1],
+            "--min_max", os.path.join(data, "npy_datasets",
+                                      "min_max_ind.npy"),
+            "--out_dir", gen_dir, "--device", dev.type, "--engine", "auto"])
+        sync()
+        wall = time.perf_counter() - t0
+        windows = (sample_window.launches, sample_window.resident)
+        stem = os.path.basename(last)[:-len(".npz")]
+        for name, spk, n in zip(utt, ("0", "1"), lens):
+            audio, sr = read_wav(os.path.join(
+                gen_dir, f"{stem}_file-{name}_spk-{spk}.wav"))
+            if sr != 16000 or audio.shape != (n * 80,) or \
+                    not np.isfinite(audio).all():
+                raise AssertionError(f"generated {name}: {audio.shape}")
+        seconds = sum(lens) * 80 / 16000
+        out.update(generate_cli_s=wall, generate_audio_s=seconds,
+                   generate_audio_s_per_s=seconds / wall,
+                   window_launches=windows[0], window_resident=windows[1])
+        log(f"[loop] cli.generate --engine auto: 2 utterances, "
+            f"{seconds:.2f} audio-s in {wall:.2f} s = {seconds / wall:.2f} "
+            f"audio-s/s (the CLI's wall, loading included); "
+            f"{windows[0]} windows, {windows[1]} resident")
+        if on_card and windows != (max(lens) * 4,) * 2:
+            raise AssertionError(f"windows {windows}, expected "
+                                 f"{max(lens) * 4}, all resident")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    RESULTS["loop"] = out
+
+# --------------------------------------------------------------------------
 
 def card_line():
     try:
@@ -1030,8 +1322,13 @@ def kernel_entries():
         "replaces": "msnv_tpu/pallas/sample_kernel.py:157",
         "also_replaces": ["msnv_tpu/pallas/sample_kernel.py:44",
                           "msnv_tpu/pallas/sample_kernel.py:183"],
-        "launches": RESULTS["launches"],
-        "resident_launches": RESULTS["resident_launches"],
+        # the serving path (phase 4) and the generate CLI (phase 7)
+        "launches": RESULTS["launches"] + RESULTS["loop"]["window_launches"],
+        "resident_launches": RESULTS["resident_launches"]
+        + RESULTS["loop"]["window_resident"],
+        "launches_by_path": {"serve": RESULTS["launches"],
+                             "generate_cli": RESULTS["loop"][
+                                 "window_launches"]},
         # float32 (tiled kernel): samples equal to the plain version's;
         # bf16 (resident kernel): share of samples that differ on
         # sharpened logits, tolerance 1 %
@@ -1060,7 +1357,13 @@ def kernel_entries():
         "route": "cuda",
         "source": "msnv_tpu_torch/csrc/gru_layer.cu",
         "replaces": f"msnv_tpu/pallas/gru_kernel.py:{line}",
-        "launches": RESULTS["train"][f"gru_{d}_launches"],
+        # the train steps (phase 6) and the training loop (phase 7: train
+        # steps, and for the forward the float32 validation sweeps)
+        "launches": RESULTS["train"][f"gru_{d}_launches"]
+        + RESULTS["loop"][f"gru_{d}_launches"],
+        "launches_by_path": {"train_step": RESULTS["train"][
+            f"gru_{d}_launches"], "train_loop": RESULTS["loop"][
+                f"gru_{d}_launches"]},
         # against the plain version, in the working type of the main path
         # (bf16 products); largest |kernel - plain| over max(1, |plain|)
         "max_abs_err": RESULTS["gru_err"][f"{d}_bf16"],
@@ -1088,7 +1391,7 @@ def kernel_entries():
 def main(argv):
     import torch
     rehearse = "--rehearse-cpu" in argv
-    phases = set(range(1, 7))
+    phases = set(range(1, 8))
     for a in argv:
         if a.startswith("--phases="):
             phases = {int(x) for x in a.split("=", 1)[1].split(",")} | {1}
@@ -1137,10 +1440,13 @@ def main(argv):
           if not rehearse else ((3, 4, DIM), (5, 8, DIM), (5, 3, DIM)))
     timed(6, "train", phase_train, exp, dev, 128 if not rehearse else 4,
           exp.train.seq_len if not rehearse else 2 * cfg.lookback, 6)
+    timed(7, "loop", phase_loop, dev, DIM, 128 if not rehearse else 2,
+          exp.train.seq_len if not rehearse else 2 * cfg.lookback,
+          25 if not rehearse else 2, 1000 if not rehearse else 50)
     if rehearse:
         log("rehearsal on the CPU passed (no card: no result line)")
         return 1
-    if phases != set(range(1, 7)):
+    if phases != set(range(1, 8)):
         log(f"phases {sorted(phases)} passed (not all: no result line)")
         return 1
 
@@ -1148,6 +1454,7 @@ def main(argv):
                       "generate": RESULTS["generate"],
                       "streams": RESULTS["streams"],
                       "train": RESULTS["train"],
+                      "loop": RESULTS["loop"],
                       "build_s": RESULTS["build_s"]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

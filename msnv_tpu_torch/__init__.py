@@ -14,16 +14,23 @@ layout mirrors the JAX package so each counterpart is easy to find:
                  sample window (serving) and the fused GRU layer, forward
                  and backward (training); each beside its plain version
   csrc/        — the CUDA sources (built with nvcc at first use)
-  training/    — clipped Adam, the TBPTT train / eval steps
-  data/        — WAV bytes
+  training/    — clipped Adam, the TBPTT train / eval steps and their
+                 device-corpus blocks, the Trainer loop and its plugins,
+                 checkpoints in the JAX trainer's .npz format
+  data/        — WAV I/O, the corpus build (the same npy cache), the
+                 TBPTT chunk loader, synthetic corpora, log-mel features,
+                 the native data library
+  eval/        — objective copy-synthesis metrics
+  cli/         — train, evaluate and generate (msnv-*-torch)
   interop.py   — parameters and optimizer state to and from the JAX
                  trainer's checkpoint keys (.npz)
   serving/     — the HTTP vocoder service
 
-Ported so far: serving (forward, generation, streaming, HTTP) and the train
-step. Not yet: the trainer loop, loader, checkpoint writer, CLIs other than
-serve, the GAN / bottleneck / QRNN variants, the stream multiplexer, export
-and multi-device.
+Ported so far: serving (forward, generation, streaming, HTTP), the train
+step, and the training loop with its corpus, loader, checkpoints and the
+train / evaluate / generate CLIs. Not yet: the GAN / bottleneck / QRNN
+variants, the stream multiplexer and async front-end, artifacts, export,
+the orbax checkpoint backend and multi-device.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 CUDA device and no explicit CPU request they raise.

@@ -36,11 +36,12 @@ class ModelConfig:
     cond_len: int = 80           # audio samples per conditioner frame (5 ms @ 16 kHz)
     spk_dim: int = 6             # number of speakers == speaker-embedding size
     look_ahead: bool = False     # feed next frame's conditioners too (43 -> 86)
-    # recurrent-sweep engine for training/eval tier GRUs. The port runs
-    # "xla" (the name kept for tag/checkpoint compatibility) as a plain
-    # layer-by-layer loop of matmuls; "pallas" (a fused GRU kernel) and
-    # "wavefront" (all layers in one diagonal sweep) are not ported yet.
-    # Numerics-equivalent; not part of the experiment tag.
+    # recurrent-sweep engine for training/eval tier GRUs (ops/gru.py): "xla"
+    # (the name kept for tag/checkpoint compatibility) is a plain
+    # layer-by-layer loop of matmuls; "pallas" runs each layer's sweep in
+    # the fused GRU-layer CUDA kernels (kernels/gru_layer.py; their plain
+    # versions on a CPU tensor); "wavefront" runs all layers in one
+    # diagonal sweep. Numerics-equivalent; not part of the experiment tag.
     gru_impl: str = "xla"
     # gradient path for the sample-MLP's embed+conv input stage: "fused"
     # (reassociated custom VJP through the composite table, ops/embed_conv.py

@@ -1,1 +1,1 @@
-"""Data helpers of the port (WAV bytes)."""
+"""Data pipeline of the port: WAV I/O, corpus build, chunk loader."""

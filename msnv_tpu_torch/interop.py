@@ -15,42 +15,15 @@ import torch
 from msnv_tpu_torch.config import ModelConfig
 from msnv_tpu_torch.device import resolve_device
 from msnv_tpu_torch.models.samplernn import init_params
+from msnv_tpu_torch.tree import keystr, leaves_with_paths, map_with_paths
 
 PREFIX = "leaf:['params']"
-
-
-def _keystr(path) -> str:
-    """JAX's tree_util.keystr for a path of dict keys (str) and list
-    indices (int)."""
-    return "".join(f"[{p}]" if isinstance(p, int) else f"[{p!r}]"
-                   for p in path)
-
-
-def _leaves(tree, path=()):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, path + (k,))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, path + (i,))
-    else:
-        yield path, tree
-
-
-def _rebuild(template, fill, path=()):
-    if isinstance(template, dict):
-        return {k: _rebuild(v, fill, path + (k,))
-                for k, v in template.items()}
-    if isinstance(template, (list, tuple)):
-        return [_rebuild(v, fill, path + (i,))
-                for i, v in enumerate(template)]
-    return fill(path, template)
 
 
 def param_keys(cfg: ModelConfig) -> list:
     """The checkpoint keys of every parameter of `cfg`'s model."""
     template = init_params(cfg, device="meta")
-    return [PREFIX + _keystr(path) for path, _ in _leaves(template)]
+    return [PREFIX + keystr(path) for path, _ in leaves_with_paths(template)]
 
 
 def params_from_numpy(flat: dict, cfg: ModelConfig, device=None):
@@ -64,7 +37,7 @@ def params_from_numpy(flat: dict, cfg: ModelConfig, device=None):
     template = init_params(cfg, device="meta")
 
     def fill(path, t):
-        key = PREFIX + _keystr(path)
+        key = PREFIX + keystr(path)
         if key not in flat:
             raise KeyError(f"checkpoint has no entry {key}")
         arr = np.asarray(flat[key])
@@ -75,7 +48,7 @@ def params_from_numpy(flat: dict, cfg: ModelConfig, device=None):
                 f"checkpoint?")
         return torch.from_numpy(np.array(arr, np.float32)).to(device)
 
-    return _rebuild(template, fill)
+    return map_with_paths(fill, template)
 
 
 def load_npz_params(path, cfg: ModelConfig, device=None):
@@ -88,8 +61,8 @@ def load_npz_params(path, cfg: ModelConfig, device=None):
 
 def params_to_numpy(params) -> dict:
     """The inverse: {checkpoint key: float32 array} for an npz writer."""
-    return {PREFIX + _keystr(path): t.detach().float().cpu().numpy()
-            for path, t in _leaves(params)}
+    return {PREFIX + keystr(path): t.detach().float().cpu().numpy()
+            for path, t in leaves_with_paths(params)}
 
 
 def opt_state_to_numpy(opt_state) -> dict:

@@ -11,6 +11,7 @@ Reference-parity quirks, deliberately preserved:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MU = 255.0
@@ -64,6 +65,20 @@ def udequantize(samples, q_levels: int = 256):
 def q_zero(q_levels: int = 256) -> int:
     """The quantization level representing silence (ref utils.py:22-23)."""
     return q_levels // 2
+
+
+def uquantize_np(samples, q_levels: int = 256):
+    """Numpy mu-law quantizer preserving the INPUT precision.
+
+    The reference corpus stores audio as float64 (np.append promotion,
+    ref dataset.py:138) and quantizes through torch in f64
+    (ref dataset.py:253-254); f32 math lands on different levels at rare
+    bin boundaries. The chunk loader uses this f64 path for exact parity.
+    """
+    x = np.asarray(samples)
+    y = np.sign(x) * np.log1p(MU * np.abs(x)) / LOG_MU1
+    return np.floor(0.5 * (y + 1.0) * (q_levels - _EPS_MIDRISE)).astype(
+        np.int32)
 
 
 def linear_quantize(samples, q_levels: int = 256):

@@ -1,1 +1,2 @@
-"""Training: the optimizer and the TBPTT train / eval steps."""
+"""Training: the optimizer, the TBPTT steps, the Trainer loop, plugins and
+checkpoints."""

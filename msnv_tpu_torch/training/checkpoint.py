@@ -1,0 +1,207 @@
+"""Checkpointing: params + optimizer state + TBPTT hidden + data cursor.
+
+The port's counterpart of the JAX package's training/checkpoint.py, in the
+same file format, so a checkpoint written by either package loads in the
+other:
+
+- one `.npz` with every leaf under "leaf:" + the JAX tree_util.keystr of its
+  path in the JAX trainer's state, plus a JSON "__meta__" entry
+  ({"epoch", "iteration", "tag", "chunk", "val_loss"});
+- the port's trainer state {"params", "opt_state", "tier_state"} maps to
+  the JAX keys leaf for leaf: params and tier_state under their own paths;
+  the optimizer state {"count", "mu", "nu"} under the optax chain
+  (ClipState, (ScaleByAdamState, EmptyState)), whose only leaves are
+  "['opt_state'][1][0].count" (an int32 0-d array), ".mu[...]" and
+  ".nu[...]";
+- `ep{E}-it{I}.npz` per epoch (older "last" checkpoints deleted unless
+  keep_old) and `best-ep{E}-it{I}.npz` tracked on validation loss (ref
+  plugins.py:113-155), written first and deleted after, each write atomic
+  (`.tmp` + os.replace); epoch / iteration parse back out of the file name
+  on resume (ref train.py:110-126); a new manager recovers the best loss
+  from an existing best checkpoint's meta.
+
+Loading walks a template in the port's layout (partial templates work:
+generate and evaluate read {"params": ...} only) and places each leaf on
+the template leaf's device, or on `device`. The JAX package's orbax backend
+(directory checkpoints for multi-host sharded state) is not ported
+(ROADMAP queue 1.7).
+"""
+
+from __future__ import annotations
+
+import glob
+import io
+import json
+import os
+import re
+
+import numpy as np
+import torch
+
+from msnv_tpu_torch.tree import keystr, leaves_with_paths, map_with_paths
+
+LAST_PATTERN = "ep{}-it{}.npz"                    # ref plugins.py:117
+BEST_PATTERN = "best-ep{}-it{}.npz"               # ref plugins.py:118
+_LAST_RE = re.compile(r"^ep(\d+)-it(\d+)\.npz$")
+_BEST_RE = re.compile(r"^best-ep(\d+)-it(\d+)\.npz$")
+
+# the optax chain's path to its one stateful member, ScaleByAdamState
+_ADAM = "['opt_state'][1][0]"
+
+
+def _key(path) -> str:
+    """The JAX key of a port state leaf: the optimizer's {count, mu, nu}
+    under the optax chain, everything else under its own path."""
+    if path[:1] == ("opt_state",) and path[1:2] in (("count",), ("mu",),
+                                                    ("nu",)):
+        return "leaf:" + _ADAM + "." + path[1] + keystr(path[2:])
+    return "leaf:" + keystr(path)
+
+
+def _to_numpy(x) -> np.ndarray:
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    if isinstance(x, int):
+        return np.asarray(x, np.int32)      # the optimizer's step count
+    return np.asarray(x)
+
+
+def flatten_state(state) -> dict:
+    """{checkpoint key: host array} of a port state tree."""
+    return {_key(path): _to_numpy(x)
+            for path, x in leaves_with_paths(state)}
+
+
+def save_checkpoint(path: str, state, meta: dict | None = None) -> None:
+    """Save a port state tree (+ JSON-serializable `meta`) to `path`.
+
+    Every leaf is copied to the host before the file is written, so the
+    state may be updated in place as soon as this returns."""
+    arrays = flatten_state(state)
+    arrays["__meta__"] = np.frombuffer(
+        json.dumps(meta or {}).encode(), dtype=np.uint8)
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(buf.getvalue())
+    os.replace(tmp, path)  # atomic
+
+
+def load_checkpoint(path: str, template, device=None):
+    """Load into the structure of `template`; returns (state, meta).
+
+    Every template path must exist in the checkpoint (KeyError names the
+    missing path otherwise); extra checkpoint entries are ignored. A tensor
+    leaf comes back in the template leaf's dtype on `device`, or on the
+    template leaf's device; an int leaf (the optimizer's count) as an int.
+    """
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["__meta__"].tobytes()).decode() or "{}")
+
+        def fill(path_in_tree, t):
+            key = _key(path_in_tree)
+            if key not in z:
+                raise KeyError(f"checkpoint {path} has no entry {key}")
+            arr = z[key]
+            if isinstance(t, int):
+                return int(arr)
+            if tuple(arr.shape) != tuple(t.shape):
+                raise ValueError(
+                    f"checkpoint {path}: shape mismatch at {key}: "
+                    f"saved {tuple(arr.shape)} vs expected "
+                    f"{tuple(t.shape)} — wrong config/tag for this "
+                    f"checkpoint?")
+            out = torch.from_numpy(np.ascontiguousarray(arr)).to(t.dtype)
+            return out.to(device if device is not None else t.device)
+
+        state = map_with_paths(fill, template)
+    return state, meta
+
+
+def _load_meta(path: str) -> dict:
+    with np.load(path) as z:
+        return json.loads(bytes(z["__meta__"].tobytes()).decode() or "{}")
+
+
+class CheckpointManager:
+    """last/best retention policy over a checkpoints directory (npz)."""
+
+    def __init__(self, checkpoints_dir: str, keep_old: bool = False,
+                 backend: str = "npz"):
+        if backend != "npz":
+            raise NotImplementedError(
+                f"checkpoint backend {backend!r} is not ported (only npz; "
+                f"orbax is ROADMAP queue 1.7)")
+        self.dir = checkpoints_dir
+        self.keep_old = keep_old
+        os.makedirs(checkpoints_dir, exist_ok=True)
+        # recover the historical best from an existing best checkpoint's
+        # meta, so a resumed run never overwrites a better past best
+        self._best_loss = float("inf")
+        existing = self.best()
+        if existing is not None:
+            try:
+                meta = _load_meta(existing[0])
+                self._best_loss = float(meta.get("val_loss", float("inf")))
+            except (OSError, ValueError, KeyError):
+                pass
+
+    def _retain_only(self, keep_path, regex):
+        """Delete checkpoints matching `regex` except `keep_path`."""
+        for p in glob.glob(os.path.join(self.dir, "*ep*-it*.*")):
+            if regex.match(os.path.basename(p)) and \
+                    os.path.abspath(p) != os.path.abspath(keep_path):
+                os.remove(p)
+
+    @property
+    def best_loss(self) -> float:
+        """Best validation loss seen by save_epoch (inf before any)."""
+        return self._best_loss
+
+    def save_epoch(self, state, epoch: int, iteration: int,
+                   val_loss: float | None = None, meta: dict | None = None,
+                   save_last: bool = True):
+        """save_last=False saves/retains only the best-checkpoint side
+        (SaverPlugin's every_n_epochs thinning: an off-schedule epoch that
+        improved validation still pins a best checkpoint). Returns the path
+        written (the last one if both), or None."""
+        meta = dict(meta or {}, epoch=epoch, iteration=iteration)
+        # WRITE-then-delete: the new checkpoint lands before old ones are
+        # removed, so a crash mid-save never leaves the run with zero
+        # resumable checkpoints
+        path = os.path.join(self.dir, LAST_PATTERN.format(epoch, iteration))
+        written = None
+        if save_last:
+            save_checkpoint(path, state, meta)
+            if not self.keep_old:
+                self._retain_only(path, _LAST_RE)
+            written = path
+        if val_loss is not None and val_loss < self._best_loss:
+            self._best_loss = val_loss
+            best = os.path.join(self.dir,
+                                BEST_PATTERN.format(epoch, iteration))
+            save_checkpoint(best, state, dict(meta, val_loss=val_loss))
+            self._retain_only(best, _BEST_RE)
+            written = written or best
+        return written
+
+    def _newest(self, pattern, regex):
+        found = []
+        for p in glob.glob(os.path.join(self.dir, pattern)):
+            m = regex.match(os.path.basename(p))
+            if m:
+                found.append((int(m.group(1)), int(m.group(2)), p))
+        if not found:
+            return None
+        e, i, p = max(found)
+        return p, e, i
+
+    def latest(self):
+        """Newest last-checkpoint (path, epoch, iteration), or None:
+        natural sort on the numbers in the file name (ref
+        train.py:110-126)."""
+        return self._newest("ep*-it*.npz", _LAST_RE)
+
+    def best(self):
+        return self._newest("best-ep*-it*.npz", _BEST_RE)

@@ -9,9 +9,21 @@ In place: the step updates `params` and `opt_state` IN PLACE and returns the
 same objects (the JAX step donates its arguments to the same effect). The
 returned state is detached: no gradient crosses a chunk boundary.
 
-Not ported yet: `mesh=` (multi-device sharding) and the block-scan
-executables (`make_train_block_scan`, `make_eval_block_scan`,
-`eval_device_corpus`); they raise NotImplementedError.
+Device-resident corpus: `chunk_slices` cuts chunk k out of the packed
+corpus uploaded once (data/loader.ChunkLoader.device_arrays); the indexed
+steps take a chunk index. The JAX package compiles a `lax.scan` over a block
+of chunk indices; eager PyTorch has no scan, so a block
+(`make_train_block_scan`, `make_eval_block_scan`) is a Python loop over the
+indexed steps whose losses are stacked on the device and fetched once: the
+same numbers as the indexed steps, bit for bit. `eval_device_corpus` runs the
+eval blocks over a freshly uploaded corpus.
+
+Exposure-bias randomness comes from torch.Generators seeded by
+`fold_generator` from integers (the seed, the iteration or the epoch and the
+chunk index), the counterpart of the JAX key chains, so a resumed run
+replays the same stream.
+
+Not ported: `mesh=` (multi-device sharding) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -209,15 +221,88 @@ def make_eval_step_indexed(cfg: ModelConfig, seq_len: int, overlap_len: int,
     return step
 
 
-def _block_scan_not_ported(*_args, **_kwargs):
-    raise NotImplementedError(
-        "the block-scan executables are not ported yet; loop over "
-        "make_train_step_indexed / make_eval_step_indexed")
+_MASK64 = (1 << 64) - 1
 
 
-make_train_block_scan = _block_scan_not_ported
-make_eval_block_scan = _block_scan_not_ported
-eval_device_corpus = _block_scan_not_ported
+def fold_generator(device, *ints) -> torch.Generator:
+    """A torch.Generator on `device` seeded from a chain of integers (a
+    splitmix64 mix per integer), like jax.random.fold_in chains: the same
+    integers give the same stream."""
+    h = 0x9E3779B97F4A7C15
+    for v in ints:
+        h = (h ^ (int(v) & _MASK64)) * 0xBF58476D1CE4E5B9 & _MASK64
+        h = (h ^ (h >> 31)) * 0x94D049BB133111EB & _MASK64
+        h ^= h >> 29
+    return torch.Generator(device=device).manual_seed(h >> 1)
+
+
+def make_train_block_scan(cfg: ModelConfig, optimizer, seq_len: int,
+                          overlap_len: int, cond_in_seq: int, mesh=None,
+                          compute_dtype=None,
+                          exposure: Optional[tuple] = None):
+    """Multi-step train over a device-resident corpus:
+
+    run_block(params, opt_state, state, corpus, ks[, key])
+      -> (params, opt_state, state, losses (len(ks),) on the device)
+
+    The indexed train step for each chunk index of `ks` in order, the
+    losses stacked on the device (one fetch per block for the caller). With
+    `exposure` it takes a trailing `key`, a tuple of integers; chunk k
+    draws from fold_generator(device, *key, k).
+    """
+    _no_mesh(mesh)
+    step = make_train_step_indexed(cfg, optimizer, seq_len, overlap_len,
+                                   cond_in_seq, compute_dtype=compute_dtype,
+                                   exposure=exposure)
+
+    def run_block(params, opt_state, state, corpus, ks, key=()):
+        losses = []
+        for k in ks:
+            k = int(k)
+            extra = ((fold_generator(corpus["qdata"].device, *key, k),)
+                     if exposure is not None else ())
+            params, opt_state, state, loss = step(params, opt_state, state,
+                                                  corpus, k, *extra)
+            losses.append(loss)
+        return params, opt_state, state, torch.stack(losses)
+
+    return run_block
+
+
+def make_eval_block_scan(cfg: ModelConfig, seq_len: int, overlap_len: int,
+                         cond_in_seq: int, mesh=None):
+    """Multi-step eval over a device-resident corpus:
+    run_block(params, state, corpus, ks) -> (losses (len(ks),), state)."""
+    _no_mesh(mesh)
+    step = make_eval_step_indexed(cfg, seq_len, overlap_len, cond_in_seq)
+
+    def run_block(params, state, corpus, ks):
+        losses = []
+        for k in ks:
+            loss, state = step(params, state, corpus, int(k))
+            losses.append(loss)
+        return torch.stack(losses), state
+
+    return run_block
+
+
+def eval_device_corpus(cfg: ModelConfig, params, state, loader,
+                       scan_block: int = 16):
+    """Block evaluation over a freshly uploaded device corpus (on the
+    state's device) -> (mean NLL bits, final state). Used by the evaluate
+    CLI; Trainer.evaluate keeps the uploaded corpora across epochs. The
+    corpus is released when this frame returns."""
+    corpus_dev = loader.device_arrays(state[0].device)
+    scan = make_eval_block_scan(cfg, loader.seq_len, loader.overlap_len,
+                                loader.cond_in_seq)
+    ks = list(range(len(loader)))
+    losses = []
+    for i in range(0, len(ks), scan_block):
+        blk_losses, state = scan(params, state, corpus_dev,
+                                 ks[i:i + scan_block])
+        losses.append(blk_losses)
+    nll = float(torch.cat(losses).mean()) if losses else 0.0
+    return nll, state
 
 
 def state_stop_gradient(state):

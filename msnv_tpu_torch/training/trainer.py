@@ -1,0 +1,273 @@
+"""Trainer: TBPTT epoch loop with plugin events and exact resume.
+
+The port's counterpart of the JAX package's training/trainer.py (a
+re-design of ref trainer/__init__.py:9-117): the train step owns the math,
+the Trainer owns the loop, the loaders, plugin dispatch and the resumable
+training state (epoch, iteration, TBPTT hidden, data cursor).
+
+The step updates params and the optimizer state in place
+(training/step.py), so `checkpoint_state()` hands out copies: a later step
+never changes what a saver or a caller holds. The steps take the params as
+arguments and keep nothing of them, so after `restore()` or a warm start
+they train the loaded tensors.
+
+The identity head only: the GAN variant (ROADMAP queue 1.6) and `mesh=`
+(queue 1.7) raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from msnv_tpu_torch.config import ExperimentConfig, make_tag
+from msnv_tpu_torch.models.samplernn import init_tier_state
+from msnv_tpu_torch.training.step import (exposure_tuple, fold_generator,
+                                          make_eval_block_scan,
+                                          make_eval_step,
+                                          make_train_block_scan,
+                                          make_train_step,
+                                          make_train_step_indexed)
+from msnv_tpu_torch.tree import tree_map
+
+
+def _on(device, array):
+    return torch.from_numpy(np.ascontiguousarray(array)).to(device)
+
+
+class Trainer:
+    #: device-corpus "auto" threshold: upload a corpus to device memory
+    #: only below this footprint (big corpora keep streaming from host RAM)
+    DEVICE_CORPUS_MAX_BYTES = 2 << 30
+
+    def __init__(self, cfg: ExperimentConfig, params, optimizer, loader,
+                 mesh=None, compute_dtype=None, device_corpus="auto"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "Trainer(mesh=...): multi-device training is not ported yet "
+                "(ROADMAP queue 1.7)")
+        if cfg.model.variant == "gan":
+            raise NotImplementedError(
+                "the GAN variant's trainer is not ported yet (ROADMAP "
+                "queue 1.6)")
+        self.cfg = cfg
+        self.tag = make_tag(cfg)
+        self.params = params
+        self.device = params["mlp"]["embedding"].device
+        self.optimizer = optimizer
+        self.opt_state = optimizer.init(params)
+        self.loader = loader
+        self.state = init_tier_state(cfg.model, loader._qdata.shape[0],
+                                     device=self.device)
+        self.epochs = 0        # completed epochs (resume sets this)
+        self.iterations = 0
+        self.chunk_index = 0   # data cursor within the current epoch
+        self.start_chunk = 0   # mid-epoch resume point
+        self.stats = {}
+        self.plugins = []
+        self.compute_dtype = compute_dtype
+        self.device_corpus = device_corpus
+        self.scan_block = 16          # chunks per block
+        self._corpus_dev = None       # device-resident packed corpus
+        self._step_indexed = None
+        self._train_scan = None
+        self._eval_dev = {}           # loader -> (corpus_dev, eval_scan)
+
+        # exposure-bias mitigation (config.TrainConfig.ss_prob /
+        # input_noise_prob): the train steps take a trailing generator,
+        # seeded from (seed + 0x55, iteration) on the host path and from
+        # (seed + 0x55, epoch, chunk) on the device-corpus paths
+        self._exposure = exposure_tuple(cfg.train)
+        self._exp_seed = (cfg.train.seed + 0x55) & 0x7FFFFFFF
+
+        self._step = make_train_step(cfg.model, optimizer,
+                                     compute_dtype=compute_dtype,
+                                     exposure=self._exposure)
+        self._eval = make_eval_step(cfg.model)
+        if self._want_device_corpus(loader):
+            # window geometry comes from the LOADER, never from the train
+            # config (they agree in the CLI; the API allows any loader)
+            geo = (loader.seq_len, loader.overlap_len, loader.cond_in_seq)
+            self._corpus_dev = loader.device_arrays(self.device)
+            self._step_indexed = make_train_step_indexed(
+                cfg.model, optimizer, *geo, compute_dtype=compute_dtype,
+                exposure=self._exposure)
+            self._train_scan = make_train_block_scan(
+                cfg.model, optimizer, *geo, compute_dtype=compute_dtype,
+                exposure=self._exposure)
+
+    def _want_device_corpus(self, loader) -> bool:
+        if self.device_corpus in (False, "false"):
+            return False
+        if self.device_corpus in (True, "true"):
+            return True
+        return loader.device_bytes() <= self.DEVICE_CORPUS_MAX_BYTES
+
+    # -- plugins ----------------------------------------------------------
+    def register_plugin(self, plugin):
+        plugin.register(self)
+        self.plugins.append(plugin)
+        return plugin
+
+    def _call_plugins(self, event: str, *args):
+        for p in self.plugins:
+            getattr(p, event)(*args)
+
+    # -- training ---------------------------------------------------------
+    def train_chunk(self, chunk, iteration=None):
+        """One optimizer step on one host TBPTT chunk; returns the loss
+        (bits) as a device scalar. `iteration` is the number of steps taken
+        before this one (default: the iterations flushed so far)."""
+        extra = ()
+        if self._exposure is not None:
+            # deterministic in (seed, iteration): resume replays the stream.
+            # The JAX trainer keys on the flushed count, which lags one step
+            # behind under the pipelined flush (its first two steps share a
+            # key); here the pipelined and the synchronous loops draw alike.
+            it = self.iterations if iteration is None else iteration
+            extra = (fold_generator(self.device, self._exp_seed, it),)
+        dev = self.device
+        self.params, self.opt_state, self.state, loss = self._step(
+            self.params, self.opt_state, self.state, _on(dev, chunk.data),
+            chunk.reset, _on(dev, chunk.target), _on(dev, chunk.cond),
+            _on(dev, chunk.spk), *extra)
+        return loss
+
+    def _pipelining_allowed(self) -> bool:
+        """Loss-fetch pipelining (and blocks) run a plugin's iteration(k)
+        after later steps were dispatched, so a plugin that reads trainer
+        params/state per iteration would see a later state. Plugins declare
+        that need with `needs_sync_state` and force the per-step loop."""
+        return not any(getattr(p, "needs_sync_state", False)
+                       for p in self.plugins)
+
+    def _epoch_key(self):
+        """Exposure key of the device-corpus paths: (seed, epoch); the
+        chunk index is folded in per step."""
+        if self._exposure is None:
+            return ()
+        return (self._exp_seed, self.epochs)
+
+    def _run_scan_block(self, ks) -> np.ndarray:
+        """One block of indexed steps; returns per-chunk losses (one fetch)."""
+        (self.params, self.opt_state, self.state,
+         losses) = self._train_scan(
+            self.params, self.opt_state, self.state, self._corpus_dev, ks,
+            self._epoch_key())
+        return losses.cpu().numpy()
+
+    def _run_step_indexed(self, k):
+        """One indexed device-corpus step; returns the chunk loss."""
+        key = self._epoch_key()
+        extra = ((fold_generator(self.device, *key, k),) if key else ())
+        (self.params, self.opt_state, self.state,
+         loss) = self._step_indexed(
+            self.params, self.opt_state, self.state, self._corpus_dev, k,
+            *extra)
+        return loss
+
+    def train_epoch(self, start_chunk: int = 0):
+        """One epoch. When allowed, the loss fetch runs one step behind:
+        step k+1 is launched BEFORE float(loss_k) waits, so the fetch
+        overlaps the device's work instead of stalling it."""
+        pipelined = self._pipelining_allowed()
+        pending = None
+        if self._train_scan is not None and pipelined:
+            # blocks of scan_block chunks, one loss-vector fetch per block
+            ks = list(range(start_chunk, len(self.loader)))
+            for i in range(0, len(ks), self.scan_block):
+                blk = ks[i:i + self.scan_block]
+                for k, loss in zip(blk, self._run_scan_block(blk)):
+                    self._flush_iteration(k, loss)
+        elif self._step_indexed is not None:
+            # interval savers need per-step state visibility
+            for k in range(start_chunk, len(self.loader)):
+                loss = self._run_step_indexed(k)
+                self._flush_iteration(k, loss)
+        else:
+            for chunk in self.loader.epoch(start_chunk=start_chunk):
+                loss = self.train_chunk(
+                    chunk, self.iterations + (pending is not None))
+                if pending is not None:
+                    self._flush_iteration(*pending)
+                if pipelined:
+                    pending = (chunk.index, loss)
+                else:
+                    self._flush_iteration(chunk.index, loss)
+        if pending is not None:
+            self._flush_iteration(*pending)
+
+    def _flush_iteration(self, index: int, loss):
+        self.chunk_index = index
+        self.iterations += 1
+        self._call_plugins("iteration", float(loss))
+
+    def run(self, epoch_limit: int):
+        """Run up to epoch_limit epochs, resuming from self.epochs (and,
+        for a mid-epoch checkpoint, from self.start_chunk) —
+        ref trainer/__init__.py:52-60 plus exact-cursor resume."""
+        self.epoch_limit = epoch_limit   # plugins may key off the final epoch
+        first = True
+        for epoch in range(self.epochs + 1, epoch_limit + 1):
+            self.train_epoch(self.start_chunk if first else 0)
+            first = False
+            self.start_chunk = 0
+            self.epochs = epoch
+            self._call_plugins("epoch", epoch)
+
+    # -- evaluation -------------------------------------------------------
+    def evaluate(self, loader) -> float:
+        """Mean NLL-bits over a partition (float32 params), loss*batch_size
+        weighted like the reference (ref plugins.py:51-92); every chunk
+        carries the full lane batch, so that is the mean. Fresh hidden
+        state; the losses are fetched once. Evaluation corpora ride the
+        device-resident path too when training does."""
+        state = init_tier_state(self.cfg.model, loader._qdata.shape[0],
+                                device=self.device)
+        losses = []
+        if self._corpus_dev is not None and self._want_device_corpus(loader):
+            # keyed by the loader OBJECT (a held reference); the training
+            # loader reuses the already-resident corpus
+            if loader not in self._eval_dev:
+                corpus_dev = (self._corpus_dev if loader is self.loader
+                              else loader.device_arrays(self.device))
+                self._eval_dev[loader] = (corpus_dev, make_eval_block_scan(
+                    self.cfg.model, loader.seq_len, loader.overlap_len,
+                    loader.cond_in_seq))
+            corpus_dev, eval_scan = self._eval_dev[loader]
+            ks = list(range(len(loader)))
+            for i in range(0, len(ks), self.scan_block):
+                blk_losses, state = eval_scan(self.params, state, corpus_dev,
+                                              ks[i:i + self.scan_block])
+                losses.append(blk_losses)
+            return float(torch.cat(losses).mean()) if losses else 0.0
+        dev = self.device
+        for chunk in loader.epoch():
+            loss, state = self._eval(
+                self.params, state, _on(dev, chunk.data), chunk.reset,
+                _on(dev, chunk.target), _on(dev, chunk.cond),
+                _on(dev, chunk.spk))
+            losses.append(loss)
+        return float(torch.stack(losses).mean()) if losses else 0.0
+
+    # -- checkpoint interface ---------------------------------------------
+    def checkpoint_state(self):
+        """The full resumable state (params + optimizer + TBPTT hidden), as
+        copies: the steps update the live tensors in place."""
+        copy = lambda x: x.detach().clone()             # noqa: E731
+        return {
+            "params": tree_map(copy, self.params),
+            "opt_state": {"count": int(self.opt_state["count"]),
+                          "mu": tree_map(copy, self.opt_state["mu"]),
+                          "nu": tree_map(copy, self.opt_state["nu"])},
+            "tier_state": [copy(s) for s in self.state],
+        }
+
+    def restore(self, state, meta):
+        self.params = state["params"]
+        self.opt_state = state["opt_state"]
+        self.state = list(state["tier_state"])
+        self.epochs = int(meta.get("epoch", 0))
+        self.iterations = int(meta.get("iteration", 0))
+        # mid-epoch cursor: next chunk to train within epoch self.epochs+1
+        self.start_chunk = int(meta.get("chunk", 0))

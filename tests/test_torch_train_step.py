@@ -440,10 +440,6 @@ def test_unported_entry_points_raise():
         tstep.make_train_step(cfg, opt, mesh=object())
     with pytest.raises(NotImplementedError, match="mesh"):
         tstep.make_eval_step(cfg, mesh=object())
-    for fn in (tstep.make_train_block_scan, tstep.make_eval_block_scan,
-               tstep.eval_device_corpus):
-        with pytest.raises(NotImplementedError, match="block-scan"):
-            fn(cfg, opt, 32, 16, 2)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -462,8 +458,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert not bad, bad\n"
         "assert 'msnv_tpu_torch.training.step' in names\n"
         "assert 'msnv_tpu_torch.kernels.gru_layer' in names\n"
+        "for n in ('training.trainer', 'training.checkpoint', "
+        "'training.plugins', 'data.loader', 'data.corpus', 'data.native', "
+        "'cli.train', 'cli.evaluate', 'cli.generate'):\n"
+        "    assert 'msnv_tpu_torch.' + n in names, n\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 35

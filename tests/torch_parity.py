@@ -58,3 +58,38 @@ def narrow_samplernn(dim: int = 32) -> ModelConfig:
 
 def tiny() -> ModelConfig:
     return preset("tiny_unconditional").model
+
+
+def corpus_arrays(cfg: ModelConfig, batch: int, seq_len: int, n_chunks: int,
+                  seed: int = 0) -> dict:
+    """A packed corpus from a numpy seed ({data, cond, spk, audio_id,
+    min_cond, max_cond, spk_ids}) with exactly `n_chunks` full TBPTT
+    windows per lane: float64 audio in [-0.95, 0.95], conditioner frames
+    in [0, 1), speaker runs of 7 frames."""
+    rng = np.random.RandomState(seed)
+    lb = cfg.lookback
+    lane_len = n_chunks * seq_len + lb
+    frames = lane_len // cfg.cond_len + 1
+    spk = (np.arange(frames)[None, :] // 7 + np.arange(batch)[:, None])
+    return {"data": rng.uniform(-0.95, 0.95, (batch, lane_len)),
+            "cond": rng.rand(batch, frames, cfg.effective_cond_dim),
+            "spk": (spk % cfg.spk_dim).astype(np.int64),
+            "audio_id": np.zeros((batch, frames), np.int64),
+            "min_cond": np.zeros(cfg.effective_cond_dim),
+            "max_cond": np.ones(cfg.effective_cond_dim),
+            "spk_ids": np.asarray([f"{71 + s}" for s in range(cfg.spk_dim)])}
+
+
+def both_loaders(cfg: ModelConfig, batch: int, seq_len: int, n_chunks: int,
+                 seed: int = 0):
+    """(port ChunkLoader, JAX ChunkLoader) over one corpus_arrays corpus."""
+    from msnv_tpu.data.corpus import Corpus as JCorpus
+    from msnv_tpu.data.loader import ChunkLoader as JLoader
+    from msnv_tpu_torch.data.corpus import Corpus as TCorpus
+    from msnv_tpu_torch.data.loader import ChunkLoader as TLoader
+    arrays = corpus_arrays(cfg, batch, seq_len, n_chunks, seed)
+    geo = (seq_len, cfg.lookback, cfg.cond_len, cfg.q_levels, cfg.ulaw)
+    tl = TLoader(TCorpus(**arrays), *geo)
+    jl = JLoader(JCorpus(**arrays), *geo)
+    assert len(tl) == len(jl) == n_chunks
+    return tl, jl
