@@ -48,7 +48,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 dh0) in float32 and bfloat16 against autograd through the
                 plain forward; a shape the kernels cannot take raises;
                 persistent / per-step / empty-sweep / plain / nn.GRU times,
-                each the median over runs of 10 calls in a row
+                each the median over runs of 10 calls in a row (nn.GRU's
+                bf16 weights flattened into one cuDNN buffer, any warning
+                in its timed calls an error; the module as
+                flatten_parameters() leaves it timed beside)
   6. train    — the train step at full width (B 128, seq_len 1040, bf16
                 mixed precision, gru_impl="pallas"): one step with reset,
                 six without, on one fixed batch; losses finite and falling,
@@ -75,17 +78,34 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 window resident. Corpus build, epoch wall and trainer
                 samples/s, checkpoint write/read and size, evaluation wall
                 and generation audio-s/s
+  8. mux     — the lane-batched /stream multiplexer at full width, bf16,
+                from phase 4's .npz: StreamMultiplexer driven directly
+                (a masked push leaves the inactive lanes' buffer and hidden
+                state bit-equal; 128 streams x 200 frames, then 1024 x 48,
+                K 4, mixed speakers and a mix, through per-lane sinks: every
+                stream complete and not constant, every window resident,
+                windows = ticks x K x 4); then VocoderService(mux_lanes=128)
+                behind the asyncio and then the threaded front-end, each
+                time 128 concurrent seed-less /stream requests of 200
+                frames from a client process of their own (every status
+                and byte count; host wall of each push), a seeded /stream
+                byte-equal through the asyncio and the threaded front-ends,
+                /healthz's mux_lanes and the 429 beyond the lanes. An
+                exception in any thread (the pump's above all) fails the
+                phase. Ticks, wall per tick, aggregate audio-s/s, per-stream
+                realtime factor (min / median), time to first audio
 Then one JSON line of kernel numbers, the card's name and power limit, and
 last the {"ok": true, "device": ...} line. The kernels' `launches` add up
-the counts of every path that drives them: K1 the serving path (phase 4)
-and the generate CLI (phase 7), K2 the train steps (phase 6) and the
-training loop (phase 7), each count set to 0 just before its path and read
-just after.
+the counts of every path that drives them: K1 the serving path (phase 4),
+the generate CLI (phase 7) and the multiplexer (phase 8), K2 the train
+steps (phase 6) and the training loop (phase 7), each count set to 0 just
+before its path and read just after.
 
 `--rehearse-cpu` runs the same phases on the CPU at dim 32 with the plain
 versions (no build, no timing on the card; phase 7 at B 4 on a small
-corpus) and ends without the ok line. `--phases=5,6` or `--phases=7` runs
-only the named phases (and then prints no result line).
+corpus; phase 8 with 4 and 8 lanes) and ends without the ok line.
+`--phases=5,6`, `--phases=7` or `--phases=8` runs only the named phases
+(and then prints no result line).
 """
 
 from __future__ import annotations
@@ -99,6 +119,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 
@@ -529,16 +550,11 @@ def _post(addr, path, body, raw=None):
     return r, data
 
 
-def phase_serve(params, exp_cfg, frames_syn, frames_stream):
-    import http.client
-    import torch
+def smoke_checkpoint(params, exp_cfg):
+    """The params as a JAX-format checkpoint ("leaf:" + keystr paths and a
+    JSON meta) under the git-ignored build directory -> (path, tag)."""
     from msnv_tpu_torch.config import make_tag
-    from msnv_tpu_torch.interop import load_npz_params, params_to_numpy
-    from msnv_tpu_torch.kernels.sample_window import sample_window
-    from msnv_tpu_torch.serving import VocoderService, make_server
-    cfg = exp_cfg.model
-    dev = params["mlp"]["embedding"].device
-    # a JAX-format checkpoint: "leaf:" + keystr paths and a JSON meta
+    from msnv_tpu_torch.interop import params_to_numpy
     tag = make_tag(exp_cfg)
     ckpt_dir = os.path.join(REPO, "msnv_tpu_torch", "build", "smoke", tag,
                             "checkpoints")
@@ -547,6 +563,17 @@ def phase_serve(params, exp_cfg, frames_syn, frames_stream):
     arrays = params_to_numpy(params)
     arrays["__meta__"] = np.frombuffer(b"{}", dtype=np.uint8)
     np.savez(path, **arrays)
+    return path, tag
+
+
+def phase_serve(params, ckpt, cfg, frames_syn, frames_stream):
+    import http.client
+    import torch
+    from msnv_tpu_torch.interop import load_npz_params
+    from msnv_tpu_torch.kernels.sample_window import sample_window
+    from msnv_tpu_torch.serving import VocoderService, make_server
+    dev = params["mlp"]["embedding"].device
+    path, tag = ckpt
     loaded = load_npz_params(path, cfg, device=dev)
     if not torch.equal(loaded["mlp"]["conv_in"], params["mlp"]["conv_in"]):
         raise AssertionError("npz round trip changed the weights")
@@ -666,6 +693,22 @@ def _rel_err(got, want):
     """max |got - want| over max(1, max |want|)."""
     return float((got - want).abs().max()) / max(1.0,
                                                  float(want.abs().max()))
+
+
+def flat_bf16_gru(H, dev):
+    """One torch.nn.GRU(H, H) layer in bf16 with its weights in ONE cuDNN
+    buffer. flatten_parameters() leaves bf16 weights where they are
+    (torch.backends.cudnn.is_acceptable admits half, float and double
+    only), and cuDNN then compacts them into a new buffer on every call;
+    this makes the call that flatten_parameters makes for those types."""
+    import torch
+    from torch.backends.cudnn import rnn as cudnn_rnn
+    gru = torch.nn.GRU(H, H).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        torch._cudnn_rnn_flatten_weight(
+            gru._flat_weights, 4, H, cudnn_rnn.get_cudnn_mode(gru.mode), H,
+            0, 1, False, False)
+    return gru
 
 
 def phase_gru(dev, shapes):
@@ -827,19 +870,40 @@ def phase_gru(dev, shapes):
         bwd_plain = cuda_ms(lambda: gl.gru_layer_backward_reference(
             x["x_proj"], hproj, h_prev, x["dy"], w_hh, mxu), 5)
         # the library's yardstick: one nn.GRU layer in bf16, which also does
-        # the input projection that gru_layer leaves outside
-        rnn = torch.nn.GRU(H, H).to(dev, torch.bfloat16)
-        rnn.flatten_parameters()
+        # the input projection that gru_layer leaves outside, its weights in
+        # one cuDNN buffer; any warning in its timed calls is an error (the
+        # one to catch: cuDNN compacting scattered weights on every call)
         inp = torch.randn(T, B, H, device=dev, dtype=torch.bfloat16,
                           requires_grad=True)
         h0 = x["h0"][None].to(torch.bfloat16)
-        with torch.no_grad():
-            lib_fwd = cuda_ms(lambda: rnn(inp, h0), **run)
+        dy16 = x["dy"].to(torch.bfloat16)
 
-        def lib_both():
-            out, _ = rnn(inp, h0)
-            out.backward(x["dy"].to(torch.bfloat16))
-        lib_fb = cuda_ms(lib_both, **run)
+        def lib_times(rnn, guard):
+            def both():
+                out, _ = rnn(inp, h0)
+                out.backward(dy16)
+            with warnings.catch_warnings():
+                if guard:
+                    warnings.simplefilter("error")
+                with torch.no_grad():
+                    fwd_ms = cuda_ms(lambda: rnn(inp, h0), **run)
+                return fwd_ms, cuda_ms(both, **run)
+
+        # what the yardstick timed until now: flatten_parameters() after
+        # the bf16 conversion, which leaves bf16 weights scattered
+        scattered = torch.nn.GRU(H, H).to(dev, torch.bfloat16)
+        scattered.flatten_parameters()
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                with torch.no_grad():
+                    scattered(inp, h0)
+        except UserWarning as e:
+            log(f"[gru] nn.GRU bf16 after flatten_parameters(): {e}")
+        else:
+            log("[gru] nn.GRU bf16 after flatten_parameters(): no warning")
+        lib_fwd_old, lib_fb_old = lib_times(scattered, guard=False)
+        lib_fwd, lib_fb = lib_times(flat_bf16_gru(H, dev), guard=True)
         b_f, by_f = gru_bound_ms(T, B, H, mxu, backward=False)
         b_b, by_b = gru_bound_ms(T, B, H, mxu, backward=True)
         rows.append({"T": T, "B": B, "H": H, "dtype": "bfloat16",
@@ -851,7 +915,9 @@ def phase_gru(dev, shapes):
                      "bwd_plain_ms": bwd_plain, "fwd_bound_ms": b_f,
                      "fwd_bound_by": by_f, "bwd_bound_ms": b_b,
                      "bwd_bound_by": by_b, "nn_gru_fwd_ms": lib_fwd,
-                     "nn_gru_fwd_bwd_ms": lib_fb})
+                     "nn_gru_fwd_bwd_ms": lib_fb,
+                     "nn_gru_scattered_fwd_ms": lib_fwd_old,
+                     "nn_gru_scattered_fwd_bwd_ms": lib_fb_old})
         log(f"[gru] T={T} B={B} bf16: forward {fwd:.4f} ms "
             f"({fwd / T * 1e3:.1f} us/step; one call alone {fwd_alone:.4f}; "
             f"per-step kernels {fwd_step:.4f}; f32 {fwd32:.4f}), plain "
@@ -862,7 +928,8 @@ def phase_gru(dev, shapes):
             f"{bwd32:.4f}), plain {bwd_plain:.4f}, "
             f"bound {b_b:.4f} ({by_b}); empty sweep of {T} barriers "
             f"{empty:.4f} ms; nn.GRU bf16 (with the input projection) "
-            f"forward {lib_fwd:.4f}, forward+backward {lib_fb:.4f}")
+            f"forward {lib_fwd:.4f}, forward+backward {lib_fb:.4f} (weights "
+            f"scattered: {lib_fwd_old:.4f}, {lib_fb_old:.4f})")
         if T == 52 and not (fwd < fwd_step and bwd < bwd_step):
             raise AssertionError("the persistent kernels are not faster than "
                                  "the per-step ones")
@@ -1272,6 +1339,384 @@ def phase_loop(dev, dim, batch, seq_len, utts, frames):
     RESULTS["loop"] = out
 
 # --------------------------------------------------------------------------
+# phase 8: the lane-batched /stream multiplexer
+# --------------------------------------------------------------------------
+
+def _reset_window_counts():
+    from msnv_tpu_torch.kernels.sample_window import sample_window
+    sample_window.launches = 0
+    sample_window.resident = sample_window.tiled = 0
+
+
+def _window_counts():
+    from msnv_tpu_torch.kernels.sample_window import sample_window
+    return (sample_window.launches, sample_window.resident,
+            sample_window.tiled)
+
+
+def _check_windows(dev, counts, want, what):
+    """Every window of a mux path through the resident kernel."""
+    if dev.type == "cuda" and counts != (want, want, 0):
+        raise AssertionError(f"{what}: (launches, resident, tiled) = "
+                             f"{counts}, expected ({want}, {want}, 0)")
+
+
+class ThreadFailures:
+    """Exceptions raised in any thread (the mux pump, the front-ends)
+    while installed: a dead pump must fail the phase, not hang it."""
+
+    def __init__(self):
+        self.errors = []
+        self._old = threading.excepthook
+
+    def __enter__(self):
+        def hook(args):
+            self.errors.append(args)
+            self._old(args)
+        threading.excepthook = hook
+        return self
+
+    def __exit__(self, *exc):
+        threading.excepthook = self._old
+        return False
+
+    def check(self, mux):
+        if self.errors or not mux._thread.is_alive():
+            err = self.errors[0].exc_value if self.errors else None
+            raise AssertionError(f"the mux pump died: {err!r}")
+
+
+def _spk_spec(i, spk_dim):
+    """Mixed speakers: stream 0 an equal mix, the others ids in turn."""
+    return [1.0 / spk_dim] * spk_dim if i == 0 else i % spk_dim
+
+
+def _stream_stats(starts, firsts, ends, frames, lookback):
+    seconds = frames * lookback / 16000
+    rtf = sorted(seconds / (e - s) for s, e in zip(starts, ends))
+    ttfa = sorted(f - s for s, f in zip(starts, firsts))
+    wall = max(ends) - min(starts)
+    return {"streams": len(starts), "frames": frames,
+            "audio_s_per_stream": seconds, "wall_s": wall,
+            "audio_s_per_s": len(starts) * seconds / wall,
+            "rtf_min": rtf[0], "rtf_median": statistics.median(rtf),
+            "first_audio_ms_median": statistics.median(ttfa) * 1e3,
+            "first_audio_ms_max": ttfa[-1] * 1e3}
+
+
+def push_host_times(mux):
+    """Record the host wall of each masked push the pump dispatches (no
+    synchronize: the launches, and what the host waits for between
+    them)."""
+    times = []
+    push = mux._masked_push
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = push(*args)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    mux._masked_push = timed
+    return times
+
+
+def mux_engine(loaded, cfg, lanes, frames, K, failures):
+    """The multiplexer driven directly: a hand-made masked push leaves
+    the inactive lanes bit-equal; then `lanes` streams attach, are fed and
+    drain through per-lane sinks."""
+    import torch
+    from msnv_tpu_torch.serving import StreamMultiplexer
+    dev = loaded["mlp"]["embedding"].device
+    C = cfg.effective_cond_dim
+    mux = StreamMultiplexer(loaded, cfg, lanes=lanes, frames_per_push=K)
+    try:
+        g = torch.Generator(device=dev).manual_seed(lanes)
+        carry0 = mux._carry
+        active = torch.arange(lanes, device=dev) % 3 != 0
+        carry1, _ = mux._masked_push(
+            carry0, torch.rand(lanes, K, C, generator=g, device=dev), active)
+        idle = ~active
+        frozen = torch.equal(carry1[1][idle], carry0[1][idle]) and all(
+            torch.equal(h1[:, idle], h0[:, idle])
+            for h1, h0 in zip(carry1[2], carry0[2]))
+        if not frozen or torch.equal(carry1[1][active], carry0[1][active]):
+            raise AssertionError("the masked push did not freeze exactly "
+                                 "the inactive lanes")
+        rng = np.random.RandomState(lanes)
+        conds = rng.rand(lanes, frames, C).astype(np.float32)
+        n_blocks = frames // K
+        firsts, ends, pcm = {}, {}, {}
+        done = threading.Event()
+
+        def sink(i, data):                  # on the pump thread
+            now = time.perf_counter()
+            firsts.setdefault(i, now)
+            pcm.setdefault(i, []).append(data)
+            if len(pcm[i]) == n_blocks:
+                ends[i] = now
+                if len(ends) == lanes:
+                    done.set()
+
+        _reset_window_counts()              # the mux path starts here
+        host = push_host_times(mux)
+        mux.start()
+        t0 = time.perf_counter()
+        for i in range(lanes):
+            lane = mux.acquire(np.asarray(_spk_spec(i, cfg.spk_dim)))
+            mux.set_sink(lane, lambda data, i=i: sink(i, data))
+            mux.feed(lane, [conds[i, b * K:(b + 1) * K]
+                            for b in range(n_blocks)])
+        while not done.wait(timeout=1.0):
+            failures.check(mux)
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError(f"mux engine: {len(ends)} of {lanes} "
+                                     f"streams done after 600 s")
+        counts = _window_counts()
+        failures.check(mux)
+        ticks = mux.ticks
+    finally:
+        mux.stop()
+    windows = ticks * K * cfg.frame_sizes[-1]
+    _check_windows(dev, counts, windows, f"mux engine at {lanes} lanes")
+    for i in range(lanes):
+        audio = np.frombuffer(b"".join(pcm[i]), "<i2")
+        constant = bool(np.all(audio == audio[0]))
+        if len(audio) != frames * cfg.lookback or constant:
+            raise AssertionError(f"mux engine stream {i}: {len(audio)} "
+                                 f"samples, constant {constant}")
+    out = _stream_stats([t0] * lanes, [firsts[i] for i in range(lanes)],
+                        [ends[i] for i in range(lanes)], frames,
+                        cfg.lookback)
+    out.update(lanes=lanes, frames_per_push=K, ticks=ticks,
+               tick_ms=out["wall_s"] / ticks * 1e3,
+               push_host_ms_median=statistics.median(host) * 1e3,
+               launches=counts[0], resident=counts[1],
+               frozen_lanes_bit_equal=True)
+    log(f"[mux] engine, {lanes} lanes x {frames} frames, K {K}: {ticks} "
+        f"ticks in {out['wall_s']:.3f} s ({out['tick_ms']:.2f} ms a tick, "
+        f"push dispatch {out['push_host_ms_median']:.2f} ms median) "
+        f"= {out['audio_s_per_s']:.2f} audio-s/s; per-stream realtime "
+        f"x{out['rtf_min']:.3f} (min) / x{out['rtf_median']:.3f} (median); "
+        f"first audio {out['first_audio_ms_median']:.1f} / "
+        f"{out['first_audio_ms_max']:.1f} ms (median / max); "
+        f"{counts[0]} windows, {counts[1]} resident; frozen lanes "
+        f"bit-equal")
+    return out
+
+
+def mux_clients(spec):
+    """Client side of the HTTP part, in a process of its own (so that its
+    sockets do not share the server's interpreter lock): `n` concurrent
+    seed-less /stream requests, released together; prints one JSON list
+    of per-stream results. Standard library and numpy only."""
+    import http.client
+    host, port, n, frames, C, spk_dim = (spec[k] for k in (
+        "host", "port", "n", "frames", "C", "spk_dim"))
+    rng = np.random.RandomState(spec["seed"])
+    bodies = [json.dumps({
+        "cond": base64.b64encode(rng.rand(frames, C).astype(
+            np.float32).tobytes()).decode(),
+        "spk": _spk_spec(i, spk_dim)}) for i in range(n)]
+    barrier = threading.Barrier(n)
+    results = [None] * n
+
+    def one(i):
+        c = http.client.HTTPConnection(host, port, timeout=300)
+        c.connect()
+        barrier.wait()
+        t0 = time.perf_counter()
+        c.request("POST", "/stream", bodies[i],
+                  {"Content-Type": "application/json"})
+        r = c.getresponse()
+        first, data = None, []
+        while True:
+            piece = r.read1(1 << 16)
+            if not piece:
+                break
+            if first is None:
+                first = time.perf_counter()
+            data.append(piece)
+        end = time.perf_counter()
+        c.close()
+        pcm = np.frombuffer(b"".join(data), "<i2")
+        results[i] = {"status": r.status, "bytes": int(pcm.nbytes),
+                      "start": t0, "first": first, "end": end,
+                      "constant": bool(pcm.size and np.all(pcm == pcm[0]))}
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    print(json.dumps(results), flush=True)
+    return 0
+
+
+def _wait_lanes_free(mux):
+    """The handlers release their lanes just after the last chunk: wait
+    for every lane before the next run needs them all."""
+    t0 = time.perf_counter()
+    while len(mux._free) < mux.lanes:
+        if time.perf_counter() - t0 > 30:
+            raise AssertionError(f"{mux.lanes - len(mux._free)} lanes still "
+                                 f"held 30 s after their streams")
+        time.sleep(0.05)
+
+
+def mux_http(loaded, ckpt, cfg, lanes, frames, K, seeded_frames, failures):
+    """VocoderService(mux_lanes=lanes) behind the asyncio front-end and
+    then the threaded one, the clients in another process; then a seeded
+    stream through both front-ends, /healthz and the 429 beyond the
+    lanes."""
+    import http.client
+    from msnv_tpu_torch.serving import (VocoderService, make_async_server,
+                                        make_server)
+    dev = loaded["mlp"]["embedding"].device
+    C = cfg.effective_cond_dim
+    service = VocoderService(loaded, cfg, frames_per_push=K, mux_lanes=lanes,
+                             name=ckpt[1])
+    mux = service._mux
+    aio = make_async_server(service, "127.0.0.1", 0, timeout_s=120)
+    threaded = make_server(service, "127.0.0.1", 0)
+    th = threading.Thread(target=threaded.serve_forever, daemon=True)
+    proc = None
+    try:
+        aio.start()
+        th.start()
+        _reset_window_counts()              # the mux path starts here
+        ticks0 = mux.ticks
+        host = push_host_times(mux)
+        runs = {}
+        for frontend, addr in (("aio", aio.server_address),
+                               ("threaded", threaded.server_address)):
+            spec = {"host": addr[0], "port": addr[1], "n": lanes,
+                    "frames": frames, "C": C, "spk_dim": cfg.spk_dim,
+                    "seed": 8}
+            _wait_lanes_free(mux)
+            del host[:]
+            tick_before = mux.ticks
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mux-clients",
+                 json.dumps(spec)], stdout=subprocess.PIPE, text=True)
+            t0 = time.perf_counter()
+            while proc.poll() is None:
+                failures.check(mux)
+                if time.perf_counter() - t0 > 600:
+                    raise AssertionError(f"mux HTTP clients ({frontend}) "
+                                         f"still running after 600 s")
+                time.sleep(0.5)
+            out_text = proc.stdout.read()
+            if proc.returncode != 0:
+                raise AssertionError(f"mux HTTP clients ({frontend}) exited "
+                                     f"{proc.returncode}")
+            failures.check(mux)
+            results = json.loads(out_text.strip().splitlines()[-1])
+            want = 2 * frames * cfg.lookback
+            bad = [(i, r["status"], r["bytes"])
+                   for i, r in enumerate(results)
+                   if r["status"] != 200 or r["bytes"] != want
+                   or r["constant"]]
+            if bad:
+                raise AssertionError(f"mux HTTP streams ({frontend}) wrong "
+                                     f"(index, status, bytes; {want} "
+                                     f"expected): {bad[:8]}")
+            run = _stream_stats([r["start"] for r in results],
+                                [r["first"] for r in results],
+                                [r["end"] for r in results], frames,
+                                cfg.lookback)
+            run.update(ticks=mux.ticks - tick_before,
+                       push_host_ms_median=statistics.median(host) * 1e3)
+            run["tick_ms"] = run["wall_s"] / run["ticks"] * 1e3
+            runs[frontend] = run
+            log(f"[mux] HTTP, {frontend} front-end (clients in another "
+                f"process), {lanes} concurrent /stream x {frames} frames: "
+                f"all 200 and complete; {run['audio_s_per_s']:.2f} "
+                f"audio-s/s over {run['wall_s']:.3f} s ({run['ticks']} "
+                f"ticks, {run['tick_ms']:.2f} ms a tick, push dispatch "
+                f"{run['push_host_ms_median']:.2f} ms median); per-stream "
+                f"realtime x{run['rtf_min']:.3f} (min) / "
+                f"x{run['rtf_median']:.3f} (median); first audio "
+                f"{run['first_audio_ms_median']:.1f} / "
+                f"{run['first_audio_ms_max']:.1f} ms (median / max)")
+        ticks = mux.ticks - ticks0
+        windows = ticks * K * cfg.frame_sizes[-1]
+        counts = _window_counts()
+        _check_windows(dev, counts, windows, f"mux over HTTP, {lanes} lanes")
+        out = dict(runs["aio"], lanes=lanes, frames_per_push=K,
+                   threaded=runs["threaded"])
+        log(f"[mux] HTTP: {ticks} ticks, {counts[0]} windows, {counts[1]} "
+            f"resident")
+
+        # the per-connection path is bit-equal run to run: a seeded stream
+        # through either front-end gives the same bytes
+        cond = np.random.RandomState(9).rand(seeded_frames, C).astype(
+            np.float32)
+        body = {"cond": base64.b64encode(cond.tobytes()).decode(), "spk": 1,
+                "seed": 3}
+        pcms = []
+        for addr in (aio.server_address, threaded.server_address):
+            r, pcm = _post(addr, "/stream", body)
+            if r.status != 200 or len(pcm) != 2 * seeded_frames * \
+                    cfg.lookback:
+                raise AssertionError(f"seeded /stream {r.status}, "
+                                     f"{len(pcm)} bytes")
+            pcms.append(pcm)
+        if pcms[0] != pcms[1]:
+            raise AssertionError("the seeded stream differs between the "
+                                 "asyncio and the threaded front-ends")
+        counts = _window_counts()
+        seeded_windows = 2 * seeded_frames * cfg.frame_sizes[-1]
+        _check_windows(dev, counts, windows + seeded_windows,
+                       "mux HTTP + seeded streams")
+        c = http.client.HTTPConnection(*aio.server_address, timeout=60)
+        c.request("GET", "/healthz")
+        health = json.loads(c.getresponse().read())
+        c.close()
+        if health.get("mux_lanes") != lanes:
+            raise AssertionError(f"/healthz {health}")
+        _wait_lanes_free(mux)
+        held = [mux.acquire(np.asarray(0)) for _ in range(lanes)]
+        try:
+            r, _ = _post(aio.server_address, "/stream",
+                         {"cond": cond[:2].tolist(), "spk": 0})
+        finally:
+            for lane in held:
+                mux.release(lane)
+        if r.status != 429:
+            raise AssertionError(f"stream {lanes + 1} answered {r.status}")
+        failures.check(mux)
+        log(f"[mux] seeded /stream ({seeded_frames} frames) byte-equal "
+            f"through the asyncio and the threaded front-ends; /healthz "
+            f"mux_lanes {lanes}; stream {lanes + 1} answered 429")
+        out.update(launches=counts[0], resident=counts[1],
+                   seeded_windows=seeded_windows, seeded_equal=True,
+                   overload_status=r.status, ticks_both_front_ends=ticks)
+        return out
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        aio.shutdown()
+        threaded.shutdown()
+        threaded.server_close()
+        service.close()
+
+
+def phase_mux(ckpt, cfg, dev, runs, http_run, seeded_frames):
+    from msnv_tpu_torch.interop import load_npz_params
+    loaded = load_npz_params(ckpt[0], cfg, device=dev)
+    with ThreadFailures() as failures:
+        engine = [mux_engine(loaded, cfg, lanes, frames, 4, failures)
+                  for lanes, frames in runs]
+        over_http = mux_http(loaded, ckpt, cfg, *http_run, 4, seeded_frames,
+                             failures)
+    RESULTS["mux"] = {"engine": engine, "http": over_http,
+                      "launches": sum(r["launches"] for r in engine)
+                      + over_http["launches"]}
+
+
+# --------------------------------------------------------------------------
 
 def card_line():
     try:
@@ -1322,13 +1767,16 @@ def kernel_entries():
         "replaces": "msnv_tpu/pallas/sample_kernel.py:157",
         "also_replaces": ["msnv_tpu/pallas/sample_kernel.py:44",
                           "msnv_tpu/pallas/sample_kernel.py:183"],
-        # the serving path (phase 4) and the generate CLI (phase 7)
-        "launches": RESULTS["launches"] + RESULTS["loop"]["window_launches"],
+        # the serving path (phase 4), the generate CLI (phase 7) and the
+        # multiplexer (phase 8; every one of its windows resident)
+        "launches": RESULTS["launches"] + RESULTS["loop"]["window_launches"]
+        + RESULTS["mux"]["launches"],
         "resident_launches": RESULTS["resident_launches"]
-        + RESULTS["loop"]["window_resident"],
+        + RESULTS["loop"]["window_resident"] + RESULTS["mux"]["launches"],
         "launches_by_path": {"serve": RESULTS["launches"],
                              "generate_cli": RESULTS["loop"][
-                                 "window_launches"]},
+                                 "window_launches"],
+                             "mux": RESULTS["mux"]["launches"]},
         # float32 (tiled kernel): samples equal to the plain version's;
         # bf16 (resident kernel): share of samples that differ on
         # sharpened logits, tolerance 1 %
@@ -1390,8 +1838,10 @@ def kernel_entries():
 
 def main(argv):
     import torch
+    if argv[:1] == ["--mux-clients"]:
+        return mux_clients(json.loads(argv[1]))
     rehearse = "--rehearse-cpu" in argv
-    phases = set(range(1, 8))
+    phases = set(range(1, 9))
     for a in argv:
         if a.startswith("--phases="):
             phases = {int(x) for x in a.split("=", 1)[1].split(",")} | {1}
@@ -1432,7 +1882,9 @@ def main(argv):
           (4, Q, 128) if not rehearse else (4, Q, 16))
     timed(3, "generate", phase_generate, params, cfg,
           128 if not rehearse else 2, 16 if not rehearse else 2)
-    timed(4, "serve", phase_serve, params, exp, 4, 8 if not rehearse else 2)
+    ckpt = smoke_checkpoint(params, exp) if phases & {4, 8} else None
+    timed(4, "serve", phase_serve, params, ckpt, cfg, 4,
+          8 if not rehearse else 2)
     del params
     timed(5, "gru", phase_gru, dev,
           ((13, 128, DIM), (52, 128, DIM), (5, 3, DIM), (4, 70, 128),
@@ -1443,10 +1895,13 @@ def main(argv):
     timed(7, "loop", phase_loop, dev, DIM, 128 if not rehearse else 2,
           exp.train.seq_len if not rehearse else 2 * cfg.lookback,
           25 if not rehearse else 2, 1000 if not rehearse else 50)
+    timed(8, "mux", phase_mux, ckpt, cfg, dev,
+          ((128, 200), (1024, 48)) if not rehearse else ((4, 8), (8, 4)),
+          (128, 200) if not rehearse else (4, 8), 8 if not rehearse else 2)
     if rehearse:
         log("rehearsal on the CPU passed (no card: no result line)")
         return 1
-    if phases != set(range(1, 8)):
+    if phases != set(range(1, 9)):
         log(f"phases {sorted(phases)} passed (not all: no result line)")
         return 1
 
@@ -1455,6 +1910,7 @@ def main(argv):
                       "streams": RESULTS["streams"],
                       "train": RESULTS["train"],
                       "loop": RESULTS["loop"],
+                      "mux": RESULTS["mux"],
                       "build_s": RESULTS["build_s"]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

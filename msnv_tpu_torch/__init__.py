@@ -24,13 +24,15 @@ layout mirrors the JAX package so each counterpart is easy to find:
   cli/         — train, evaluate and generate (msnv-*-torch)
   interop.py   — parameters and optimizer state to and from the JAX
                  trainer's checkpoint keys (.npz)
-  serving/     — the HTTP vocoder service
+  serving/     — the HTTP vocoder service: the lane-batched /stream
+                 multiplexer, the asyncio and the threaded front-ends
 
-Ported so far: serving (forward, generation, streaming, HTTP), the train
-step, and the training loop with its corpus, loader, checkpoints and the
+Ported so far: serving (forward, generation, streaming, the stream
+multiplexer, the asyncio and threaded HTTP front-ends), the train step,
+and the training loop with its corpus, loader, checkpoints and the
 train / evaluate / generate CLIs. Not yet: the GAN / bottleneck / QRNN
-variants, the stream multiplexer and async front-end, artifacts, export,
-the orbax checkpoint backend and multi-device.
+variants, artifacts, export, the orbax checkpoint backend and
+multi-device.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 CUDA device and no explicit CPU request they raise.

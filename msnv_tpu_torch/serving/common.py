@@ -1,10 +1,16 @@
-"""Shared serving primitives: constants, error types, generator arming.
+"""Shared serving primitives: constants, error types, generator arming,
+and the pipelined device -> host audio fetch.
 
-The port's own copy of the JAX package's serving/common.py (no framework
-code); public names re-export from `msnv_tpu_torch.serving`.
+The port's own copy of the JAX package's serving/common.py, plus `_Fetch`
+(the counterpart of jax.Array.copy_to_host_async), which the
+per-connection /stream and the multiplexer's pump share; public names
+re-export from `msnv_tpu_torch.serving`.
 """
 
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 SAMPLE_RATE = 16000
 
@@ -43,3 +49,25 @@ def _armed(body_gen, cleanup):
     g = run()
     next(g)                      # enter try: cleanup is now armed
     return g
+
+
+class _Fetch:
+    """Device -> host copy of one audio chunk, started at dispatch time:
+    a non-blocking copy into pinned memory plus a CUDA event; `result()`
+    waits on the event only. CPU tensors are already on the host."""
+
+    def __init__(self, audio: torch.Tensor):
+        self.event = None
+        if audio.is_cuda:
+            self.host = torch.empty(audio.shape, dtype=audio.dtype,
+                                    pin_memory=True)
+            self.host.copy_(audio, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = audio
+
+    def result(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()

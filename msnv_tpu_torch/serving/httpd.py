@@ -106,7 +106,7 @@ class _Handler(BaseHTTPRequestHandler):
                             self._chunk(chunk)
                     self.wfile.write(b"0\r\n\r\n")
                 finally:
-                    # releases the stream slot deterministically
+                    # releases the stream slot / mux lane deterministically
                     # on any handler error (not just at GC time)
                     chunks.close()
             else:

@@ -1,0 +1,315 @@
+"""Lane-batched /stream multiplexer: N streams share one device carry.
+
+Port of the JAX package's serving/mux.py.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import queue
+import threading
+
+import numpy as np
+import torch
+
+from msnv_tpu_torch.config import ModelConfig
+from msnv_tpu_torch.models.generate import streaming_fn
+from msnv_tpu_torch.serving.common import Overloaded, _Fetch
+
+
+class StreamMultiplexer:
+    """Lane-batched /stream engine: up to `lanes` concurrent streams share
+    ONE device-resident streaming carry and one pump thread.
+
+    The per-connection path pays a whole push (its ~280 small launches of
+    the tier ops) PER STREAM, and streams serialize on the device lock:
+    per-stream RTF ~ 1/N. Here every pump tick advances ALL lanes with
+    pending conditioner frames in a single masked K-frame push, and the
+    sample-window kernel takes the lanes as its batch, so the launches are
+    paid once per tick for all lanes.
+
+    Mechanics:
+    - lanes attach/detach dynamically: acquire() records the lane's speaker
+      row host-side and queues a DEFERRED splice; the pump's
+      `_flush_attaches` splices fresh state (q_zero buffer, learned-h0
+      hidden, speaker vector) into every pending lane in ONE masked call at
+      the start of its tick — N concurrent connects cost one splice, not N.
+      `_masked_push` advances the batch and keeps inactive lanes' state
+      frozen with torch.where.
+    - the pump fetch-pipelines like the per-connection path: each tick's
+      audio copy starts at dispatch (pinned memory + an event) and drains
+      FETCH_DEPTH ticks behind.
+    - randomness: ONE torch.Generator on the params' device lives in the
+      carry and advances per tick for the whole batch (like batched
+      generation) — a multiplexed stream gets the same distribution but a
+      different sample stream than a solo run, and per-request `seed` is
+      ignored. Streams needing seed-exact audio use the per-connection path.
+
+    On CUDA at temperature > 0 the push runs bf16 weights and the
+    sample-window kernel (Philox mode) at B = lanes; greedy decoding and
+    the CPU keep the per-sample path in the params' dtype.
+    """
+
+    FETCH_DEPTH = 4
+
+    def __init__(self, params, cfg: ModelConfig, lanes: int = 32,
+                 frames_per_push: int = 4, temperature: float = 1.0,
+                 seed: int = 0, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mux lanes over a device mesh are not ported yet (ROADMAP "
+                "queue 1, item 7.4)")
+        self.cfg = cfg
+        self.lanes = int(lanes)
+        self.K = int(frames_per_push)
+        self.temperature = float(temperature)
+        self.device = params["mlp"]["embedding"].device
+        use_kernel = self.device.type == "cuda" and self.temperature > 0.0
+        self._init_state, self._push = streaming_fn(
+            params, cfg, frames_per_push=self.K,
+            compute_dtype=torch.bfloat16 if use_kernel else None,
+            use_kernel=use_kernel, temperature=self.temperature)
+        self._generator = torch.Generator(device=self.device).manual_seed(
+            int(seed))
+        self._carry = self._init_state(
+            self.lanes, torch.zeros((self.lanes,), dtype=torch.int64,
+                                    device=self.device), self._generator)
+        self._zeros_cond = np.zeros(
+            (self.lanes, self.K, cfg.effective_cond_dim), np.float32)
+        self._cv = threading.Condition()
+        self._free = list(range(self.lanes))
+        self._pending = {}     # lane -> list of (K, C) np blocks, FIFO
+        self._out = {}         # lane -> queue.Queue of int16 audio rows
+        self._sinks = {}       # lane -> callable(bytes): direct delivery
+        #                        (async front-end); bypasses _out
+        self._gen = [0] * self.lanes   # lane reuse epoch: in-flight audio
+        #                                of a released stream must never
+        #                                reach the lane's NEXT occupant
+        self._stop = False
+        self._thread = None
+        self._inflight = []    # [(_Fetch of audio, [(lane, gen) served])]
+        self.ticks = 0         # masked pushes run by the pump
+        # deferred attaches: acquire() only records the lane's speaker row;
+        # the pump splices ALL pending lanes in one _attach_many call at the
+        # start of its next tick (before any block of theirs is pushed —
+        # feed() happens after acquire() returns, and the tick pops attaches
+        # and blocks under the same _cv hold)
+        self._spk_rows = np.zeros((self.lanes, cfg.spk_dim), np.float32)
+        self._pending_attach = set()
+        # carry mutations (attach splices vs pump ticks) must be atomic:
+        # _carry_lock is the outer lock; the device lock (shared with
+        # /synthesize and the per-connection /stream) nests inside it
+        self._carry_lock = threading.Lock()
+        self._device_lock = threading.Lock()
+
+    # -- device side ------------------------------------------------------
+
+    @torch.no_grad()
+    def _masked_push(self, carry, cond, active):
+        """One K-frame push of every lane; lanes where `active` (lanes,)
+        bool is False keep their buffer and hidden state. cond is
+        (lanes, K, C), or (lanes, C) at K == 1."""
+        # the streaming push takes (B, C) at K == 1 but (B, K, C) at K > 1;
+        # the pump always builds (lanes, K, C) blocks
+        if self.K == 1 and cond.dim() == 3:
+            cond = cond[:, 0]
+        spk_vec, buf, hs, generator = carry
+        (_, buf2, hs2, generator), audio, _ = self._push(carry, cond)
+        buf3 = torch.where(active[:, None], buf2, buf)
+        hs3 = [torch.where(active[None, :, None], h2, h)
+               for h2, h in zip(hs2, hs)]
+        return (spk_vec, buf3, hs3, generator), audio
+
+    @torch.no_grad()
+    def _attach_many(self, carry, mask, spk_rows):
+        """Splice fresh stream state into every lane where `mask`: the
+        q_zero buffer, the learned h0 and the speaker vector of the float
+        one-hot / mix rows (a one-hot matmul selects the embedding row
+        exactly, so int-id and row speakers give the same numbers). The
+        fresh state draws nothing: the carry keeps the mux's generator."""
+        fs, fb, fh, _ = self._init_state(self.lanes, spk_rows,
+                                         self._generator)
+        spk_vec, buf, hs, generator = carry
+        spk_vec = torch.where(mask[:, None], fs.to(spk_vec.dtype), spk_vec)
+        buf = torch.where(mask[:, None], fb, buf)
+        hs = [torch.where(mask[None, :, None], fhi, h)
+              for fhi, h in zip(fh, hs)]
+        return (spk_vec, buf, hs, generator)
+
+    # -- connection side --------------------------------------------------
+
+    @staticmethod
+    def _spk_row(spk, spk_dim):
+        """Normalize a speaker spec (int id, (1,) int array, or (1, S) /
+        (S,) float mix) to a float32 mix row."""
+        arr = np.asarray(spk)
+        if arr.dtype.kind in "iu":
+            row = np.zeros((spk_dim,), np.float32)
+            row[int(arr.reshape(-1)[0])] = 1.0
+            return row
+        row = arr.astype(np.float32).reshape(-1)
+        if row.shape[0] != spk_dim:
+            raise ValueError(f"spk mix needs {spk_dim} weights, got "
+                             f"{row.shape[0]}")
+        return row
+
+    def acquire(self, spk):
+        """Reserve a lane and queue a fresh stream-state splice for it;
+        returns the lane id. Raises Overloaded when all lanes are busy.
+
+        The splice is DEFERRED to the pump's next tick (_flush_attaches):
+        it applies before any of this stream's conditioner blocks is pushed,
+        because feed() runs after acquire() returns and the pump pops
+        pending attaches and pending blocks under the same _cv hold."""
+        row = self._spk_row(spk, self.cfg.spk_dim)
+        with self._cv:
+            if not self._free:
+                raise Overloaded(f"all {self.lanes} multiplexer lanes busy")
+            lane = self._free.pop()
+            self._gen[lane] += 1
+            self._pending[lane] = []
+            self._out[lane] = queue.Queue()
+            self._spk_rows[lane] = row
+            self._pending_attach.add(lane)
+        return lane
+
+    def _flush_attaches(self, attach_lanes):
+        """Apply deferred attach splices for `attach_lanes` in ONE call.
+        MUST be called under _carry_lock + _device_lock."""
+        if not attach_lanes:
+            return
+        mask = np.zeros((self.lanes,), bool)
+        mask[list(attach_lanes)] = True
+        self._carry = self._attach_many(
+            self._carry, torch.from_numpy(mask).to(self.device),
+            torch.from_numpy(self._spk_rows.copy()).to(self.device))
+
+    def feed(self, lane: int, cond_blocks):
+        """Queue (K, C) conditioner blocks for a lane and wake the pump."""
+        with self._cv:
+            self._pending[lane].extend(cond_blocks)
+            self._cv.notify_all()
+
+    def release(self, lane: int) -> None:
+        with self._cv:
+            self._pending.pop(lane, None)
+            self._out.pop(lane, None)
+            self._sinks.pop(lane, None)
+            self._pending_attach.discard(lane)
+            self._free.append(lane)
+
+    def out_queue(self, lane: int):
+        return self._out[lane]
+
+    def set_sink(self, lane: int, cb) -> None:
+        """Route the lane's audio to `cb(pcm16_bytes)` instead of its
+        out-queue. `cb` runs on the PUMP thread once per drained tick — it
+        must be cheap and non-blocking (the async front-end's sink records
+        the bytes and schedules one event-loop wakeup). Cleared on
+        release()."""
+        with self._cv:
+            self._sinks[lane] = cb
+
+    # -- pump -------------------------------------------------------------
+
+    def start(self, device_lock=None) -> None:
+        if device_lock is not None:
+            self._device_lock = device_lock
+        self._thread = threading.Thread(target=self._pump, daemon=True,
+                                        name="msnv-mux-pump")
+        self._thread.start()
+
+    def stop(self) -> None:
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+
+    def _drain_one(self):
+        fetch, served = self._inflight.pop(0)
+        audio = fetch.result()
+        # one vectorized float -> PCM16 convert per tick instead of one per
+        # lane per handler: out_queue consumers receive int16 rows
+        pcm = (np.clip(audio, -1.0, 1.0 - 1.0 / 32768)
+               * 32768.0).astype("<i2")
+        for lane, gen in served:
+            # drop audio of released streams; the gen check stops a
+            # recycled lane's new occupant from receiving it
+            if self._gen[lane] != gen:
+                continue
+            sink = self._sinks.get(lane)
+            if sink is not None:
+                sink(pcm[lane].tobytes())
+                continue
+            q = self._out.get(lane)
+            if q is not None:
+                q.put(pcm[lane])
+
+    def _revalidate_served(self, served, active):
+        """Drop lanes recycled between their block pop and the push.
+
+        MUST be called under _carry_lock. A lane released and re-acquired
+        after the pump popped its cond block holds the NEW stream's state
+        (or will, once its attach is flushed); a push with the OLD stream's
+        conditioners must not advance it (_drain_one's gen check only drops
+        the stale audio, not the state advance). acquire increments _gen
+        first, so any recycle is visible here as a gen change."""
+        stale = [i for i, (lane, gen) in enumerate(served)
+                 if self._gen[lane] != gen]
+        for i in reversed(stale):
+            lane, _ = served.pop(i)
+            active[lane] = False
+
+    def _pump(self):
+        # grad mode and the current CUDA device are per thread
+        on_device = (torch.cuda.device(self.device)
+                     if self.device.type == "cuda"
+                     else contextlib.nullcontext())
+        with torch.no_grad(), on_device:
+            self._pump_loop()
+
+    def _pump_loop(self):
+        while True:
+            with self._cv:
+                while not self._stop and not any(self._pending.values()):
+                    # nothing to push: finish draining, then sleep
+                    if self._inflight:
+                        break
+                    self._cv.wait(timeout=0.5)
+                if self._stop:
+                    break
+                served, cond = [], None
+                attach_lanes = ()
+                if any(self._pending.values()):
+                    cond = self._zeros_cond.copy()
+                    for lane, blocks in self._pending.items():
+                        if blocks:
+                            cond[lane] = blocks.pop(0)
+                            served.append((lane, self._gen[lane]))
+                    # pop deferred attaches under the SAME _cv hold as the
+                    # block pop: every acquire whose feed produced a popped
+                    # block is in this snapshot (or an earlier tick's)
+                    attach_lanes = self._pending_attach
+                    self._pending_attach = set()
+            if cond is None:
+                # woke only to drain
+                self._drain_one()
+                continue
+            active = np.zeros((self.lanes,), bool)
+            active[[lane for lane, _ in served]] = True
+            with self._carry_lock, self._device_lock:
+                self._flush_attaches(attach_lanes)
+                self._revalidate_served(served, active)
+                if not served:
+                    continue
+                self._carry, audio = self._masked_push(
+                    self._carry, torch.from_numpy(cond).to(self.device),
+                    torch.from_numpy(active).to(self.device))
+                self.ticks += 1
+            self._inflight.append((_Fetch(audio), served))
+            while len(self._inflight) > self.FETCH_DEPTH:
+                self._drain_one()
+        while self._inflight:
+            self._drain_one()
+

@@ -19,13 +19,21 @@ the per-sample path; /synthesize runs the per-sample generate_fn in the
 params' dtype. Requests are padded up to a multiple of `frame_bucket`
 frames (the last frame repeats) and trimmed, as in the JAX service.
 
-Not ported in this slice: the AOT artifact, the device mesh and the lane
-multiplexer (`mux_lanes`); the constructor raises NotImplementedError for
+For many concurrent streams, `mux_lanes=N` starts the lane-batched
+StreamMultiplexer (serving/mux.py): seed-less /stream requests at the
+default temperature share one device carry and advance together per pump
+tick, every window of a tick one launch of the sample-window kernel at
+B = N. A request with a "seed" or another temperature takes the
+per-connection path above.
+
+Not ported yet: the AOT artifact (ROADMAP queue 1, item 7.3) and the
+device mesh (item 7.4); the constructor raises NotImplementedError for
 them.
 """
 
 from __future__ import annotations
 
+import queue
 import threading
 
 import numpy as np
@@ -35,29 +43,9 @@ from msnv_tpu_torch.config import ModelConfig
 from msnv_tpu_torch.data.wavio import pcm16_bytes, wav_bytes
 from msnv_tpu_torch.models.generate import generate_fn, streaming_fn
 from msnv_tpu_torch.serving.batcher import _Batcher
-from msnv_tpu_torch.serving.common import SAMPLE_RATE, Overloaded, _armed
-
-
-class _Fetch:
-    """Device -> host copy of one audio chunk, started at dispatch time:
-    a non-blocking copy into pinned memory plus a CUDA event; `result()`
-    waits on the event only. CPU tensors are already on the host."""
-
-    def __init__(self, audio: torch.Tensor):
-        self.event = None
-        if audio.is_cuda:
-            self.host = torch.empty(audio.shape, dtype=audio.dtype,
-                                    pin_memory=True)
-            self.host.copy_(audio, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host = audio
-
-    def result(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
+from msnv_tpu_torch.serving.common import (SAMPLE_RATE, Overloaded, _armed,
+                                           _Fetch)
+from msnv_tpu_torch.serving.mux import StreamMultiplexer
 
 
 class VocoderService:
@@ -68,9 +56,14 @@ class VocoderService:
                  max_batch: int = 1, linger_ms: float = 10.0,
                  max_streams: int = 8, name: str = "msnv", artifact=None,
                  mux_lanes: int = 0, mesh=None):
-        if artifact is not None or mux_lanes or mesh is not None:
+        if artifact is not None:
             raise NotImplementedError(
-                "artifact, mux_lanes and mesh are not ported yet")
+                "serving artifacts are not ported yet (ROADMAP queue 1, "
+                "item 7.3)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-device serving is not ported yet (ROADMAP queue 1, "
+                "item 7.4)")
         self.params = params
         self.cfg = cfg
         self.device = params["mlp"]["embedding"].device
@@ -99,6 +92,22 @@ class VocoderService:
         self.max_streams = int(max_streams)
         self._stream_slots = threading.BoundedSemaphore(
             max(self.max_streams, 1))
+        # lane-batched /stream multiplexer (mux_lanes > 0): concurrent
+        # default-temperature streams share one device carry and advance
+        # together per pump tick (see StreamMultiplexer). Other
+        # temperatures and seed-exact requests use the per-connection path.
+        self._mux = None
+        if mux_lanes > 0:
+            self._mux = StreamMultiplexer(
+                params, cfg, lanes=mux_lanes,
+                frames_per_push=max(self.frames_per_push, 1),
+                temperature=self.temperature_default)
+            self._mux.start(device_lock=self._lock)
+
+    def close(self) -> None:
+        """Stop background machinery (the mux pump); idempotent."""
+        if self._mux is not None:
+            self._mux.stop()
 
     # -- request plumbing ------------------------------------------------
 
@@ -150,6 +159,8 @@ class VocoderService:
                 "max_batch": (self._batcher.max_batch
                               if self._batcher else 1),
                 "max_streams": self.max_streams,
+                "mux_lanes": self._mux.lanes if self._mux else 0,
+                "mesh_shards": 1,
                 "device": str(self.device)}
 
     def _generator(self, seed: int) -> torch.Generator:
@@ -252,21 +263,36 @@ class VocoderService:
             return self._stream_cache[(temperature, k)]
 
     def parse_stream(self, body: dict):
-        """Parse a /stream body -> (cond, spk, temperature, seed); raises
-        ValueError/KeyError on malformed requests before any resource is
-        taken."""
-        return self._parse(body)
+        """Parse a /stream body and classify its path. Returns
+        (cond, spk, temperature, seed, mux_eligible); raises
+        ValueError/KeyError on malformed requests BEFORE any resource is
+        taken. The async front-end (serving/aio.py) uses it, since it
+        drives the mux lanes itself rather than the blocking iterator."""
+        cond, spk, temperature, seed = self._parse(body)
+        eligible = (self._mux is not None
+                    and temperature == self._mux.temperature
+                    and "seed" not in body)
+        return cond, spk, temperature, seed, eligible
 
-    def stream(self, body: dict):
+    def stream(self, body: dict, _parsed=None):
         """Yield PCM16 chunks as frame groups are generated. Trailing
         frames beyond a multiple of `frames_per_push` finish with 1-frame
         pushes (a K-frame push is sample-exact vs K single pushes).
 
         Raises Overloaded (HTTP 429) beyond `max_streams` concurrent
-        streams; the slot is released when the generator finishes or is
-        closed (client disconnect included)."""
+        per-connection streams, or when every mux lane is taken; the slot
+        or lane is released when the generator finishes or is closed
+        (client disconnect included). `_parsed` lets a front-end that
+        already ran parse_stream forward the result instead of decoding the
+        cond payload a second time."""
         # 400s must not consume a slot: parse before acquiring anything
-        cond, spk, temperature, seed = self.parse_stream(body)
+        cond, spk, temperature, seed, eligible = (
+            _parsed if _parsed is not None else self.parse_stream(body))
+        if eligible:
+            # seed-less default-temperature streams ride the multiplexer; an
+            # explicit seed asks for reproducible audio, which the shared
+            # generator cannot give — that falls through to per-connection
+            return self._mux_stream_iter(cond, spk)
         if self.max_streams <= 0 or \
                 not self._stream_slots.acquire(blocking=False):
             raise Overloaded(
@@ -276,6 +302,50 @@ class VocoderService:
         return _armed(self._stream_iter(cond, spk, temperature, seed),
                       self._stream_slots.release)
 
+    def _mux_stream_iter(self, cond, spk):
+        """Serve one stream through the lane multiplexer: pad the cond
+        track to a K-multiple (repeating the last frame), feed the lane,
+        yield PCM16 chunks as its ticks drain, trim the pad."""
+        mux = self._mux
+        K = mux.K
+        cond_np = np.asarray(cond, np.float32)
+        n = len(cond_np)
+        pad = (-n) % K
+        if pad:
+            cond_np = np.concatenate(
+                [cond_np, np.repeat(cond_np[-1:], pad, axis=0)])
+        lane = mux.acquire(spk)          # raises Overloaded when full
+
+        def body():
+            blocks = [cond_np[i:i + K] for i in range(0, len(cond_np), K)]
+            mux.feed(lane, blocks)
+            q = mux.out_queue(lane)
+            remaining = n * self.cfg.lookback
+            got = 0
+            while got < len(blocks):
+                # coalesce whatever ticks have already drained into ONE
+                # chunk: a handler that fell behind catches up with one
+                # write instead of one per K-frame tick (rows arrive as
+                # PCM16 from the pump's vectorized convert)
+                pieces = [q.get(timeout=120.0)]
+                got += 1
+                while got < len(blocks):
+                    try:
+                        pieces.append(q.get_nowait())
+                        got += 1
+                    except queue.Empty:
+                        break
+                buf = (np.concatenate(pieces) if len(pieces) > 1
+                       else pieces[0])
+                take = min(len(buf), remaining)
+                remaining -= take
+                if take > 0:
+                    yield buf[:take].tobytes()
+
+        # _armed: the lane must be released even if the caller errors
+        # before ever iterating the returned generator
+        return _armed(body(), lambda: mux.release(lane))
+
     # fetch-pipeline depth for /stream: chunks in flight between device
     # dispatch and host fetch. Each chunk's copy starts at dispatch
     # (_Fetch); the handler drains chunk k-D while pushes k-D+1..k run.
@@ -284,20 +354,21 @@ class VocoderService:
     def _stream_iter(self, cond, spk, temperature, seed):
         K = self.frames_per_push
         init_state, push = self._stream_push(temperature, K)
-        cond_t = torch.from_numpy(np.ascontiguousarray(cond)).to(self.device)
+        # a copy: a base64 payload arrives as a read-only numpy view
+        cond_t = torch.tensor(cond, dtype=torch.float32, device=self.device)
         with self._lock:
             carry = init_state(1, torch.from_numpy(spk).to(self.device),
                                self._generator(seed))
         n = cond.shape[0]
-        queue = []
+        inflight = []
 
         def flush(fetch):
             return pcm16_bytes(fetch.result()[0])
 
         def enqueue(audio):
-            queue.append(_Fetch(audio))
-            if len(queue) > self.stream_fetch_depth:
-                return flush(queue.pop(0))
+            inflight.append(_Fetch(audio))
+            if len(inflight) > self.stream_fetch_depth:
+                return flush(inflight.pop(0))
             return None
 
         for start in range(0, n - n % K, K):
@@ -316,5 +387,5 @@ class VocoderService:
                 out = enqueue(audio)
                 if out is not None:
                     yield out
-        for fetch in queue:
+        for fetch in inflight:
             yield flush(fetch)

@@ -228,7 +228,8 @@ def test_batcher_coalesces_and_cache_is_bounded(params):
     assert len(svc._gen_cache) <= svc.MAX_CACHED_CALLABLES
 
 
-@pytest.mark.parametrize("kw", [{"mux_lanes": 2}, {"artifact": object()},
+@pytest.mark.parametrize("kw", [{"mux_lanes": 2, "mesh": object()},
+                                {"artifact": object()},
                                 {"mesh": object()}, {"frame_bucket": 0},
                                 {"frames_per_push": 0}])
 def test_service_rejects_unported_and_degenerate_options(params, kw):
@@ -236,10 +237,8 @@ def test_service_rejects_unported_and_degenerate_options(params, kw):
         VocoderService(params[1], TCFG, **kw)
 
 
-def test_cli_serves_a_jax_checkpoint(params, tmp_path):
-    """`python -m msnv_tpu_torch.serving --device cpu` loads a checkpoint
-    written by the JAX trainer (config from the results-dir tag) and
-    answers /healthz."""
+def _jax_checkpoint(params, tmp_path):
+    """A checkpoint written by the JAX trainer under its results-dir tag."""
     from msnv_tpu.config import ExperimentConfig, make_tag
     from msnv_tpu.training.checkpoint import save_checkpoint
     tag = make_tag(ExperimentConfig(exp="t", model=CFG))
@@ -247,10 +246,15 @@ def test_cli_serves_a_jax_checkpoint(params, tmp_path):
     ckpt_dir.mkdir(parents=True)
     path = str(ckpt_dir / "ep1-it1.npz")
     save_checkpoint(path, {"params": params[0]})
+    return tag, path
+
+
+def _cli_healthz(path, *args):
+    """Run the serving CLI on the CPU; -> (banner line, /healthz JSON)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.Popen(
         [sys.executable, "-m", "msnv_tpu_torch.serving", "--model", path,
-         "--device", "cpu", "--port", "0"],
+         "--device", "cpu", "--port", "0", *args],
         cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
         env={**os.environ, "PYTHONPATH": repo, "OMP_NUM_THREADS": "1"})
     lines = []
@@ -264,12 +268,41 @@ def test_cli_serves_a_jax_checkpoint(params, tmp_path):
         port = int(re.search(r"http://[^:]+:(\d+)", line).group(1))
         c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
         c.request("GET", "/healthz")
-        h = json.loads(c.getresponse().read())
-        assert h["model"] == tag and h["spk_dim"] == CFG.spk_dim
+        return line, json.loads(c.getresponse().read())
     finally:
         proc.kill()
         proc.wait(timeout=30)
         proc.stdout.close()
+
+
+def test_cli_serves_a_jax_checkpoint(params, tmp_path):
+    """`python -m msnv_tpu_torch.serving --device cpu` loads a checkpoint
+    written by the JAX trainer (config from the results-dir tag) and
+    answers /healthz."""
+    tag, path = _jax_checkpoint(params, tmp_path)
+    _, h = _cli_healthz(path)
+    assert h["model"] == tag and h["spk_dim"] == CFG.spk_dim
+
+
+@pytest.mark.parametrize("args,frontend", [([], "aio"),
+                                           (["--frontend", "threaded"],
+                                            "threaded")])
+def test_cli_frontends_and_mux_lanes(params, tmp_path, args, frontend):
+    """`--frontend` defaults to the asyncio front-end, as in the JAX CLI;
+    `--mux_lanes 2` starts the multiplexer behind either front-end."""
+    _, path = _jax_checkpoint(params, tmp_path)
+    line, h = _cli_healthz(path, "--mux_lanes", "2", *args)
+    assert f"{frontend} front-end" in line
+    assert h["mux_lanes"] == 2 and h["mesh_shards"] == 1
+
+
+@pytest.mark.parametrize("args,item", [(["--artifact", "a.npz"], "7.3"),
+                                       (["--mesh_data", "2"], "7.4")])
+def test_cli_rejects_unported_options(args, item):
+    from msnv_tpu_torch.serving.cli import main
+    with pytest.raises(NotImplementedError, match=item):
+        main(["--model", "results/t/checkpoints/ep1-it1.npz",
+              "--device", "cpu", *args])
 
 
 def test_service_default_device_is_the_params_device(params):

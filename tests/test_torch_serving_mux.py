@@ -1,0 +1,367 @@
+"""The port's lane-batched /stream multiplexer (msnv_tpu_torch.serving.
+StreamMultiplexer) against the JAX package's, on the CPU at the tiny shapes
+of tests/test_serving_mux.py.
+
+Every case of that file is ported (the mesh case becomes "mesh= raises"),
+plus cross-package cases at temperature 0, where sampling draws nothing:
+the masked push of both packages from the same carry (buffer exact, hidden
+state within 5e-5, docs/DESIGN.md's bar), and concurrent greedy streams
+through a JAX service and a port service, byte-equal to each other and to
+the port's own per-connection stream. The real stack runs: pump thread,
+masked pushes, HTTP over a socket.
+"""
+
+import gc
+import http.client
+import json
+import threading
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from msnv_tpu.config import ModelConfig
+from msnv_tpu.serving import StreamMultiplexer as JaxMultiplexer
+from msnv_tpu.serving import VocoderService as JaxService
+from msnv_tpu_torch.ops.quantize import q_zero
+from msnv_tpu_torch.serving import (Overloaded, StreamMultiplexer,
+                                    VocoderService, make_server)
+from torch_parity import both_params, torch_cfg
+
+CFG = ModelConfig(frame_sizes=(2, 2), n_rnn=1, dim=16, cond_dim=3,
+                  cond_len=4, spk_dim=3)
+TCFG = torch_cfg(CFG)
+C = CFG.effective_cond_dim
+
+
+@pytest.fixture(scope="module")
+def params():
+    return both_params(CFG, seed=0)
+
+
+def _serve(service):
+    srv = make_server(service, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
+def test_masked_push_freezes_inactive_lanes(params):
+    """A pump tick must not advance lanes that had no pending cond."""
+    mux = StreamMultiplexer(params[1], TCFG, lanes=4, frames_per_push=2)
+    carry0 = mux._carry
+    cond = torch.from_numpy(np.random.RandomState(0).rand(
+        4, 2, C).astype(np.float32))
+    active = torch.tensor([True, False, True, False])
+    carry1, audio = mux._masked_push(carry0, cond, active)
+    assert tuple(audio.shape) == (4, 2 * CFG.lookback)
+    _, buf0, hs0, _ = carry0
+    _, buf1, hs1, _ = carry1
+    assert torch.equal(buf1[1], buf0[1]) and torch.equal(buf1[3], buf0[3])
+    assert not torch.equal(buf1[0], buf0[0])
+    for h0, h1 in zip(hs0, hs1):
+        assert torch.equal(h1[:, 1], h0[:, 1])
+        assert torch.equal(h1[:, 3], h0[:, 3])
+
+
+def test_attach_splices_fresh_state(params):
+    """acquire() defers the splice; the pump's _flush_attaches applies
+    every pending lane in one call. After the flush the lane holds fresh
+    state (q_zero buffer, learned h0) while other lanes' dirty state is
+    untouched."""
+    mux = StreamMultiplexer(params[1], TCFG, lanes=3, frames_per_push=1)
+    cond = torch.ones((3, C))
+    mux._carry, _ = mux._masked_push(mux._carry, cond,
+                                     torch.tensor([True] * 3))
+    _, dirty_buf, dirty_hs, _ = mux._carry
+    lane = mux.acquire(np.asarray([2], np.int32))
+    assert lane in mux._pending_attach          # deferred, not applied
+    with mux._cv:
+        attach = mux._pending_attach
+        mux._pending_attach = set()
+    with mux._carry_lock, mux._device_lock:
+        mux._flush_attaches(attach)             # what a pump tick does
+    spk_vec, buf, hs, _ = mux._carry
+    assert (buf[lane] == q_zero(CFG.q_levels)).all()
+    for t, h in enumerate(hs):
+        assert torch.equal(h[:, lane], params[1]["tiers"][t]["h0"])
+    # the speaker row: the one-hot matmul selects embedding row 2 exactly
+    # (held against the id gather at the same batch: a dense layer's sums
+    # may round otherwise at another batch size)
+    want = mux._init_state(3, torch.tensor([2, 2, 2]), mux._generator)[0]
+    assert torch.equal(spk_vec[lane], want[lane])
+    other = next(i for i in range(3) if i != lane)
+    assert torch.equal(buf[other], dirty_buf[other])
+    for h_d, h in zip(dirty_hs, hs):
+        assert torch.equal(h[:, other], h_d[:, other])
+    mux.release(lane)
+
+
+def test_lane_exhaustion_and_reuse(params):
+    mux = StreamMultiplexer(params[1], TCFG, lanes=2, frames_per_push=1)
+    a = mux.acquire(np.asarray([0], np.int32))
+    b = mux.acquire(np.asarray([1], np.int32))
+    with pytest.raises(Overloaded):
+        mux.acquire(np.asarray([2], np.int32))
+    mux.release(a)
+    c = mux.acquire(np.asarray([2], np.int32))   # lane recycled
+    assert c == a
+    mux.release(b)
+    mux.release(c)
+
+
+def test_concurrent_http_streams_through_mux(params):
+    """N concurrent /stream requests ride the multiplexer end to end over
+    real HTTP (the threaded front-end) and each receives its full PCM16
+    audio."""
+    service = VocoderService(params[1], TCFG, frames_per_push=2,
+                             mux_lanes=4, max_streams=1)
+    srv = _serve(service)
+    addr = srv.server_address
+    frames = 5                       # odd: exercises the K-pad + trim
+    rng = np.random.RandomState(1)
+    try:
+        def one(i, cond, out):
+            c = http.client.HTTPConnection(*addr, timeout=60)
+            c.request("POST", "/stream",
+                      json.dumps({"cond": cond, "spk": i % CFG.spk_dim}),
+                      {"Content-Type": "application/json"})
+            r = c.getresponse()
+            out[i] = (r.status, len(r.read()))
+            c.close()
+
+        out = {}
+        threads = [threading.Thread(target=one, args=(
+            i, rng.rand(frames, C).tolist(), out)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        expected = frames * CFG.lookback * 2     # PCM16 bytes
+        assert len(out) == 4
+        assert all(v == (200, expected) for v in out.values()), out
+        c = http.client.HTTPConnection(*addr, timeout=10)
+        c.request("GET", "/healthz")
+        h = json.loads(c.getresponse().read())
+        assert h["mux_lanes"] == 4 and h["mesh_shards"] == 1
+        c.close()
+        # an explicit seed bypasses the mux (seed-exact path) and still works
+        c = http.client.HTTPConnection(*addr, timeout=60)
+        c.request("POST", "/stream",
+                  json.dumps({"cond": rng.rand(2, C).tolist(), "spk": 0,
+                              "seed": 7}),
+                  {"Content-Type": "application/json"})
+        r = c.getresponse()
+        assert r.status == 200 and len(r.read()) == 2 * CFG.lookback * 2
+        c.close()
+    finally:
+        service.close()
+        srv.shutdown()
+
+
+def test_mux_overload_returns_429(params):
+    service = VocoderService(params[1], TCFG, frames_per_push=1,
+                             mux_lanes=1)
+    lane = service._mux.acquire(np.asarray([0], np.int32))
+    srv = _serve(service)
+    try:
+        c = http.client.HTTPConnection(*srv.server_address, timeout=30)
+        c.request("POST", "/stream",
+                  json.dumps({"cond": [[0.0] * C], "spk": 0}),
+                  {"Content-Type": "application/json"})
+        assert c.getresponse().status == 429
+        c.close()
+    finally:
+        service._mux.release(lane)
+        service.close()
+        srv.shutdown()
+
+
+def test_pump_revalidates_recycled_lane_before_push(params):
+    """A cond block popped for (lane, gen) must not be pushed after the
+    lane was released and re-acquired: the push would advance the NEW
+    occupant's freshly attached carry with the OLD stream's conditioners.
+    The pump re-reads the generation under _carry_lock."""
+    mux = StreamMultiplexer(params[1], TCFG, lanes=2, frames_per_push=1)
+    lane = mux.acquire(np.asarray([0], np.int32))
+    served = [(lane, mux._gen[lane])]
+    active = np.zeros((2,), bool)
+    active[lane] = True
+    mux.release(lane)
+    lane2 = mux.acquire(np.asarray([1], np.int32))
+    assert lane2 == lane
+    with mux._carry_lock:
+        mux._revalidate_served(served, active)
+    assert served == [] and not active.any()
+    served = [(lane2, mux._gen[lane2])]
+    active[lane2] = True
+    with mux._carry_lock:
+        mux._revalidate_served(served, active)
+    assert served == [(lane2, mux._gen[lane2])] and active[lane2]
+    mux.release(lane2)
+
+
+def test_unstarted_stream_generator_releases_lane(params):
+    """stream() takes a mux lane (or a stream slot) before it returns the
+    generator; a handler that errors before the first next() must not leak
+    it: the armed generator releases on close() and on GC."""
+    service = VocoderService(params[1], TCFG, frames_per_push=1,
+                             mux_lanes=1, max_streams=1)
+    try:
+        cond = [[0.0] * C]
+        g = service.stream({"cond": cond, "spk": 0})    # mux path
+        with pytest.raises(Overloaded):
+            service.stream({"cond": cond, "spk": 0})    # lane held
+        g.close()                                       # never iterated
+        g2 = service.stream({"cond": cond, "spk": 0})   # lane released
+        del g2
+        gc.collect()
+        g3 = service.stream({"cond": cond, "spk": 0})
+        assert b"".join(g3)
+        s1 = service.stream({"cond": cond, "spk": 0, "seed": 1})
+        with pytest.raises(Overloaded):
+            service.stream({"cond": cond, "spk": 0, "seed": 2})
+        s1.close()
+        s2 = service.stream({"cond": cond, "spk": 0, "seed": 3})
+        assert b"".join(s2)
+    finally:
+        service.close()
+
+
+def test_mux_over_mesh_raises(params):
+    """Mux lanes over a device mesh wait for the port's parallel/ modules;
+    until then both entry points refuse a mesh before starting anything."""
+    with pytest.raises(NotImplementedError, match="7.4"):
+        StreamMultiplexer(params[1], TCFG, lanes=8, mesh=object())
+    threads = threading.active_count()
+    with pytest.raises(NotImplementedError, match="7.4"):
+        VocoderService(params[1], TCFG, mux_lanes=8, mesh=object())
+    assert threading.active_count() == threads
+
+
+# -- held against the JAX multiplexer ---------------------------------------
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_masked_push_matches_jax(params, K):
+    """Greedy (T = 0): from the same carry, with lanes frozen and active
+    and speakers attached as ids and as a mix, the port's masked push gives
+    the JAX one's buffer exactly and its hidden state within 5e-5."""
+    jmux = JaxMultiplexer(params[0], CFG, lanes=4, frames_per_push=K,
+                          temperature=0.0)
+    tmux = StreamMultiplexer(params[1], TCFG, lanes=4, frames_per_push=K,
+                             temperature=0.0)
+    spks = [np.asarray([0], np.int32), np.asarray([[0.2, 0.5, 0.3]],
+                                                  np.float32),
+            np.asarray([2], np.int32)]
+    for mux in (jmux, tmux):
+        lanes = [mux.acquire(s) for s in spks]
+        with mux._carry_lock, mux._device_lock:
+            mux._flush_attaches(set(lanes))
+    assert lanes == [3, 2, 1]
+
+    def compare(jc, tc):
+        _, jbuf, jhs, _ = jc
+        _, tbuf, ths, _ = tc
+        np.testing.assert_array_equal(tbuf.numpy(), np.asarray(jbuf))
+        for jh, th in zip(jhs, ths):
+            np.testing.assert_allclose(th.numpy(), np.asarray(jh),
+                                       atol=5e-5, rtol=0)
+
+    compare(jmux._carry, tmux._carry)
+    rng = np.random.RandomState(K)
+    for mask in ([True, False, True, False], [False, True, True, True]):
+        cond = rng.rand(4, K, C).astype(np.float32)
+        before = tmux._carry
+        jmux._carry, jaudio = jmux._masked_push(
+            jmux._carry, jnp.asarray(cond), jnp.asarray(mask))
+        tmux._carry, taudio = tmux._masked_push(
+            tmux._carry, torch.from_numpy(cond), torch.tensor(mask))
+        compare(jmux._carry, tmux._carry)
+        # the samples themselves are the buffer's tail (exact above); their
+        # dequantized floats may differ in the last bit between packages
+        np.testing.assert_allclose(taudio.numpy(), np.asarray(jaudio),
+                                   atol=1e-6, rtol=0)
+        for lane in np.flatnonzero(~np.asarray(mask)):
+            assert torch.equal(tmux._carry[1][lane], before[1][lane])
+            for h, h0 in zip(tmux._carry[2], before[2]):
+                assert torch.equal(h[:, lane], h0[:, lane])
+
+
+def _greedy_bodies():
+    rng = np.random.RandomState(11)
+    return [{"cond": rng.rand(frames, C).tolist(), "spk": spk}
+            for frames, spk in ((3, 0), (4, [0.2, 0.5, 0.3]), (6, 2))]
+
+
+def _concurrent_streams(service, bodies):
+    out = {}
+
+    def one(i):
+        out[i] = b"".join(service.stream(dict(bodies[i])))
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    return [out[i] for i in range(len(bodies))]
+
+
+def test_greedy_mux_streams_equal_jax_and_per_connection(params):
+    """Three concurrent seed-less greedy streams of different lengths (3
+    is odd: the K pad) and speakers (an id and a mix) through a JAX service
+    and a port service, both multiplexed: each stream's PCM is byte-equal
+    across the packages and to the port's per-connection greedy stream."""
+    bodies = _greedy_bodies()
+    kw = dict(frames_per_push=2, mux_lanes=4, temperature_default=0.0)
+    jsvc = JaxService(params[0], CFG, **kw)
+    tsvc = VocoderService(params[1], TCFG, **kw)
+    try:
+        jax_pcm = _concurrent_streams(jsvc, bodies)
+        port_pcm = _concurrent_streams(tsvc, bodies)
+        # an explicit seed takes the per-connection path (greedy draws
+        # nothing, so the seed does not matter)
+        solo = [b"".join(tsvc.stream(dict(b, seed=5))) for b in bodies]
+    finally:
+        jsvc.close()
+        tsvc.close()
+    for body, j, t, s in zip(bodies, jax_pcm, port_pcm, solo):
+        assert len(t) == len(body["cond"]) * CFG.lookback * 2
+        assert t == j
+        assert t == s
+
+
+def _mux_audio(params, seed):
+    """Audio of three lanes at temperature 1, every block fed before the
+    pump starts (so every tick serves the same lanes)."""
+    mux = StreamMultiplexer(params, TCFG, lanes=3, frames_per_push=2,
+                            temperature=1.0, seed=seed)
+    rng = np.random.RandomState(0)
+    lanes = [mux.acquire(s) for s in (np.asarray([0], np.int32),
+                                      np.asarray([[0.1, 0.3, 0.6]]),
+                                      np.asarray([2], np.int32))]
+    for lane in lanes:
+        mux.feed(lane, [rng.rand(2, C).astype(np.float32)
+                        for _ in range(3)])
+    mux.start()
+    try:
+        return [np.concatenate([mux.out_queue(lane).get(timeout=60)
+                                for _ in range(3)]) for lane in lanes]
+    finally:
+        mux.stop()
+        assert not mux._thread.is_alive()
+
+
+def test_one_generator_same_seed_same_audio(params):
+    """The mux's single generator: the same seed and feed order give the
+    same audio at temperature 1; another seed gives other audio."""
+    a = _mux_audio(params[1], seed=4)
+    b = _mux_audio(params[1], seed=4)
+    c = _mux_audio(params[1], seed=5)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+        assert x.shape == (3 * 2 * CFG.lookback,)
+    assert any(not np.array_equal(x, z) for x, z in zip(a, c))
