@@ -94,18 +94,43 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 exception in any thread (the pump's above all) fails the
                 phase. Ticks, wall per tick, aggregate audio-s/s, per-stream
                 realtime factor (min / median), time to first audio
+  9. variants — the voice-conversion variants at full width (dim 1024,
+                frame sizes (20, 4), n_rnn 2, look-ahead, 6 speakers),
+                bf16, gru_impl="pallas": the `samplernn_gan` preset (weight
+                norm, ind_cond_dim 50, a 512-channel discriminator) at its
+                B 64, seq_len 1040: one step with reset and five without on
+                a fixed batch, losses finite, the discriminator moved,
+                lambda equal to lambda_ramp at each step index, 4 forward
+                and 4 backward persistent GRU sweeps a step; the same first
+                step past the ramp moves conditioner.stack[0].w otherwise;
+                the discriminator's forward and forward + backward times
+                alone; a float32 step (TF32 off) against the two-backward
+                form (grad of L1 - lambda L2, then of L2), to 1e-4 of the
+                largest gradient. The `bottleneck` preset at B 128 (two
+                steps, the same sweep counts) and `samplernn` with
+                qrnn=True at B 128 (two steps, falling loss, no GRU kernel
+                launched). generate_fn from the GAN and the QRNN model (B
+                128, 16 frames) and a B 1 stream of 8 pushes from the GAN
+                model, every window resident. cli.train --variant gan (B
+                64) to one epoch, resumed to two: disc_loss and lambda in
+                stats.json, the discriminator and its Adam state under the
+                JAX keys in the checkpoint, every train-step sweep
+                persistent; cli.generate from it, every window resident
 Then one JSON line of kernel numbers, the card's name and power limit, and
 last the {"ok": true, "device": ...} line. The kernels' `launches` add up
 the counts of every path that drives them: K1 the serving path (phase 4),
-the generate CLI (phase 7) and the multiplexer (phase 8), K2 the train
-steps (phase 6) and the training loop (phase 7), each count set to 0 just
-before its path and read just after.
+the generate CLI (phase 7), the multiplexer (phase 8) and the variants'
+generation, streaming and generate CLI (phase 9), K2 the train steps
+(phase 6), the training loop (phase 7) and the variants' train steps and
+train CLI (phase 9), each count set to 0 just before its path and read
+just after.
 
 `--rehearse-cpu` runs the same phases on the CPU at dim 32 with the plain
 versions (no build, no timing on the card; phase 7 at B 4 on a small
-corpus; phase 8 with 4 and 8 lanes) and ends without the ok line.
-`--phases=5,6`, `--phases=7` or `--phases=8` runs only the named phases
-(and then prints no result line).
+corpus; phase 8 with 4 and 8 lanes; phase 9 at B 4, seq_len 320 and an
+8-channel discriminator) and ends without the ok line. `--phases=5,6`,
+`--phases=7`, `--phases=8` or `--phases=9` runs only the named phases (and
+then prints no result line).
 """
 
 from __future__ import annotations
@@ -1717,6 +1742,442 @@ def phase_mux(ckpt, cfg, dev, runs, http_run, seeded_frames):
 
 
 # --------------------------------------------------------------------------
+# phase 9: the variants (GAN, bottleneck, QRNN) at full width
+# --------------------------------------------------------------------------
+
+def _gru_counts():
+    from msnv_tpu_torch.kernels.gru_layer import (gru_layer_backward,
+                                                  gru_layer_forward)
+    return (gru_layer_forward.launches, gru_layer_forward.persistent,
+            gru_layer_backward.launches, gru_layer_backward.persistent)
+
+
+def _reset_gru_counts():
+    from msnv_tpu_torch.kernels.gru_layer import (gru_layer_backward,
+                                                  gru_layer_forward)
+    for wrapper in (gru_layer_forward, gru_layer_backward):
+        wrapper.launches = 0
+        wrapper.persistent = wrapper.per_step = 0
+
+
+def _timed_steps(step, n, sync):
+    """Wall of each of n calls of step(i), each between synchronizes."""
+    walls, outs = [], []
+    for i in range(n):
+        sync()
+        t0 = time.perf_counter()
+        outs.append(step(i))
+        sync()
+        walls.append(time.perf_counter() - t0)
+    return walls, outs
+
+
+def _check_sweeps(dev, cfg, steps, what):
+    """4 persistent forward and 4 persistent backward sweeps a step (2
+    tiers x n_rnn 2); returns the counts."""
+    counts = _gru_counts()
+    want = cfg.n_tiers * cfg.n_rnn * steps
+    if dev.type == "cuda" and counts != (want,) * 4:
+        raise AssertionError(f"{what}: GRU (fwd, persistent, bwd, "
+                             f"persistent) = {counts}, expected {want} each")
+    return counts
+
+
+def disc_flops(batch, frames, width, channels):
+    """Forward multiply-adds x 2 of the discriminator's eight 5x5 convs on
+    a (batch, frames, width) latent."""
+    per_pos = 25 * (1 * channels + 7 * channels * channels)
+    return 2.0 * batch * frames * width * per_pos
+
+
+def _variant_cfg(base, **kw):
+    import dataclasses
+    return dataclasses.replace(base, gru_impl="pallas", **kw)
+
+
+def _gan_phase(exp, dev, batch, seq_len, channels, out):
+    """The samplernn_gan preset's train step: six bf16 steps, the lambda
+    ramp, the reversal, the float32 shared-dgrad check, the discriminator's
+    own times."""
+    import dataclasses
+
+    import torch
+    from msnv_tpu_torch.models.discriminator import (discriminator_apply,
+                                                     discriminator_init,
+                                                     discriminator_nll)
+    from msnv_tpu_torch.models.generate import cast_float_tree
+    from msnv_tpu_torch.models.samplernn import init_params, init_tier_state
+    from msnv_tpu_torch.training import gan
+    from msnv_tpu_torch.training.optim import make_optimizer
+    from msnv_tpu_torch.tree import tree_leaves, tree_map
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = _variant_cfg(exp.model)
+    train = dataclasses.replace(exp.train, disc_channels=channels)
+    data, target, cond, spk = train_inputs(cfg, batch, seq_len, dev, seed=9)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    disc = discriminator_init(torch.Generator().manual_seed(1), cfg.spk_dim,
+                              channels, device=dev)
+    params0, disc0 = (tree_map(torch.clone, params),
+                      tree_map(torch.clone, disc))
+    n_disc = sum(x.numel() for x in tree_leaves(disc))
+    opt = make_optimizer(train)
+    mo, do = opt.init(params), opt.init(disc)
+    state = init_tier_state(cfg, batch, device=dev)
+    step = gan.make_gan_train_step(cfg, train, opt, opt,
+                                   compute_dtype=torch.bfloat16)
+    carry = [params, disc, mo, do, state]
+    w_after_first = []
+
+    def one(i):
+        res = step(*carry, float(i), data, i == 0, target, cond, spk)
+        carry[:], metrics = res[:5], res[5]
+        if i == 0:
+            w_after_first.append(
+                carry[0]["tiers"][-1]["conditioner"]["stack"][0]["w"]
+                .clone())
+        return metrics
+
+    _reset_gru_counts()                     # the GAN step's path starts here
+    walls, metrics = _timed_steps(one, 6, sync)
+    counts = _check_sweeps(dev, cfg, 6, "GAN step")
+    losses = [float(m["loss"]) for m in metrics]
+    disc_losses = [float(m["disc_loss"]) for m in metrics]
+    lams = [m["lambda"] for m in metrics]
+    log(f"[variants] gan B={batch} seq_len={seq_len} bf16 disc {channels} "
+        f"channels ({n_disc} params): losses {[round(x, 4) for x in losses]}"
+        f", disc losses {[round(x, 4) for x in disc_losses]}")
+    if not all(math.isfinite(x) for x in losses + disc_losses):
+        raise AssertionError("non-finite GAN losses")
+    for i, lam in enumerate(lams):
+        if not torch.equal(lam, gan.lambda_ramp(train, float(i), dev)):
+            raise AssertionError(f"lambda at step {i}: {float(lam)}")
+    if not any(not torch.equal(a, b) for a, b in
+               zip(tree_leaves(disc0), tree_leaves(carry[1]))):
+        raise AssertionError("the discriminator did not move")
+    # the reversal: the same first step past the ramp (lambda > 0) moves
+    # the conditioner stack's first layer otherwise
+    p, d = tree_map(torch.clone, params0), tree_map(torch.clone, disc0)
+    p, *_, m = step(p, d, opt.init(p), opt.init(d),
+                    init_tier_state(cfg, batch, device=dev), 1e6, data, True,
+                    target, cond, spk)
+    w_rev = p["tiers"][-1]["conditioner"]["stack"][0]["w"]
+    if not (float(m["lambda"]) > 0
+            and not torch.equal(w_rev, w_after_first[0])):
+        raise AssertionError("the reversal did not reach the conditioner")
+    del p, d
+    ms = statistics.median(walls[2:]) * 1e3
+    out.update(gan_batch=batch, gan_ms_per_step=ms,
+               gan_samples_per_s=batch * seq_len / (ms / 1e3),
+               gan_first_step_ms=walls[0] * 1e3, gan_losses=losses,
+               gan_disc_losses=disc_losses,
+               gan_lambdas=[float(x) for x in lams],
+               gan_disc_channels=channels, gan_disc_params=n_disc,
+               gan_gru_counts=counts)
+    log(f"[variants] gan step: {ms:.3f} ms = "
+        f"{out['gan_samples_per_s']:.0f} samples/s (median of the last "
+        f"{len(walls) - 2} of 6; first {walls[0] * 1e3:.1f} ms); GRU sweeps "
+        f"(fwd, persistent, bwd, persistent) {counts}")
+
+    # the discriminator alone, bf16, on this batch's latent shape
+    frames, width = seq_len // cfg.lookback, cfg.ind_cond_dim
+    lat = torch.randn(batch, frames, width, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(2))
+    d16 = cast_float_tree(disc0, torch.bfloat16)
+    lat16 = lat.to(torch.bfloat16)
+    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(d16)]
+
+    def fwd():
+        with torch.no_grad():
+            discriminator_apply(d16, lat16)
+
+    def fwd_bwd():
+        it = iter(leaves)
+        tree = tree_map(lambda _: next(it), d16)
+        x = lat16.detach().requires_grad_(True)
+        torch.autograd.grad(discriminator_nll(tree, x, spk), leaves + [x])
+
+    flops = disc_flops(batch, frames, width, channels)
+    if on_card:
+        out["disc_fwd_ms"] = cuda_ms(fwd, 10)
+        out["disc_fwd_bwd_ms"] = cuda_ms(fwd_bwd, 10)
+        out["disc_fwd_tflops"] = flops / out["disc_fwd_ms"] / 1e9
+        out["disc_fwd_bwd_tflops"] = 3 * flops / out["disc_fwd_bwd_ms"] / 1e9
+        out["disc_fwd_bound_ms"] = flops / PEAK_OPS["bfloat16"] * 1e3
+        log(f"[variants] discriminator bf16 ({batch}, {frames}, {width}): "
+            f"forward {out['disc_fwd_ms']:.3f} ms ({flops / 1e12:.2f} TFLOP,"
+            f" {out['disc_fwd_tflops']:.0f} TFLOP/s), forward + both "
+            f"backward products {out['disc_fwd_bwd_ms']:.3f} ms "
+            f"({out['disc_fwd_bwd_tflops']:.0f} TFLOP/s); bound at peak "
+            f"bf16 {out['disc_fwd_bound_ms']:.3f} ms forward")
+    out["disc_fwd_tflop"] = flops / 1e12
+
+    # float32, TF32 off: the shared discriminator backward against the
+    # two-backward form, to 1e-4 of the largest gradient
+    class Recorder:
+        def init(self, tree):
+            return {}
+
+        def update(self, grads, opt_state, tree):
+            self.grads = grads
+            return tree, opt_state
+
+    main_rec, disc_rec = Recorder(), Recorder()
+    f32_step = gan.make_gan_train_step(cfg, train, main_rec, disc_rec)
+    args = (init_tier_state(cfg, batch, device=dev), 1e6, data, True,
+            target, cond, spk)
+    f32_step(params0, disc0, {}, {}, *args)
+    grads, d_grads, lam = gan.naive_gan_grads(cfg, train, params0, disc0,
+                                              *args)
+    errs = {}
+    for name, got, want in (("vocoder", main_rec.grads, grads),
+                            ("disc", disc_rec.grads, d_grads)):
+        scale = max(float(g.abs().max()) for g in tree_leaves(want))
+        errs[name] = max(float((a - b).abs().max()) for a, b in
+                         zip(tree_leaves(got), tree_leaves(want))) / scale
+    log(f"[variants] f32 shared dgrad vs two backwards (lambda "
+        f"{float(lam):.4g}): largest |diff| over the largest gradient: "
+        f"vocoder {errs['vocoder']:.2e}, discriminator {errs['disc']:.2e}")
+    if not max(errs.values()) <= 1e-4:
+        raise AssertionError(f"shared dgrad differs: {errs}")
+    out["gan_f32_shared_vs_naive"] = errs
+    sync()
+    return carry[0]
+
+
+def _plain_steps(exp_model, train, dev, batch, seq_len, n, what, out, key,
+                 **model_kw):
+    """n bf16 train steps of a variant with reset on a fixed batch (the
+    loss must fall); returns (params, cfg, ms per step, GRU counts)."""
+    import torch
+    from msnv_tpu_torch.models.samplernn import init_params, init_tier_state
+    from msnv_tpu_torch.training.optim import make_optimizer
+    from msnv_tpu_torch.training.step import make_train_step
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = _variant_cfg(exp_model, **model_kw)
+    data, target, cond, spk = train_inputs(cfg, batch, seq_len, dev, seed=5)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    opt = make_optimizer(train)
+    carry = [params, opt.init(params),
+             init_tier_state(cfg, batch, device=dev)]
+    step = make_train_step(cfg, opt, compute_dtype=torch.bfloat16)
+
+    def one(i):
+        res = step(*carry, data, True, target, cond, spk)
+        carry[:], loss = res[:3], res[3]
+        return float(loss)
+
+    _reset_gru_counts()                     # this variant's path starts here
+    walls, losses = _timed_steps(one, n, sync)
+    counts = _gru_counts()
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"{what}: losses {losses}")
+    ms = statistics.median(walls[1:]) * 1e3
+    out.update({f"{key}_ms_per_step": ms, f"{key}_batch": batch,
+                f"{key}_losses": losses, f"{key}_first_step_ms":
+                walls[0] * 1e3, f"{key}_gru_counts": counts})
+    log(f"[variants] {what} B={batch} bf16: {ms:.3f} ms/step "
+        f"(steps after the first; first {walls[0] * 1e3:.1f} ms), losses "
+        f"{[round(x, 4) for x in losses]}, GRU sweeps (fwd, persistent, bwd,"
+        f" persistent) {counts}")
+    return carry[0], cfg, counts
+
+
+def _generate_check(params, cfg, dev, batch, frames, what, stream_frames=0):
+    """bf16 generation through the kernel, every window resident; with
+    stream_frames, a B 1 stream of that many one-frame pushes too.
+    Returns (audio-s/s, windows)."""
+    import torch
+    from msnv_tpu_torch.models.generate import generate_fn, streaming_fn
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    g = torch.Generator(device=dev).manual_seed(6)
+    cond = torch.rand(batch, frames, cfg.effective_cond_dim, generator=g,
+                      device=dev)
+    spk = torch.randint(0, cfg.spk_dim, (batch,), generator=g, device=dev)
+    gen = generate_fn(params, cfg, compute_dtype=torch.bfloat16,
+                      use_kernel=True)
+    gen(cond[:, :1], spk, torch.Generator(device=dev).manual_seed(0))  # warm
+    _reset_window_counts()                  # this generation starts here
+    sync()
+    t0 = time.perf_counter()
+    audio, _ = gen(cond, spk, torch.Generator(device=dev).manual_seed(0))
+    sync()
+    wall = time.perf_counter() - t0
+    counts = _window_counts()
+    want = frames * cfg.frame_sizes[-1]
+    _check_windows(dev, counts, want, f"{what} generation")
+    if tuple(audio.shape) != (batch, frames * cfg.lookback) or not (
+            torch.isfinite(audio).all() and audio.abs().max() <= 1.0):
+        raise AssertionError(f"{what}: generated audio {audio.shape}")
+    rate = batch * frames * cfg.lookback / 16000 / wall
+    windows = counts[0]
+    log(f"[variants] {what} generate_fn B={batch} x {frames} frames: "
+        f"{rate:.2f} audio-s/s, windows (launches, resident, tiled) "
+        f"{counts}")
+    if stream_frames:
+        init_state, push = streaming_fn(params, cfg,
+                                        compute_dtype=torch.bfloat16,
+                                        use_kernel=True)
+        carry = init_state(1, spk[:1],
+                           torch.Generator(device=dev).manual_seed(1))
+        _reset_window_counts()              # the stream starts here
+        for f in range(stream_frames):
+            carry, audio, _ = push(carry, cond[:1, f % frames])
+        sync()
+        counts = _window_counts()
+        _check_windows(dev, counts, stream_frames * cfg.frame_sizes[-1],
+                       f"{what} stream")
+        if not torch.isfinite(audio).all():
+            raise AssertionError(f"{what}: streamed audio not finite")
+        windows += counts[0]
+        log(f"[variants] {what} streaming_fn B=1 x {stream_frames} pushes: "
+            f"windows {counts}")
+    return rate, windows
+
+
+def _gan_cli(dev, dim, batch, seq_len, utts, frames, channels, out):
+    """cli.train --variant gan to 1 epoch, resumed to 2, on a corpus of one
+    packing unit (batch x (seq_len + 80) x 80 samples: 86 chunks an epoch
+    at seq_len 1040); its checkpoint and stats; cli.generate from it on two
+    short utterances of a corpus of their own, every window resident."""
+    import shutil
+    import tempfile
+
+    import torch
+    from msnv_tpu_torch.cli import generate as cli_generate
+    from msnv_tpu_torch.cli import train as cli_train
+    from msnv_tpu_torch.data.corpus import load_cond_tracks
+    from msnv_tpu_torch.data.synthetic import make_synthetic_corpus
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    build = os.path.join(REPO, "msnv_tpu_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="gan-", dir=build)
+    try:
+        data = os.path.join(work, "datasets")
+        make_synthetic_corpus(
+            data, n_speakers=6, utts_per_speaker=utts, frames_per_utt=frames,
+            cond_len=80, partitions=("train", "validation"), interleave=True)
+        short = os.path.join(work, "short")
+        _, _, names = make_synthetic_corpus(short, n_speakers=2,
+                                            utts_per_speaker=1,
+                                            frames_per_utt=100, cond_len=80)
+        results = os.path.join(work, "results")
+        args = ["--exp", "samplernn-gan", "--frame_sizes", "20", "4",
+                "--n_rnn", "2", "--dim", str(dim), "--look_ahead", "true",
+                "--weight_norm", "true", "--variant", "gan",
+                "--ind_cond_dim", "50", "--disc_channels", str(channels),
+                "--seq_len", str(seq_len), "--batch_size", str(batch),
+                "--learning_rate", "1e-4", "--bf16", "true",
+                "--datasets_path", data, "--results_path", results,
+                "--device", dev.type]
+        _reset_gru_counts()                 # the CLI's train path starts here
+        t0 = time.perf_counter()
+        run_cli(cli_train.main, args + ["--epoch_limit", "1"])
+        resumed = run_cli(cli_train.main, args + ["--epoch_limit", "2"])
+        sync()
+        out["cli_train_s"] = time.perf_counter() - t0
+        fwd, fwd_p, bwd, bwd_p = _gru_counts()
+        if "resumed from" not in resumed:
+            raise AssertionError("cli.train --variant gan did not resume")
+        stats, exp_dir = _stats(results)
+        if not (stats.get("epochs") == [2] and len(stats["disc_loss"]) == 1
+                and len(stats["lambda"]) == 1
+                and all(math.isfinite(x) for x in stats["training_loss"])):
+            raise AssertionError(f"stats.json: {sorted(stats)}")
+        ckpts = os.path.join(exp_dir, "checkpoints")
+        last = os.path.join(ckpts, sorted(
+            c for c in os.listdir(ckpts) if c.startswith("ep2"))[-1])
+        with np.load(last) as z:
+            keys = set(z.files)
+        for key in ("leaf:['disc_params']['blocks'][3]['conv2']['w']",
+                    "leaf:['disc_opt_state'][1][0].count",
+                    "leaf:['disc_opt_state'][1][0].mu['classifier']['w']"):
+            if key not in keys:
+                raise AssertionError(f"the checkpoint lacks {key}")
+        chunks = len(stats["training_loss"])
+        out.update(cli_chunks_per_epoch=chunks, cli_gru_fwd=fwd,
+                   cli_gru_fwd_persistent=fwd_p, cli_gru_bwd=bwd,
+                   cli_gru_bwd_persistent=bwd_p,
+                   cli_disc_loss=stats["disc_loss"],
+                   cli_lambda=stats["lambda"])
+        if dev.type == "cuda" and not (bwd == bwd_p == 4 * 2 * chunks
+                                       and fwd_p == 4 * 2 * chunks):
+            raise AssertionError(f"cli.train GRU sweeps "
+                                 f"{(fwd, fwd_p, bwd, bwd_p)} for "
+                                 f"{2 * chunks} steps")
+        log(f"[variants] cli.train --variant gan: {chunks} chunks an epoch, "
+            f"1 + 1 epochs (resumed) in {out['cli_train_s']:.1f} s; "
+            f"disc_loss {stats['disc_loss']}, lambda {stats['lambda']}; "
+            f"GRU sweeps fwd {fwd} ({fwd_p} persistent), bwd {bwd}")
+        utt = names[:2]
+        lists = os.path.join(work, "c.list"), os.path.join(work, "s.list")
+        with open(lists[0], "w") as f:
+            f.write("\n".join(utt))
+        with open(lists[1], "w") as f:
+            f.write("0\n1\n")
+        lens = [load_cond_tracks(os.path.join(short, "cond"), n)[0].shape[0]
+                for n in utt]
+        _reset_window_counts()              # the generate CLI starts here
+        run_cli(cli_generate.main, [
+            "--model", last, "--cond_path", os.path.join(short, "cond"),
+            "--cond_list", lists[0], "--spk_list", lists[1],
+            "--min_max", os.path.join(data, "npy_datasets",
+                                      "min_max_ind.npy"),
+            "--out_dir", os.path.join(work, "gen"), "--device", dev.type])
+        counts = _window_counts()
+        _check_windows(dev, counts, max(lens) * 4, "cli.generate (gan)")
+        if len(os.listdir(os.path.join(work, "gen"))) != 2:
+            raise AssertionError("cli.generate wrote no WAVs")
+        log(f"[variants] cli.generate on the GAN checkpoint: windows "
+            f"{counts}")
+        return counts[0]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_variants(dev, dim, gan_batch, batch, seq_len, channels, gen_batch,
+                   cli):
+    import dataclasses
+
+    from msnv_tpu_torch.config import preset
+    out = {"dim": dim, "seq_len": seq_len}
+
+    def narrow(name):
+        exp = preset(name)
+        return dataclasses.replace(exp, model=dataclasses.replace(
+            exp.model, dim=dim))
+
+    gan_exp, neck, base = (narrow("samplernn_gan"), narrow("bottleneck"),
+                           narrow("samplernn"))
+    gan_params = _gan_phase(gan_exp, dev, gan_batch, seq_len, channels, out)
+    gan_cfg = _variant_cfg(gan_exp.model)
+    gru = [out["gan_gru_counts"]]
+    _, _, counts = _plain_steps(neck.model, neck.train, dev, batch, seq_len,
+                                2, "bottleneck", out, "bottleneck")
+    gru.append(counts)
+    _check_sweeps(dev, neck.model, 2, "bottleneck step")
+    qrnn_params, qrnn_cfg, counts = _plain_steps(
+        base.model, base.train, dev, batch, seq_len, 2, "samplernn qrnn",
+        out, "qrnn", qrnn=True)
+    if counts != (0, 0, 0, 0):
+        raise AssertionError(f"a QRNN step launched GRU kernels: {counts}")
+
+    rate, windows = _generate_check(gan_params, gan_cfg, dev, gen_batch, 16,
+                                    "gan", stream_frames=8)
+    out.update(gan_generate_audio_s_per_s=rate, gan_windows=windows)
+    rate, w = _generate_check(qrnn_params, qrnn_cfg, dev, gen_batch, 16,
+                              "qrnn")
+    out.update(qrnn_generate_audio_s_per_s=rate, qrnn_windows=w)
+    windows += w
+    windows += _gan_cli(dev, dim, *cli, channels, out)
+    out["window_launches"] = windows
+    out["gru_fwd_launches"] = sum(c[0] for c in gru) + out["cli_gru_fwd"]
+    out["gru_bwd_launches"] = sum(c[2] for c in gru) + out["cli_gru_bwd"]
+    RESULTS["variants"] = out
+
+
+# --------------------------------------------------------------------------
 
 def card_line():
     try:
@@ -1770,13 +2231,17 @@ def kernel_entries():
         # the serving path (phase 4), the generate CLI (phase 7) and the
         # multiplexer (phase 8; every one of its windows resident)
         "launches": RESULTS["launches"] + RESULTS["loop"]["window_launches"]
-        + RESULTS["mux"]["launches"],
+        + RESULTS["mux"]["launches"] + RESULTS["variants"]["window_launches"],
+        # phase 9's windows are all resident (checked there)
         "resident_launches": RESULTS["resident_launches"]
-        + RESULTS["loop"]["window_resident"] + RESULTS["mux"]["launches"],
+        + RESULTS["loop"]["window_resident"] + RESULTS["mux"]["launches"]
+        + RESULTS["variants"]["window_launches"],
         "launches_by_path": {"serve": RESULTS["launches"],
                              "generate_cli": RESULTS["loop"][
                                  "window_launches"],
-                             "mux": RESULTS["mux"]["launches"]},
+                             "mux": RESULTS["mux"]["launches"],
+                             "variants": RESULTS["variants"][
+                                 "window_launches"]},
         # float32 (tiled kernel): samples equal to the plain version's;
         # bf16 (resident kernel): share of samples that differ on
         # sharpened logits, tolerance 1 %
@@ -1805,13 +2270,16 @@ def kernel_entries():
         "route": "cuda",
         "source": "msnv_tpu_torch/csrc/gru_layer.cu",
         "replaces": f"msnv_tpu/pallas/gru_kernel.py:{line}",
-        # the train steps (phase 6) and the training loop (phase 7: train
-        # steps, and for the forward the float32 validation sweeps)
+        # the train steps (phase 6), the training loop (phase 7: train
+        # steps, and for the forward the float32 validation sweeps) and the
+        # variants' train steps and train CLI (phase 9)
         "launches": RESULTS["train"][f"gru_{d}_launches"]
-        + RESULTS["loop"][f"gru_{d}_launches"],
+        + RESULTS["loop"][f"gru_{d}_launches"]
+        + RESULTS["variants"][f"gru_{d}_launches"],
         "launches_by_path": {"train_step": RESULTS["train"][
             f"gru_{d}_launches"], "train_loop": RESULTS["loop"][
-                f"gru_{d}_launches"]},
+                f"gru_{d}_launches"], "variants": RESULTS["variants"][
+                    f"gru_{d}_launches"]},
         # against the plain version, in the working type of the main path
         # (bf16 products); largest |kernel - plain| over max(1, |plain|)
         "max_abs_err": RESULTS["gru_err"][f"{d}_bf16"],
@@ -1841,7 +2309,7 @@ def main(argv):
     if argv[:1] == ["--mux-clients"]:
         return mux_clients(json.loads(argv[1]))
     rehearse = "--rehearse-cpu" in argv
-    phases = set(range(1, 9))
+    phases = set(range(1, 10))
     for a in argv:
         if a.startswith("--phases="):
             phases = {int(x) for x in a.split("=", 1)[1].split(",")} | {1}
@@ -1898,10 +2366,16 @@ def main(argv):
     timed(8, "mux", phase_mux, ckpt, cfg, dev,
           ((128, 200), (1024, 48)) if not rehearse else ((4, 8), (8, 4)),
           (128, 200) if not rehearse else (4, 8), 8 if not rehearse else 2)
+    timed(9, "variants", phase_variants, dev, DIM,
+          64 if not rehearse else 4, 128 if not rehearse else 4,
+          exp.train.seq_len if not rehearse else 4 * cfg.lookback,
+          512 if not rehearse else 8, 128 if not rehearse else 2,
+          (16, exp.train.seq_len, 2, 1600) if not rehearse
+          else (4, 4 * cfg.lookback, 2, 150))
     if rehearse:
         log("rehearsal on the CPU passed (no card: no result line)")
         return 1
-    if phases != set(range(1, 9)):
+    if phases != set(range(1, 10)):
         log(f"phases {sorted(phases)} passed (not all: no result line)")
         return 1
 
@@ -1911,6 +2385,7 @@ def main(argv):
                       "train": RESULTS["train"],
                       "loop": RESULTS["loop"],
                       "mux": RESULTS["mux"],
+                      "variants": RESULTS["variants"],
                       "build_s": RESULTS["build_s"]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

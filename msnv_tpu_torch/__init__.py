@@ -6,17 +6,19 @@ layout mirrors the JAX package so each counterpart is easy to find:
   config.py    — ModelConfig / presets / experiment tags (own copy)
   tree.py      — parameter-tree helpers
   ops/         — quantizers, dense layers, upsampling, GRU (three
-                 schedules), embed+conv and NLL-bits with hand-written
-                 backwards
-  models/      — conditioner head, SampleRNN predictor (differentiable),
-                 generation
+                 schedules), the fo-pool QRNN, embed+conv and NLL-bits
+                 with hand-written backwards
+  models/      — conditioner heads (identity, bottleneck, gan), the
+                 speaker discriminator, SampleRNN predictor
+                 (differentiable), generation
   kernels/     — Python wrappers of the hand-written CUDA kernels: the
                  sample window (serving) and the fused GRU layer, forward
                  and backward (training); each beside its plain version
   csrc/        — the CUDA sources (built with nvcc at first use)
   training/    — clipped Adam, the TBPTT train / eval steps and their
-                 device-corpus blocks, the Trainer loop and its plugins,
-                 checkpoints in the JAX trainer's .npz format
+                 device-corpus blocks, the GAN variant's two-optimizer
+                 step, the Trainer loop and its plugins, checkpoints in
+                 the JAX trainer's .npz format
   data/        — WAV I/O, the corpus build (the same npy cache), the
                  TBPTT chunk loader, synthetic corpora, log-mel features,
                  the native data library
@@ -29,10 +31,11 @@ layout mirrors the JAX package so each counterpart is easy to find:
 
 Ported so far: serving (forward, generation, streaming, the stream
 multiplexer, the asyncio and threaded HTTP front-ends), the train step,
-and the training loop with its corpus, loader, checkpoints and the
-train / evaluate / generate CLIs. Not yet: the GAN / bottleneck / QRNN
-variants, artifacts, export, the orbax checkpoint backend and
-multi-device.
+the training loop with its corpus, loader, checkpoints and the
+train / evaluate / generate CLIs, and the variants (the bottleneck and
+GAN heads, the speaker discriminator and the GAN trainer, QRNN tiers).
+Not yet: artifacts, export, the orbax checkpoint backend, multi-device
+and the remaining CLIs.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 CUDA device and no explicit CPU request they raise.

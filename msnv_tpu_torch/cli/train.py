@@ -15,9 +15,11 @@ Results land in <results_path>/<experiment tag>/ with the reference's layout
 (log, stats.json, loss.svg, checkpoints/, samples/). Runs on `cuda` unless
 --device says otherwise; --gru_impl auto runs the tiers' GRU sweeps in the
 fused GRU-layer kernels on a CUDA device and as a plain loop on the CPU (the
-engine is in neither the tag nor the checkpoint). Not ported, raising
-NotImplementedError: --multihost true and --n_model_shards > 1 (ROADMAP
-queue 1.7), --ckpt_backend orbax (1.7), --variant gan (1.6).
+engine is in neither the tag nor the checkpoint). Every --variant trains:
+identity, bottleneck and gan (the two-optimizer step with the speaker
+discriminator, whose loss and lambda join the log and stats.json). Not
+ported, raising NotImplementedError: --multihost true and
+--n_model_shards > 1 (ROADMAP queue 1.7), --ckpt_backend orbax (1.7).
 """
 
 from __future__ import annotations
@@ -167,10 +169,6 @@ def check_ported(args) -> None:
     if args.ckpt_backend != "npz":
         raise NotImplementedError(
             "--ckpt_backend orbax is not ported (ROADMAP queue 1.7)")
-    if args.variant == "gan":
-        raise NotImplementedError(
-            "--variant gan: the GAN trainer is not ported (ROADMAP queue "
-            "1.6)")
 
 
 def config_from_args(args, spk_dim: int,
@@ -313,6 +311,9 @@ def main(argv=None):
         manager, every_n_iterations=args.save_every_iterations,
         every_n_epochs=args.ckpt_every))
     log_fields = ["training_loss", "validation_loss", "test_loss", "time"]
+    if args.variant == "gan":
+        # adversarial diagnostics into the log and the stats.json trajectory
+        log_fields += ["disc_loss", "lambda"]
     if args.metrics_every:
         if not args.ulaw:
             # linear mode packs per-utterance-quantized levels, not the

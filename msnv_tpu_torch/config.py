@@ -48,7 +48,7 @@ class ModelConfig:
     # — halves the backward FLOPs) or "direct" (plain autodiff baseline).
     # Same forward either way; not part of the experiment tag.
     mlp_grad_impl: str = "fused"
-    qrnn: bool = False           # fo-pool QRNN tiers (not ported yet); the reference flag is dead — both its branches build a GRU (ref model.py:133-153)
+    qrnn: bool = False           # fo-pool QRNN tiers (ops/qrnn.py); the reference flag is dead — both its branches build a GRU (ref model.py:133-153)
 
     # Variant head on the conditioner stack (ref doc/Barbany_report.pdf sec 3.2):
     #   "identity"   — plain cond_expand (samplernn)
@@ -135,6 +135,18 @@ class TrainConfig:
     ss_prob: float = 0.0
     input_noise_prob: float = 0.0
     input_noise_levels: int = 8
+
+    def __post_init__(self):
+        # max_mult < 1 makes the clip's bounds [1/max_mult, max_mult] cross
+        # and gain < 0 turns the controller around: both silently invert
+        # what lambda_adaptive is for, so they are refused here
+        if self.lambda_adaptive is not None:
+            _, gain, max_mult = self.lambda_adaptive
+            if not max_mult >= 1.0 or not gain >= 0.0:
+                raise ValueError(
+                    f"lambda_adaptive (target_nll, gain, max_mult) needs "
+                    f"gain >= 0 and max_mult >= 1, got "
+                    f"{tuple(self.lambda_adaptive)}")
 
 
 @dataclass(frozen=True)

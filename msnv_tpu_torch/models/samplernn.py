@@ -6,10 +6,11 @@ written by the JAX trainer loads leaf for leaf (msnv_tpu_torch/interop.py):
 
   {"tiers": [tier0 (bottom) .. tierK (top)], "mlp": {...}}
   tier: {"h0" (n_rnn, dim), "input_expand" {w (dim, nfs), b},
-         "gru" [{w_ih (3H, in), w_hh (3H, H), b_ih, b_hh}, ...],
+         "gru" [{w_ih (3H, in), w_hh (3H, H), b_ih, b_hh}, ...]
+                (with cfg.qrnn: [{w (3H, in), b}, ...], ops/qrnn.py),
          "upsample" {w (dim, fs, dim), bias (fs, dim)}}
-  top tier also: {"conditioner" {"expand"}, "spk_embedding" (spk, spk),
-                  "spk_expand"}
+  top tier also: {"conditioner" {["stack"], "expand"}, "spk_embedding"
+                  (spk, spk), "spk_expand"}
   mlp: {"embedding" (q, q), "conv_in" (fs0, q, dim), "hidden", "out"}
 
 `predictor_apply` is differentiable end to end (the train step,
@@ -40,6 +41,7 @@ from msnv_tpu_torch.ops.embed_conv import embed_conv, embed_conv_direct
 from msnv_tpu_torch.ops.gru import gru_apply, gru_cell, gru_init
 from msnv_tpu_torch.ops.linear import (dense_apply, dense_init,
                                        kaiming_uniform, lecun_uniform, normal)
+from msnv_tpu_torch.ops.qrnn import qrnn_apply, qrnn_cell, qrnn_init
 from msnv_tpu_torch.ops.quantize import linear_dequantize, udequantize
 from msnv_tpu_torch.ops.upsample import upsample_apply, upsample_init
 
@@ -51,19 +53,27 @@ def dequantize(cfg: ModelConfig, x):
     return linear_dequantize(x, cfg.q_levels)
 
 
-def _check_cell(cfg: ModelConfig):
-    if cfg.qrnn:
-        raise NotImplementedError("QRNN tiers are not ported yet")
+# --------------------------------------------------------------------------
+# Recurrent-cell dispatch: GRU (default) or fo-pool QRNN (cfg.qrnn). Both
+# share the (n_layers, B, H) state layout, so everything downstream (TBPTT
+# state, learned-h0 reset, checkpoints) is cell-agnostic. A QRNN ignores
+# cfg.gru_impl: its loop is elementwise and has no kernel.
+# --------------------------------------------------------------------------
 
-
-def rnn_cell(cfg: ModelConfig, params, x, h):
-    _check_cell(cfg)
-    return gru_cell(params, x, h)
+def rnn_init(cfg: ModelConfig, generator, n_layers, in_dim, hidden, *,
+             device="cpu"):
+    init = qrnn_init if cfg.qrnn else gru_init
+    return init(generator, n_layers, in_dim, hidden, device=device)
 
 
 def rnn_apply(cfg: ModelConfig, params, x, h0):
-    _check_cell(cfg)
+    if cfg.qrnn:
+        return qrnn_apply(params, x, h0)
     return gru_apply(params, x, h0, impl=cfg.gru_impl)
+
+
+def rnn_cell(cfg: ModelConfig, params, x, h):
+    return (qrnn_cell if cfg.qrnn else gru_cell)(params, x, h)
 
 
 # --------------------------------------------------------------------------
@@ -78,7 +88,6 @@ def init_params(cfg: ModelConfig, generator=None, *, device=None):
     everywhere. device="meta" builds a shape/dtype template without
     drawing anything.
     """
-    _check_cell(cfg)
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -91,7 +100,8 @@ def init_params(cfg: ModelConfig, generator=None, *, device=None):
             "input_expand": dense_init(generator, nfs, cfg.dim,
                                        init=kaiming_uniform,
                                        weight_norm=cfg.weight_norm, **kw),
-            "gru": gru_init(generator, cfg.n_rnn, cfg.dim, cfg.dim, **kw),
+            "gru": rnn_init(cfg, generator, cfg.n_rnn, cfg.dim, cfg.dim,
+                            **kw),
             "upsample": upsample_init(generator, cfg.dim, fs, cfg.dim,
                                       weight_norm=cfg.weight_norm, **kw),
         }

@@ -7,12 +7,15 @@ other:
 - one `.npz` with every leaf under "leaf:" + the JAX tree_util.keystr of its
   path in the JAX trainer's state, plus a JSON "__meta__" entry
   ({"epoch", "iteration", "tag", "chunk", "val_loss"});
-- the port's trainer state {"params", "opt_state", "tier_state"} maps to
-  the JAX keys leaf for leaf: params and tier_state under their own paths;
-  the optimizer state {"count", "mu", "nu"} under the optax chain
+- the port's trainer state {"params", "opt_state", "tier_state"} (and for
+  the GAN variant "disc_params", "disc_opt_state") maps to the JAX keys
+  leaf for leaf: params, tier_state and disc_params under their own paths;
+  an optimizer state {"count", "mu", "nu"} under its optax chain
   (ClipState, (ScaleByAdamState, EmptyState)), whose only leaves are
   "['opt_state'][1][0].count" (an int32 0-d array), ".mu[...]" and
-  ".nu[...]";
+  ".nu[...]" (the same under ['disc_opt_state']); with the scheduler the
+  chain's schedule state adds "['opt_state'][1][1].count", the port's
+  "schedule_count";
 - `ep{E}-it{I}.npz` per epoch (older "last" checkpoints deleted unless
   keep_old) and `best-ep{E}-it{I}.npz` tracked on validation loss (ref
   plugins.py:113-155), written first and deleted after, each write atomic
@@ -45,16 +48,20 @@ BEST_PATTERN = "best-ep{}-it{}.npz"               # ref plugins.py:118
 _LAST_RE = re.compile(r"^ep(\d+)-it(\d+)\.npz$")
 _BEST_RE = re.compile(r"^best-ep(\d+)-it(\d+)\.npz$")
 
-# the optax chain's path to its one stateful member, ScaleByAdamState
-_ADAM = "['opt_state'][1][0]"
+# the optimizer states, each an optax chain whose ScaleByAdamState is at
+# [1][0] and, with the scheduler, whose ScaleByScheduleState is at [1][1]
+_OPT_STATES = ("opt_state", "disc_opt_state")
 
 
 def _key(path) -> str:
-    """The JAX key of a port state leaf: the optimizer's {count, mu, nu}
-    under the optax chain, everything else under its own path."""
-    if path[:1] == ("opt_state",) and path[1:2] in (("count",), ("mu",),
-                                                    ("nu",)):
-        return "leaf:" + _ADAM + "." + path[1] + keystr(path[2:])
+    """The JAX key of a port state leaf: an optimizer's {count, mu, nu}
+    under its optax chain, everything else under its own path."""
+    if path[:1] and path[0] in _OPT_STATES:
+        head = "leaf:" + keystr(path[:1])
+        if path[1:2] in (("count",), ("mu",), ("nu",)):
+            return head + "[1][0]." + path[1] + keystr(path[2:])
+        if path[1:] == ("schedule_count",):
+            return head + "[1][1].count"
     return "leaf:" + keystr(path)
 
 
@@ -101,6 +108,9 @@ def load_checkpoint(path: str, template, device=None):
 
         def fill(path_in_tree, t):
             key = _key(path_in_tree)
+            if key not in z and path_in_tree[-1:] == ("schedule_count",):
+                # written without it: the schedule's count is the Adam count
+                key = _key(path_in_tree[:-1] + ("count",))
             if key not in z:
                 raise KeyError(f"checkpoint {path} has no entry {key}")
             arr = z[key]

@@ -23,7 +23,8 @@ Exposure-bias randomness comes from torch.Generators seeded by
 chunk index), the counterpart of the JAX key chains, so a resumed run
 replays the same stream.
 
-Not ported: `mesh=` (multi-device sharding) raises NotImplementedError.
+Not ported: `mesh=` (multi-device sharding) raises NotImplementedError
+(ROADMAP queue 1.7.4).
 """
 
 from __future__ import annotations
@@ -52,19 +53,37 @@ def exposure_tuple(train_cfg) -> Optional[tuple]:
 
 def _no_mesh(mesh):
     if mesh is not None:
-        raise NotImplementedError("mesh= (multi-device) is not ported yet")
+        raise NotImplementedError("mesh= (multi-device) is not ported yet "
+                                  "(ROADMAP queue 1.7.4)")
 
 
 def _forward(params, cfg, compute_dtype, state, data, reset, cond, spk):
-    """Logits (f32) and the new state (f32) of one chunk; with
-    `compute_dtype` the params are cast (differentiably) and the state goes
-    in in that type."""
+    """Logits (f32), the new state (f32) and the conditioner latent (None
+    for the identity head) of one chunk; with `compute_dtype` the params
+    are cast (differentiably) and the state goes in in that type."""
     if compute_dtype is not None:
         params = cast_float_tree(params, compute_dtype)
         state = [s.to(compute_dtype) for s in state]
-    logits, new_state, _latent = predictor_apply(
+    logits, new_state, latent = predictor_apply(
         params, cfg, data, reset, cond, spk, state, output="logits")
-    return logits, [s.to(torch.float32) for s in new_state]
+    return logits, [s.to(torch.float32) for s in new_state], latent
+
+
+def grad_leaves(params):
+    """Fresh leaves to differentiate against: params' storage, detached."""
+    return tree_map(lambda p: p.detach().requires_grad_(True), params)
+
+
+def grads_like(leaves, grads):
+    """A gradient tree in `leaves`' layout from autograd.grad's flat
+    results (zeros where a leaf was unused)."""
+    got = iter(grads)
+
+    def grad_of(p):
+        g = next(got)
+        return torch.zeros_like(p) if g is None else g
+
+    return tree_map(grad_of, leaves)
 
 
 def loss_and_grads(params, cfg: ModelConfig, state, data, reset, target,
@@ -72,19 +91,13 @@ def loss_and_grads(params, cfg: ModelConfig, state, data, reset, target,
     """(loss_bits, new_state, grads) of one chunk; grads is a float32 tree
     in params' layout (zeros where the loss does not depend on a leaf), with
     h0's zeroed when cfg.learn_h0 is false."""
-    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    leaves = grad_leaves(params)
     with torch.enable_grad():
-        logits, new_state = _forward(leaves, cfg, compute_dtype, state, data,
-                                     reset, cond, spk)
+        logits, new_state, _ = _forward(leaves, cfg, compute_dtype, state,
+                                        data, reset, cond, spk)
         loss = nll_bits_from_logits(logits, target)
-    got = iter(torch.autograd.grad(loss, tree_leaves(leaves),
-                                   allow_unused=True))
-
-    def grad_of(p):
-        g = next(got)
-        return torch.zeros_like(p) if g is None else g
-
-    grads = tree_map(grad_of, leaves)
+    grads = grads_like(leaves, torch.autograd.grad(
+        loss, tree_leaves(leaves), allow_unused=True))
     return (loss.detach(), state_stop_gradient(new_state),
             freeze_h0_grads(cfg, grads))
 
@@ -110,8 +123,8 @@ def _perturb(params, cfg, compute_dtype, exposure, state, data, reset, cond,
             flip, torch.clamp(data + jitter, 0, cfg.q_levels - 1), data)
     if ss_prob > 0.0:
         with torch.no_grad():
-            logits, _ = _forward(params, cfg, compute_dtype, state, data,
-                                 reset, cond, spk)
+            logits, _, _ = _forward(params, cfg, compute_dtype, state,
+                                    data, reset, cond, spk)
         # logits[:, t] predicts target t, which sits at input position
         # lb + t; the LAST target is outside the input window, so only
         # samples[:, :-1] are candidates

@@ -11,8 +11,12 @@ never changes what a saver or a caller holds. The steps take the params as
 arguments and keep nothing of them, so after `restore()` or a warm start
 they train the loaded tensors.
 
-The identity head only: the GAN variant (ROADMAP queue 1.6) and `mesh=`
-(queue 1.7) raise NotImplementedError.
+The GAN variant (cfg.model.variant == "gan") trains through the
+two-optimizer step of training/gan.py: the discriminator is initialized
+from a generator seeded with cfg.train.seed + 1 at cfg.train.disc_channels,
+its optimizer is the same clipped Adam, the iteration drives the lambda
+ramp, and the checkpoint carries "disc_params" and "disc_opt_state".
+`mesh=` (ROADMAP queue 1.7) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,7 +25,11 @@ import numpy as np
 import torch
 
 from msnv_tpu_torch.config import ExperimentConfig, make_tag
+from msnv_tpu_torch.models.discriminator import discriminator_init
 from msnv_tpu_torch.models.samplernn import init_tier_state
+from msnv_tpu_torch.training.gan import (METRICS, make_gan_train_block_scan,
+                                         make_gan_train_step,
+                                         make_gan_train_step_indexed)
 from msnv_tpu_torch.training.step import (exposure_tuple, fold_generator,
                                           make_eval_block_scan,
                                           make_eval_step,
@@ -35,6 +43,13 @@ def _on(device, array):
     return torch.from_numpy(np.ascontiguousarray(array)).to(device)
 
 
+def _copy_opt_state(opt_state):
+    """A snapshot of an optimizer state (ints kept, tensors cloned)."""
+    return {k: v if isinstance(v, int) else
+            tree_map(lambda x: x.detach().clone(), v)
+            for k, v in opt_state.items()}
+
+
 class Trainer:
     #: device-corpus "auto" threshold: upload a corpus to device memory
     #: only below this footprint (big corpora keep streaming from host RAM)
@@ -46,10 +61,6 @@ class Trainer:
             raise NotImplementedError(
                 "Trainer(mesh=...): multi-device training is not ported yet "
                 "(ROADMAP queue 1.7)")
-        if cfg.model.variant == "gan":
-            raise NotImplementedError(
-                "the GAN variant's trainer is not ported yet (ROADMAP "
-                "queue 1.6)")
         self.cfg = cfg
         self.tag = make_tag(cfg)
         self.params = params
@@ -80,21 +91,46 @@ class Trainer:
         self._exposure = exposure_tuple(cfg.train)
         self._exp_seed = (cfg.train.seed + 0x55) & 0x7FFFFFFF
 
-        self._step = make_train_step(cfg.model, optimizer,
-                                     compute_dtype=compute_dtype,
-                                     exposure=self._exposure)
+        self.is_gan = cfg.model.variant == "gan"
+        if self.is_gan and self._exposure is not None:
+            raise ValueError(
+                "ss_prob/input_noise_prob are not supported with the GAN "
+                "variant (the adversarial step has its own two-loss "
+                "forward); fine-tune the identity/bottleneck heads")
+        self._gan_metrics = None      # the last GAN step's, on the device
+        if self.is_gan:
+            self.disc_params = discriminator_init(
+                torch.Generator().manual_seed(cfg.train.seed + 1),
+                cfg.model.spk_dim, cfg.train.disc_channels,
+                device=self.device)
+            self.disc_opt = optimizer         # the same clipped-Adam recipe
+            self.disc_opt_state = self.disc_opt.init(self.disc_params)
+            self._step = make_gan_train_step(cfg.model, cfg.train, optimizer,
+                                             self.disc_opt,
+                                             compute_dtype=compute_dtype)
+        else:
+            self._step = make_train_step(cfg.model, optimizer,
+                                         compute_dtype=compute_dtype,
+                                         exposure=self._exposure)
         self._eval = make_eval_step(cfg.model)
         if self._want_device_corpus(loader):
             # window geometry comes from the LOADER, never from the train
             # config (they agree in the CLI; the API allows any loader)
             geo = (loader.seq_len, loader.overlap_len, loader.cond_in_seq)
             self._corpus_dev = loader.device_arrays(self.device)
-            self._step_indexed = make_train_step_indexed(
-                cfg.model, optimizer, *geo, compute_dtype=compute_dtype,
-                exposure=self._exposure)
-            self._train_scan = make_train_block_scan(
-                cfg.model, optimizer, *geo, compute_dtype=compute_dtype,
-                exposure=self._exposure)
+            if self.is_gan:
+                gan = (cfg.model, cfg.train, optimizer, self.disc_opt)
+                self._step_indexed = make_gan_train_step_indexed(
+                    *gan, *geo, compute_dtype=compute_dtype)
+                self._train_scan = make_gan_train_block_scan(
+                    *gan, *geo, compute_dtype=compute_dtype)
+            else:
+                self._step_indexed = make_train_step_indexed(
+                    cfg.model, optimizer, *geo, compute_dtype=compute_dtype,
+                    exposure=self._exposure)
+                self._train_scan = make_train_block_scan(
+                    cfg.model, optimizer, *geo, compute_dtype=compute_dtype,
+                    exposure=self._exposure)
 
     def _want_device_corpus(self, loader) -> bool:
         if self.device_corpus in (False, "false"):
@@ -117,20 +153,28 @@ class Trainer:
     def train_chunk(self, chunk, iteration=None):
         """One optimizer step on one host TBPTT chunk; returns the loss
         (bits) as a device scalar. `iteration` is the number of steps taken
-        before this one (default: the iterations flushed so far)."""
+        before this one (default: the iterations flushed so far): it keys
+        the exposure draws and is the GAN lambda ramp's step. The JAX
+        trainer uses the flushed count, which lags one step behind under
+        the pipelined flush (its first two steps share a key and a ramp
+        step); here the pipelined and the synchronous loops agree."""
+        it = self.iterations if iteration is None else iteration
+        dev = self.device
+        batch = (_on(dev, chunk.data), chunk.reset, _on(dev, chunk.target),
+                 _on(dev, chunk.cond), _on(dev, chunk.spk))
+        if self.is_gan:
+            (self.params, self.disc_params, self.opt_state,
+             self.disc_opt_state, self.state, metrics) = self._step(
+                self.params, self.disc_params, self.opt_state,
+                self.disc_opt_state, self.state, float(it), *batch)
+            self._gan_metrics = metrics
+            return metrics["loss"]
         extra = ()
         if self._exposure is not None:
-            # deterministic in (seed, iteration): resume replays the stream.
-            # The JAX trainer keys on the flushed count, which lags one step
-            # behind under the pipelined flush (its first two steps share a
-            # key); here the pipelined and the synchronous loops draw alike.
-            it = self.iterations if iteration is None else iteration
+            # deterministic in (seed, iteration): resume replays the stream
             extra = (fold_generator(self.device, self._exp_seed, it),)
-        dev = self.device
         self.params, self.opt_state, self.state, loss = self._step(
-            self.params, self.opt_state, self.state, _on(dev, chunk.data),
-            chunk.reset, _on(dev, chunk.target), _on(dev, chunk.cond),
-            _on(dev, chunk.spk), *extra)
+            self.params, self.opt_state, self.state, *batch, *extra)
         return loss
 
     def _pipelining_allowed(self) -> bool:
@@ -148,8 +192,24 @@ class Trainer:
             return ()
         return (self._exp_seed, self.epochs)
 
+    def _record_gan_metrics(self, metrics):
+        """disc_loss / lambda stats: the last value of a step or a block."""
+        for name in ("disc_loss", "lambda"):
+            self.stats.setdefault(name, {})["last"] = float(
+                metrics[name].reshape(-1)[-1])
+
     def _run_scan_block(self, ks) -> np.ndarray:
         """One block of indexed steps; returns per-chunk losses (one fetch)."""
+        if self.is_gan:
+            (self.params, self.disc_params, self.opt_state,
+             self.disc_opt_state, self.state, metrics) = self._train_scan(
+                self.params, self.disc_params, self.opt_state,
+                self.disc_opt_state, self.state, float(self.iterations),
+                self._corpus_dev, ks)
+            # one fetch for the block's losses and its last disc_loss, lambda
+            fetched = torch.stack([metrics[name] for name in METRICS]).cpu()
+            self._record_gan_metrics(dict(zip(METRICS, fetched)))
+            return fetched[0].numpy()
         (self.params, self.opt_state, self.state,
          losses) = self._train_scan(
             self.params, self.opt_state, self.state, self._corpus_dev, ks,
@@ -158,6 +218,15 @@ class Trainer:
 
     def _run_step_indexed(self, k):
         """One indexed device-corpus step; returns the chunk loss."""
+        if self.is_gan:
+            (self.params, self.disc_params, self.opt_state,
+             self.disc_opt_state, self.state,
+             metrics) = self._step_indexed(
+                self.params, self.disc_params, self.opt_state,
+                self.disc_opt_state, self.state, float(self.iterations),
+                self._corpus_dev, k)
+            self._gan_metrics = metrics
+            return metrics["loss"]
         key = self._epoch_key()
         extra = ((fold_generator(self.device, *key, k),) if key else ())
         (self.params, self.opt_state, self.state,
@@ -183,7 +252,7 @@ class Trainer:
             # interval savers need per-step state visibility
             for k in range(start_chunk, len(self.loader)):
                 loss = self._run_step_indexed(k)
-                self._flush_iteration(k, loss)
+                self._flush_iteration(k, loss, self._gan_metrics)
         else:
             for chunk in self.loader.epoch(start_chunk=start_chunk):
                 loss = self.train_chunk(
@@ -191,15 +260,21 @@ class Trainer:
                 if pending is not None:
                     self._flush_iteration(*pending)
                 if pipelined:
-                    pending = (chunk.index, loss)
+                    pending = (chunk.index, loss, self._gan_metrics)
                 else:
-                    self._flush_iteration(chunk.index, loss)
+                    self._flush_iteration(chunk.index, loss,
+                                          self._gan_metrics)
         if pending is not None:
             self._flush_iteration(*pending)
 
-    def _flush_iteration(self, index: int, loss):
+    def _flush_iteration(self, index: int, loss, gan_metrics=None):
+        """Count a step and tell the plugins its loss; the per-step paths
+        hand the GAN step's metrics in here, so that they are fetched with
+        the loss (one step behind the device when pipelined)."""
         self.chunk_index = index
         self.iterations += 1
+        if gan_metrics is not None:
+            self._record_gan_metrics(gan_metrics)
         self._call_plugins("iteration", float(loss))
 
     def run(self, epoch_limit: int):
@@ -255,18 +330,23 @@ class Trainer:
         """The full resumable state (params + optimizer + TBPTT hidden), as
         copies: the steps update the live tensors in place."""
         copy = lambda x: x.detach().clone()             # noqa: E731
-        return {
+        out = {
             "params": tree_map(copy, self.params),
-            "opt_state": {"count": int(self.opt_state["count"]),
-                          "mu": tree_map(copy, self.opt_state["mu"]),
-                          "nu": tree_map(copy, self.opt_state["nu"])},
+            "opt_state": _copy_opt_state(self.opt_state),
             "tier_state": [copy(s) for s in self.state],
         }
+        if self.is_gan:
+            out["disc_params"] = tree_map(copy, self.disc_params)
+            out["disc_opt_state"] = _copy_opt_state(self.disc_opt_state)
+        return out
 
     def restore(self, state, meta):
         self.params = state["params"]
         self.opt_state = state["opt_state"]
         self.state = list(state["tier_state"])
+        if self.is_gan and "disc_params" in state:
+            self.disc_params = state["disc_params"]
+            self.disc_opt_state = state["disc_opt_state"]
         self.epochs = int(meta.get("epoch", 0))
         self.iterations = int(meta.get("iteration", 0))
         # mid-epoch cursor: next chunk to train within epoch self.epochs+1

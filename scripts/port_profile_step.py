@@ -3,12 +3,18 @@
 
     python3 scripts/port_profile_step.py [--batch 128] [--steps 5]
         [--gru-impl pallas] [--dtype bf16]
+        [--preset samplernn|samplernn_gan|bottleneck] [--qrnn]
+        [--cudnn-benchmark]
 
-Builds the canonical `samplernn` at full width from a seeded init, takes
-train steps on one fixed batch (as chip_smoke.py's train phase makes it) and
-reports: host wall per step and samples/s, then a torch.profiler trace of
-`--steps` steps summed by device kernel name, and the share of the traced
-wall the device was busy. Needs a CUDA device.
+Builds a preset's model (default the canonical `samplernn`) at full width
+from a seeded init, takes train steps on one fixed batch (as chip_smoke.py's
+train phase makes it) and reports: host wall per step and samples/s, then a
+torch.profiler trace of `--steps` steps summed by device kernel name, and
+the share of the traced wall the device was busy. `samplernn_gan` takes the
+two-optimizer GAN step (training/gan.py) past its lambda ramp, with the
+preset's 512-channel discriminator; --qrnn gives the tiers fo-pool QRNN cells;
+--cudnn-benchmark lets cuDNN time its algorithms for each convolution shape
+(the port leaves it off). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,6 +37,10 @@ def main(argv=None):
     p.add_argument("--gru-impl", default="pallas",
                    choices=("pallas", "xla", "wavefront"))
     p.add_argument("--dtype", default="bf16", choices=("bf16", "f32"))
+    p.add_argument("--preset", default="samplernn",
+                   choices=("samplernn", "samplernn_gan", "bottleneck"))
+    p.add_argument("--qrnn", action="store_true")
+    p.add_argument("--cudnn-benchmark", action="store_true")
     args = p.parse_args(argv)
 
     import torch
@@ -38,7 +48,9 @@ def main(argv=None):
 
     from chip_smoke import card_line, train_inputs
     from msnv_tpu_torch.config import preset
+    from msnv_tpu_torch.models.discriminator import discriminator_init
     from msnv_tpu_torch.models.samplernn import init_params, init_tier_state
+    from msnv_tpu_torch.training.gan import make_gan_train_step
     from msnv_tpu_torch.training.optim import make_optimizer
     from msnv_tpu_torch.training.step import make_train_step
 
@@ -46,23 +58,44 @@ def main(argv=None):
         print("needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    exp = preset("samplernn")
-    cfg = dataclasses.replace(exp.model, gru_impl=args.gru_impl)
+    torch.backends.cudnn.benchmark = args.cudnn_benchmark
+    exp = preset(args.preset)
+    cfg = dataclasses.replace(exp.model, gru_impl=args.gru_impl,
+                              qrnn=args.qrnn)
     seq_len = exp.train.seq_len
     params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
     optimizer = make_optimizer(exp.train)
     opt_state = optimizer.init(params)
     state = init_tier_state(cfg, args.batch, device=dev)
     data, target, cond, spk = train_inputs(cfg, args.batch, seq_len, dev)
-    step = make_train_step(
-        cfg, optimizer,
-        compute_dtype=torch.bfloat16 if args.dtype == "bf16" else None)
+    compute_dtype = torch.bfloat16 if args.dtype == "bf16" else None
+    is_gan = cfg.variant == "gan"
+    if is_gan:
+        disc = discriminator_init(torch.Generator().manual_seed(1),
+                                  cfg.spk_dim, exp.train.disc_channels,
+                                  device=dev)
+        disc_state = optimizer.init(disc)
+        gan_step = make_gan_train_step(cfg, exp.train, optimizer, optimizer,
+                                       compute_dtype=compute_dtype)
+    else:
+        disc = disc_state = None
+        step = make_train_step(cfg, optimizer, compute_dtype=compute_dtype)
 
     def run(n, reset=False):
         nonlocal params, opt_state, state
+        nonlocal disc, disc_state
         for _ in range(n):
-            params, opt_state, state, loss = step(
-                params, opt_state, state, data, reset, target, cond, spk)
+            if is_gan:
+                # past the lambda ramp: the reversal term is live
+                (params, disc, opt_state, disc_state, state,
+                 metrics) = gan_step(params, disc, opt_state, disc_state,
+                                     state, 1e6, data, reset, target, cond,
+                                     spk)
+                loss = metrics["loss"]
+            else:
+                params, opt_state, state, loss = step(
+                    params, opt_state, state, data, reset, target, cond,
+                    spk)
         torch.cuda.synchronize()
         return float(loss)
 
@@ -86,23 +119,27 @@ def main(argv=None):
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
     n = args.steps
-    print(f"{card_line()}: B={args.batch}, seq_len={seq_len}, "
+    what = (f"{args.preset}{' qrnn' if args.qrnn else ''}"
+            f"{f' disc {exp.train.disc_channels}' if is_gan else ''}"
+            f"{' cudnn.benchmark' if args.cudnn_benchmark else ''}")
+    print(f"{card_line()}: {what}, B={args.batch}, seq_len={seq_len}, "
           f"{args.dtype}, gru_impl={args.gru_impl}, {n} steps")
     print(f"wall per step {wall * 1e3:.3f} ms = "
           f"{args.batch * seq_len / wall:.0f} samples/s; traced wall per step "
           f"{traced / n * 1e3:.3f} ms, device busy {busy_us / 1e3 / n:.3f} ms "
           f"per step = {busy_us / 1e6 / traced:.1%} of it")
-    for dev_us, key, count in rows[:16]:
+    for dev_us, key, count in rows[:24]:
         print(f"  {dev_us / 1e3 / n:9.4f} ms/step  {count // n:6d}x/step  "
               f"{key[:100]}")
-    print(json.dumps({"batch": args.batch, "seq_len": seq_len,
+    print(json.dumps({"model": what, "batch": args.batch,
+                      "seq_len": seq_len,
                       "dtype": args.dtype, "gru_impl": args.gru_impl,
                       "wall_ms_per_step": wall * 1e3,
                       "samples_per_s": args.batch * seq_len / wall,
                       "device_busy_share": busy_us / 1e6 / traced,
                       "top": [{"name": k[:100], "ms_per_step": d / 1e3 / n,
                                "count_per_step": c // n}
-                              for d, k, c in rows[:16]]}))
+                              for d, k, c in rows[:24]]}))
     return 0
 
 

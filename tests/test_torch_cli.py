@@ -236,11 +236,10 @@ def test_sampling_generate_cli_lengths(trained, engine, tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--multihost", "true"],
                                   ["--n_model_shards", "2"],
-                                  ["--ckpt_backend", "orbax"],
-                                  ["--variant", "gan"]])
+                                  ["--ckpt_backend", "orbax"]])
 def test_unported_train_flags_raise(flag, tmp_path):
     from msnv_tpu_torch.cli.train import main as port_train
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1.[67]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1.7"):
         port_train(_train_args(str(tmp_path), str(tmp_path), 1, "--device",
                                "cpu", *flag))
 
