@@ -965,6 +965,21 @@ def phase_gru(dev, shapes):
 # phase 6: the train step at full width
 # --------------------------------------------------------------------------
 
+def _gru_counts():
+    from msnv_tpu_torch.kernels.gru_layer import (gru_layer_backward,
+                                                  gru_layer_forward)
+    return (gru_layer_forward.launches, gru_layer_forward.persistent,
+            gru_layer_backward.launches, gru_layer_backward.persistent)
+
+
+def _reset_gru_counts():
+    from msnv_tpu_torch.kernels.gru_layer import (gru_layer_backward,
+                                                  gru_layer_forward)
+    for wrapper in (gru_layer_forward, gru_layer_backward):
+        wrapper.launches = 0
+        wrapper.persistent = wrapper.per_step = 0
+
+
 def train_inputs(cfg, batch, seq_len, dev, seed=0):
     """One fixed batch from a numpy seed: uniform sample levels, targets,
     conditioner frames and speaker ids."""
@@ -1001,9 +1016,7 @@ def phase_train(exp, dev, batch, seq_len, steps):
     opt_state = optimizer.init(params)
     state = init_tier_state(cfg, batch, device=dev)
     step = make_train_step(cfg, optimizer, compute_dtype=torch.bfloat16)
-    for wrapper in (gru_layer_forward, gru_layer_backward):
-        wrapper.launches = 0                # the main path starts here
-        wrapper.persistent = wrapper.per_step = 0
+    _reset_gru_counts()                     # the main path starts here
     losses, walls = [], []
     for i in range(1 + steps):
         sync()
@@ -1209,9 +1222,7 @@ def phase_loop(dev, dim, batch, seq_len, utts, frames):
                             (ckpt, "save_checkpoint"),
                             (ckpt, "load_checkpoint")):
             clock.wrap(owner, name)
-        for wrapper in (gru_layer_forward, gru_layer_backward):
-            wrapper.launches = 0            # the loop's path starts here
-            wrapper.persistent = wrapper.per_step = 0
+        _reset_gru_counts()                 # the loop's path starts here
         try:
             run_a, run_b = (os.path.join(work, "results_a"),
                             os.path.join(work, "results_b"))
@@ -1329,8 +1340,7 @@ def phase_loop(dev, dim, batch, seq_len, utts, frames):
         lens = [load_cond_tracks(os.path.join(data, "cond"), n)[0].shape[0]
                 for n in utt]
         gen_dir = os.path.join(work, "gen")
-        sample_window.launches = 0           # the generate path starts here
-        sample_window.resident = sample_window.tiled = 0
+        _reset_window_counts()              # the generate path starts here
         t0 = time.perf_counter()
         run_cli(cli_generate.main, [
             "--model", last, "--cond_path", os.path.join(data, "cond"),
@@ -1744,21 +1754,6 @@ def phase_mux(ckpt, cfg, dev, runs, http_run, seeded_frames):
 # --------------------------------------------------------------------------
 # phase 9: the variants (GAN, bottleneck, QRNN) at full width
 # --------------------------------------------------------------------------
-
-def _gru_counts():
-    from msnv_tpu_torch.kernels.gru_layer import (gru_layer_backward,
-                                                  gru_layer_forward)
-    return (gru_layer_forward.launches, gru_layer_forward.persistent,
-            gru_layer_backward.launches, gru_layer_backward.persistent)
-
-
-def _reset_gru_counts():
-    from msnv_tpu_torch.kernels.gru_layer import (gru_layer_backward,
-                                                  gru_layer_forward)
-    for wrapper in (gru_layer_forward, gru_layer_backward):
-        wrapper.launches = 0
-        wrapper.persistent = wrapper.per_step = 0
-
 
 def _timed_steps(step, n, sync):
     """Wall of each of n calls of step(i), each between synchronizes."""
