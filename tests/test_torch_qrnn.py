@@ -20,18 +20,27 @@ import numpy as np
 import pytest
 import torch
 
-from msnv_tpu.config import ModelConfig
+from msnv_tpu.config import ExperimentConfig, ModelConfig, TrainConfig
 from msnv_tpu.models import generate as jgen
 from msnv_tpu.models.samplernn import (init_tier_state, predictor_apply,
                                        sequence_nll_loss_bits)
 from msnv_tpu.ops import qrnn as jq
+from msnv_tpu.training.optim import make_optimizer as jax_make_optimizer
+from msnv_tpu.training.trainer import Trainer as JaxTrainer
+from msnv_tpu_torch.config import ExperimentConfig as TorchExperimentConfig
+from msnv_tpu_torch.config import TrainConfig as TorchTrainConfig
+from msnv_tpu_torch.interop import params_to_numpy
 from msnv_tpu_torch.models import generate as tgen
 from msnv_tpu_torch.models import samplernn as tsr
 from msnv_tpu_torch.ops import qrnn as tq
+from msnv_tpu_torch.training import checkpoint as tckpt
 from msnv_tpu_torch.training import step as tstep
+from msnv_tpu_torch.training.optim import make_optimizer
+from msnv_tpu_torch.training.plugins import Plugin
+from msnv_tpu_torch.training.trainer import Trainer
 from msnv_tpu_torch.tree import tree_leaves
-from torch_parity import both_params, flat_numpy, narrow_samplernn, t, \
-    torch_cfg
+from torch_parity import (both_loaders, both_params, flat_numpy,
+                          narrow_samplernn, t, torch_cfg)
 
 QRNN = ModelConfig(frame_sizes=(4, 4), n_rnn=2, dim=16, cond_dim=5,
                    spk_dim=3, qrnn=True)
@@ -118,7 +127,6 @@ def test_qrnn_model_log_probs_and_grads_match_jax(which):
     np.testing.assert_allclose(lp_t.numpy(), np.asarray(lp_j), atol=5e-5)
     _, _, g_t = tstep.loss_and_grads(tp, tcfg, ts, t(data), True, t(target),
                                      t(cond), t(spk))
-    from msnv_tpu_torch.interop import params_to_numpy
     got, want = params_to_numpy(g_t), flat_numpy(g_j)
     assert got.keys() == want.keys()
     for k in got:
@@ -156,3 +164,54 @@ def test_qrnn_ignores_gru_impl_and_runs_no_gru_kernel(monkeypatch):
             tp, cfg, ts, t(data), True, t(target), t(cond), t(spk))
         out.append([loss] + tree_leaves(grads))
     assert all(torch.equal(a, b) for a, b in zip(*out))
+
+
+def test_qrnn_trainer_matches_jax_trainer_and_resumes(tmp_path):
+    """Two epochs of the port's Trainer on a QRNN model against the JAX
+    Trainer's (losses and final state to 1e-4, the train step's tolerance),
+    and a resume from the epoch-1 checkpoint equal to the straight run."""
+    model = dataclasses.replace(QRNN, cond_len=16)
+    exp = ExperimentConfig(exp="q", model=model, train=TrainConfig(
+        seq_len=2 * model.lookback, batch_size=4, learning_rate=2e-3))
+    pexp = TorchExperimentConfig(
+        exp="q", model=torch_cfg(model),
+        train=TorchTrainConfig(**dataclasses.asdict(exp.train)))
+    tl, jl = both_loaders(model, 4, exp.train.seq_len, 4)
+
+    class Capture(Plugin):
+        def __init__(self):
+            self.losses = []
+
+        def iteration(self, loss):
+            self.losses.append(loss)
+
+    jp, _ = both_params(model)
+    jt = JaxTrainer(exp, jp, jax_make_optimizer(exp.train, len(jl)), jl)
+    jcap = jt.register_plugin(Capture())
+    jt.run(2)
+
+    def port(seed=0):
+        _, tp = both_params(model, seed)
+        return Trainer(pexp, tp, make_optimizer(pexp.train, len(tl)), tl)
+
+    tt = port()
+    cap = tt.register_plugin(Capture())
+    tt.run(2)
+    np.testing.assert_allclose(cap.losses, jcap.losses, rtol=0, atol=1e-4)
+    flat, _ = jax.tree_util.tree_flatten_with_path(jt.checkpoint_state())
+    want = {"leaf:" + jax.tree_util.keystr(p): np.asarray(x) for p, x in flat}
+    got = tckpt.flatten_state(tt.checkpoint_state())
+    assert got.keys() == want.keys()
+    for k in got:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4,
+                                   err_msg=k)
+    first = port()
+    first.run(1)
+    path = str(tmp_path / "q.npz")
+    tckpt.save_checkpoint(path, first.checkpoint_state(),
+                          {"epoch": 1, "iteration": first.iterations})
+    resumed = port(seed=3)
+    resumed.restore(*tckpt.load_checkpoint(path, resumed.checkpoint_state()))
+    rcap = resumed.register_plugin(Capture())
+    resumed.run(2)
+    assert rcap.losses == cap.losses[len(tl):]
