@@ -106,7 +106,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 the discriminator's forward and forward + backward times
                 alone; a float32 step (TF32 off) against the two-backward
                 form (grad of L1 - lambda L2, then of L2), to 1e-4 of the
-                largest gradient. The `bottleneck` preset at B 128 (two
+                largest gradient, and both forms' bf16 gradient times.
+                The `bottleneck` preset at B 128 (two
                 steps, the same sweep counts) and `samplernn` with
                 qrnn=True at B 128 (two steps, falling loss, no GRU kernel
                 launched). generate_fn from the GAN and the QRNN model (B
@@ -1936,6 +1937,20 @@ def _gan_phase(exp, dev, batch, seq_len, channels, out):
     if not max(errs.values()) <= 1e-4:
         raise AssertionError(f"shared dgrad differs: {errs}")
     out["gan_f32_shared_vs_naive"] = errs
+    if on_card:
+        # what the shared backward saves: the step's gradients (recorded,
+        # nothing updated) against the two-backward form, bf16, same inputs
+        rec_step = gan.make_gan_train_step(cfg, train, Recorder(),
+                                           Recorder(),
+                                           compute_dtype=torch.bfloat16)
+        out["gan_grads_shared_ms"] = cuda_ms(
+            lambda: rec_step(params0, disc0, {}, {}, *args), 5)
+        out["gan_grads_two_backward_ms"] = cuda_ms(
+            lambda: gan.naive_gan_grads(cfg, train, params0, disc0, *args,
+                                        compute_dtype=torch.bfloat16), 5)
+        log(f"[variants] bf16 gradients of a GAN step: shared "
+            f"discriminator backward {out['gan_grads_shared_ms']:.3f} ms, "
+            f"two backwards {out['gan_grads_two_backward_ms']:.3f} ms")
     sync()
     return carry[0]
 
