@@ -8,14 +8,16 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 kernels from csrc/ (sm_90a), one nvcc process each, together
   2. kernel   — the sample-window kernels against the plain version at the
                 canonical shape (fs0 20, q 256, dim 1024): float32 (the
-                tiled kernel by plan), given noise and Philox, B 1/32/128,
+                tiled kernel by plan), given noise and Philox, B 1/2/32/128,
                 every tile: samples equal exactly (TF32 off); bf16 (the
                 resident kernel by plan: weights in a cluster's shared
-                memory), given noise and Philox, B 1/32/128/1024 and the
+                memory), given noise and Philox, B 1/2/32/128/1024 and the
                 ragged 3/17/130, and at the narrow (fs0 4, dim 128): on a
                 sharpened W_o mismatch <= 1 % (the tensor cores add in
                 another order than the plain matmul, which can move a
-                near-tie), two runs bit-equal; a width no cluster holds
+                near-tie), two runs bit-equal, and at B 128 and 1024 200
+                runs in each mode bit-equal to the first (a race shows as
+                a rare run that differs); a width no cluster holds
                 (dim 2048) takes the tiled kernel by plan; the Philox draws
                 pass a chi-square test against the softmax and are the same
                 with 1 cluster, with the most the card grants and from the
@@ -31,10 +33,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 .npz written here: /healthz, two /synthesize, two /stream
                 (every window through the resident kernel), bad bodies (400)
   5. gru      — the GRU-layer kernels against their plain versions at
-                (T, B, H) = (13, 128, 1024), (52, 128, 1024), the ragged
-                (5, 3, 1024), (5, 70, 1024), (4, 70, 128) and (3, 8, 256)
-                (partial row tiles; K-slices that arrive in 1, 2 or 4
-                chunks), which all take the persistent kernels, and
+                (T, B, H) = (13, 128, 1024), (52, 128, 1024), the same T at
+                B 64 and 16 (the GAN step's and the GAN CLI's batches), the
+                ragged (5, 3, 1024), (5, 70, 1024), (4, 70, 128) and
+                (3, 8, 256) (partial row tiles; K-slices that arrive in 1, 2
+                or 4 chunks), which all take the persistent kernels, and
                 (3, 300, 1024), whose grid cannot be resident at once and
                 takes the per-step ones:
                 forward (ys, hproj) and the reverse sweep (dxp, dhproj, dh0)
@@ -44,7 +47,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 on the persistent and on the per-step kernels (3e-2: a sum
                 that differs in its last bits can round h to the
                 neighbouring bf16 value, and the next steps carry that on);
-                two runs bit-equal; the autograd.Function (dx_proj, dw, db,
+                two runs bit-equal, and 200 runs of each bf16 persistent
+                sweep at (52, 128) and (52, 64) bit-equal to the first;
+                the autograd.Function (dx_proj, dw, db,
                 dh0) in float32 and bfloat16 against autograd through the
                 plain forward; a shape the kernels cannot take raises;
                 persistent / per-step / empty-sweep / plain / nn.GRU times,
@@ -113,7 +118,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 launched). generate_fn from the GAN and the QRNN model (B
                 128, 16 frames) and a B 1 stream of 8 pushes from the GAN
                 model, every window resident. cli.train --variant gan (B
-                64) to one epoch, resumed to two: disc_loss and lambda in
+                16) to one epoch, resumed to two: disc_loss and lambda in
                 stats.json, the discriminator and its Adam state under the
                 JAX keys in the checkpoint, every train-step sweep
                 persistent; cli.generate from it, every window resident
@@ -154,6 +159,7 @@ FS0, Q, DIM = 20, 256, 1024
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 RESULTS = {}
+REPEAT_RUNS = 200           # phase 2: runs of a window on the same inputs
 
 
 def log(msg):
@@ -352,6 +358,29 @@ def phase_kernel(params, batches, narrow):
     RESULTS["philox_mismatch"] = philox
     if not on_card:
         return
+
+    # many runs on the same inputs, bf16, both modes: every one bit-equal to
+    # the first (a race shows as a rare run that differs; counted on the
+    # card, no synchronize between the launches)
+    for batch in (128, 1024):
+        table, wh, bh, wo, bo, slots, buf, g = kernel_inputs(
+            params, batch, bf16, seed=400 + batch)
+        args = (table, wh, bh, wo, bo, slots, buf)
+        packed = sw.resident_weights(wh, wo, FS0)
+        seed = torch.randint(0, 2 ** 62, (1,), generator=g, device=dev,
+                             dtype=torch.int64)
+        for mode, kw in (("given noise", {"noise": sw.gumbel_noise(
+                (batch, FS0, Q), g, dev)}), ("Philox", {"seed": seed})):
+            first = sw.sample_window(*args, packed=packed, **kw)
+            differ = torch.zeros((), dtype=torch.int64, device=dev)
+            for _ in range(REPEAT_RUNS):
+                differ += (sw.sample_window(*args, packed=packed, **kw)
+                           != first).any()
+            if int(differ):
+                raise AssertionError(f"{int(differ)} of {REPEAT_RUNS} runs "
+                                     f"differ at B={batch} {mode}")
+        log(f"[kernel] bf16 B={batch}: {REPEAT_RUNS} runs in each mode "
+            f"bit-equal to the first")
 
     # what the card grants, and a width that no cluster holds
     held, smem, sms = sw.device_limits(dev, FS0, Q, DIM)
@@ -835,6 +864,28 @@ def phase_gru(dev, shapes):
         if paths[(T, B, H)] != want:
             raise AssertionError(f"({T}, {B}, {H}) took the "
                                  f"{paths[(T, B, H)]} kernels, not {want}")
+    # many runs of the bf16 persistent sweeps on the same inputs, each
+    # bit-equal to the first (counted on the card, as in phase 2)
+    for T, B, H in ((52, 128, shapes[0][2]), (52, 64, shapes[0][2])):
+        x = gru_inputs(T, B, H, dev, seed=7 * T + B)
+        w_hh = x["w_hh_t"].t().contiguous()
+        fwd = lambda: gl.gru_layer_forward(                   # noqa: E731
+            x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], torch.bfloat16)
+        ys, hproj = fwd()
+        bwd = lambda: gl.gru_layer_backward(                  # noqa: E731
+            x["x_proj"], hproj, x["h0"], ys, x["dy"], w_hh, torch.bfloat16)
+        for name, run in (("forward", fwd), ("backward", bwd)):
+            first = run()
+            differ = torch.zeros((), dtype=torch.int64, device=dev)
+            for _ in range(REPEAT_RUNS):
+                for a, b in zip(run(), first):
+                    differ += (a != b).any()
+            if int(differ):
+                raise AssertionError(f"{int(differ)} of {REPEAT_RUNS} runs "
+                                     f"of the {name} sweep differ at T={T} "
+                                     f"B={B}")
+        log(f"[gru] T={T} B={B} bf16: {REPEAT_RUNS} runs of each sweep "
+            f"bit-equal to the first")
     for width, mxu in ((40, torch.float32), (96, torch.bfloat16)):
         bad = gru_inputs(2, 2, width, dev, seed=1)
         try:
@@ -2356,7 +2407,7 @@ def main(argv):
         log(f"[phase] {name} {time.perf_counter() - t0:.1f} s")
 
     timed(2, "kernel", phase_kernel, params,
-          (1, 32, 128) if not rehearse else (1, 4),
+          (1, 2, 32, 128) if not rehearse else (1, 2, 4),
           (4, Q, 128) if not rehearse else (4, Q, 16))
     timed(3, "generate", phase_generate, params, cfg,
           128 if not rehearse else 2, 16 if not rehearse else 2)
@@ -2365,7 +2416,8 @@ def main(argv):
           8 if not rehearse else 2)
     del params
     timed(5, "gru", phase_gru, dev,
-          ((13, 128, DIM), (52, 128, DIM), (5, 3, DIM), (4, 70, 128),
+          ((13, 128, DIM), (52, 128, DIM), (13, 64, DIM), (52, 64, DIM),
+           (13, 16, DIM), (52, 16, DIM), (5, 3, DIM), (4, 70, 128),
            (5, 70, DIM), (3, 8, 256), (3, 300, DIM))
           if not rehearse else ((3, 4, DIM), (5, 8, DIM), (5, 3, DIM)))
     timed(6, "train", phase_train, exp, dev, 128 if not rehearse else 4,

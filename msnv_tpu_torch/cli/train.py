@@ -287,7 +287,8 @@ def main(argv=None):
               f"{loader.device_bytes() / 1e6:.0f} MB on {device}")
 
     ckpt_dir = os.path.join(results_path, "checkpoints")
-    manager = CheckpointManager(ckpt_dir, args.keep_old_checkpoints)
+    manager = CheckpointManager(ckpt_dir, args.keep_old_checkpoints,
+                                scheduled=cfg.train.scheduler)
 
     if args.model:  # warm start (ref train.py:224-233): WEIGHTS only —
         # optimizer moments, TBPTT hidden and counters start fresh, and the

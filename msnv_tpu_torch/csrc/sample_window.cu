@@ -824,7 +824,9 @@ struct LaneShare {
 // while a CTA still reads it: x of the next step is sent by CTAs that have
 // drawn, so they had everyone's logits, which a CTA sends after its
 // products; h of the next step by CTAs that have all of the next x, sent
-// after the draw; the logits likewise after the next h.
+// after the draw; the logits likewise after the next h. Within a CTA the
+// two products' partial sums share one buffer, and a barrier of the
+// compute warps stands between the reads of one and the writes of the next.
 __global__ void __launch_bounds__(kResThreads, 1)
     window_resident(const bf16* __restrict__ table,
                     const unsigned char* __restrict__ packed,
@@ -1001,6 +1003,10 @@ __global__ void __launch_bounds__(kResThreads, 1)
         wait_for_bytes(bar_h, parity, "h");
         if (tid == 0 && after > 0)
           expect_bytes(bar_h, after * dim * sizeof(bf16));
+        // the product with W_o overwrites the partial sums of h: every
+        // thread has read its own first (all of h having arrived here says
+        // only that the threads which send to this CTA have)
+        named_sync(kNamedCompute, kComputeThreads);
 
         // this CTA's columns of the logits, with their noise, to every CTA
         product_o.run();

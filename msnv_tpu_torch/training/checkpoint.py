@@ -14,8 +14,9 @@ other:
   (ClipState, (ScaleByAdamState, EmptyState)), whose only leaves are
   "['opt_state'][1][0].count" (an int32 0-d array), ".mu[...]" and
   ".nu[...]" (the same under ['disc_opt_state']); with the scheduler the
-  chain's schedule state adds "['opt_state'][1][1].count", the port's
-  "schedule_count";
+  chain also holds the schedule's state, whose one leaf "[1][1].count"
+  equals the Adam count: a save with `scheduled=True` writes it from
+  "count", and loading ignores it;
 - `ep{E}-it{I}.npz` per epoch (older "last" checkpoints deleted unless
   keep_old) and `best-ep{E}-it{I}.npz` tracked on validation loss (ref
   plugins.py:113-155), written first and deleted after, each write atomic
@@ -56,12 +57,10 @@ _OPT_STATES = ("opt_state", "disc_opt_state")
 def _key(path) -> str:
     """The JAX key of a port state leaf: an optimizer's {count, mu, nu}
     under its optax chain, everything else under its own path."""
-    if path[:1] and path[0] in _OPT_STATES:
-        head = "leaf:" + keystr(path[:1])
-        if path[1:2] in (("count",), ("mu",), ("nu",)):
-            return head + "[1][0]." + path[1] + keystr(path[2:])
-        if path[1:] == ("schedule_count",):
-            return head + "[1][1].count"
+    if path[:1] and path[0] in _OPT_STATES and path[1:2] in (
+            ("count",), ("mu",), ("nu",)):
+        return ("leaf:" + keystr(path[:1]) + "[1][0]." + path[1]
+                + keystr(path[2:]))
     return "leaf:" + keystr(path)
 
 
@@ -73,18 +72,28 @@ def _to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def flatten_state(state) -> dict:
-    """{checkpoint key: host array} of a port state tree."""
-    return {_key(path): _to_numpy(x)
+def flatten_state(state, scheduled: bool = False) -> dict:
+    """{checkpoint key: host array} of a port state tree; `scheduled`
+    (the run's TrainConfig.scheduler) adds each optimizer chain's schedule
+    count."""
+    flat = {_key(path): _to_numpy(x)
             for path, x in leaves_with_paths(state)}
+    if scheduled:
+        for name in _OPT_STATES:
+            if name in state:
+                flat[f"leaf:{keystr((name,))}[1][1].count"] = _to_numpy(
+                    state[name]["count"])
+    return flat
 
 
-def save_checkpoint(path: str, state, meta: dict | None = None) -> None:
-    """Save a port state tree (+ JSON-serializable `meta`) to `path`.
+def save_checkpoint(path: str, state, meta: dict | None = None,
+                    scheduled: bool = False) -> None:
+    """Save a port state tree (+ JSON-serializable `meta`) to `path`;
+    `scheduled` as in flatten_state.
 
     Every leaf is copied to the host before the file is written, so the
     state may be updated in place as soon as this returns."""
-    arrays = flatten_state(state)
+    arrays = flatten_state(state, scheduled)
     arrays["__meta__"] = np.frombuffer(
         json.dumps(meta or {}).encode(), dtype=np.uint8)
     buf = io.BytesIO()
@@ -108,9 +117,6 @@ def load_checkpoint(path: str, template, device=None):
 
         def fill(path_in_tree, t):
             key = _key(path_in_tree)
-            if key not in z and path_in_tree[-1:] == ("schedule_count",):
-                # written without it: the schedule's count is the Adam count
-                key = _key(path_in_tree[:-1] + ("count",))
             if key not in z:
                 raise KeyError(f"checkpoint {path} has no entry {key}")
             arr = z[key]
@@ -138,13 +144,14 @@ class CheckpointManager:
     """last/best retention policy over a checkpoints directory (npz)."""
 
     def __init__(self, checkpoints_dir: str, keep_old: bool = False,
-                 backend: str = "npz"):
+                 backend: str = "npz", scheduled: bool = False):
         if backend != "npz":
             raise NotImplementedError(
                 f"checkpoint backend {backend!r} is not ported (only npz; "
                 f"orbax is ROADMAP queue 1.7)")
         self.dir = checkpoints_dir
         self.keep_old = keep_old
+        self.scheduled = scheduled      # see flatten_state
         os.makedirs(checkpoints_dir, exist_ok=True)
         # recover the historical best from an existing best checkpoint's
         # meta, so a resumed run never overwrites a better past best
@@ -183,7 +190,7 @@ class CheckpointManager:
         path = os.path.join(self.dir, LAST_PATTERN.format(epoch, iteration))
         written = None
         if save_last:
-            save_checkpoint(path, state, meta)
+            save_checkpoint(path, state, meta, self.scheduled)
             if not self.keep_old:
                 self._retain_only(path, _LAST_RE)
             written = path
@@ -191,7 +198,8 @@ class CheckpointManager:
             self._best_loss = val_loss
             best = os.path.join(self.dir,
                                 BEST_PATTERN.format(epoch, iteration))
-            save_checkpoint(best, state, dict(meta, val_loss=val_loss))
+            save_checkpoint(best, state, dict(meta, val_loss=val_loss),
+                            self.scheduled)
             self._retain_only(best, _BEST_RE)
             written = written or best
         return written

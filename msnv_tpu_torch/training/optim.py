@@ -12,10 +12,7 @@ tensor code, with the same numbers:
 
 The state is {"count": int, "mu": tree, "nu": tree}: `count` is the number
 of updates made, `mu` / `nu` are float32 trees in the parameter tree's
-layout. With the scheduler it also holds "schedule_count", the count of the
-optax schedule's own state, which advances with `count`: the JAX trainer's
-checkpoints hold both. `update` changes params and state IN PLACE and
-returns them.
+layout. `update` changes params and state IN PLACE and returns them.
 """
 
 from __future__ import annotations
@@ -49,18 +46,14 @@ def lr_schedule(cfg: TrainConfig, steps_per_epoch: int):
 class ClippedAdam:
     """clip-by-value, then Adam; see the module docstring."""
 
-    def __init__(self, schedule, grad_clip: float, scheduled: bool = False):
+    def __init__(self, schedule, grad_clip: float):
         self.schedule = schedule
         self.grad_clip = grad_clip
-        self.scheduled = scheduled
 
     def init(self, params):
         zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa
-        state = {"count": 0, "mu": tree_map(zeros, params),
-                 "nu": tree_map(zeros, params)}
-        if self.scheduled:
-            state["schedule_count"] = 0
-        return state
+        return {"count": 0, "mu": tree_map(zeros, params),
+                "nu": tree_map(zeros, params)}
 
     @torch.no_grad()
     def update(self, grads, opt_state, params):
@@ -80,12 +73,9 @@ class ClippedAdam:
             denom = (nu / bc2).sqrt_().add_(EPS)
             p.addcdiv_(mu, denom, value=-lr / bc1)
         opt_state["count"] = step
-        if "schedule_count" in opt_state:
-            opt_state["schedule_count"] += 1
         return params, opt_state
 
 
 def make_optimizer(cfg: TrainConfig, steps_per_epoch: int = 1):
     """The clipped Adam of a TrainConfig."""
-    return ClippedAdam(lr_schedule(cfg, steps_per_epoch), cfg.grad_clip,
-                       scheduled=cfg.scheduler)
+    return ClippedAdam(lr_schedule(cfg, steps_per_epoch), cfg.grad_clip)

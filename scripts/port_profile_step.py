@@ -4,7 +4,6 @@
     python3 scripts/port_profile_step.py [--batch 128] [--steps 5]
         [--gru-impl pallas] [--dtype bf16]
         [--preset samplernn|samplernn_gan|bottleneck] [--qrnn]
-        [--cudnn-benchmark]
 
 Builds a preset's model (default the canonical `samplernn`) at full width
 from a seeded init, takes train steps on one fixed batch (as chip_smoke.py's
@@ -12,9 +11,8 @@ train phase makes it) and reports: host wall per step and samples/s, then a
 torch.profiler trace of `--steps` steps summed by device kernel name, and
 the share of the traced wall the device was busy. `samplernn_gan` takes the
 two-optimizer GAN step (training/gan.py) past its lambda ramp, with the
-preset's 512-channel discriminator; --qrnn gives the tiers fo-pool QRNN cells;
---cudnn-benchmark lets cuDNN time its algorithms for each convolution shape
-(the port leaves it off). Needs a CUDA device.
+preset's 512-channel discriminator; --qrnn gives the tiers fo-pool QRNN cells.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -40,7 +38,6 @@ def main(argv=None):
     p.add_argument("--preset", default="samplernn",
                    choices=("samplernn", "samplernn_gan", "bottleneck"))
     p.add_argument("--qrnn", action="store_true")
-    p.add_argument("--cudnn-benchmark", action="store_true")
     args = p.parse_args(argv)
 
     import torch
@@ -58,7 +55,6 @@ def main(argv=None):
         print("needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    torch.backends.cudnn.benchmark = args.cudnn_benchmark
     exp = preset(args.preset)
     cfg = dataclasses.replace(exp.model, gru_impl=args.gru_impl,
                               qrnn=args.qrnn)
@@ -120,8 +116,7 @@ def main(argv=None):
     busy_us = sum(r[0] for r in rows)
     n = args.steps
     what = (f"{args.preset}{' qrnn' if args.qrnn else ''}"
-            f"{f' disc {exp.train.disc_channels}' if is_gan else ''}"
-            f"{' cudnn.benchmark' if args.cudnn_benchmark else ''}")
+            f"{f' disc {exp.train.disc_channels}' if is_gan else ''}")
     print(f"{card_line()}: {what}, B={args.batch}, seq_len={seq_len}, "
           f"{args.dtype}, gru_impl={args.gru_impl}, {n} steps")
     print(f"wall per step {wall * 1e3:.3f} ms = "

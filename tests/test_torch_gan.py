@@ -384,7 +384,7 @@ class Capture(Plugin):
 def _state_flat(trainer):
     state = trainer.checkpoint_state()
     if isinstance(trainer, Trainer):
-        return tckpt.flatten_state(state)
+        return tckpt.flatten_state(state, trainer.cfg.train.scheduler)
     return _flat_any(state)
 
 
@@ -502,7 +502,8 @@ def test_gan_checkpoints_cross_load_with_the_jax_trainer(direction, tmp_path,
         first = _port_trainer(exp, tl)
         first.run(1)
         tckpt.save_checkpoint(path, first.checkpoint_state(),
-                              {"epoch": 1, "iteration": first.iterations})
+                              {"epoch": 1, "iteration": first.iterations},
+                              scheduled=exp.train.scheduler)
         second = _jax_trainer(exp, jl, seed=4)
         state, meta = jckpt.load_checkpoint(path, second.checkpoint_state())
     second.restore(state, meta)
@@ -515,29 +516,30 @@ def test_gan_checkpoints_cross_load_with_the_jax_trainer(direction, tmp_path,
 
 
 def test_schedule_count_in_checkpoints(tmp_path):
-    """With the scheduler the optimizer state carries the optax schedule's
-    count under ['opt_state'][1][1].count (and the discriminator's under
-    ['disc_opt_state'][1][1].count); a checkpoint written without it loads
-    with the Adam count in its place."""
-    tc = _port_train(TrainConfig(**dict(TRAIN, scheduler=True)))
-    opt = make_optimizer(tc)
+    """With the scheduler a checkpoint carries the optax schedule's count
+    under ['opt_state'][1][1].count (and the discriminator's under
+    ['disc_opt_state'][1][1].count), written from the Adam count; without
+    it, none. Loading ignores the entry."""
+    opt = make_optimizer(_port_train(TrainConfig(**dict(TRAIN,
+                                                        scheduler=True))))
     _, tp = both_params(GAN)
     st = opt.init(tp)
-    assert st["schedule_count"] == 0
     tp, st = opt.update(tree_map(torch.ones_like, tp), st, tp)
-    assert st["count"] == st["schedule_count"] == 1
-    flat = tckpt.flatten_state({"opt_state": st, "disc_opt_state": st})
+    assert set(st) == {"count", "mu", "nu"} and st["count"] == 1
+    state = {"opt_state": st, "disc_opt_state": st}
+    flat = tckpt.flatten_state(state, scheduled=True)
     for root in ("opt_state", "disc_opt_state"):
         assert flat[f"leaf:['{root}'][1][1].count"] == 1
-        assert f"leaf:['{root}'][1][0].count" in flat
-    old = {k: v for k, v in st.items() if k != "schedule_count"}
-    old["count"] = 7
-    path = str(tmp_path / "old.npz")
-    tckpt.save_checkpoint(path, {"opt_state": old})
-    loaded, _ = tckpt.load_checkpoint(path, {"opt_state": st})
-    assert loaded["opt_state"]["schedule_count"] == 7
-    assert "schedule_count" not in make_optimizer(_port_train(TrainConfig(
-        **TRAIN))).init(tp)
+        assert flat[f"leaf:['{root}'][1][0].count"] == 1
+    assert not any("[1][1]" in k for k in tckpt.flatten_state(state))
+    path = str(tmp_path / "scheduled.npz")
+    st["count"] = 7
+    tckpt.save_checkpoint(path, state, scheduled=True)
+    loaded, _ = tckpt.load_checkpoint(path, state)
+    assert loaded["opt_state"]["count"] == 7
+    assert set(loaded["opt_state"]) == {"count", "mu", "nu"}
+    with np.load(path) as z:
+        assert int(z["leaf:['disc_opt_state'][1][1].count"]) == 7
 
 
 def test_disc_opt_state_numpy_round_trip():
@@ -602,8 +604,9 @@ def corpus_dir(tmp_path_factory):
 
 
 def test_train_cli_bottleneck_matches_jax(corpus_dir):
-    """Both train CLIs from one JAX-written warm start, two epochs each:
-    stats.json and the last checkpoint agree to 1e-4."""
+    """Both train CLIs from one JAX-written warm start, two epochs each,
+    with the scheduler: stats.json and the last checkpoint (the schedule's
+    count among its keys) agree to 1e-4."""
     import os
     from msnv_tpu.cli.train import main as jax_train
     from msnv_tpu.models.samplernn import init_params as jax_init_params
@@ -616,10 +619,11 @@ def test_train_cli_bottleneck_matches_jax(corpus_dir):
     jckpt.save_checkpoint(warm, {"params": jax_init_params(
         jax.random.PRNGKey(1), model)})
     runs = {name: str(root / f"bottleneck_{name}") for name in ("jax", "port")}
+    sched = ("--scheduler", "true")
     _call(jax_train, _cli_args(data_dir, runs["jax"], 2, "bottleneck",
-                               "--model", warm))
+                               "--model", warm, *sched))
     _call(port_train, _cli_args(data_dir, runs["port"], 2, "bottleneck",
-                                "--model", warm, "--device", "cpu"))
+                                "--model", warm, "--device", "cpu", *sched))
     sp, sj = _stats(runs["port"]), _stats(runs["jax"])
     assert sp.keys() == sj.keys() and "disc_loss" not in sp
     for field in ("training_loss", "validation_loss"):
@@ -634,6 +638,7 @@ def test_train_cli_bottleneck_matches_jax(corpus_dir):
         assert set(a.files) == set(b.files)
         assert "leaf:['params']['tiers'][1]['conditioner']['stack'][3]['w']" \
             in a.files
+        assert "leaf:['opt_state'][1][1].count" in a.files
         for k in a.files:
             if k != "__meta__":
                 np.testing.assert_allclose(a[k], b[k], rtol=0, atol=ATOL,
