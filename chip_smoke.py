@@ -122,11 +122,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 stats.json, the discriminator and its Adam state under the
                 JAX keys in the checkpoint, every train-step sweep
                 persistent; cli.generate from it, every window resident
+ 10. export  — the serving artifact at full width, bf16, from phase 4's
+                .npz: msnv-export-torch --engine pallas --bf16 with
+                generation buckets (1, 16) and (128, 16) and stream buckets
+                1 and 4 (export wall, file bytes), load_artifact (wall); its
+                generation at B 128 equal to generate_fn with the kernel
+                from an identically seeded generator, sample for sample, and
+                a K=4 push then a 1-frame tail on one carry equal to the
+                live pushes; host wall of a B 1 push beside the live one's
+                and generation audio-s/s beside live; the push's packing of
+                W_h and W_o alone; a torch.profiler trace of one push that
+                names the resident kernel; VocoderService(artifact=) over
+                HTTP: a seeded /stream and an off-bucket /synthesize
+                byte-equal to the live service's, a bucket /synthesize to
+                the live generation of the artifact's engine, a mismatched
+                artifact refused at startup. Every window of the artifact's
+                runs through the resident kernel
 Then one JSON line of kernel numbers, the card's name and power limit, and
 last the {"ok": true, "device": ...} line. The kernels' `launches` add up
 the counts of every path that drives them: K1 the serving path (phase 4),
-the generate CLI (phase 7), the multiplexer (phase 8) and the variants'
-generation, streaming and generate CLI (phase 9), K2 the train steps
+the generate CLI (phase 7), the multiplexer (phase 8), the variants'
+generation, streaming and generate CLI (phase 9) and the artifact's
+generation, pushes and service (phase 10), K2 the train steps
 (phase 6), the training loop (phase 7) and the variants' train steps and
 train CLI (phase 9), each count set to 0 just before its path and read
 just after.
@@ -134,9 +151,9 @@ just after.
 `--rehearse-cpu` runs the same phases on the CPU at dim 32 with the plain
 versions (no build, no timing on the card; phase 7 at B 4 on a small
 corpus; phase 8 with 4 and 8 lanes; phase 9 at B 4, seq_len 320 and an
-8-channel discriminator) and ends without the ok line. `--phases=5,6`,
-`--phases=7`, `--phases=8` or `--phases=9` runs only the named phases (and
-then prints no result line).
+8-channel discriminator; phase 10 at B 2) and ends without the ok line.
+`--phases=5,6`, `--phases=7`, `--phases=8`, `--phases=9` or `--phases=10`
+runs only the named phases (and then prints no result line).
 """
 
 from __future__ import annotations
@@ -2239,6 +2256,316 @@ def phase_variants(dev, dim, gan_batch, batch, seq_len, channels, gen_batch,
 
 
 # --------------------------------------------------------------------------
+# phase 10: the serving artifact (export, load, serve)
+# --------------------------------------------------------------------------
+
+class _ArtifactWindows:
+    """The sample-window counts of the artifact's own runs, each set to 0
+    just before the run and added up just after (the live runs beside them
+    are not counted)."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.total = 0
+
+    def run(self, want, what, fn, *args):
+        _reset_window_counts()
+        out = fn(*args)
+        counts = _window_counts()
+        _check_windows(self.dev, counts, want, what)
+        self.total += counts[0]
+        return out
+
+
+def _synced_wall(dev, fn):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _push_walls(dev, init_state, push, conds):
+    """Host wall of one push per block of `conds` (K, C) from a fresh
+    carry, the push's device work included: -> StepTimer summary (the
+    first push is the warmup)."""
+    import torch
+    from msnv_tpu_torch.utils.profiling import StepTimer
+    timer = StepTimer(warmup=1, sync=dev.type == "cuda")
+    carry = init_state(torch.Generator(device=dev).manual_seed(5))
+    for block in conds:
+        with timer:
+            carry, _, _ = push(carry, block[None])
+    return timer.summary()
+
+
+def _export_http(art, loaded, cfg, dev, K, seed, windows):
+    """VocoderService with the artifact over HTTP: a seeded /stream and a
+    bucket /synthesize equal the live path's bytes, an off-bucket request
+    is answered live, a mismatched artifact is refused at startup."""
+    import dataclasses
+
+    import torch
+    from msnv_tpu_torch.data.wavio import pcm16_bytes, wav_bytes
+    from msnv_tpu_torch.models.generate import generate_fn, streaming_fn
+    from msnv_tpu_torch.serving import VocoderService, make_server
+    rng = np.random.RandomState(seed)
+    C = cfg.effective_cond_dim
+    stream_body = {"cond": rng.rand(2 * K + 1, C).tolist(), "spk": 1,
+                   "seed": seed}
+    syn_cond = rng.rand(16, C).astype(np.float32)
+    syn_body = {"cond": syn_cond.tolist(), "spk": 2, "seed": seed}
+    off_body = {"cond": rng.rand(17, C).tolist(), "spk": 3, "seed": seed}
+
+    def serve(service, bodies):
+        server = make_server(service, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            got = []
+            for path, body in bodies:
+                r, data = _post(server.server_address, path, body)
+                if r.status != 200:
+                    raise AssertionError(f"{path} answered {r.status}")
+                got.append(data)
+            return got
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+
+    svc = VocoderService(loaded, cfg, frame_bucket=16, frames_per_push=K,
+                         artifact=art, name="artifact")
+    health = svc.healthz()
+    if health["artifact_streams"] != art.stream_buckets:
+        raise AssertionError(f"/healthz {health}")
+    pcm_art, wav_art = windows.run(
+        (2 * K + 1 + 16) * cfg.frame_sizes[-1],
+        "the artifact service's /stream and /synthesize", serve, svc,
+        [("/stream", stream_body), ("/synthesize", syn_body)])
+    if svc._stream_cache or svc._gen_cache:
+        raise AssertionError("the artifact service built live callables")
+    # an off-bucket request (17 frames: padded to 32) takes the live path
+    (off_art,) = serve(svc, [("/synthesize", off_body)])
+    live = VocoderService(loaded, cfg, frame_bucket=16, frames_per_push=K,
+                          name="live")
+    pcm_live, off_live = serve(live, [("/stream", stream_body),
+                                      ("/synthesize", off_body)])
+    # the live service's /stream on the CPU runs the per-sample path: there
+    # the artifact's is held against the live pushes of its own engine
+    # (which is what the live service runs on a card)
+    l_init, l_push = streaming_fn(loaded, cfg, compute_dtype=torch.bfloat16,
+                                  use_kernel=True, frames_per_push=K)
+    _, l_push1 = streaming_fn(loaded, cfg, compute_dtype=torch.bfloat16,
+                              use_kernel=True, frames_per_push=1)
+    scond = torch.tensor(stream_body["cond"], device=dev)[None]
+    carry = l_init(1, torch.tensor([1], dtype=torch.int32, device=dev),
+                   torch.Generator(device=dev).manual_seed(seed))
+    pieces = []
+    for start in range(0, 2 * K, K):
+        carry, a, _ = l_push(carry, scond[:, start:start + K])
+        pieces.append(a)
+    carry, a, _ = l_push1(carry, scond[:, 2 * K])
+    pieces.append(a)
+    if pcm_art != pcm16_bytes(torch.cat(pieces, 1)[0].cpu().numpy()):
+        raise AssertionError("the artifact's /stream differs from the live "
+                             "pushes")
+    if dev.type == "cuda" and pcm_art != pcm_live:
+        raise AssertionError("the artifact's /stream differs from the live "
+                             "service's")
+    if off_art != off_live:
+        raise AssertionError("an off-bucket /synthesize differs from the "
+                             "live service's")
+    # the live service's /synthesize runs the per-sample float32 path: the
+    # artifact's is held against the live generation of its own engine
+    audio, _ = generate_fn(loaded, cfg, compute_dtype=torch.bfloat16,
+                           use_kernel=True)(
+        torch.from_numpy(syn_cond)[None].to(dev),
+        torch.tensor([2], dtype=torch.int32, device=dev),
+        torch.Generator(device=dev).manual_seed(seed))
+    if wav_art != wav_bytes(audio[0].cpu().numpy(), 16000):
+        raise AssertionError("the artifact's /synthesize differs from the "
+                             "live generation")
+    bad = dataclasses.replace(cfg, ulaw=not cfg.ulaw)
+    try:
+        VocoderService(loaded, bad, artifact=art)
+    except ValueError as e:
+        if "mismatch on ['ulaw']" not in str(e):
+            raise
+    else:
+        raise AssertionError("a mismatched artifact was accepted")
+    log(f"[export] HTTP: a seeded /stream ({2 * K + 1} frames) byte-equal "
+        f"to the live pushes{' and service' if dev.type == 'cuda' else ''}, "
+        f"an off-bucket /synthesize to the live service's, a bucket "
+        f"/synthesize to the live generation; a mismatched artifact refused "
+        f"at startup")
+    return {"stream_bytes": len(pcm_art), "synthesize_bytes": len(wav_art),
+            "off_bucket_bytes": len(off_art)}
+
+
+def phase_export(ckpt, cfg, dev, lanes, frames, K, pushes):
+    """The artifact path at full width: msnv-export-torch from phase 4's
+    .npz, load, generation and stream pushes against the live path
+    (exact), a trace around one push, the service over HTTP."""
+    import glob
+    import shutil
+    import tempfile
+
+    import torch
+    from msnv_tpu_torch.cli.export import main as export_main
+    from msnv_tpu_torch.export import load_artifact
+    from msnv_tpu_torch.interop import load_npz_params
+    from msnv_tpu_torch.kernels.sample_window import (
+        pack_window_weights_op, resident_weights)
+    from msnv_tpu_torch.models.generate import generate_fn, streaming_fn
+    from msnv_tpu_torch.utils.profiling import trace
+    bf16 = torch.bfloat16
+    card = card_line() if dev.type == "cuda" else "cpu"
+    windows_per_frame = cfg.frame_sizes[-1]
+    loaded = load_npz_params(ckpt[0], cfg, device=dev)
+    work = tempfile.mkdtemp(prefix="export-",
+                            dir=os.path.join(REPO, "msnv_tpu_torch", "build"))
+    out = {"lanes": lanes, "frames": frames, "frames_per_push": K}
+    windows = _ArtifactWindows(dev)
+    try:
+        path = os.path.join(work, "smoke.msnvt")
+        t0 = time.perf_counter()
+        printed = run_cli(export_main, [
+            "--model", ckpt[0], "--out", path, "--lanes", f"1,{lanes}",
+            "--frames", str(frames), "--engine", "pallas", "--bf16",
+            "--stream", f"1,{K}", "--device", dev.type])
+        out["export_s"] = time.perf_counter() - t0
+        out["bytes"] = os.path.getsize(path)
+        manifest = json.loads(printed.strip().splitlines()[-1])
+        if manifest["bytes"] != out["bytes"] or \
+                manifest["platforms"] != [dev.type]:
+            raise AssertionError(f"msnv-export-torch printed {manifest}")
+        t0 = time.perf_counter()
+        art = load_artifact(path)
+        out["load_s"] = time.perf_counter() - t0
+        if art.buckets != [(1, frames), (lanes, frames)] or \
+                art.stream_buckets != [(1, 1), (1, K)]:
+            raise AssertionError(f"buckets {art.buckets}, streams "
+                                 f"{art.stream_buckets}")
+        log(f"[export] msnv-export-torch (pallas, bf16; buckets (1, "
+            f"{frames}) and ({lanes}, {frames}); streams 1 and {K}): "
+            f"{out['export_s']:.2f} s, {out['bytes']} bytes; load "
+            f"{out['load_s']:.2f} s ({card})")
+
+        # generation at B lanes: the artifact against generate_fn (exact)
+        g = torch.Generator(device=dev).manual_seed(11)
+        C = cfg.effective_cond_dim
+        cond = torch.rand(lanes, frames, C, generator=g, device=dev)
+        spk = torch.randint(0, cfg.spk_dim, (lanes,), generator=g,
+                            device=dev, dtype=torch.int32)
+        live_gen = generate_fn(loaded, cfg, compute_dtype=bf16,
+                               use_kernel=True)
+
+        def seeded():
+            return torch.Generator(device=dev).manual_seed(7)
+
+        want = frames * windows_per_frame
+        art_seq = windows.run(want, "artifact generation", art.call, loaded,
+                              cond, spk, seeded())
+        live_seq = live_gen(cond, spk, seeded())
+        if not (torch.equal(art_seq[1], live_seq[1])
+                and torch.equal(art_seq[0], live_seq[0])):
+            raise AssertionError("the artifact's generation differs from "
+                                 "generate_fn's")
+        audio_s = lanes * frames * cfg.lookback / 16000
+        _, wall_art = windows.run(
+            want, "artifact generation", _synced_wall, dev,
+            lambda: art.call(loaded, cond, spk, seeded()))
+        _, wall_live = _synced_wall(dev, lambda: live_gen(cond, spk,
+                                                          seeded()))
+        out.update(generate_audio_s_per_s=audio_s / wall_art,
+                   live_generate_audio_s_per_s=audio_s / wall_live)
+        log(f"[export] generation B={lanes} x {frames} frames equal to "
+            f"generate_fn's sample for sample; artifact "
+            f"{out['generate_audio_s_per_s']:.2f} audio-s/s, live "
+            f"{out['live_generate_audio_s_per_s']:.2f} ({card})")
+
+        # streaming: a K push then a 1-frame tail on one carry, exact
+        a_init, a_push = art.streaming(K)
+        _, a_push1 = art.streaming(1)
+        l_init, l_push = streaming_fn(loaded, cfg, compute_dtype=bf16,
+                                      use_kernel=True, frames_per_push=K)
+        _, l_push1 = streaming_fn(loaded, cfg, compute_dtype=bf16,
+                                  use_kernel=True, frames_per_push=1)
+        scond = torch.rand(1, K + 1, C, generator=g, device=dev)
+        sspk = torch.tensor([4], dtype=torch.int32, device=dev)
+
+        def art_stream():
+            carry = a_init(loaded, sspk, seeded())
+            carry, _, s1 = a_push(loaded, carry, scond[:, :K])
+            carry, _, s2 = a_push1(loaded, carry, scond[:, K])
+            return torch.cat([s1, s2], 1)
+
+        got = windows.run((K + 1) * windows_per_frame, "artifact stream",
+                          art_stream)
+        carry = l_init(1, sspk, seeded())
+        carry, _, s1 = l_push(carry, scond[:, :K])
+        carry, _, s2 = l_push1(carry, scond[:, K])
+        if not torch.equal(got, torch.cat([s1, s2], 1)):
+            raise AssertionError("the artifact's pushes differ from the "
+                                 "live pushes")
+        pconds = torch.rand(pushes + 1, K, C, generator=g, device=dev)
+        walls = windows.run(
+            (pushes + 1) * K * windows_per_frame, "artifact pushes",
+            _push_walls, dev, lambda gen: a_init(loaded, sspk, gen),
+            lambda c, x: a_push(loaded, c, x), pconds)
+        live_walls = _push_walls(dev, lambda gen: l_init(1, sspk, gen),
+                                 l_push, pconds)
+        out.update(push_ms=walls["p50_s"] * 1e3,
+                   live_push_ms=live_walls["p50_s"] * 1e3)
+        log(f"[export] B=1 K={K} push then a 1-frame tail equal to the live "
+            f"pushes; host wall, median of {pushes}: artifact "
+            f"{out['push_ms']:.3f} ms, live {out['live_push_ms']:.3f} ms "
+            f"({card})")
+        if dev.type == "cuda":
+            wh = loaded["mlp"]["hidden"]["w"].T.to(bf16).contiguous()
+            wo = loaded["mlp"]["out"]["w"].T.to(bf16).contiguous()
+            if resident_weights(wh, wo, cfg.frame_sizes[0]) is None:
+                raise AssertionError("the canonical window is not resident")
+            out["pack_us"] = 1e3 * cuda_ms(
+                lambda: pack_window_weights_op(wh, wo, cfg.frame_sizes[0]),
+                20)
+            log(f"[export] the push's packing of W_h and W_o: "
+                f"{out['pack_us']:.1f} us ({card})")
+
+        # a trace around one push names the window kernel
+        tdir = os.path.join(work, "trace")
+        carry = a_init(loaded, sspk, seeded())
+
+        def traced_push():
+            with trace(tdir):
+                a_push(loaded, carry, scond[:, :K])
+
+        windows.run(K * windows_per_frame, "traced push", traced_push)
+        (tfile,) = glob.glob(os.path.join(tdir, "*.json"))
+        with open(tfile) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        kernel = ("window_resident" if dev.type == "cuda"
+                  else "msnv_torch::sample_window")
+        if not any(kernel in n for n in names):
+            raise AssertionError(f"the trace of a push names no {kernel}")
+        log(f"[export] torch.profiler trace of one push names {kernel}")
+
+        out["http"] = _export_http(art, loaded, cfg, dev, K, 3, windows)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if dev.type == "cuda" and windows.total == 0:
+        raise AssertionError("the artifact path launched no window kernel")
+    out["launches"] = windows.total
+    RESULTS["export"] = out
+    log(f"[export] {out['launches']} window launches from the artifact, "
+        f"all resident")
+
+
+# --------------------------------------------------------------------------
 
 def card_line():
     try:
@@ -2289,20 +2616,24 @@ def kernel_entries():
         "replaces": "msnv_tpu/pallas/sample_kernel.py:157",
         "also_replaces": ["msnv_tpu/pallas/sample_kernel.py:44",
                           "msnv_tpu/pallas/sample_kernel.py:183"],
-        # the serving path (phase 4), the generate CLI (phase 7) and the
-        # multiplexer (phase 8; every one of its windows resident)
+        # the serving path (phase 4), the generate CLI (phase 7), the
+        # multiplexer (phase 8; every one of its windows resident), the
+        # variants (phase 9) and the serving artifact (phase 10)
         "launches": RESULTS["launches"] + RESULTS["loop"]["window_launches"]
-        + RESULTS["mux"]["launches"] + RESULTS["variants"]["window_launches"],
-        # phase 9's windows are all resident (checked there)
+        + RESULTS["mux"]["launches"] + RESULTS["variants"]["window_launches"]
+        + RESULTS["export"]["launches"],
+        # phase 9's and phase 10's windows are all resident (checked there)
         "resident_launches": RESULTS["resident_launches"]
         + RESULTS["loop"]["window_resident"] + RESULTS["mux"]["launches"]
-        + RESULTS["variants"]["window_launches"],
+        + RESULTS["variants"]["window_launches"]
+        + RESULTS["export"]["launches"],
         "launches_by_path": {"serve": RESULTS["launches"],
                              "generate_cli": RESULTS["loop"][
                                  "window_launches"],
                              "mux": RESULTS["mux"]["launches"],
                              "variants": RESULTS["variants"][
-                                 "window_launches"]},
+                                 "window_launches"],
+                             "export": RESULTS["export"]["launches"]},
         # float32 (tiled kernel): samples equal to the plain version's;
         # bf16 (resident kernel): share of samples that differ on
         # sharpened logits, tolerance 1 %
@@ -2370,7 +2701,7 @@ def main(argv):
     if argv[:1] == ["--mux-clients"]:
         return mux_clients(json.loads(argv[1]))
     rehearse = "--rehearse-cpu" in argv
-    phases = set(range(1, 10))
+    phases = set(range(1, 11))
     for a in argv:
         if a.startswith("--phases="):
             phases = {int(x) for x in a.split("=", 1)[1].split(",")} | {1}
@@ -2411,7 +2742,7 @@ def main(argv):
           (4, Q, 128) if not rehearse else (4, Q, 16))
     timed(3, "generate", phase_generate, params, cfg,
           128 if not rehearse else 2, 16 if not rehearse else 2)
-    ckpt = smoke_checkpoint(params, exp) if phases & {4, 8} else None
+    ckpt = smoke_checkpoint(params, exp) if phases & {4, 8, 10} else None
     timed(4, "serve", phase_serve, params, ckpt, cfg, 4,
           8 if not rehearse else 2)
     del params
@@ -2434,10 +2765,12 @@ def main(argv):
           512 if not rehearse else 8, 128 if not rehearse else 2,
           (16, exp.train.seq_len, 2, 1600) if not rehearse
           else (4, 4 * cfg.lookback, 2, 150))
+    timed(10, "export", phase_export, ckpt, cfg, dev,
+          128 if not rehearse else 2, 16, 4, 20 if not rehearse else 3)
     if rehearse:
         log("rehearsal on the CPU passed (no card: no result line)")
         return 1
-    if phases != set(range(1, 10)):
+    if phases != set(range(1, 11)):
         log(f"phases {sorted(phases)} passed (not all: no result line)")
         return 1
 
@@ -2448,6 +2781,7 @@ def main(argv):
                       "loop": RESULTS["loop"],
                       "mux": RESULTS["mux"],
                       "variants": RESULTS["variants"],
+                      "export": RESULTS["export"],
                       "build_s": RESULTS["build_s"]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,19 +23,27 @@ layout mirrors the JAX package so each counterpart is easy to find:
                  TBPTT chunk loader, synthetic corpora, log-mel features,
                  the native data library
   eval/        — objective copy-synthesis metrics
-  cli/         — train, evaluate and generate (msnv-*-torch)
+  cli/         — train, evaluate, generate, export and the host tools
+                 augment, metrics, plotlog, interpolate, interop
+                 (msnv-*-torch)
   interop.py   — parameters and optimizer state to and from the JAX
-                 trainer's checkpoint keys (.npz)
+                 trainer's checkpoint keys (.npz); the original
+                 repository's PyTorch checkpoints both ways
+  export.py    — serving artifacts: generation and /stream programs
+                 saved with torch.export
   serving/     — the HTTP vocoder service: the lane-batched /stream
-                 multiplexer, the asyncio and the threaded front-ends
+                 multiplexer, the asyncio and the threaded front-ends,
+                 the artifact lanes
+  utils/       — logging; profiling (torch.profiler traces, a step
+                 timer, roofline numbers)
 
 Ported so far: serving (forward, generation, streaming, the stream
 multiplexer, the asyncio and threaded HTTP front-ends), the train step,
 the training loop with its corpus, loader, checkpoints and the
-train / evaluate / generate CLIs, and the variants (the bottleneck and
-GAN heads, the speaker discriminator and the GAN trainer, QRNN tiers).
-Not yet: artifacts, export, the orbax checkpoint backend, multi-device
-and the remaining CLIs.
+train / evaluate / generate CLIs, the variants (the bottleneck and
+GAN heads, the speaker discriminator and the GAN trainer, QRNN tiers), the
+serving artifact (export and its service lanes), profiling and the host
+CLIs. Not yet: the orbax checkpoint backend and multi-device.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 CUDA device and no explicit CPU request they raise.

@@ -48,11 +48,20 @@ Philox mode on the noise `philox_gumbel_noise` computes: the numbers both
 kernels draw). `sample_window.launches` counts the calls that launched a
 kernel, `.resident` and `.tiled` by kernel. The library is built with nvcc
 at first use into msnv_tpu_torch/build/.
+
+The Philox mode is also registered as the operator
+`msnv_torch::sample_window` (`sample_window_op`), with
+`msnv_torch::pack_window_weights` beside it, so that torch.export can trace
+a program that samples windows (the serving artifact, export.py): a ctypes
+call cannot be traced. Both plan on the tensors they are given when they
+run, never when a program is traced, so nothing of the tracing process's
+device is baked into the program.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import NamedTuple
 
@@ -222,6 +231,14 @@ def _check_packable(wh, wo, cluster):
     return dim, q
 
 
+@functools.lru_cache(maxsize=None)
+def _fragment_index_on(depth: int, cols: int, cluster: int, device):
+    """`_fragment_index` made once per device (10 MB of int64 at the
+    canonical width: building it on the host for every pack would cost
+    more than the gather)."""
+    return _fragment_index(depth, cols, cluster).to(device)
+
+
 def pack_window_weights(wh, wo, cluster: int):
     """wh (dim, dim) and wo (dim, q) -> (cluster, (dim + q) / cluster * dim)
     in the order the resident kernel reads: row r is what CTA r of a
@@ -232,7 +249,7 @@ def pack_window_weights(wh, wo, cluster: int):
     dim, q = _check_packable(wh, wo, cluster)
     dev = wh.device
     parts = [w.contiguous().reshape(-1)[
-        _fragment_index(dim, n, cluster).to(dev)].reshape(cluster, -1)
+        _fragment_index_on(dim, n, cluster, dev)].reshape(cluster, -1)
         for w, n in ((wh, dim), (wo, q))]
     return torch.cat(parts, dim=1)
 
@@ -498,9 +515,10 @@ def sample_window(table, wh, bh, wo, bo, slots, buf, *, noise=None,
       run (to time them side by side); "resident" raises where the plan
       says tiled. tile: the tiled kernel's lanes per CTA (default: by
       batch). packed: `resident_weights(wh, wo, fs0)`, made once by a
-      caller that samples many windows; without it the resident kernel's
-      weights are packed in this call. clusters: fewer clusters than the
-      plan's (the draws do not depend on it)."""
+      caller that samples many windows (or that flattened, as
+      `pack_window_weights_op` returns it); without it the resident
+      kernel's weights are packed in this call. clusters: fewer clusters
+      than the plan's (the draws do not depend on it)."""
     if path is not None and path not in PATHS:
         raise ValueError(f"path must be one of {PATHS}, got {path!r}")
     batch, fs0, q, dim = _check(table, wh, bh, wo, bo, slots, buf, noise,
@@ -530,11 +548,14 @@ def sample_window(table, wh, bh, wo, bo, slots, buf, *, noise=None,
                              f"{clusters}")
         if packed is None:
             packed = pack_window_weights(wh, wo, plan.cluster)
-        elif (packed.dtype != table.dtype or packed.device != dev
-              or tuple(packed.shape) != (plan.cluster,
-                                         (dim + q) // plan.cluster * dim)):
-            raise ValueError("packed does not hold these weights for a "
-                             f"cluster of {plan.cluster}")
+        else:
+            if packed.dim() == 1 and packed.numel() == (dim + q) * dim:
+                packed = packed.view(plan.cluster, -1)
+            if (packed.dtype != table.dtype or packed.device != dev
+                    or tuple(packed.shape) != (plan.cluster, (dim + q)
+                                               // plan.cluster * dim)):
+                raise ValueError("packed does not hold these weights for a "
+                                 f"cluster of {plan.cluster}")
         err = lib.sample_window_resident_launch(
             ptr(table), ptr(packed), ptr(bh), ptr(bo), ptr(slots), ptr(buf),
             ptr(noise), ptr(seed), ptr(out), batch, fs0, q, dim, *strides,
@@ -564,6 +585,48 @@ def sample_window(table, wh, bh, wo, bo, slots, buf, *, noise=None,
 sample_window.launches = 0
 sample_window.resident = 0
 sample_window.tiled = 0
+
+
+# --------------------------------------------------------------------------
+# the operators torch.export traces
+# --------------------------------------------------------------------------
+
+@torch.library.custom_op(
+    "msnv_torch::sample_window", mutates_args=(),
+    schema="(Tensor table, Tensor wh, Tensor bh, Tensor wo, Tensor bo, "
+           "Tensor slots, Tensor buf, Tensor seed, Tensor? packed) -> Tensor")
+def sample_window_op(table, wh, bh, wo, bo, slots, buf, seed, packed):
+    """`sample_window(..., seed=seed, packed=packed)` as an operator: the
+    kernel its plan names on CUDA tensors (planned on these tensors, on
+    every call), the plain version on CPU tensors. -> (B, fs0) int32."""
+    return sample_window(table, wh, bh, wo, bo, slots, buf, seed=seed,
+                         packed=packed)
+
+
+@sample_window_op.register_fake
+def _(table, wh, bh, wo, bo, slots, buf, seed, packed):
+    return buf.new_empty(buf.shape)
+
+
+@torch.library.custom_op(
+    "msnv_torch::pack_window_weights", mutates_args=(),
+    schema="(Tensor wh, Tensor wo, int fs0) -> Tensor")
+def pack_window_weights_op(wh, wo, fs0):
+    """W_h and W_o for `sample_window_op`'s `packed`, flat ((dim + q) *
+    dim,): `pack_window_weights` for the cluster of the plan that windows
+    of these weights take on this device, decided when the operator runs;
+    where they take no resident kernel, W_h and W_o flattened and joined
+    (which the tiled kernel and the plain version do not read)."""
+    packed = resident_weights(wh, wo, fs0)
+    if packed is None:
+        return torch.cat([wh.reshape(-1), wo.reshape(-1)])
+    return packed.reshape(-1)
+
+
+@pack_window_weights_op.register_fake
+def _(wh, wo, fs0):
+    dim, q = wo.shape
+    return wh.new_empty(((dim + q) * dim,))
 
 
 def empty_window(batch, fs0, q, dim, device):

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from msnv_tpu_torch.device import resolve_device
 from msnv_tpu_torch.ops.linear import dense_apply, dense_init, kaiming_uniform
 
 N_BLOCKS = 4
@@ -44,9 +45,11 @@ def _conv_init(generator, in_ch, out_ch, bias=True, device="cpu"):
 
 
 def discriminator_init(generator, spk_dim: int, channels: int = CHANNELS, *,
-                       device="cpu"):
+                       device=None):
     """Params {"blocks": [{"conv1": {w, b}, "conv2": {w}}] * 4,
-    "classifier": {w (spk_dim, channels), b}}."""
+    "classifier": {w (spk_dim, channels), b}} on `device` (`cuda` unless
+    the caller passes another; see `resolve_device`)."""
+    device = resolve_device(device)
     blocks = []
     in_ch = 1
     for _ in range(N_BLOCKS):

@@ -18,6 +18,12 @@ Randomness comes from an explicit `torch.Generator` on the params' device
 (JAX threads a key). A draw is Gumbel-max: argmax(logits / T + gumbel).
 Temperature 0 is greedy argmax and draws nothing.
 
+The machinery takes its draws from a source: the caller's generator (the
+live path), or a tensor holding them in the order the live path makes
+them (`program_fns`, the form `torch.export` traces: a generator cannot
+cross it). `draw_tensor` makes that tensor from a generator with the live
+path's calls, so both forms give the same samples.
+
 With `use_kernel=True` the bottom tier's fs0 samples per slot window run in
 the CUDA sample-window kernel (msnv_tpu_torch/kernels/sample_window.py:
 bf16 weights resident in a cluster's shared memory, float32 through the
@@ -39,8 +45,10 @@ import torch
 
 from msnv_tpu_torch.config import ModelConfig
 from msnv_tpu_torch.kernels.sample_window import (gumbel_noise,
+                                                  pack_window_weights_op,
                                                   resident_weights,
-                                                  sample_window)
+                                                  sample_window,
+                                                  sample_window_op)
 from msnv_tpu_torch.models.conditioner import conditioner_apply
 from msnv_tpu_torch.models.samplernn import (dequantize, fused_embed_conv,
                                              rnn_cell)
@@ -49,8 +57,9 @@ from msnv_tpu_torch.ops.quantize import q_zero
 from msnv_tpu_torch.ops.upsample import upsample_step
 from msnv_tpu_torch.tree import tree_map
 
-__all__ = ["cast_float_tree", "fused_embed_conv", "generate_fn",
-           "streaming_fn", "teacher_forced_log_probs"]
+__all__ = ["cast_float_tree", "draw_tensor", "fused_embed_conv",
+           "generate_fn", "program_fns", "streaming_fn",
+           "teacher_forced_log_probs"]
 
 
 def cast_float_tree(tree, dtype):
@@ -65,6 +74,45 @@ def cast_float_tree(tree, dtype):
 
 def _device(params) -> torch.device:
     return params["mlp"]["embedding"].device
+
+
+class _GeneratorDraws:
+    """The live path's randomness: drawn from a torch.Generator as it is
+    needed."""
+
+    def __init__(self, generator):
+        self.generator = generator
+
+    def seed(self, device):
+        """A window's Philox seed, (1,) int64; it stays on the device: no
+        host sync per window."""
+        return torch.randint(0, 2 ** 62, (1,), generator=self.generator,
+                             device=device, dtype=torch.int64)
+
+    def gumbel(self, shape, device):
+        """One sample's Gumbel noise."""
+        return gumbel_noise(shape, self.generator, device)
+
+
+class _GivenDraws:
+    """Randomness given as a tensor: row i is the i-th draw the live path
+    would make (a (1,) seed or a (B, q) noise)."""
+
+    def __init__(self, draws):
+        self.draws = draws
+        self.i = 0
+
+    def _next(self):
+        if self.draws is None or self.i >= self.draws.shape[0]:
+            raise ValueError("the given draws are used up")
+        self.i += 1
+        return self.draws[self.i - 1]
+
+    def seed(self, device):
+        return self._next().reshape(1)
+
+    def gumbel(self, shape, device):
+        return self._next()
 
 
 def _mlp_logits(params, fused_table, buf, slot):
@@ -96,7 +144,7 @@ def _check_temperature(temperature):
             f"temperature must be a finite float >= 0, got {temperature!r}")
 
 
-def _mlp_sample(params, fused_table, buf, slot, generator, temperature=1.0):
+def _mlp_sample(params, fused_table, buf, slot, draws, temperature=1.0):
     """One sample per lane -> (B,) int32. 1.0 keeps the reference's
     multinomial-from-softmax semantics; 0.0 is greedy argmax."""
     logits = _mlp_logits(params, fused_table, buf, slot)
@@ -104,18 +152,21 @@ def _mlp_sample(params, fused_table, buf, slot, generator, temperature=1.0):
         return torch.argmax(logits, dim=-1).to(torch.int32)
     if temperature != 1.0:
         logits = logits / temperature
-    noise = gumbel_noise(logits.shape, generator, logits.device)
+    noise = draws.gumbel(logits.shape, logits.device)
     return torch.argmax(logits + noise, dim=-1).to(torch.int32)
 
 
 def _kernel_window_sampler(params, cfg: ModelConfig, fused_table,
-                           temperature=1.0):
-    """(buf, generator, slots (B, fs0, dim)) -> (buf, samples (B, fs0))
+                           temperature=1.0, traced=False):
+    """(buf, draws, slots (B, fs0, dim)) -> (buf, samples (B, fs0))
     through the sample-window kernel.
 
     Temperature needs no kernel change: argmax(logits/T + g) is what the
     kernel computes when fed W_o/T and b_o/T. Greedy (T == 0) stays on the
-    per-sample path.
+    per-sample path. traced: call the kernel as the custom op
+    `msnv_torch::sample_window` (what torch.export can trace), with the
+    weights packed once per call of the traced program by
+    `msnv_torch::pack_window_weights` on a CUDA device.
     """
     if temperature <= 0.0:
         raise ValueError("the kernel sampler needs temperature > 0 "
@@ -134,17 +185,24 @@ def _kernel_window_sampler(params, cfg: ModelConfig, fused_table,
     # once per sampler: the weights in the order the resident kernel keeps
     # them in shared memory (None where windows take the tiled kernel or
     # the plain version)
-    packed = resident_weights(wh, wo, fs0)
+    if not traced:
+        packed = resident_weights(wh, wo, fs0)
+    elif table.device.type == "cuda":
+        packed = pack_window_weights_op(wh, wo, fs0)
+    else:
+        packed = None
 
-    def run(buf, generator, slots):
-        # the seed stays on the device: no host sync per window
-        seed = torch.randint(0, 2 ** 62, (1,), generator=generator,
-                             device=table.device, dtype=torch.int64)
+    def run(buf, draws, slots):
+        seed = draws.seed(table.device)
         if slots.dtype != table.dtype:
             slots = slots.to(table.dtype)
         # the window is read in place: the last fs0 columns of buf
-        samples = sample_window(table, wh, bh, wo, bo, slots,
-                                buf[:, -fs0:], seed=seed, packed=packed)
+        if traced:
+            samples = sample_window_op(table, wh, bh, wo, bo, slots,
+                                       buf[:, -fs0:], seed, packed)
+        else:
+            samples = sample_window(table, wh, bh, wo, bo, slots,
+                                    buf[:, -fs0:], seed=seed, packed=packed)
         return torch.cat([buf[:, fs0:], samples], dim=1), samples
 
     return run
@@ -155,8 +213,8 @@ def _shift(buf, s):
 
 
 def _make_level(params, cfg: ModelConfig, t: int, fused_table,
-                use_kernel=False, temperature=1.0):
-    """Step fn for tier t: (buf, hs, generator, upper_slot) ->
+                use_kernel=False, temperature=1.0, traced=False):
+    """Step fn for tier t: (buf, hs, draws, upper_slot) ->
     (buf, hs, samples (B, nfs[t])).
 
     buf (B, lookback) int32; hs list of (n_rnn, B, dim) per tier;
@@ -169,30 +227,30 @@ def _make_level(params, cfg: ModelConfig, t: int, fused_table,
     if t == 0:
         if use_kernel:
             window = _kernel_window_sampler(params, cfg, fused_table,
-                                            temperature)
+                                            temperature, traced)
     else:
         inner = _make_level(params, cfg, t - 1, fused_table, use_kernel,
-                            temperature)
+                            temperature, traced)
     wdtype = tier["input_expand"]["w"].dtype
 
-    def level_step(buf, hs, generator, upper_slot):
+    def level_step(buf, hs, draws, upper_slot):
         prev = (2.0 * dequantize(cfg, buf[:, -nfs:])).to(wdtype)
         x = dense_apply(tier["input_expand"], prev) + upper_slot
         y, h_new = rnn_cell(cfg, tier["gru"], x, hs[t])
         hs = hs[:t] + [h_new] + hs[t + 1:]
         slots = upsample_step(tier["upsample"], y)        # (B, fs, dim)
         if window is not None:
-            buf, samples = window(buf, generator, slots)
+            buf, samples = window(buf, draws, slots)
             return buf, hs, samples
         outs = []
         for j in range(slots.shape[1]):
             if inner is None:
                 s = _mlp_sample(params, fused_table, buf, slots[:, j],
-                                generator, temperature)
+                                draws, temperature)
                 buf = _shift(buf, s)
                 outs.append(s[:, None])
             else:
-                buf, hs, s = inner(buf, hs, generator, slots[:, j])
+                buf, hs, s = inner(buf, hs, draws, slots[:, j])
                 outs.append(s)
         return buf, hs, torch.cat(outs, dim=1)
 
@@ -203,7 +261,8 @@ class _TopTier:
     """The top tier's clock shared by generate_fn and streaming_fn: the
     speaker vector and fresh carry, and one conditioner frame step."""
 
-    def __init__(self, params, cfg: ModelConfig, use_kernel, temperature):
+    def __init__(self, params, cfg: ModelConfig, use_kernel, temperature,
+                 traced=False):
         self.params = params
         self.cfg = cfg
         self.temperature = temperature
@@ -212,7 +271,7 @@ class _TopTier:
         self.nfs = cfg.ns_frame_samples[self.top]
         self.fused = fused_embed_conv(params["mlp"])
         self.below = (_make_level(params, cfg, self.top - 1, self.fused,
-                                  use_kernel, temperature)
+                                  use_kernel, temperature, traced)
                       if self.top > 0 else None)
         self.wdtype = self.tier["input_expand"]["w"].dtype
 
@@ -236,7 +295,7 @@ class _TopTier:
               for p_t in self.params["tiers"]]
         return buf, hs
 
-    def frame_step(self, spk_vec, buf, hs, generator, cond_j):
+    def frame_step(self, spk_vec, buf, hs, draws, cond_j):
         cfg, tier, top = self.cfg, self.tier, self.top
         prev = (2.0 * dequantize(cfg, buf[:, -self.nfs:])).to(self.wdtype)
         x = dense_apply(tier["input_expand"], prev)
@@ -249,23 +308,24 @@ class _TopTier:
         outs = []
         for j in range(slots.shape[1]):
             if self.below is not None:
-                buf, hs, s = self.below(buf, hs, generator, slots[:, j])
+                buf, hs, s = self.below(buf, hs, draws, slots[:, j])
                 outs.append(s)
             else:
                 s = _mlp_sample(self.params, self.fused, buf, slots[:, j],
-                                generator, self.temperature)
+                                draws, self.temperature)
                 buf = _shift(buf, s)
                 outs.append(s[:, None])
         return buf, hs, torch.cat(outs, dim=1)
 
 
-def _prepare(params, cfg, compute_dtype, use_kernel, temperature):
+def _prepare(params, cfg, compute_dtype, use_kernel, temperature,
+             traced=False):
     _check_temperature(temperature)
     if compute_dtype is not None:
         params = cast_float_tree(params, compute_dtype)
     if use_kernel and cfg.n_tiers < 2:
         raise ValueError("the kernel path needs a frame tier above the MLP")
-    return _TopTier(params, cfg, use_kernel, temperature)
+    return _TopTier(params, cfg, use_kernel, temperature, traced)
 
 
 def _default_generator(device, generator):
@@ -293,13 +353,13 @@ def generate_fn(params, cfg: ModelConfig, compute_dtype=None,
     @torch.no_grad()
     def generate(cond, spk, generator=None):
         device = _device(machine.params)
-        generator = _default_generator(device, generator)
+        draws = _GeneratorDraws(_default_generator(device, generator))
         batch = cond.shape[0]
         spk_vec = machine.speaker_vector(spk)
         buf, hs = machine.fresh(batch)
         frames = []
         for j in range(cond.shape[1]):
-            buf, hs, s = machine.frame_step(spk_vec, buf, hs, generator,
+            buf, hs, s = machine.frame_step(spk_vec, buf, hs, draws,
                                             cond[:, j])
             frames.append(s)
         seq = torch.cat(frames, dim=1)
@@ -336,9 +396,10 @@ def streaming_fn(params, cfg: ModelConfig, compute_dtype=None,
     def push(carry, cond):
         spk_vec, buf, hs, generator = carry
         frames = cond[:, None] if frames_per_push == 1 else cond
+        draws = _GeneratorDraws(generator)
         outs = []
         for j in range(frames.shape[1]):
-            buf, hs, s = machine.frame_step(spk_vec, buf, hs, generator,
+            buf, hs, s = machine.frame_step(spk_vec, buf, hs, draws,
                                             frames[:, j])
             outs.append(s)
         samples = torch.cat(outs, dim=1)
@@ -346,6 +407,79 @@ def streaming_fn(params, cfg: ModelConfig, compute_dtype=None,
             samples
 
     return init_state, push
+
+
+# --------------------------------------------------------------------------
+# The traceable form: randomness given as a tensor
+# --------------------------------------------------------------------------
+
+def draw_count(cfg: ModelConfig, frames: int, use_kernel=False,
+               temperature=1.0) -> int:
+    """How many draws `frames` frames make: one seed per sample window on
+    the kernel path, one noise per sample on the per-sample path, none
+    when greedy."""
+    if temperature == 0.0:
+        return 0
+    samples = frames * cfg.lookback
+    return samples // cfg.frame_sizes[0] if use_kernel else samples
+
+
+def draw_tensor(generator, cfg: ModelConfig, frames: int, batch: int,
+                use_kernel=False, temperature=1.0):
+    """The draws of `frames` frames at `batch` lanes, made from `generator`
+    with the live path's calls in its order: (n,) int64 window seeds on
+    the kernel path, (n, batch, q) float32 Gumbel noise on the per-sample
+    path, None when greedy. Advances the generator as the live path
+    does."""
+    n = draw_count(cfg, frames, use_kernel, temperature)
+    if n == 0:
+        return None
+    device = generator.device
+    draws = _GeneratorDraws(generator)
+    if use_kernel:
+        return torch.cat([draws.seed(device) for _ in range(n)])
+    return torch.stack([draws.gumbel((batch, cfg.q_levels), device)
+                        for _ in range(n)])
+
+
+def program_fns(cfg: ModelConfig, frames: int, compute_dtype=None,
+                use_kernel=False, temperature=1.0):
+    """(init, push): streaming_fn's carry and `frames`-frame push as plain
+    functions of tensors, the form torch.export traces.
+
+      init(params, spk) -> (spk_vec, buf, hs)
+      push(params, spk_vec, buf, hs, cond (B, frames, C), draws)
+        -> (buf, hs, audio, samples)
+
+    The params are an argument (cast to compute_dtype inside, and on a
+    CUDA device the window weights packed inside, on every call); draws is
+    `draw_tensor`'s for these frames (None when greedy). With the carry's
+    generator turned into draws by `draw_tensor`, a push gives the samples
+    of streaming_fn's push exactly, and the carry it returns continues
+    under either form.
+    """
+    _check_temperature(temperature)
+
+    def machine(params):
+        return _prepare(params, cfg, compute_dtype, use_kernel, temperature,
+                        traced=True)
+
+    def init(params, spk):
+        m = machine(params)
+        buf, hs = m.fresh(spk.shape[0])
+        return m.speaker_vector(spk), buf, hs
+
+    def push(params, spk_vec, buf, hs, cond, draws=None):
+        m = machine(params)
+        given = _GivenDraws(draws)
+        outs = []
+        for j in range(frames):
+            buf, hs, s = m.frame_step(spk_vec, buf, hs, given, cond[:, j])
+            outs.append(s)
+        samples = torch.cat(outs, dim=1)
+        return buf, hs, dequantize(cfg, samples), samples
+
+    return init, push
 
 
 # --------------------------------------------------------------------------

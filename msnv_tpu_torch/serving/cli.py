@@ -9,7 +9,7 @@ def main(argv=None):
     python -m msnv_tpu_torch.serving \
         --model results/<tag>/checkpoints/ep...npz \
         [--host 0.0.0.0] [--port 8000] [--temperature 1.0] [--device cuda]
-        [--mux_lanes N] [--frontend {aio,threaded}]
+        [--mux_lanes N] [--frontend {aio,threaded}] [--artifact a.msnvt]
 
     The experiment tag (the results directory name) rebuilds the config;
     the `.npz` is read with numpy alone (msnv_tpu_torch/interop.py).
@@ -17,6 +17,7 @@ def main(argv=None):
     import argparse
 
     from msnv_tpu_torch.config import parse_tag, tag_from_checkpoint_path
+    from msnv_tpu_torch.export import load_artifact
     from msnv_tpu_torch.interop import load_npz_params
     from msnv_tpu_torch.serving.aio import make_async_server
     from msnv_tpu_torch.serving.httpd import make_server
@@ -55,14 +56,15 @@ def main(argv=None):
     p.add_argument("--max_body_mb", type=float, default=64.0,
                    help="request body size cap (413 beyond it)")
     p.add_argument("--frame_bucket", type=int, default=16,
-                   help="pad request frame counts to this multiple")
+                   help="pad request frame counts to this multiple (must "
+                        "match msnv-export-torch --frame_bucket for "
+                        "artifact dispatch)")
     p.add_argument("--artifact", default=None,
-                   help="AOT generation artifact: not ported yet (raises)")
+                   help="serving artifact from msnv-export-torch: matching "
+                        "requests run its programs, others the live path. "
+                        "Checked against the served model and device at "
+                        "startup.")
     args = p.parse_args(argv)
-    if args.artifact:
-        raise NotImplementedError(
-            "serving artifacts are not ported yet (ROADMAP queue 1, item "
-            "7.3)")
     if args.mesh_data > 1:
         raise NotImplementedError(
             "multi-device serving (--mesh_data) is not ported yet (ROADMAP "
@@ -71,7 +73,8 @@ def main(argv=None):
     tag = tag_from_checkpoint_path(args.model)
     cfg = parse_tag(tag)
     params = load_npz_params(args.model, cfg.model, device=args.device)
-    service = VocoderService(params, cfg.model,
+    artifact = load_artifact(args.artifact) if args.artifact else None
+    service = VocoderService(params, cfg.model, artifact=artifact,
                              temperature_default=args.temperature,
                              frame_bucket=args.frame_bucket,
                              frames_per_push=args.frames_per_push,

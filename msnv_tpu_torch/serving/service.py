@@ -26,13 +26,20 @@ tick, every window of a tick one launch of the sample-window kernel at
 B = N. A request with a "seed" or another temperature takes the
 per-connection path above.
 
-Not ported yet: the AOT artifact (ROADMAP queue 1, item 7.3) and the
-device mesh (item 7.4); the constructor raises NotImplementedError for
-them.
+With a serving artifact (export.py, `artifact=`), requests whose lanes,
+frames, temperature and speaker kind hit an exported bucket run its
+programs; /stream pushes likewise where it holds a 1-lane stream bucket
+of the push's width. Everything else takes the live path. The artifact is
+checked against the served model and device at construction.
+
+Not ported yet: the device mesh (ROADMAP queue 1, item 7.4); the
+constructor raises NotImplementedError for it.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import queue
 import threading
 
@@ -56,10 +63,6 @@ class VocoderService:
                  max_batch: int = 1, linger_ms: float = 10.0,
                  max_streams: int = 8, name: str = "msnv", artifact=None,
                  mux_lanes: int = 0, mesh=None):
-        if artifact is not None:
-            raise NotImplementedError(
-                "serving artifacts are not ported yet (ROADMAP queue 1, "
-                "item 7.3)")
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device serving is not ported yet (ROADMAP queue 1, "
@@ -67,6 +70,9 @@ class VocoderService:
         self.params = params
         self.cfg = cfg
         self.device = params["mlp"]["embedding"].device
+        if artifact is not None:
+            self._validate_artifact(artifact, cfg, self.device)
+        self.artifact = artifact
         self.temperature_default = float(temperature_default)
         self.frame_bucket = int(frame_bucket)
         if self.frame_bucket < 1:
@@ -108,6 +114,39 @@ class VocoderService:
         """Stop background machinery (the mux pump); idempotent."""
         if self._mux is not None:
             self._mux.stop()
+
+    @staticmethod
+    def _validate_artifact(artifact, cfg: ModelConfig, device) -> None:
+        """Fail at startup, not per request: an artifact exported from a
+        different architecture would either fail in every bucket hit or,
+        for same-shaped configs like ulaw:T vs ulaw:F, silently make wrong
+        audio; one traced for another device type cannot run here."""
+        manifest = getattr(artifact, "manifest", None)
+        if not isinstance(manifest, dict):
+            raise ValueError(f"not a loaded artifact: {artifact!r}")
+        # engine-choice fields are numerics-equivalent and not part of the
+        # programs (the artifact's engine is its manifest's "engine")
+        engine_fields = ("gru_impl", "mlp_grad_impl")
+
+        def norm(d):
+            return {k: list(v) if isinstance(v, (list, tuple)) else v
+                    for k, v in d.items() if k not in engine_fields}
+
+        want = norm(dataclasses.asdict(cfg))
+        got = norm(dict(manifest.get("model") or {}))
+        if want != got:
+            diff = sorted(k for k in set(want) | set(got)
+                          if want.get(k) != got.get(k))
+            raise ValueError(
+                f"artifact/model config mismatch on {diff}: "
+                f"artifact {[got.get(k) for k in diff]} vs served model "
+                f"{[want.get(k) for k in diff]}")
+        platforms = manifest.get("platforms") or []
+        if device.type not in platforms:
+            raise ValueError(
+                f"artifact was exported for platforms {platforms}; this "
+                f"server runs on '{device.type}' (re-export with "
+                f"msnv-export-torch --device {device.type})")
 
     # -- request plumbing ------------------------------------------------
 
@@ -161,6 +200,10 @@ class VocoderService:
                 "max_streams": self.max_streams,
                 "mux_lanes": self._mux.lanes if self._mux else 0,
                 "mesh_shards": 1,
+                "artifact_buckets": (list(self.artifact.buckets)
+                                     if self.artifact else None),
+                "artifact_streams": (list(self.artifact.stream_buckets)
+                                     if self.artifact else None),
                 "device": str(self.device)}
 
     def _generator(self, seed: int) -> torch.Generator:
@@ -209,7 +252,7 @@ class VocoderService:
     def _run_group(self, gkey, items) -> list:
         """One device call for a group of same-shape requests; returns the
         per-request float audio (trimmed to each request's frames)."""
-        _padded, temperature, _kind = gkey
+        _padded, temperature, kind = gkey
         b = len(items)
         # pad lanes to the next power of two (padded lanes repeat lane 0
         # and are sliced away), as the JAX service does
@@ -222,15 +265,20 @@ class VocoderService:
         seed = items[0]["seed"]
         for it in items[1:]:
             seed = (seed * 1000003 + it["seed"]) % (1 << 63)
+        art = self.artifact
         with self._lock:
-            if temperature not in self._gen_cache:
-                self._evict(self._gen_cache)
-                self._gen_cache[temperature] = generate_fn(
-                    self.params, self.cfg, temperature=temperature)
-            audio, _ = self._gen_cache[temperature](
-                torch.from_numpy(conds).to(self.device),
-                torch.from_numpy(spks).to(self.device),
-                self._generator(seed))
+            if self._artifact_serves(temperature, kind) and \
+                    art.has_bucket(lanes, conds.shape[1]):
+                gen = functools.partial(art.call, self.params)
+            else:
+                if temperature not in self._gen_cache:
+                    self._evict(self._gen_cache)
+                    self._gen_cache[temperature] = generate_fn(
+                        self.params, self.cfg, temperature=temperature)
+                gen = self._gen_cache[temperature]
+            audio, _ = gen(torch.from_numpy(conds).to(self.device),
+                           torch.from_numpy(spks).to(self.device),
+                           self._generator(seed))
             audio = audio.cpu().numpy()
         return [audio[i, :it["n"] * self.cfg.lookback]
                 for i, it in enumerate(items)]
@@ -244,13 +292,34 @@ class VocoderService:
         while len(cache) >= self.MAX_CACHED_CALLABLES:
             cache.pop(next(iter(cache)))   # oldest-inserted first
 
+    def _artifact_serves(self, temperature, spk_kind) -> bool:
+        """Whether the artifact's programs make what a request asks for:
+        its temperature and speaker kind ("f": mix weights, "i": ids)."""
+        art = self.artifact
+        return (art is not None
+                and temperature == art.manifest["temperature"]
+                and art.manifest["spk_mix"] == (spk_kind == "f"))
+
     # -- streaming synthesis ----------------------------------------------
 
-    def _stream_push(self, temperature, k):
+    def _stream_push(self, temperature, k, spk_kind="i"):
         """(init_state(batch, spk, generator), push(carry, cond)) for
-        K-frame pushes. On CUDA at temperature > 0: bf16 weights and the
-        sample-window kernel (one launch per 20-sample window instead of
-        a per-sample loop); greedy and CPU keep the per-sample path."""
+        K-frame pushes: the artifact's 1-lane stream programs where it
+        holds them for this request, else live. Live on CUDA at
+        temperature > 0: bf16 weights and the sample-window kernel (one
+        launch per 20-sample window instead of a per-sample loop); greedy
+        and CPU keep the per-sample path."""
+        art = self.artifact
+        if self._artifact_serves(temperature, spk_kind) and \
+                art.has_stream(1, k):
+            a_init, a_push = art.streaming(k, lanes=1)
+
+            def init_state(batch, spk, generator):
+                if batch != 1:
+                    raise ValueError("exported stream buckets are 1-lane")
+                return a_init(self.params, spk, generator)
+
+            return init_state, functools.partial(a_push, self.params)
         with self._lock:
             if (temperature, k) not in self._stream_cache:
                 self._evict(self._stream_cache)
@@ -352,8 +421,9 @@ class VocoderService:
     stream_fetch_depth = 8
 
     def _stream_iter(self, cond, spk, temperature, seed):
+        kind = "f" if spk.dtype.kind == "f" else "i"
         K = self.frames_per_push
-        init_state, push = self._stream_push(temperature, K)
+        init_state, push = self._stream_push(temperature, K, kind)
         # a copy: a base64 payload arrives as a read-only numpy view
         cond_t = torch.tensor(cond, dtype=torch.float32, device=self.device)
         with self._lock:
@@ -380,7 +450,10 @@ class VocoderService:
             if out is not None:
                 yield out
         if n % K:
-            _, push1 = self._stream_push(temperature, 1)
+            # the artifact's and the live carries are the same
+            # (spk_vec, buf, hs, generator): the trailing 1-frame pushes
+            # may come from either
+            _, push1 = self._stream_push(temperature, 1, kind)
             for j in range(n - n % K, n):
                 with self._lock:
                     carry, audio, _ = push1(carry, cond_t[None, j])

@@ -56,12 +56,21 @@ def test_tree_matches_jax_and_round_trips():
     got = disc_params_to_numpy(tp)
     assert {k: v.shape for k, v in got.items()} == want
     assert "leaf:['disc_params']['blocks'][0]['conv2']['b']" not in got
-    fresh = td.discriminator_init(torch.Generator().manual_seed(0), SPK, CH)
+    fresh = td.discriminator_init(torch.Generator().manual_seed(0), SPK, CH,
+                                 device="cpu")
     assert {k: v.shape for k, v in disc_params_to_numpy(fresh).items()} \
         == want
     # kaiming_uniform over fan_in 5*5*in: |w| <= sqrt(6 / (25 * in))
     assert float(fresh["blocks"][1]["conv1"]["w"].abs().max()) <= \
         (6.0 / (25 * CH)) ** 0.5
+
+
+def test_init_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """Like init_params, discriminator_init runs on `cuda` unless a device
+    is passed, and raises where there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        td.discriminator_init(torch.Generator().manual_seed(0), SPK, CH)
 
 
 @pytest.mark.parametrize("shape", [(4, 13, 10), (2, 3, 3)])

@@ -461,7 +461,8 @@ def test_trainer_discriminator_init():
     exp = _exp(seed=3, disc_channels=4)
     tl, _ = both_loaders(GAN, 4, 64, 2)
     tt = _port_trainer(exp, tl, jax_disc=False)
-    ref = discriminator_init(torch.Generator().manual_seed(4), GAN.spk_dim, 4)
+    ref = discriminator_init(torch.Generator().manual_seed(4), GAN.spk_dim, 4,
+                             device="cpu")
     assert all(torch.equal(a, b) for a, b in
                zip(tree_leaves(tt.disc_params), tree_leaves(ref)))
     assert tt.disc_params["classifier"]["w"].shape == (GAN.spk_dim, 4)

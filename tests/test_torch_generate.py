@@ -180,7 +180,7 @@ def test_kernel_path_temperature_is_argmax_invariant(monkeypatch):
         run = tgen._kernel_window_sampler(tparams, tcfg, fused, T)
         buf = torch.full((8, cfg.lookback), q_zero(cfg.q_levels),
                          dtype=torch.int32)
-        outs.append(run(buf, _gen(2), slots)[1])
+        outs.append(run(buf, tgen._GeneratorDraws(_gen(2)), slots)[1])
     torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
 
 

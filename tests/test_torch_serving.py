@@ -1,6 +1,9 @@
 """The port's HTTP service over a real socket: greedy /synthesize WAV bytes
 identical to the JAX service's, /stream lengths and exactness, and the
-error paths (400/404/413/429), HTTP/1.1 and the CLI (CPU)."""
+error paths (400/404/413/429), HTTP/1.1 and the CLI (CPU). With a serving
+artifact (the cases of the JAX package's tests/test_serving.py), /synthesize
+and /stream are byte-identical to the live service's, off-bucket requests
+are answered live, and a mismatched artifact is refused at startup."""
 
 import base64
 import http.client
@@ -229,7 +232,7 @@ def test_batcher_coalesces_and_cache_is_bounded(params):
 
 
 @pytest.mark.parametrize("kw", [{"mux_lanes": 2, "mesh": object()},
-                                {"artifact": object()},
+                                {"artifact": object()},  # not an artifact
                                 {"mesh": object()}, {"frame_bucket": 0},
                                 {"frames_per_push": 0}])
 def test_service_rejects_unported_and_degenerate_options(params, kw):
@@ -296,8 +299,7 @@ def test_cli_frontends_and_mux_lanes(params, tmp_path, args, frontend):
     assert h["mux_lanes"] == 2 and h["mesh_shards"] == 1
 
 
-@pytest.mark.parametrize("args,item", [(["--artifact", "a.npz"], "7.3"),
-                                       (["--mesh_data", "2"], "7.4")])
+@pytest.mark.parametrize("args,item", [(["--mesh_data", "2"], "7.4")])
 def test_cli_rejects_unported_options(args, item):
     from msnv_tpu_torch.serving.cli import main
     with pytest.raises(NotImplementedError, match=item):
@@ -318,3 +320,137 @@ def test_wav_bytes_match_jax(dtype):
     x = np.sin(np.linspace(0, 20, 400)).astype(np.float32) * 1.2
     assert twav.wav_bytes(x, 16000, dtype) == jwav.wav_bytes(x, 16000, dtype)
     assert twav.pcm16_bytes(x) == jwav.pcm16_bytes(x)
+
+
+# --------------------------------------------------------------------------
+# serving artifacts (msnv_tpu_torch/export.py)
+# --------------------------------------------------------------------------
+
+# 4 samples a frame keeps the traced per-sample programs small
+ACFG = ModelConfig(frame_sizes=(2, 2), n_rnn=1, dim=16, cond_dim=5,
+                   spk_dim=3)
+TACFG = torch_cfg(ACFG)
+
+
+def _acond(frames, seed=0):
+    rng = np.random.RandomState(seed)
+    return rng.rand(frames, ACFG.effective_cond_dim).tolist()
+
+
+@pytest.fixture(scope="module")
+def aparams():
+    return both_params(ACFG, seed=0)[1]
+
+
+def test_artifact_backed_synthesize(aparams, tmp_path_factory):
+    """A service holding an artifact serves /synthesize from its programs,
+    byte-identical WAV to the live service for a bucket-matching request,
+    and answers off-bucket shapes live."""
+    from msnv_tpu_torch.export import load_artifact, save_artifact
+    frames = 4                       # = 2 buckets of frame_bucket=2
+    path = str(tmp_path_factory.mktemp("art") / "t.msnvt")
+    save_artifact(path, TACFG, [(1, frames)], params=aparams)
+    artifact = load_artifact(path)
+
+    def run(service):
+        srv = _serve(service)
+        try:
+            body = {"cond": _acond(frames, seed=5), "spk": 2, "seed": 9}
+            r = _post(srv.server_address, "/synthesize", body)
+            assert r.status == 200
+            wav = r.read()
+            # off-bucket (frames=2): the artifact service still answers
+            r2 = _post(srv.server_address, "/synthesize",
+                       {"cond": _acond(2, seed=5), "spk": 2, "seed": 9})
+            assert r2.status == 200
+            return wav, r2.read()
+        finally:
+            srv.shutdown()
+
+    svc_art = VocoderService(aparams, TACFG, frame_bucket=2,
+                             artifact=artifact, name="art")
+    with_art = run(svc_art)
+    assert list(svc_art._gen_cache) == [1.0]     # the off-bucket request
+    live = run(VocoderService(aparams, TACFG, frame_bucket=2, name="live"))
+    assert with_art == live
+    h = svc_art.healthz()
+    assert h["artifact_buckets"] == [(1, frames)]
+    assert h["artifact_streams"] == []
+
+
+def test_artifact_mismatch_rejected_at_startup(aparams, tmp_path_factory):
+    """An artifact exported from another architecture, or for another
+    device type, fails at service construction, not per request."""
+    import dataclasses
+    from msnv_tpu_torch.export import load_artifact, save_artifact
+    path = str(tmp_path_factory.mktemp("art2") / "m.msnvt")
+    save_artifact(path, TACFG, [(1, 1)], params=aparams, use_kernel=True)
+    art = load_artifact(path)
+
+    other = dataclasses.replace(TACFG, ulaw=not TACFG.ulaw)
+    with pytest.raises(ValueError, match="mismatch on \\['ulaw'\\]"):
+        VocoderService(aparams, other, artifact=art)
+
+    art.manifest["platforms"] = ["cuda"]
+    with pytest.raises(ValueError, match="platforms"):
+        VocoderService(aparams, TACFG, artifact=art)
+
+    # engine-choice config fields are numerics-equivalent and not part of
+    # the programs: they must not fail validation
+    art.manifest["platforms"] = ["cpu"]
+    art.manifest["model"]["gru_impl"] = "pallas"
+    art.manifest["model"]["mlp_grad_impl"] = "direct"
+    VocoderService(aparams, TACFG, artifact=art)   # no raise
+
+
+def test_artifact_backed_stream(aparams, tmp_path_factory):
+    """A service holding stream buckets serves /stream from the programs,
+    byte-identical PCM to the live service, and never builds a live
+    streaming callable."""
+    from msnv_tpu_torch.export import load_artifact, save_artifact
+    path = str(tmp_path_factory.mktemp("sart") / "s.msnvt")
+    # both the server's frames_per_push (2) and the 1-frame tail bucket
+    save_artifact(path, TACFG, [], params=aparams,
+                  stream_buckets=[(1, 1), (1, 2)])
+    artifact = load_artifact(path)
+
+    def run(service):
+        srv = _serve(service)
+        try:
+            # 5 frames = two 2-pushes + a 1-frame tail
+            r = _post(srv.server_address, "/stream",
+                      {"cond": _acond(5, seed=8), "spk": 1, "seed": 4})
+            assert r.status == 200
+            return r.read()
+        finally:
+            srv.shutdown()
+
+    svc_art = VocoderService(aparams, TACFG, frames_per_push=2,
+                             artifact=artifact, name="art")
+    pcm_art = run(svc_art)
+    assert svc_art._stream_cache == {}, (
+        "an artifact-backed /stream must not build live callables")
+    svc_live = VocoderService(aparams, TACFG, frames_per_push=2, name="live")
+    pcm_live = run(svc_live)
+    assert svc_live._stream_cache != {}
+    assert pcm_art == pcm_live
+    assert len(pcm_art) == 5 * ACFG.lookback * 2   # PCM16
+
+
+def test_cli_serves_an_artifact_and_refuses_a_mismatched_one(params,
+                                                             tmp_path):
+    """`--artifact` loads an msnv-export-torch artifact behind the CLI
+    (/healthz lists its buckets); one of another model fails at startup."""
+    from msnv_tpu_torch.export import save_artifact
+    from msnv_tpu_torch.serving.cli import main
+    _, path = _jax_checkpoint(params, tmp_path)
+    art = str(tmp_path / "a.msnvt")
+    save_artifact(art, TCFG, [(1, 2)], params=params[1], use_kernel=True)
+    _, h = _cli_healthz(path, "--artifact", art)
+    assert h["artifact_buckets"] == [[1, 2]]
+    assert h["artifact_streams"] == []
+    other = str(tmp_path / "other.msnvt")
+    save_artifact(other, TACFG, [(1, 1)], params=both_params(ACFG)[1],
+                  use_kernel=True)
+    with pytest.raises(ValueError, match="mismatch"):
+        main(["--model", path, "--device", "cpu", "--artifact", other])
