@@ -138,22 +138,70 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 the live generation of the artifact's engine, a mismatched
                 artifact refused at startup. Every window of the artifact's
                 runs through the resident kernel
+ 11. mesh    — training and generation over a device mesh
+                (torch.distributed, one process per rank), full width:
+                a. one process, an NCCL group of world 1: the (1, 1) mesh's
+                   train step against no mesh, three bf16 steps at B 128,
+                   losses and params bit-equal; sharded generation at B 128
+                   x 16 frames bit-equal to generate_fn with the folded
+                   generator;
+                b. two ranks spawned on the one card over gloo (NCCL takes
+                   one rank a GPU; gloo moves CUDA tensors through the
+                   host), meshes (2, 1) and (1, 2): two float32 steps (TF32
+                   off, gru_impl="pallas") whose losses, and the first
+                   step's reduced gradient (read where Adam reads it),
+                   rank 0 holds against one process's unsharded steps on
+                   the same B 128 batch, to 1e-4 of the largest reference
+                   value (phase 5's float32 bar; the second step's
+                   gradient is reported, and the params after Adam are not
+                   compared: Adam turns a last-bit difference of a
+                   near-zero gradient into a whole step, and the second
+                   gradient is taken at params moved so); then three bf16
+                   steps,
+                   the params (gathered) bit-equal on both ranks after
+                   each, 4 forward and 4 backward persistent GRU sweeps a
+                   step a rank, ms a step a rank (two ranks sharing one
+                   card: never a speed-up);
+                c. the same ranks: sharded generation (B 128 x 16 frames)
+                   and 8 sharded streaming pushes at B 2, each rank's shard
+                   equal to a local run on its lanes with the folded
+                   generator, every window resident;
+                d. one float32 GAN step (`samplernn_gan`, B 64, a
+                   512-channel discriminator, past the lambda ramp) over
+                   (2, 1) against one process's: metrics to 1e-4 of the
+                   largest reference value; both reduced gradient trees
+                   against the unsharded step in float64, within 3 times
+                   one process's float32 error (phase 6's criterion:
+                   float32 alone moves this step's gradient by about
+                   1.5e-4 of its largest value, scripts/
+                   port_mesh_grad_check.py), the direct difference
+                   reported;
+                e. cli.train on both ranks (dim 128, float32, B 128, phase
+                   7's corpus, built by rank 0 behind the barrier) to two
+                   epochs, then resumed to three: rank 0 writes each
+                   checkpoint once, rank 1 none, both resume from the same
+                   file, the losses within 1e-3 of one process's on the
+                   first five and 5e-2 on all.
+                Each rank's K1 / K2 launches come back to the parent; a rank
+                that fails or hangs (deadline MESH_TIMEOUT) fails the phase
 Then one JSON line of kernel numbers, the card's name and power limit, and
 last the {"ok": true, "device": ...} line. The kernels' `launches` add up
 the counts of every path that drives them: K1 the serving path (phase 4),
 the generate CLI (phase 7), the multiplexer (phase 8), the variants'
 generation, streaming and generate CLI (phase 9) and the artifact's
-generation, pushes and service (phase 10), K2 the train steps
-(phase 6), the training loop (phase 7) and the variants' train steps and
-train CLI (phase 9), each count set to 0 just before its path and read
-just after.
+generation, pushes and service (phase 10) and sharded generation and
+streaming (phase 11), K2 the train steps (phase 6), the training loop
+(phase 7), the variants' train steps and train CLI (phase 9) and the
+sharded steps and cli.train of every rank (phase 11), each count set to 0
+just before its path and read just after.
 
 `--rehearse-cpu` runs the same phases on the CPU at dim 32 with the plain
 versions (no build, no timing on the card; phase 7 at B 4 on a small
 corpus; phase 8 with 4 and 8 lanes; phase 9 at B 4, seq_len 320 and an
-8-channel discriminator; phase 10 at B 2) and ends without the ok line.
-`--phases=5,6`, `--phases=7`, `--phases=8`, `--phases=9` or `--phases=10`
-runs only the named phases (and then prints no result line).
+8-channel discriminator; phase 10 at B 2; phase 11 with gloo CPU ranks at
+B 4) and ends without the ok line. `--phases=5,6`, `--phases=7`,
+`--phases=8`, `--phases=9`, `--phases=10` or `--phases=11` runs only the
+named phases (and then prints no result line).
 """
 
 from __future__ import annotations
@@ -2566,6 +2614,658 @@ def phase_export(ckpt, cfg, dev, lanes, frames, K, pushes):
 
 
 # --------------------------------------------------------------------------
+# phase 11: training and generation over a device mesh (torch.distributed)
+# --------------------------------------------------------------------------
+
+MESH_TIMEOUT = 900          # s: a rank that has not finished fails the phase
+MESH_REL_TOL = 1e-4         # of the largest reference value (phase 5's bar)
+
+
+class GradTap:
+    """An optimizer that records (a clone of) the gradient tree each update
+    receives, then makes the update: the sharded step's reduced gradient,
+    read where Adam reads it."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.grads = []
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, grads, opt_state, params):
+        from msnv_tpu_torch.tree import tree_map
+        self.grads.append(tree_map(lambda g: g.detach().clone(), grads))
+        return self.inner.update(grads, opt_state, params)
+
+
+def _tree_rel_err(got, want):
+    """(max |got - want| over every leaf over max |want| over every leaf,
+    the three leaves of the largest |got - want|: (key, max |got - want|,
+    max |want| of the leaf))."""
+    from msnv_tpu_torch.tree import keystr, leaves_with_paths, tree_leaves
+    rows = sorted(((keystr(path), float((g.float() - w.float()).abs().max()),
+                    float(w.abs().max()))
+                   for (path, g), w in zip(leaves_with_paths(got),
+                                           tree_leaves(want))),
+                  key=lambda r: -r[1])
+    top = max(r[2] for r in rows)
+    return rows[0][1] / max(top, 1e-30), rows[:3]
+
+
+def _losses_rel_err(got, want):
+    return max(abs(a - b) for a, b in zip(got, want)) / max(
+        max(abs(b) for b in want), 1e-30)
+
+
+def _params_digest(params) -> bytes:
+    """sha256 over every leaf's bytes, in tree order."""
+    import hashlib
+
+    from msnv_tpu_torch.tree import tree_leaves
+    h = hashlib.sha256()
+    for x in tree_leaves(params):
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.digest()
+
+
+def _same_on_every_rank(digest: bytes) -> bool:
+    """All ranks' digests equal (an all_gather over the world)."""
+    import torch
+    import torch.distributed as dist
+    mine = torch.frombuffer(bytearray(digest), dtype=torch.uint8)
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    return all(torch.equal(every[0], d) for d in every)
+
+
+def _mesh_world1(exp, dev, batch, seq_len, frames, work):
+    """11a: one process, a process group of world 1 (NCCL on the card),
+    the (1, 1) mesh against no mesh: three bf16 train steps bit-equal, and
+    sharded generation bit-equal to generate_fn with the folded
+    generator."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from msnv_tpu_torch.models.generate import generate_fn
+    from msnv_tpu_torch.models.samplernn import init_params, init_tier_state
+    from msnv_tpu_torch.parallel.generate import sharded_generate_fn
+    from msnv_tpu_torch.parallel.mesh import make_mesh
+    from msnv_tpu_torch.training.optim import make_optimizer
+    from msnv_tpu_torch.training.step import fold_generator, make_train_step
+    from msnv_tpu_torch.tree import tree_leaves
+    on_card = dev.type == "cuda"
+    backend = "nccl" if on_card else "gloo"
+    dist.init_process_group(
+        backend, store=dist.FileStore(os.path.join(work, "world1.store"), 1),
+        rank=0, world_size=1)
+    out = {"backend": backend}
+    try:
+        mesh = make_mesh(1, 1, device=dev)
+        cfg = dataclasses.replace(exp.model, gru_impl="pallas")
+        data, target, cond, spk = train_inputs(cfg, batch, seq_len, dev)
+        runs = {}
+        for name in ("none", "mesh"):
+            params = init_params(cfg, torch.Generator().manual_seed(0),
+                                 device=dev)
+            opt = make_optimizer(exp.train)
+            opt_state = opt.init(params)
+            state = init_tier_state(cfg, batch, device=dev)
+            step = make_train_step(cfg, opt, compute_dtype=torch.bfloat16,
+                                   mesh=mesh if name == "mesh" else None)
+            if name == "mesh":
+                step = step(params)
+                _reset_gru_counts()         # the mesh path starts here
+            losses = []
+            for i in range(3):
+                params, opt_state, state, loss = step(
+                    params, opt_state, state, data, i == 0, target, cond,
+                    spk)
+                losses.append(float(loss))
+            runs[name] = (losses, params)
+        counts = _check_sweeps(dev, cfg, 3, "world-1 mesh step")
+        equal = runs["none"][0] == runs["mesh"][0] and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(runs["none"][1]),
+                                              tree_leaves(runs["mesh"][1])))
+        log(f"[mesh] 11a world 1 ({backend}), (1, 1) mesh against no mesh, "
+            f"3 bf16 steps at B {batch}: losses {runs['mesh'][0]}; losses "
+            f"and params bit-equal: {equal}")
+        if not equal:
+            raise AssertionError("the (1, 1) mesh differs from no mesh")
+        out.update(losses=runs["mesh"][0], gru_fwd=counts[0],
+                   gru_bwd=counts[2])
+
+        params = runs["mesh"][1]
+        g = torch.Generator(device=dev).manual_seed(4)
+        gcond = torch.rand(batch, frames, cfg.effective_cond_dim,
+                           generator=g, device=dev)
+        gspk = torch.randint(0, cfg.spk_dim, (batch,), generator=g,
+                             device=dev)
+        _reset_window_counts()
+        _, seq = sharded_generate_fn(
+            params, cfg, mesh, compute_dtype=torch.bfloat16,
+            use_kernel=on_card)(gcond, gspk, 5)
+        windows = _window_counts()
+        _check_windows(dev, windows, frames * cfg.frame_sizes[-1],
+                       "world-1 sharded generation")
+        _, local = generate_fn(params, cfg, compute_dtype=torch.bfloat16,
+                               use_kernel=on_card)(
+            gcond, gspk, fold_generator(dev, 5, 0))
+        if not torch.equal(seq, local):
+            raise AssertionError("world-1 sharded generation differs from "
+                                 "generate_fn with the folded generator")
+        log(f"[mesh] 11a sharded generation B {batch} x {frames} frames "
+            f"equal to generate_fn with the folded generator; windows "
+            f"{windows[0]}, resident {windows[1]}")
+        out["windows"] = windows[0]
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _rank_steps(rank, cfg, train, dev, batch, seq_len, bf16_steps):
+    """11b on this rank: for meshes (2, 1) and (1, 2), two float32 steps
+    whose losses and reduced gradients rank 0 holds against one process's
+    unsharded steps; then bf16 steps with the replicas' params bit-equal
+    after each, the GRU sweeps counted and timed."""
+    import torch
+    from msnv_tpu_torch.models.samplernn import init_params, init_tier_state
+    from msnv_tpu_torch.parallel.mesh import (batch_sharding, gather_params,
+                                              make_mesh, param_sharding,
+                                              shard_params)
+    from msnv_tpu_torch.training.optim import make_optimizer
+    from msnv_tpu_torch.training.step import make_train_step
+    from msnv_tpu_torch.tree import tree_map
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    batch_in = train_inputs(cfg, batch, seq_len, dev)
+    init = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    fresh = lambda: tree_map(torch.clone, init)             # noqa: E731
+    ref = None
+    if rank == 0:
+        # one process's unsharded float32 steps (rank 1 waits at the first
+        # collective of the sharded ones)
+        tap = GradTap(make_optimizer(train))
+        params = fresh()
+        opt_state = tap.init(params)
+        state = init_tier_state(cfg, batch, device=dev)
+        step = make_train_step(cfg, tap)
+        losses = []
+        for i in range(2):
+            params, opt_state, state, loss = step(
+                params, opt_state, state, batch_in[0], i == 0, *batch_in[1:])
+            losses.append(float(loss))
+        ref = (losses, tap.grads)
+        del params, opt_state
+    out = {}
+    for shape in ((2, 1), (1, 2)):
+        mesh = make_mesh(*shape, device=dev)
+        lanes = batch_sharding(mesh).local
+        data, target, cond, spk = (lanes(x) for x in batch_in)
+        full = fresh()
+        specs = param_sharding(mesh, full)
+        tap = GradTap(make_optimizer(train))
+        step = make_train_step(cfg, tap, mesh=mesh)(full)
+        params = shard_params(mesh, full, specs)
+        del full
+        opt_state = tap.init(params)
+        state = init_tier_state(cfg, data.shape[0], device=dev)
+        losses = []
+        for i in range(2):
+            params, opt_state, state, loss = step(
+                params, opt_state, state, data, i == 0, target, cond, spk)
+            losses.append(float(loss))
+        grads = [gather_params(mesh, g, specs) for g in tap.grads]
+        key = f"{shape[0]}x{shape[1]}"
+        row = {"f32_losses": losses}
+        if rank == 0:
+            row["f32_loss_rel_err"] = _losses_rel_err(losses, ref[0])
+            errs = [_tree_rel_err(g, r) for g, r in zip(grads, ref[1])]
+            row["f32_grad_rel_err"] = [e[0] for e in errs]
+            row["f32_grad_worst_leaves"] = [e[1] for e in errs]
+        del grads, tap, params, opt_state
+        row["w_hh_shard_dim"] = specs["tiers"][0]["gru"][0]["w_hh"]
+
+        # bf16: the replicas' params after each step, the sweeps, the time
+        full = fresh()
+        specs = param_sharding(mesh, full)
+        opt = make_optimizer(train)
+        step = make_train_step(cfg, opt, mesh=mesh,
+                               compute_dtype=torch.bfloat16)(full)
+        params = shard_params(mesh, full, specs)
+        del full
+        opt_state = opt.init(params)
+        state = init_tier_state(cfg, data.shape[0], device=dev)
+        _reset_gru_counts()
+        walls, same, bf16_losses = [], [], []
+        for i in range(bf16_steps):
+            sync()
+            t0 = time.perf_counter()
+            params, opt_state, state, loss = step(
+                params, opt_state, state, data, i == 0, target, cond, spk)
+            bf16_losses.append(float(loss))
+            sync()
+            walls.append(time.perf_counter() - t0)
+            same.append(_same_on_every_rank(_params_digest(
+                gather_params(mesh, params, specs))))
+        counts = _check_sweeps(dev, cfg, bf16_steps, f"mesh {key} bf16 step")
+        row.update(bf16_losses=bf16_losses, replicas_bit_equal=same,
+                   ms_per_step=[w * 1e3 for w in walls],
+                   gru_fwd=counts[0], gru_bwd=counts[2],
+                   gru_fwd_persistent=counts[1],
+                   gru_bwd_persistent=counts[3])
+        out[key] = row
+        del params, opt_state, step
+    return out
+
+
+def _rank_generation(rank, cfg, dev, batch, frames, stream_batch, pushes):
+    """11c on this rank: sharded generation and streaming over (2, 1), each
+    rank's shard against a local run on its lanes with the folded
+    generator, every window counted."""
+    import torch
+    from msnv_tpu_torch.models.generate import generate_fn, streaming_fn
+    from msnv_tpu_torch.models.samplernn import init_params
+    from msnv_tpu_torch.parallel.generate import (shard_generator,
+                                                  sharded_generate_fn,
+                                                  sharded_streaming_fn)
+    from msnv_tpu_torch.parallel.mesh import batch_sharding, make_mesh
+    on_card = dev.type == "cuda"
+    mesh = make_mesh(2, 1, device=dev)
+    lanes = batch_sharding(mesh).local
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    kw = dict(compute_dtype=torch.bfloat16, use_kernel=on_card)
+    g = torch.Generator(device=dev).manual_seed(6)   # the same on both ranks
+    C = cfg.effective_cond_dim
+    cond = torch.rand(batch, frames, C, generator=g, device=dev)
+    spk = torch.randint(0, cfg.spk_dim, (batch,), generator=g, device=dev)
+    _reset_window_counts()
+    _, seq = sharded_generate_fn(params, cfg, mesh, **kw)(cond, spk, 21)
+    gen_windows = _window_counts()
+    _check_windows(dev, gen_windows, frames * cfg.frame_sizes[-1],
+                   "sharded generation")
+    _, local = generate_fn(params, cfg, **kw)(
+        lanes(cond), lanes(spk), shard_generator(mesh, 21))
+    gen_equal = bool(torch.equal(lanes(seq), local))
+    sspk = torch.arange(stream_batch, device=dev) % cfg.spk_dim
+    sconds = torch.rand(pushes, stream_batch, C, generator=g, device=dev)
+    init_state, push = sharded_streaming_fn(params, cfg, mesh, **kw)
+    _reset_window_counts()
+    carry = init_state(sspk, 22)
+    got = []
+    for c in sconds:
+        carry, _, samples = push(carry, c)
+        got.append(samples)
+    stream_windows = _window_counts()
+    _check_windows(dev, stream_windows, pushes * cfg.frame_sizes[-1],
+                   "sharded streaming")
+    init_l, push_l = streaming_fn(params, cfg, **kw)
+    lc = init_l(stream_batch // 2, lanes(sspk), shard_generator(mesh, 22))
+    ref = []
+    for c in sconds:
+        lc, _, s = push_l(lc, lanes(c))
+        ref.append(s)
+    stream_equal = bool(torch.equal(lanes(torch.cat(got, 1)),
+                                    torch.cat(ref, 1)))
+    return {"generate_equal": gen_equal, "generate_windows": gen_windows,
+            "stream_equal": stream_equal, "stream_windows": stream_windows,
+            "seq_shape": list(seq.shape)}
+
+
+def _rank_gan(rank, exp, dev, batch, seq_len, channels):
+    """11d on this rank: one float32 GAN step over (2, 1) (past the lambda
+    ramp), against one process's unsharded step on rank 0: the metrics,
+    and both reduced gradient trees beside the unsharded float32 ones, each
+    against the unsharded step in float64 (the plain GRU loop)."""
+    import dataclasses
+
+    import torch
+    from msnv_tpu_torch.models.discriminator import discriminator_init
+    from msnv_tpu_torch.models.samplernn import init_params, init_tier_state
+    from msnv_tpu_torch.parallel.mesh import batch_sharding, make_mesh
+    from msnv_tpu_torch.training.gan import make_gan_train_step
+    from msnv_tpu_torch.training.optim import make_optimizer
+    cfg = _variant_cfg(exp.model)
+    train = dataclasses.replace(exp.train, disc_channels=channels)
+    step_idx = float(train.lambda_weight[2])
+    batch_in = train_inputs(cfg, batch, seq_len, dev, seed=9)
+
+    def run(mesh, cfg=cfg, dtype=None):
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device=dev)
+        disc = discriminator_init(torch.Generator().manual_seed(1),
+                                  cfg.spk_dim, channels, device=dev)
+        taps = GradTap(make_optimizer(train)), GradTap(make_optimizer(train))
+        step = make_gan_train_step(cfg, train, *taps, mesh=mesh,
+                                   compute_dtype=dtype)
+        data, target, cond, spk = batch_in
+        if mesh is not None:
+            step = step(params)
+            lanes = batch_sharding(mesh).local
+            data, target, cond, spk = (lanes(x) for x in batch_in)
+        state = init_tier_state(cfg, data.shape[0], device=dev)
+        res = step(params, disc, taps[0].init(params), taps[1].init(disc),
+                   state, step_idx, data, True, target, cond, spk)
+        metrics = [float(res[5][n]) for n in ("loss", "disc_loss",
+                                              "lambda")]
+        return metrics, taps[0].grads[0], taps[1].grads[0]
+
+    ref = ref64 = None
+    if rank == 0:
+        ref = run(None)
+        ref64 = run(None, dataclasses.replace(cfg, gru_impl="xla"),
+                    torch.float64)
+    _reset_gru_counts()
+    got = run(make_mesh(2, 1, device=dev))
+    counts = _gru_counts()        # float32 products: the per-step kernels
+    want = cfg.n_tiers * cfg.n_rnn
+    if dev.type == "cuda" and (counts[0], counts[2]) != (want, want):
+        raise AssertionError(f"sharded GAN step: GRU sweeps {counts}")
+    out = {"metrics": got[0], "gru_fwd": counts[0], "gru_bwd": counts[2]}
+    if rank == 0:
+        out.update(ref_metrics=ref[0],
+                   metrics_rel_err=_losses_rel_err(got[0], ref[0]))
+        for i, tree in ((1, "vocoder"), (2, "disc")):
+            out[f"{tree}_vs_one"] = _tree_rel_err(got[i], ref[i])
+            out[f"{tree}_vs_f64"] = _tree_rel_err(got[i], ref64[i])[0]
+            out[f"{tree}_one_vs_f64"] = _tree_rel_err(ref[i], ref64[i])[0]
+    return out
+
+
+def _mesh_cli_args(data, dim, batch, seq_len, results, epochs, dev):
+    return ["--exp", "samplernn", "--frame_sizes", "20", "4",
+            "--n_rnn", "2", "--dim", str(dim), "--look_ahead", "true",
+            "--seq_len", str(seq_len), "--batch_size", str(batch),
+            "--learning_rate", "1e-4", "--datasets_path", data,
+            "--device", dev.type, "--results_path", results,
+            "--epoch_limit", str(epochs)]
+
+
+def _rank_cli(rank, dev, data, args_two, args_three):
+    """11e on this rank: cli.train for two epochs, then resumed to three;
+    this rank's checkpoint writes and loads, its stats.json after the
+    first run and the GRU sweeps of both runs."""
+    from msnv_tpu_torch.cli import train as cli_train
+    from msnv_tpu_torch.training import checkpoint as ckpt
+    saves, loads = [], []
+    save, load = ckpt.save_checkpoint, ckpt.load_checkpoint
+
+    def counted_save(path, *a, **kw):
+        saves.append(os.path.basename(path))
+        return save(path, *a, **kw)
+
+    def counted_load(path, *a, **kw):
+        loads.append(os.path.basename(path))
+        return load(path, *a, **kw)
+
+    ckpt.save_checkpoint, ckpt.load_checkpoint = counted_save, counted_load
+    _reset_gru_counts()
+    try:
+        run_cli(cli_train.main, args_two)
+        first, _ = _stats(args_two[args_two.index("--results_path") + 1]) \
+            if rank == 0 else (None, None)
+        text = run_cli(cli_train.main, args_three)
+    finally:
+        ckpt.save_checkpoint, ckpt.load_checkpoint = save, load
+    counts = _gru_counts()
+    return {"saves": saves, "loads": loads, "first_stats": first,
+            "resumed_line": "resumed from" in text,
+            "gru_fwd": counts[0], "gru_bwd": counts[2]}
+
+
+def _mesh_rank(rank, world, store, work, spec):
+    """One rank of 11b-e: a gloo process group over the card (or the CPU
+    in the rehearsal); its results pickled into `work`."""
+    import pickle
+    import traceback
+    from datetime import timedelta
+    try:
+        import torch
+        import torch.distributed as dist
+        torch.set_num_threads(2)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if spec["cuda"]:
+            torch.cuda.set_device(0)
+            dev = torch.device("cuda", 0)
+        else:
+            dev = torch.device("cpu")
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store, world), rank=rank,
+            world_size=world, timeout=timedelta(seconds=MESH_TIMEOUT))
+        from msnv_tpu_torch.config import preset
+        exp = preset("samplernn")
+        gan_exp = preset("samplernn_gan")
+        if spec["dim"] != 1024:
+            exp = _narrow(exp, spec["dim"])
+            gan_exp = _narrow(gan_exp, spec["dim"])
+        cfg = _variant_cfg(exp.model)
+        out = {"steps": _rank_steps(rank, cfg, exp.train, dev, spec["batch"],
+                                    spec["seq_len"], 3),
+               "generation": _rank_generation(rank, cfg, dev, spec["batch"],
+                                              16, 2, 8),
+               "gan": _rank_gan(rank, gan_exp, dev, *spec["gan"]),
+               "cli": _rank_cli(rank, dev, spec["data"], *spec["cli"])}
+        dist.destroy_process_group()
+        with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    except BaseException:
+        with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _narrow(exp, dim):
+    import dataclasses
+    return dataclasses.replace(exp, model=dataclasses.replace(exp.model,
+                                                              dim=dim))
+
+
+def _spawn_ranks(world, work, spec):
+    """Start the ranks (spawn), wait for all with a deadline; a rank that
+    fails or hangs fails the phase, and no rank outlives it."""
+    import pickle
+
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    store = os.path.join(work, "ranks.store")
+    procs = [ctx.Process(target=_mesh_rank,
+                         args=(rank, world, store, work, spec))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_TIMEOUT
+    try:
+        while any(p.is_alive() for p in procs):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"mesh ranks still running after "
+                                     f"{MESH_TIMEOUT} s")
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    errors = []
+    for rank, p in enumerate(procs):
+        err = os.path.join(work, f"rank{rank}.err")
+        if os.path.exists(err):
+            with open(err) as f:
+                errors.append(f"rank {rank}:\n{f.read()}")
+        elif p.exitcode != 0:
+            errors.append(f"rank {rank}: exit code {p.exitcode}")
+    if errors:
+        raise AssertionError("a mesh rank failed:\n" + "\n".join(errors))
+    out = []
+    for rank in range(world):
+        with open(os.path.join(work, f"rank{rank}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _check_ranks(dev, ranks, spec):
+    """The parent's checks of 11b-d on the ranks' results."""
+    r0 = ranks[0]
+    for key, row in r0["steps"].items():
+        log(f"[mesh] 11b mesh {key}: f32 losses {row['f32_losses']}, "
+            f"against one process: loss {row['f32_loss_rel_err']:.2e}, "
+            f"reduced gradients {[f'{e:.2e}' for e in row['f32_grad_rel_err']]}"
+            f" of the largest reference value; worst leaves "
+            f"{row['f32_grad_worst_leaves']}")
+        # the first step's gradient is taken at the same params; the
+        # second at params that Adam moved apart wherever a near-zero
+        # gradient's last bits differ (a whole step each): reported only
+        if not (row["f32_loss_rel_err"] <= MESH_REL_TOL
+                and row["f32_grad_rel_err"][0] <= MESH_REL_TOL):
+            raise AssertionError(f"mesh {key}: float32 steps off the "
+                                 f"unsharded ones: {row}")
+        want_dim = 0 if key == "1x2" else None
+        if row["w_hh_shard_dim"] != want_dim:
+            raise AssertionError(f"mesh {key}: w_hh shard dim "
+                                 f"{row['w_hh_shard_dim']}")
+        for r in ranks:
+            rr = r["steps"][key]
+            if not all(rr["replicas_bit_equal"]):
+                raise AssertionError(f"mesh {key}: replicas differ after "
+                                     f"the bf16 steps "
+                                     f"{rr['replicas_bit_equal']}")
+            if rr["bf16_losses"] != row["bf16_losses"]:
+                raise AssertionError(f"mesh {key}: ranks report different "
+                                     f"losses")
+        ms = [statistics.median(r["steps"][key]["ms_per_step"][1:])
+              for r in ranks]
+        log(f"[mesh] 11b mesh {key} bf16, B {spec['batch']}: losses "
+            f"{row['bf16_losses']}, replicas bit-equal after every step; "
+            f"ms per step per rank {[round(m, 1) for m in ms]} (two ranks "
+            f"sharing one card, gloo through the host: not a speed-up); GRU "
+            f"sweeps per rank fwd {row['gru_fwd']} (persistent "
+            f"{row['gru_fwd_persistent']}), bwd {row['gru_bwd']} "
+            f"(persistent {row['gru_bwd_persistent']})")
+        row["ms_per_step_median_by_rank"] = ms
+    for r in ranks:
+        g = r["generation"]
+        if not (g["generate_equal"] and g["stream_equal"]):
+            raise AssertionError(f"a shard differs from its local run: {g}")
+    g = r0["generation"]
+    log(f"[mesh] 11c sharded generation {g['seq_shape']} and 8 streaming "
+        f"pushes at B 2 equal per shard to local runs with the folded "
+        f"generator; windows per rank (launches, resident, tiled): "
+        f"generation {g['generate_windows']}, streaming "
+        f"{g['stream_windows']}")
+    gan = r0["gan"]
+    log(f"[mesh] 11d GAN step (2, 1) f32, B {spec['gan'][0]}: metrics "
+        f"{gan['metrics']} against one process's {gan['ref_metrics']} "
+        f"({gan['metrics_rel_err']:.2e}); reduced gradients against one "
+        f"process's: vocoder {gan['vocoder_vs_one'][0]:.2e}, discriminator "
+        f"{gan['disc_vs_one'][0]:.2e} of the largest reference value "
+        f"(worst leaves {gan['vocoder_vs_one'][1]} / "
+        f"{gan['disc_vs_one'][1]}); against float64: sharded "
+        f"{gan['vocoder_vs_f64']:.2e} / {gan['disc_vs_f64']:.2e}, one "
+        f"process {gan['vocoder_one_vs_f64']:.2e} / "
+        f"{gan['disc_one_vs_f64']:.2e}")
+    # float32 alone moves this step's gradient by about 1.5e-4 of its
+    # largest value from float64 (scripts/port_mesh_grad_check.py), more
+    # than the 1e-4 bar, in one process and in two alike: the sharded
+    # gradient is held to float64 as one process's is, within phase 6's
+    # factor of 3
+    if not (gan["metrics_rel_err"] <= MESH_REL_TOL and all(
+            gan[f"{t}_vs_f64"] <= 3 * gan[f"{t}_one_vs_f64"] + 1e-7
+            for t in ("vocoder", "disc"))):
+        raise AssertionError(f"sharded GAN step off the unsharded one: {gan}")
+
+
+def _check_cli(ranks, one_stats, resumed_stats):
+    """11e: rank 0 wrote each checkpoint once, rank 1 none; both ranks
+    resumed from the same file; the losses match the one-process run."""
+    c0, c1 = ranks[0]["cli"], ranks[1]["cli"]
+    if not (c0["saves"] and len(set(c0["saves"])) == len(c0["saves"])
+            and c1["saves"] == []):
+        raise AssertionError(f"checkpoint writes: rank 0 {c0['saves']}, "
+                             f"rank 1 {c1['saves']}")
+    if not (c0["loads"] == c1["loads"] and len(c0["loads"]) == 1
+            and c0["loads"][0].startswith("ep2-")):
+        raise AssertionError(f"resumed from: rank 0 {c0['loads']}, rank 1 "
+                             f"{c1['loads']}")
+    if not c0["resumed_line"]:
+        raise AssertionError("no 'resumed from' in the resumed run")
+    two = c0["first_stats"]["training_loss"] + resumed_stats["training_loss"]
+    one = one_stats["training_loss"]
+    if len(two) != len(one):
+        raise AssertionError(f"{len(two)} losses against {len(one)}")
+    first5 = max(abs(a - b) for a, b in zip(two[:5], one[:5]))
+    every = max(abs(a - b) for a, b in zip(two, one))
+    log(f"[mesh] 11e cli.train, two ranks, 2 epochs + 1 resumed against one "
+        f"process: {len(two)} losses, max |diff| first five {first5:.2e}, "
+        f"all {every:.2e}; rank 0 wrote {c0['saves']}, rank 1 none; both "
+        f"resumed from {c0['loads'][0]}")
+    if not (first5 <= 1e-3 and every <= 5e-2):
+        raise AssertionError("two-rank cli.train losses off the "
+                             "one-process run")
+    return {"saves": c0["saves"], "resumed_from": c0["loads"][0],
+            "loss_diff_first5": first5, "loss_diff_all": every,
+            "steps": len(two)}
+
+
+def phase_mesh(exp, dev, dim, batch, seq_len, frames, gan, cli):
+    import shutil
+    import tempfile
+
+    import torch
+    from msnv_tpu_torch.cli import train as cli_train
+    from msnv_tpu_torch.data.synthetic import make_synthetic_corpus
+    build = os.path.join(REPO, "msnv_tpu_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="mesh-", dir=build)
+    out = {}
+    try:
+        out["world1"] = _mesh_world1(exp, dev, batch, seq_len, frames, work)
+        data = os.path.join(work, "datasets")
+        cli_dim, cli_batch, utts, utt_frames = cli
+        make_synthetic_corpus(data, n_speakers=6, utts_per_speaker=utts,
+                              frames_per_utt=utt_frames, cond_len=80,
+                              partitions=("train", "validation"),
+                              interleave=True)
+        args = lambda results, epochs: _mesh_cli_args(  # noqa: E731
+            data, cli_dim, cli_batch, seq_len, os.path.join(work, results),
+            epochs, dev)
+        spec = {"cuda": dev.type == "cuda", "dim": dim, "batch": batch,
+                "seq_len": seq_len, "gan": gan, "data": data,
+                "cli": (args("ranks", 2), args("ranks", 3))}
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()   # the ranks share the card
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(2, work, spec)
+        out["ranks_wall_s"] = time.perf_counter() - t0
+        _check_ranks(dev, ranks, spec)
+        resumed, _ = _stats(os.path.join(work, "ranks"))
+        run_cli(cli_train.main, args("one", 3))
+        one, _ = _stats(os.path.join(work, "one"))
+        out["cli"] = _check_cli(ranks, one, resumed)
+        out["steps"] = ranks[0]["steps"]
+        out["generation"] = ranks[0]["generation"]
+        out["gan"] = ranks[0]["gan"]
+        # K1 / K2 launches of the mesh paths, both ranks (the local runs
+        # they were held against are not counted)
+        out["window_launches"] = out["world1"]["windows"] + sum(
+            r["generation"]["generate_windows"][0]
+            + r["generation"]["stream_windows"][0] for r in ranks)
+        for d in ("fwd", "bwd"):
+            out[f"gru_{d}_launches"] = out["world1"][f"gru_{d}"] + sum(
+                sum(row[f"gru_{d}"] for row in r["steps"].values())
+                + r["gan"][f"gru_{d}"] + r["cli"][f"gru_{d}"] for r in ranks)
+        out["card"] = card_line() if dev.type == "cuda" else "cpu"
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    RESULTS["mesh"] = out
+    log(f"[mesh] launches on the mesh paths: windows "
+        f"{out['window_launches']}, GRU fwd {out['gru_fwd_launches']}, bwd "
+        f"{out['gru_bwd_launches']}; ranks' wall {out['ranks_wall_s']:.1f} s")
+
+
+# --------------------------------------------------------------------------
 
 def card_line():
     try:
@@ -2618,22 +3318,24 @@ def kernel_entries():
                           "msnv_tpu/pallas/sample_kernel.py:183"],
         # the serving path (phase 4), the generate CLI (phase 7), the
         # multiplexer (phase 8; every one of its windows resident), the
-        # variants (phase 9) and the serving artifact (phase 10)
+        # variants (phase 9), the serving artifact (phase 10) and sharded
+        # generation and streaming on every rank (phase 11)
         "launches": RESULTS["launches"] + RESULTS["loop"]["window_launches"]
         + RESULTS["mux"]["launches"] + RESULTS["variants"]["window_launches"]
-        + RESULTS["export"]["launches"],
-        # phase 9's and phase 10's windows are all resident (checked there)
+        + RESULTS["export"]["launches"] + RESULTS["mesh"]["window_launches"],
+        # phase 9's, 10's and 11's windows are all resident (checked there)
         "resident_launches": RESULTS["resident_launches"]
         + RESULTS["loop"]["window_resident"] + RESULTS["mux"]["launches"]
         + RESULTS["variants"]["window_launches"]
-        + RESULTS["export"]["launches"],
+        + RESULTS["export"]["launches"] + RESULTS["mesh"]["window_launches"],
         "launches_by_path": {"serve": RESULTS["launches"],
                              "generate_cli": RESULTS["loop"][
                                  "window_launches"],
                              "mux": RESULTS["mux"]["launches"],
                              "variants": RESULTS["variants"][
                                  "window_launches"],
-                             "export": RESULTS["export"]["launches"]},
+                             "export": RESULTS["export"]["launches"],
+                             "mesh": RESULTS["mesh"]["window_launches"]},
         # float32 (tiled kernel): samples equal to the plain version's;
         # bf16 (resident kernel): share of samples that differ on
         # sharpened logits, tolerance 1 %
@@ -2663,15 +3365,18 @@ def kernel_entries():
         "source": "msnv_tpu_torch/csrc/gru_layer.cu",
         "replaces": f"msnv_tpu/pallas/gru_kernel.py:{line}",
         # the train steps (phase 6), the training loop (phase 7: train
-        # steps, and for the forward the float32 validation sweeps) and the
-        # variants' train steps and train CLI (phase 9)
+        # steps, and for the forward the float32 validation sweeps), the
+        # variants' train steps and train CLI (phase 9) and the sharded
+        # steps and cli.train on every rank (phase 11)
         "launches": RESULTS["train"][f"gru_{d}_launches"]
         + RESULTS["loop"][f"gru_{d}_launches"]
-        + RESULTS["variants"][f"gru_{d}_launches"],
+        + RESULTS["variants"][f"gru_{d}_launches"]
+        + RESULTS["mesh"][f"gru_{d}_launches"],
         "launches_by_path": {"train_step": RESULTS["train"][
             f"gru_{d}_launches"], "train_loop": RESULTS["loop"][
                 f"gru_{d}_launches"], "variants": RESULTS["variants"][
-                    f"gru_{d}_launches"]},
+                    f"gru_{d}_launches"],
+            "mesh": RESULTS["mesh"][f"gru_{d}_launches"]},
         # against the plain version, in the working type of the main path
         # (bf16 products); largest |kernel - plain| over max(1, |plain|)
         "max_abs_err": RESULTS["gru_err"][f"{d}_bf16"],
@@ -2701,7 +3406,7 @@ def main(argv):
     if argv[:1] == ["--mux-clients"]:
         return mux_clients(json.loads(argv[1]))
     rehearse = "--rehearse-cpu" in argv
-    phases = set(range(1, 11))
+    phases = set(range(1, 12))
     for a in argv:
         if a.startswith("--phases="):
             phases = {int(x) for x in a.split("=", 1)[1].split(",")} | {1}
@@ -2767,10 +3472,16 @@ def main(argv):
           else (4, 4 * cfg.lookback, 2, 150))
     timed(10, "export", phase_export, ckpt, cfg, dev,
           128 if not rehearse else 2, 16, 4, 20 if not rehearse else 3)
+    timed(11, "mesh", phase_mesh, exp, dev, DIM, 128 if not rehearse else 4,
+          exp.train.seq_len if not rehearse else 2 * cfg.lookback,
+          16 if not rehearse else 2,
+          (64, exp.train.seq_len, 512) if not rehearse
+          else (4, 4 * cfg.lookback, 8),
+          (128, 128, 25, 1000) if not rehearse else (DIM, 2, 2, 50))
     if rehearse:
         log("rehearsal on the CPU passed (no card: no result line)")
         return 1
-    if phases != set(range(1, 11)):
+    if phases != set(range(1, 12)):
         log(f"phases {sorted(phases)} passed (not all: no result line)")
         return 1
 
@@ -2782,6 +3493,7 @@ def main(argv):
                       "mux": RESULTS["mux"],
                       "variants": RESULTS["variants"],
                       "export": RESULTS["export"],
+                      "mesh": RESULTS["mesh"],
                       "build_s": RESULTS["build_s"]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,11 @@ layout mirrors the JAX package so each counterpart is easy to find:
   training/    — clipped Adam, the TBPTT train / eval steps and their
                  device-corpus blocks, the GAN variant's two-optimizer
                  step, the Trainer loop and its plugins, checkpoints in
-                 the JAX trainer's .npz format
+                 the JAX trainer's .npz format; each over a device mesh
+                 too (mesh=)
+  parallel/    — the ('data', 'model') mesh over torch.distributed (one
+                 process per GPU), sharding rules and collectives;
+                 sharded generation and streaming
   data/        — WAV I/O, the corpus build (the same npy cache), the
                  TBPTT chunk loader, synthetic corpora, log-mel features,
                  the native data library
@@ -43,7 +47,9 @@ the training loop with its corpus, loader, checkpoints and the
 train / evaluate / generate CLIs, the variants (the bottleneck and
 GAN heads, the speaker discriminator and the GAN trainer, QRNN tiers), the
 serving artifact (export and its service lanes), profiling and the host
-CLIs. Not yet: the orbax checkpoint backend and multi-device.
+CLIs, and training and generation over a device mesh (torch.distributed:
+`torchrun --nproc_per_node N -m msnv_tpu_torch.cli.train ...`). Not yet:
+serving over a mesh and the orbax checkpoint backend.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 CUDA device and no explicit CPU request they raise.

@@ -6,6 +6,7 @@ Usage:
       --datasets_path <dir> --dataset wav/ --cond_set cond/ \
       --seq_len 1040 --batch_size 128 --n_rnn 2 --look_ahead true \
       [--bf16 true] [--device cuda|cpu] [--gru_impl auto|xla|pallas] ...
+  torchrun --nproc_per_node N -m msnv_tpu_torch.cli.train ...   # N GPUs
 
 The same arguments as the JAX package's msnv-train. Builds the corpus
 (cached, in the same cache files), the model and the train step, registers
@@ -17,9 +18,18 @@ Results land in <results_path>/<experiment tag>/ with the reference's layout
 fused GRU-layer kernels on a CUDA device and as a plain loop on the CPU (the
 engine is in neither the tag nor the checkpoint). Every --variant trains:
 identity, bottleneck and gan (the two-optimizer step with the speaker
-discriminator, whose loss and lambda join the log and stats.json). Not
-ported, raising NotImplementedError: --multihost true and
---n_model_shards > 1 (ROADMAP queue 1.7), --ckpt_backend orbax (1.7).
+discriminator, whose loss and lambda join the log and stats.json).
+
+Many GPUs: one process per GPU (torch.distributed). Under a launcher whose
+environment says WORLD_SIZE > 1 (torchrun; `--multihost true` across
+hosts, which requires that environment) the CLI initializes the process
+group (NCCL on CUDA, gloo with --device cpu; a group the caller already
+made is used as it is), each rank on cuda:LOCAL_RANK, and trains over a
+('data', 'model') mesh of world / --n_model_shards by --n_model_shards
+(parallel/mesh.py) when --batch_size divides over 'data', as the JAX
+package does; otherwise every rank trains the whole batch. Only rank 0
+writes the log, stats.json, samples and checkpoints. Not ported, raising
+NotImplementedError: --ckpt_backend orbax (ROADMAP queue 1.7.5).
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ from msnv_tpu_torch.config import (DataConfig, ExperimentConfig, ModelConfig,
                                    TrainConfig, make_tag)
 from msnv_tpu_torch.data.corpus import CorpusConfig, build_corpus
 from msnv_tpu_torch.data.loader import ChunkLoader
-from msnv_tpu_torch.utils.logging import init_random_seed, tee_stdout
+from msnv_tpu_torch.utils.logging import init_random_seed, say, tee_stdout
 
 
 def parse_bool(arg: str) -> bool:
@@ -82,17 +92,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--keep_old_checkpoints", type=parse_bool, default=False)
     p.add_argument("--ckpt_backend", default="npz", choices=["npz", "orbax"],
                    help="npz: single-file checkpoints (the JAX "
-                        "trainer's format); orbax is not ported (raises)")
+                        "trainer's format), written by rank 0; orbax is "
+                        "not ported (raises)")
     p.add_argument("--loss_smoothing", type=float, default=0.99)
     p.add_argument("--seed", type=int, default=77977)
     p.add_argument("--scheduler", type=parse_bool, default=False)
     p.add_argument("--model", default=None,
                    help="warm-start checkpoint path")
     p.add_argument("--n_model_shards", type=int, default=1,
-                   help="tensor-parallel shards; above 1 is not ported "
-                        "(raises)")
+                   help="ranks over the mesh's 'model' axis: each stores a "
+                        "slice of the wide weights and their Adam moments "
+                        "(the world size must divide by it)")
     p.add_argument("--multihost", type=parse_bool, default=False,
-                   help="multi-host training; not ported (raises)")
+                   help="multi-host training: initialize torch.distributed "
+                        "from the launcher's environment (RANK, "
+                        "WORLD_SIZE, MASTER_ADDR, MASTER_PORT)")
     p.add_argument("--save_every_iterations", type=int, default=0,
                    help="mid-epoch checkpoint interval (0 = per epoch only)")
     p.add_argument("--ckpt_every", type=int, default=1,
@@ -158,17 +172,45 @@ def resolve_gru_impl(name: str, device) -> str:
 def check_ported(args) -> None:
     """Raise NotImplementedError for the flags whose paths the port does
     not have yet, naming the ROADMAP item."""
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost true: multi-host training is not ported (ROADMAP "
-            "queue 1.7)")
-    if args.n_model_shards > 1:
-        raise NotImplementedError(
-            "--n_model_shards > 1: the device mesh is not ported (ROADMAP "
-            "queue 1.7)")
     if args.ckpt_backend != "npz":
         raise NotImplementedError(
-            "--ckpt_backend orbax is not ported (ROADMAP queue 1.7)")
+            "--ckpt_backend orbax is not ported (ROADMAP queue 1.7.5)")
+
+
+def rank_device(name: str):
+    """This process's device: cuda:LOCAL_RANK under a launcher that sets
+    it (made the current device), else the named one."""
+    import torch
+
+    from msnv_tpu_torch.device import resolve_device
+    device = resolve_device(name)
+    if device.type == "cuda" and device.index is None \
+            and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+    return device
+
+
+_LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def init_distributed(multihost: bool, device) -> int:
+    """The world size. A process group the caller made is used as it is;
+    with --multihost true or a launcher's WORLD_SIZE above 1 one is made
+    here from the launcher's environment (NCCL on CUDA, gloo on the CPU);
+    otherwise there is one process."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        if not multihost and int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+            return 1
+        missing = [v for v in _LAUNCHER_ENV if v not in os.environ]
+        if missing:
+            raise ValueError(
+                f"multi-process training needs the launcher's environment "
+                f"(torchrun sets it): {', '.join(missing)} not set")
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo")
+    return dist.get_world_size()
 
 
 def config_from_args(args, spk_dim: int,
@@ -208,8 +250,8 @@ def config_from_args(args, spk_dim: int,
 def main(argv=None):
     import torch
 
-    from msnv_tpu_torch.device import resolve_device
     from msnv_tpu_torch.models.samplernn import init_params
+    from msnv_tpu_torch.parallel.mesh import make_mesh
     from msnv_tpu_torch.training.checkpoint import (CheckpointManager,
                                                     load_checkpoint)
     from msnv_tpu_torch.training.optim import make_optimizer
@@ -221,7 +263,11 @@ def main(argv=None):
 
     args = build_parser().parse_args(argv)
     check_ported(args)
-    device = resolve_device(args.device)
+    device = rank_device(args.device)
+    world = init_distributed(args.multihost, device)
+    if world % args.n_model_shards:
+        raise ValueError(f"--n_model_shards {args.n_model_shards} does not "
+                         f"divide the {world} processes")
     init_random_seed(args.seed)
 
     wav_path = os.path.join(args.datasets_path, args.dataset)
@@ -249,17 +295,17 @@ def main(argv=None):
     os.makedirs(os.path.join(results_path, "checkpoints"), exist_ok=True)
     os.makedirs(os.path.join(results_path, "samples"), exist_ok=True)
     tee_stdout(os.path.join(results_path, "log"))
-    print("experiment tag:", tag)
-    print("speakers:", list(corpus.spk_ids))
-    print(f"device: {device}; gru_impl: {cfg.model.gru_impl}")
+    say("experiment tag:", tag)
+    say("speakers:", list(corpus.spk_ids))
+    say(f"device: {device}; gru_impl: {cfg.model.gru_impl}")
 
     loader = ChunkLoader(corpus, args.seq_len, ccfg.overlap_len,
                          args.cond_len, args.q_levels, args.ulaw)
     if args.show_dataset:
         for chunk in loader.epoch():
-            print(f"chunk {chunk.index}: data {chunk.data.shape} "
-                  f"target {chunk.target.shape} cond {chunk.cond.shape} "
-                  f"spk {chunk.spk.shape} reset {chunk.reset}")
+            say(f"chunk {chunk.index}: data {chunk.data.shape} "
+                f"target {chunk.target.shape} cond {chunk.cond.shape} "
+                f"spk {chunk.spk.shape} reset {chunk.reset}")
         return
     val_loader = test_loader = val_corpus = None
     for part in ("validation", "test"):
@@ -273,18 +319,26 @@ def main(argv=None):
             else:
                 test_loader = part_loader
         except (FileNotFoundError, ValueError) as e:
-            print(f"no {part} partition: {e}")
+            say(f"no {part} partition: {e}")
 
     params = init_params(cfg.model, torch.Generator().manual_seed(args.seed),
                          device=device)
     optimizer = make_optimizer(cfg.train, steps_per_epoch=len(loader))
+    n_data = world // args.n_model_shards
+    # shard only when the lane count divides evenly over the data axis
+    # (the lane<->rank assignment must be static for TBPTT state carry)
+    mesh = None
+    if world > 1 and args.batch_size % n_data == 0:
+        mesh = make_mesh(n_data, args.n_model_shards, device=device)
+        say(f"mesh: {mesh.shape} over {world} devices")
     compute_dtype = torch.bfloat16 if args.bf16 else None
-    trainer = Trainer(cfg, params, optimizer, loader,
+    trainer = Trainer(cfg, params, optimizer, loader, mesh=mesh,
                       compute_dtype=compute_dtype,
                       device_corpus=args.device_corpus)
+    del params
     if trainer._corpus_dev is not None:
-        print(f"device-resident corpus: "
-              f"{loader.device_bytes() / 1e6:.0f} MB on {device}")
+        say(f"device-resident corpus: "
+            f"{loader.device_bytes() / 1e6:.0f} MB on {device}")
 
     ckpt_dir = os.path.join(results_path, "checkpoints")
     manager = CheckpointManager(ckpt_dir, args.keep_old_checkpoints,
@@ -293,15 +347,15 @@ def main(argv=None):
     if args.model:  # warm start (ref train.py:224-233): WEIGHTS only —
         # optimizer moments, TBPTT hidden and counters start fresh, and the
         # checkpoint may come from a run with a different batch size
-        state, _ = load_checkpoint(args.model, {"params": trainer.params})
-        trainer.params = state["params"]
-        trainer.opt_state = optimizer.init(trainer.params)
-        print("warm-started (params only) from", args.model)
+        state, _ = load_checkpoint(args.model,
+                                   {"params": trainer.full_params()})
+        trainer.warm_start(state["params"])
+        say("warm-started (params only) from", args.model)
     elif args.resume and manager.latest() is not None:
         path, epoch, it = manager.latest()
         state, meta = load_checkpoint(path, trainer.checkpoint_state())
         trainer.restore(state, meta)
-        print(f"resumed from {path} (epoch {epoch}, iteration {it})")
+        say(f"resumed from {path} (epoch {epoch}, iteration {it})")
 
     trainer.register_plugin(TrainingLossMonitor(smoothing=args.loss_smoothing))
     if val_loader is not None:
@@ -319,19 +373,19 @@ def main(argv=None):
         if not args.ulaw:
             # linear mode packs per-utterance-quantized levels, not the
             # waveform — no aligned ground-truth audio to score against
-            print("metrics_every requires ulaw=true; skipping objective "
-                  "metrics")
+            say("metrics_every requires ulaw=true; skipping objective "
+                "metrics")
         else:
             from msnv_tpu_torch.data.corpus import utterance_slices
             from msnv_tpu_torch.training.plugins import ObjectiveMetricsPlugin
             if val_corpus is None:
-                print("no validation partition: scoring objective metrics "
-                      "on TRAIN utterances (in-sample; expect optimistic "
-                      "values)")
+                say("no validation partition: scoring objective metrics "
+                    "on TRAIN utterances (in-sample; expect optimistic "
+                    "values)")
             sl = utterance_slices(val_corpus if val_corpus is not None
                                   else corpus, args.cond_len)
             if sl is None:
-                print("no scorable utterances; skipping objective metrics")
+                say("no scorable utterances; skipping objective metrics")
             else:
                 ref_audio, mcond, mspk = sl
                 trainer.register_plugin(ObjectiveMetricsPlugin(

@@ -1,7 +1,7 @@
-"""The port's own copy of the JAX package's data/corpus.py (numpy),
-single-process: the multi-host barrier around the cache build is left out
-(multi-device work is queued). The cache layout and file names are the
-same, so each package reads the other's `npy_datasets/`.
+"""The port's own copy of the JAX package's data/corpus.py (numpy). The
+cache layout and file names are the same, so each package reads the other's
+`npy_datasets/`. Under torch.distributed, rank 0 builds or loads and the
+other ranks load after a barrier (`build_corpus`).
 
 Corpus build: WAV + Ahocoder features -> packed batch-major lane streams.
 
@@ -182,17 +182,45 @@ def load_utterance(cfg: CorpusConfig, name: str):
 
 def build_corpus(cfg: CorpusConfig, partition: str,
                  use_cache: bool = True) -> Corpus:
-    """Build (or load from cache) the packed corpus for a partition."""
+    """Build (or load from cache) the packed corpus for a partition.
+
+    Multi-process safe: the npy caches live on a shared filesystem, so when
+    several ranks of a torch.distributed process group enter with a cold
+    cache, rank 0 builds (writes) alone and a barrier fences the rest,
+    which then load the finished caches — never torn concurrent np.save's
+    of the same files.
+    """
+    from msnv_tpu_torch.parallel.mesh import (barrier, is_main_process,
+                                              world_size)
     names = _names(cfg, partition)
-    cached = all(os.path.isfile(names[k])
-                 for k in ("data", "cond", "spk", "min_max"))
-    if cached and use_cache:
+
+    def _cached():
+        return all(os.path.isfile(names[k])
+                   for k in ("data", "cond", "spk", "min_max"))
+
+    if world_size() > 1:
+        # the barrier must be UNCONDITIONAL per call: deciding it from the
+        # cache state races (rank 0 can finish building before another
+        # rank first probes the cache, leaving them at different
+        # barriers). Every rank passes exactly one per partition, also
+        # when rank 0's build raises: the others then fail to load.
+        corpus = None
+        try:
+            if is_main_process():
+                corpus = (load_corpus(cfg, partition)
+                          if _cached() and use_cache
+                          else _build_corpus_local(cfg, partition, names))
+        finally:
+            barrier()
+        return corpus if corpus is not None else load_corpus(cfg, partition)
+
+    if _cached() and use_cache:
         return load_corpus(cfg, partition)
     return _build_corpus_local(cfg, partition, names)
 
 
 def _build_corpus_local(cfg: CorpusConfig, partition: str, names) -> Corpus:
-    """The single-process corpus build (cache writer)."""
+    """The corpus build of one process (the cache writer)."""
 
     os.makedirs(os.path.dirname(names["data"]), exist_ok=True)
 

@@ -101,12 +101,10 @@ class ChunkLoader:
         The train / eval steps then slice per-chunk tensors by chunk index
         (training/step.chunk_slices): no per-step host->device traffic.
         The majority-speaker labels are precomputed host-side into the
-        (num_chunks, B) table."""
+        (num_chunks, B) table. `shardings` (parallel/mesh.corpus_sharding)
+        uploads only this rank's lanes of each array: the lane<->rank
+        assignment is fixed for the epoch, as TBPTT state carry needs."""
         import torch
-        if shardings is not None:
-            raise NotImplementedError(
-                "device_arrays(shardings=...) places lanes over a device "
-                "mesh; multi-device is not ported yet (ROADMAP queue 1.7)")
         spk_table = (np.stack([self.chunk_spk(k)
                                for k in range(self.num_chunks)])
                      if self.num_chunks else
@@ -116,6 +114,8 @@ class ChunkLoader:
             "cond": self.corpus.cond.astype(np.float32),
             "spk": spk_table.astype(np.int32),
         }
+        if shardings is not None:
+            host = {k: shardings[k].local(v) for k, v in host.items()}
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                 for k, v in host.items()}
 

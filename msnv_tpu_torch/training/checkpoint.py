@@ -26,9 +26,16 @@ other:
 
 Loading walks a template in the port's layout (partial templates work:
 generate and evaluate read {"params": ...} only) and places each leaf on
-the template leaf's device, or on `device`. The JAX package's orbax backend
-(directory checkpoints for multi-host sharded state) is not ported
-(ROADMAP queue 1.7).
+the template leaf's device, or on `device`.
+
+Under torch.distributed (one process per GPU) the manager keeps the JAX
+package's npz discipline: the state handed to it is the full one
+(Trainer.checkpoint_state gathers model-sharded leaves and lanes), only
+rank 0 writes and deletes, a barrier follows each save, and rank 0's best
+loss is broadcast at start (as its float64 bit pattern), so every rank
+makes the same save decisions; every rank loads the same file. The JAX
+package's orbax backend (directory checkpoints for multi-host sharded
+state) is not ported (ROADMAP queue 1.7.5).
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ import re
 import numpy as np
 import torch
 
+from msnv_tpu_torch.parallel.mesh import (barrier, broadcast_int64,
+                                          is_main_process)
 from msnv_tpu_torch.tree import keystr, leaves_with_paths, map_with_paths
 
 LAST_PATTERN = "ep{}-it{}.npz"                    # ref plugins.py:117
@@ -148,7 +157,7 @@ class CheckpointManager:
         if backend != "npz":
             raise NotImplementedError(
                 f"checkpoint backend {backend!r} is not ported (only npz; "
-                f"orbax is ROADMAP queue 1.7)")
+                f"orbax is ROADMAP queue 1.7.5)")
         self.dir = checkpoints_dir
         self.keep_old = keep_old
         self.scheduled = scheduled      # see flatten_state
@@ -163,6 +172,20 @@ class CheckpointManager:
                 self._best_loss = float(meta.get("val_loss", float("inf")))
             except (OSError, ValueError, KeyError):
                 pass
+        # ranks without a shared checkpoints filesystem would recover
+        # different best losses, and a save decision that differs between
+        # ranks leaves them at different barriers: adopt rank 0's, sent
+        # losslessly as the float64's bit pattern
+        bits = np.asarray(self._best_loss, np.float64).view(np.int64)
+        self._best_loss = float(np.asarray(
+            broadcast_int64(int(bits)), np.int64).view(np.float64))
+
+    def _save(self, path, state, meta):
+        """Rank 0 writes; the barrier keeps the other ranks from resuming
+        or reading around a write in flight."""
+        if is_main_process():
+            save_checkpoint(path, state, meta, self.scheduled)
+        barrier()
 
     def _retain_only(self, keep_path, regex):
         """Delete checkpoints matching `regex` except `keep_path`."""
@@ -186,21 +209,23 @@ class CheckpointManager:
         meta = dict(meta or {}, epoch=epoch, iteration=iteration)
         # WRITE-then-delete: the new checkpoint lands before old ones are
         # removed, so a crash mid-save never leaves the run with zero
-        # resumable checkpoints
+        # resumable checkpoints. Deletes are rank 0's; the barrier in
+        # _save fences them from the other ranks' reads.
+        main = is_main_process()
         path = os.path.join(self.dir, LAST_PATTERN.format(epoch, iteration))
         written = None
         if save_last:
-            save_checkpoint(path, state, meta, self.scheduled)
-            if not self.keep_old:
+            self._save(path, state, meta)
+            if not self.keep_old and main:
                 self._retain_only(path, _LAST_RE)
             written = path
         if val_loss is not None and val_loss < self._best_loss:
             self._best_loss = val_loss
             best = os.path.join(self.dir,
                                 BEST_PATTERN.format(epoch, iteration))
-            save_checkpoint(best, state, dict(meta, val_loss=val_loss),
-                            self.scheduled)
-            self._retain_only(best, _BEST_RE)
+            self._save(best, state, dict(meta, val_loss=val_loss))
+            if main:
+                self._retain_only(best, _BEST_RE)
             written = written or best
         return written
 

@@ -28,7 +28,17 @@ Three forms share the core, as in training/step.py: tensor arguments
 (`make_gan_train_step_indexed`) and a block of chunk indices
 (`make_gan_train_block_scan`, whose ramp step is step_idx0 + position).
 params, disc_params and both optimizer states are updated IN PLACE.
-`mesh=` raises NotImplementedError (ROADMAP queue 1.7.4).
+
+Over a device mesh (`mesh=`, parallel/mesh.py) the builders return, as
+training/step.py's, builder(params, disc_params, main_opt_state,
+disc_opt_state, state) -> the sharded step. The vocoder params follow
+`param_sharding` (this rank's storage; full weights gathered once per
+step); the discriminator and both optimizer states' discriminator side are
+replicated. Each rank runs the step on its lanes; L1 and L2 are reduced
+over 'data' before the adaptive multiplier reads L2, and both gradient
+trees are reduced (sum / n_data) before their clips and updates: the
+vocoder's local gradient dL1_r - lambda dL2_r averages to the global
+batch's, since both losses are means over equal shards.
 """
 
 from __future__ import annotations
@@ -39,10 +49,13 @@ from msnv_tpu_torch.config import ModelConfig, TrainConfig
 from msnv_tpu_torch.models.discriminator import discriminator_nll
 from msnv_tpu_torch.models.generate import cast_float_tree
 from msnv_tpu_torch.ops.xent import nll_bits_from_logits
-from msnv_tpu_torch.training.step import (_forward, _no_mesh, chunk_slices,
+from msnv_tpu_torch.parallel.mesh import (data_mean, gather_params,
+                                          reduce_gradients)
+from msnv_tpu_torch.training.step import (_forward, chunk_slices,
                                           freeze_h0_grads, grad_leaves,
-                                          grads_like, state_stop_gradient)
-from msnv_tpu_torch.tree import tree_leaves
+                                          grads_like, state_stop_gradient,
+                                          with_mesh)
+from msnv_tpu_torch.tree import tree_leaves, tree_map
 
 METRICS = ("loss", "disc_loss", "lambda")
 
@@ -95,7 +108,7 @@ def _check_gan(model_cfg):
 
 
 def _make_gan_core(model_cfg: ModelConfig, train_cfg: TrainConfig,
-                   main_opt, disc_opt, compute_dtype):
+                   main_opt, disc_opt, compute_dtype, mesh=None, specs=None):
     """core(params, disc_params, main_opt_state, disc_opt_state, state,
     step_idx, data, reset, target, cond, spk)
       -> (params, disc_params, main_opt_state, disc_opt_state, state,
@@ -105,7 +118,8 @@ def _make_gan_core(model_cfg: ModelConfig, train_cfg: TrainConfig,
     def core(params, disc_params, main_opt_state, disc_opt_state, state,
              step_idx, data, reset, target, cond, spk):
         lam = lambda_ramp(train_cfg, step_idx, data.device)
-        leaves = grad_leaves(params)
+        full = params if mesh is None else gather_params(mesh, params, specs)
+        leaves = grad_leaves(full)
         d_leaves = grad_leaves(disc_params)
         with torch.enable_grad():
             logits, new_state, latent = _forward(
@@ -118,18 +132,27 @@ def _make_gan_core(model_cfg: ModelConfig, train_cfg: TrainConfig,
         # the one discriminator backward: its weight gradients and g_latent
         *d_grads, g_latent = torch.autograd.grad(
             l2, tree_leaves(d_leaves) + [lat], allow_unused=True)
-        lam = adaptive_lambda(train_cfg, lam, l2.detach())
+        l1_all, l2_all = l1.detach(), l2.detach()
+        if mesh is not None:
+            l1_all, l2_all = data_mean(mesh, [l1_all, l2_all])
+        lam = adaptive_lambda(train_cfg, lam, l2_all)
         grads = grads_like(leaves, torch.autograd.grad(
             (l1, latent), tree_leaves(leaves),
             grad_outputs=(torch.ones_like(l1), (-lam) * g_latent),
             allow_unused=True))
         grads = freeze_h0_grads(model_cfg, grads)
+        d_grads = grads_like(d_leaves, d_grads)
+        if mesh is not None:
+            both = {"vocoder": grads, "disc": d_grads}
+            both, = reduce_gradients(
+                mesh, both, {"vocoder": specs,
+                             "disc": tree_map(lambda _: None, d_grads)})
+            grads, d_grads = both["vocoder"], both["disc"]
         params, main_opt_state = main_opt.update(grads, main_opt_state,
                                                  params)
         disc_params, disc_opt_state = disc_opt.update(
-            grads_like(d_leaves, d_grads), disc_opt_state, disc_params)
-        metrics = {"loss": l1.detach(), "disc_loss": l2.detach(),
-                   "lambda": lam}
+            d_grads, disc_opt_state, disc_params)
+        metrics = {"loss": l1_all, "disc_loss": l2_all, "lambda": lam}
         return (params, disc_params, main_opt_state, disc_opt_state,
                 state_stop_gradient(new_state), metrics)
 
@@ -175,33 +198,45 @@ def make_gan_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
 
     compute_dtype=torch.bfloat16 is mixed precision, for the vocoder and
     the discriminator alike; the metrics are 0-d float32 device tensors.
+    With `mesh`, builder(params, disc_params, main_opt_state,
+    disc_opt_state, state) -> the sharded step (module docstring).
     """
-    _no_mesh(mesh)
-    return _make_gan_core(model_cfg, train_cfg, main_opt, disc_opt,
-                          compute_dtype)
+    _check_gan(model_cfg)
+    return with_mesh(mesh, lambda m, specs: _make_gan_core(
+        model_cfg, train_cfg, main_opt, disc_opt, compute_dtype, m, specs))
+
+
+def _gan_indexed(model_cfg, train_cfg, main_opt, disc_opt, geo,
+                 compute_dtype, mesh, specs):
+    core = _make_gan_core(model_cfg, train_cfg, main_opt, disc_opt,
+                          compute_dtype, mesh, specs)
+
+    def step(params, disc_params, main_opt_state, disc_opt_state, state,
+             step_idx, corpus, k):
+        data, reset, target, cond, spk = chunk_slices(corpus, int(k), *geo)
+        return core(params, disc_params, main_opt_state, disc_opt_state,
+                    state, step_idx, data, reset, target, cond, spk)
+
+    return step
 
 
 def make_gan_train_step_indexed(model_cfg: ModelConfig,
                                 train_cfg: TrainConfig, main_opt, disc_opt,
                                 seq_len: int, overlap_len: int,
-                                cond_in_seq: int, compute_dtype=None):
+                                cond_in_seq: int, compute_dtype=None,
+                                mesh=None):
     """The GAN step over a device-resident corpus:
 
     step(params, disc_params, main_opt_state, disc_opt_state, state,
          step_idx, corpus, k) -> (..., metrics)
 
-    The same numbers as make_gan_train_step on the host-sliced tensors."""
-    core = _make_gan_core(model_cfg, train_cfg, main_opt, disc_opt,
-                          compute_dtype)
-
-    def step(params, disc_params, main_opt_state, disc_opt_state, state,
-             step_idx, corpus, k):
-        data, reset, target, cond, spk = chunk_slices(
-            corpus, int(k), seq_len, overlap_len, cond_in_seq)
-        return core(params, disc_params, main_opt_state, disc_opt_state,
-                    state, step_idx, data, reset, target, cond, spk)
-
-    return step
+    The same numbers as make_gan_train_step on the host-sliced tensors.
+    With `mesh`, a builder as make_gan_train_step's."""
+    _check_gan(model_cfg)
+    geo = (seq_len, overlap_len, cond_in_seq)
+    return with_mesh(mesh, lambda m, specs: _gan_indexed(
+        model_cfg, train_cfg, main_opt, disc_opt, geo, compute_dtype, m,
+        specs))
 
 
 def make_gan_train_block_scan(model_cfg: ModelConfig,
@@ -218,22 +253,28 @@ def make_gan_train_block_scan(model_cfg: ModelConfig,
 
     The indexed step for each chunk index of `ks` in order, the ramp's
     step at step_idx0 + position, the metrics stacked on the device (one
-    fetch per block for the caller)."""
-    _no_mesh(mesh)
-    step = make_gan_train_step_indexed(model_cfg, train_cfg, main_opt,
-                                       disc_opt, seq_len, overlap_len,
-                                       cond_in_seq, compute_dtype)
+    fetch per block for the caller). With `mesh`, a builder as
+    make_gan_train_step's."""
+    _check_gan(model_cfg)
+    geo = (seq_len, overlap_len, cond_in_seq)
 
-    def run_block(params, disc_params, main_opt_state, disc_opt_state,
-                  state, step_idx0, corpus, ks):
-        out = {name: [] for name in METRICS}
-        for i, k in enumerate(ks):
-            (params, disc_params, main_opt_state, disc_opt_state, state,
-             metrics) = step(params, disc_params, main_opt_state,
-                             disc_opt_state, state, step_idx0 + i, corpus, k)
-            for name in METRICS:
-                out[name].append(metrics[name])
-        return (params, disc_params, main_opt_state, disc_opt_state, state,
-                {name: torch.stack(v) for name, v in out.items()})
+    def build(m, specs):
+        step = _gan_indexed(model_cfg, train_cfg, main_opt, disc_opt, geo,
+                            compute_dtype, m, specs)
 
-    return run_block
+        def run_block(params, disc_params, main_opt_state, disc_opt_state,
+                      state, step_idx0, corpus, ks):
+            out = {name: [] for name in METRICS}
+            for i, k in enumerate(ks):
+                (params, disc_params, main_opt_state, disc_opt_state, state,
+                 metrics) = step(params, disc_params, main_opt_state,
+                                 disc_opt_state, state, step_idx0 + i,
+                                 corpus, k)
+                for name in METRICS:
+                    out[name].append(metrics[name])
+            return (params, disc_params, main_opt_state, disc_opt_state,
+                    state, {name: torch.stack(v) for name, v in out.items()})
+
+        return run_block
+
+    return with_mesh(mesh, build)

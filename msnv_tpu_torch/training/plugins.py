@@ -19,6 +19,12 @@ Functional parity with ref trainer/plugins.py:
   (cast, fused table, the window kernel's packed weights), and the trainer
   updates them in place, so these plugins build their generator anew on
   every epoch they score: each epoch samples from its own weights.
+
+Under torch.distributed every rank runs every plugin, and only rank 0
+writes: the printed lines, stats.json and loss.svg, the sample WAVs, the
+scores and the tracker's metrics. Every rank still takes part in the
+collectives a plugin's work needs (validation, the checkpoint's gather,
+the full params that generation reads).
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import os
 import time
 
 import numpy as np
+
+from msnv_tpu_torch.parallel.mesh import is_main_process
 
 
 class Plugin:
@@ -183,23 +191,28 @@ class Logger(Plugin):
         return "\t".join(parts)
 
     def iteration(self, loss: float):
-        if self.trainer.iterations % self.log_interval == 0:
+        if self.trainer.iterations % self.log_interval == 0 \
+                and is_main_process():
             print(f"it {self.trainer.iterations}\t{self._line()}", flush=True)
 
     def epoch(self, epoch_index: int):
-        if self.log_epoch:
+        if self.log_epoch and is_main_process():
             print(f"epoch {epoch_index}\t{self._line()}", flush=True)
 
 
 def _generate_now(trainer, cond, spk, epoch_index, compute_dtype):
-    """Audio (numpy) from the trainer's CURRENT weights: the generator is
-    built for this call (see the module docstring), the draws seeded with
-    the epoch. On a CUDA device the bottom tier's windows run in the
-    sample-window kernel."""
+    """Audio (numpy) from the trainer's CURRENT weights on rank 0, None on
+    the other ranks (which take part in gathering the weights): the
+    generator is built for this call (see the module docstring), the draws
+    seeded with the epoch. On a CUDA device the bottom tier's windows run
+    in the sample-window kernel."""
     import torch
     from msnv_tpu_torch.models.generate import generate_fn
+    params = trainer.full_params()
+    if not is_main_process():
+        return None
     dev = trainer.device
-    gen = generate_fn(trainer.params, trainer.cfg.model,
+    gen = generate_fn(params, trainer.cfg.model,
                       compute_dtype=compute_dtype,
                       use_kernel=dev.type == "cuda")
     audio, _ = gen(torch.as_tensor(np.asarray(cond), device=dev),
@@ -232,6 +245,8 @@ class GeneratorPlugin(Plugin):
         from msnv_tpu_torch.data.wavio import write_wav
         audio = _generate_now(self.trainer, self.cond, self.spk, epoch_index,
                               self.compute_dtype)
+        if audio is None:
+            return
         os.makedirs(self.samples_path, exist_ok=True)
         for i in range(audio.shape[0]):
             write_wav(os.path.join(
@@ -285,6 +300,8 @@ class ObjectiveMetricsPlugin(Plugin):
         from msnv_tpu_torch.eval.metrics import evaluate_pair
         audio = _generate_now(t, self.cond, self.spk, epoch_index,
                               self.compute_dtype)
+        if audio is None:
+            return
         scores = [evaluate_pair(self.ref_audio[i], audio[i],
                                 sr=self.sample_rate, hop=self.hop)
                   for i in range(audio.shape[0])]
@@ -300,6 +317,9 @@ class TensorBoardPlugin(Plugin):
     def __init__(self, log_dir, fields=("training_loss", "validation_loss",
                                         "test_loss")):
         self.fields = fields
+        self.writer = None
+        if not is_main_process():
+            return
         try:
             from tensorboardX import SummaryWriter
             self.writer = SummaryWriter(log_dir=log_dir)
@@ -349,6 +369,8 @@ class StatsPlugin(Plugin):
         for f in self.epoch_fields:
             self.history[f].append(
                 self.trainer.stats.get(f, {}).get("last"))
+        if not is_main_process():
+            return
         with open(os.path.join(self.results_path, "stats.json"), "w") as fh:
             json.dump(self.history, fh)
         if self.plot:
@@ -401,6 +423,8 @@ class ExperimentLoggerPlugin(Plugin):
                        for f in fields]
 
     def epoch(self, epoch_index: int):
+        if not is_main_process():
+            return
         for field, stat in self.fields:
             value = self.trainer.stats.get(field, {}).get(stat)
             if value is not None:

@@ -23,8 +23,21 @@ Exposure-bias randomness comes from torch.Generators seeded by
 chunk index), the counterpart of the JAX key chains, so a resumed run
 replays the same stream.
 
-Not ported: `mesh=` (multi-device sharding) raises NotImplementedError
-(ROADMAP queue 1.7.4).
+Over a device mesh (parallel/mesh.py; one process per GPU), every builder
+takes `mesh=` and then returns, as the JAX package's does, a builder of the
+step from templates: builder(params[, opt_state, state]) -> step, where
+only the FULL params template is read (its shapes fix the 'model' shard
+dims). The sharded step takes this rank's storage of the params and of the
+optimizer state (`shard_params`; the params themselves when n_model is 1),
+its lanes of the batch or corpus and of the tier state, and returns the
+global loss. Each rank runs the single-device step on its lanes; what JAX
+computes from the global batch is computed after the reduction over
+'data', in JAX's order: the loss (the mean of the shard means), the
+gradient (sum / n_data), then the element-wise clip and Adam, on the slice
+the rank stores. Every rank gets the same reduced bits, so the replicas
+stay bit-identical. Exposure-bias draws are made at the global batch's
+shape from the step's generator and sliced, so a sharded run draws what
+the single-device run draws.
 """
 
 from __future__ import annotations
@@ -37,6 +50,10 @@ from msnv_tpu_torch.config import ModelConfig
 from msnv_tpu_torch.models.generate import cast_float_tree
 from msnv_tpu_torch.models.samplernn import predictor_apply
 from msnv_tpu_torch.ops.xent import nll_bits_from_logits
+from msnv_tpu_torch.parallel.mesh import (batch_sharding, check_mesh,
+                                          corpus_sharding, data_mean,
+                                          gather_params, param_sharding,
+                                          reduce_gradients)
 from msnv_tpu_torch.tree import tree_leaves, tree_map
 
 
@@ -51,10 +68,18 @@ def exposure_tuple(train_cfg) -> Optional[tuple]:
             int(train_cfg.input_noise_levels))
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError("mesh= (multi-device) is not ported yet "
-                                  "(ROADMAP queue 1.7.4)")
+def with_mesh(mesh, build):
+    """build(None, None) without a mesh; with one, the JAX-style builder
+    (params_template, *templates) -> build(mesh, param_sharding(mesh,
+    params_template))."""
+    check_mesh(mesh)
+    if mesh is None:
+        return build(None, None)
+
+    def builder(params_template, *templates):
+        return build(mesh, param_sharding(mesh, params_template))
+
+    return builder
 
 
 def _forward(params, cfg, compute_dtype, state, data, reset, cond, spk):
@@ -103,22 +128,29 @@ def loss_and_grads(params, cfg: ModelConfig, state, data, reset, target,
 
 
 def _perturb(params, cfg, compute_dtype, exposure, state, data, reset, cond,
-             spk, generator):
+             spk, generator, mesh=None):
     """Exposure-bias mitigation on the TBPTT inputs (targets stay clean):
     input noise jitters input levels with prob noise_prob by up to
     +-noise_levels; scheduled sampling replaces input samples past the
     lookback seed, with prob ss_prob, by draws from the model's own
-    teacher-forced prediction (one extra forward, no sequential loop).
-    Draws come from `generator`, which lives on data's device."""
+    teacher-forced prediction (one extra forward, no sequential loop; a
+    draw is the inverse CDF of the softmax at a uniform number). Draws
+    come from `generator`, which lives on data's device, at the GLOBAL
+    batch's shape: over a mesh each rank keeps its lanes of them."""
     ss_prob, noise_prob, noise_levels = exposure
     lb = cfg.lookback
     dev = data.device
+    n_data = 1 if mesh is None else mesh.shape["data"]
+    local = (lambda x: x) if mesh is None else batch_sharding(mesh).local
+
+    def draw(fn, *args, shape, **kw):
+        shape = (shape[0] * n_data,) + tuple(shape[1:])
+        return local(fn(*args, shape, generator=generator, device=dev, **kw))
+
     if noise_prob > 0.0:
-        flip = torch.rand(data.shape, generator=generator,
-                          device=dev) < noise_prob
-        jitter = torch.randint(-noise_levels, noise_levels + 1, data.shape,
-                               generator=generator, device=dev,
-                               dtype=data.dtype)
+        flip = draw(torch.rand, shape=data.shape) < noise_prob
+        jitter = draw(torch.randint, -noise_levels, noise_levels + 1,
+                      shape=data.shape, dtype=data.dtype)
         data = torch.where(
             flip, torch.clamp(data + jitter, 0, cfg.q_levels - 1), data)
     if ss_prob > 0.0:
@@ -128,15 +160,48 @@ def _perturb(params, cfg, compute_dtype, exposure, state, data, reset, cond,
         # logits[:, t] predicts target t, which sits at input position
         # lb + t; the LAST target is outside the input window, so only
         # samples[:, :-1] are candidates
-        probs = torch.softmax(logits, dim=-1)
-        samples = torch.multinomial(
-            probs.reshape(-1, probs.shape[-1]), 1,
-            generator=generator).reshape(probs.shape[:-1]).to(data.dtype)
-        mix = torch.rand(samples[:, :-1].shape, generator=generator,
-                         device=dev) < ss_prob
+        cdf = torch.softmax(logits, dim=-1).cumsum(-1)
+        u = draw(torch.rand, shape=cdf.shape[:-1])
+        samples = torch.searchsorted(cdf, (u * cdf[..., -1])[..., None])
+        samples = samples[..., 0].clamp(max=cfg.q_levels - 1).to(data.dtype)
+        mix = draw(torch.rand, shape=samples[:, :-1].shape) < ss_prob
         tail = torch.where(mix, samples[:, :-1], data[:, lb:])
         data = torch.cat([data[:, :lb], tail], dim=1)
     return data
+
+
+def _train_core(cfg, optimizer, compute_dtype, exposure, mesh, specs):
+    """The train step; over `mesh` it takes this rank's storage and lanes
+    (see the module docstring)."""
+
+    def step(params, opt_state, state, data, reset, target, cond, spk,
+             generator=None):
+        full = params if mesh is None else gather_params(mesh, params, specs)
+        if exposure is not None:
+            data = _perturb(full, cfg, compute_dtype, exposure, state, data,
+                            reset, cond, spk, generator, mesh)
+        loss, new_state, grads = loss_and_grads(
+            full, cfg, state, data, reset, target, cond, spk, compute_dtype)
+        if mesh is not None:
+            grads, loss = reduce_gradients(mesh, grads, specs, loss)
+        params, opt_state = optimizer.update(grads, opt_state, params)
+        return params, opt_state, new_state, loss
+
+    return step
+
+
+def _eval_core(cfg, mesh, specs):
+    @torch.no_grad()
+    def step(params, state, data, reset, target, cond, spk):
+        full = params if mesh is None else gather_params(mesh, params, specs)
+        logits, new_state, _ = predictor_apply(
+            full, cfg, data, reset, cond, spk, state, output="logits")
+        loss = nll_bits_from_logits(logits, target)
+        if mesh is not None:
+            (loss,) = data_mean(mesh, [loss])
+        return loss, new_state
+
+    return step
 
 
 def make_train_step(cfg: ModelConfig, optimizer, mesh=None,
@@ -151,35 +216,18 @@ def make_train_step(cfg: ModelConfig, optimizer, mesh=None,
     differentiable cast, logits and loss in f32. With `exposure` (see
     `exposure_tuple`) the step takes a trailing torch.Generator on the
     data's device and perturbs its inputs first. params and opt_state are
-    updated in place.
+    updated in place. With `mesh`, returns builder(params_template[,
+    opt_template, state_template]) -> the sharded step (module docstring).
     """
-    _no_mesh(mesh)
-
-    def step(params, opt_state, state, data, reset, target, cond, spk,
-             generator=None):
-        if exposure is not None:
-            data = _perturb(params, cfg, compute_dtype, exposure, state, data,
-                            reset, cond, spk, generator)
-        loss, new_state, grads = loss_and_grads(
-            params, cfg, state, data, reset, target, cond, spk, compute_dtype)
-        params, opt_state = optimizer.update(grads, opt_state, params)
-        return params, opt_state, new_state, loss
-
-    return step
+    return with_mesh(mesh, lambda m, specs: _train_core(
+        cfg, optimizer, compute_dtype, exposure, m, specs))
 
 
 def make_eval_step(cfg: ModelConfig, mesh=None):
     """Evaluation step: step(params, state, data, reset, target, cond, spk)
-    -> (loss_bits, new_state)."""
-    _no_mesh(mesh)
-
-    @torch.no_grad()
-    def step(params, state, data, reset, target, cond, spk):
-        logits, new_state, _ = predictor_apply(
-            params, cfg, data, reset, cond, spk, state, output="logits")
-        return nll_bits_from_logits(logits, target), new_state
-
-    return step
+    -> (loss_bits, new_state); with `mesh`, builder(params_template[,
+    state_template]) -> the sharded step, whose loss is the global one."""
+    return with_mesh(mesh, lambda m, specs: _eval_core(cfg, m, specs))
 
 
 def chunk_slices(corpus, k: int, seq_len: int, overlap_len: int,
@@ -197,41 +245,52 @@ def chunk_slices(corpus, k: int, seq_len: int, overlap_len: int,
     return data, k == 0, target, cond, corpus["spk"][k]
 
 
-def make_train_step_indexed(cfg: ModelConfig, optimizer, seq_len: int,
-                            overlap_len: int, cond_in_seq: int,
-                            compute_dtype=None,
-                            exposure: Optional[tuple] = None):
-    """Train step over a device-resident corpus:
-
-    step(params, opt_state, state, corpus, k[, generator])
-      -> (params, opt_state, state, loss_bits)
-
-    The same numbers as make_train_step on the host-sliced tensors (the
-    slicing is exact)."""
-    core = make_train_step(cfg, optimizer, compute_dtype=compute_dtype,
-                           exposure=exposure)
+def _train_indexed(cfg, optimizer, geo, compute_dtype, exposure, mesh,
+                   specs):
+    core = _train_core(cfg, optimizer, compute_dtype, exposure, mesh, specs)
 
     def step(params, opt_state, state, corpus, k, generator=None):
-        data, reset, target, cond, spk = chunk_slices(
-            corpus, int(k), seq_len, overlap_len, cond_in_seq)
+        data, reset, target, cond, spk = chunk_slices(corpus, int(k), *geo)
         return core(params, opt_state, state, data, reset, target, cond, spk,
                     generator)
 
     return step
 
 
-def make_eval_step_indexed(cfg: ModelConfig, seq_len: int, overlap_len: int,
-                           cond_in_seq: int):
-    """Eval step over a device-resident corpus:
-    step(params, state, corpus, k) -> (loss_bits, new_state)."""
-    core = make_eval_step(cfg)
+def _eval_indexed(cfg, geo, mesh, specs):
+    core = _eval_core(cfg, mesh, specs)
 
     def step(params, state, corpus, k):
-        data, reset, target, cond, spk = chunk_slices(
-            corpus, int(k), seq_len, overlap_len, cond_in_seq)
+        data, reset, target, cond, spk = chunk_slices(corpus, int(k), *geo)
         return core(params, state, data, reset, target, cond, spk)
 
     return step
+
+
+def make_train_step_indexed(cfg: ModelConfig, optimizer, seq_len: int,
+                            overlap_len: int, cond_in_seq: int,
+                            compute_dtype=None,
+                            exposure: Optional[tuple] = None, mesh=None):
+    """Train step over a device-resident corpus:
+
+    step(params, opt_state, state, corpus, k[, generator])
+      -> (params, opt_state, state, loss_bits)
+
+    The same numbers as make_train_step on the host-sliced tensors (the
+    slicing is exact). With `mesh`, a builder as make_train_step's; the
+    corpus holds this rank's lanes (loader.device_arrays(shardings=))."""
+    geo = (seq_len, overlap_len, cond_in_seq)
+    return with_mesh(mesh, lambda m, specs: _train_indexed(
+        cfg, optimizer, geo, compute_dtype, exposure, m, specs))
+
+
+def make_eval_step_indexed(cfg: ModelConfig, seq_len: int, overlap_len: int,
+                           cond_in_seq: int, mesh=None):
+    """Eval step over a device-resident corpus:
+    step(params, state, corpus, k) -> (loss_bits, new_state); with `mesh`,
+    a builder as make_eval_step's."""
+    geo = (seq_len, overlap_len, cond_in_seq)
+    return with_mesh(mesh, lambda m, specs: _eval_indexed(cfg, geo, m, specs))
 
 
 _MASK64 = (1 << 64) - 1
@@ -261,33 +320,33 @@ def make_train_block_scan(cfg: ModelConfig, optimizer, seq_len: int,
     The indexed train step for each chunk index of `ks` in order, the
     losses stacked on the device (one fetch per block for the caller). With
     `exposure` it takes a trailing `key`, a tuple of integers; chunk k
-    draws from fold_generator(device, *key, k).
+    draws from fold_generator(device, *key, k). With `mesh`, a builder as
+    make_train_step's.
     """
-    _no_mesh(mesh)
-    step = make_train_step_indexed(cfg, optimizer, seq_len, overlap_len,
-                                   cond_in_seq, compute_dtype=compute_dtype,
-                                   exposure=exposure)
+    geo = (seq_len, overlap_len, cond_in_seq)
 
-    def run_block(params, opt_state, state, corpus, ks, key=()):
-        losses = []
-        for k in ks:
-            k = int(k)
-            extra = ((fold_generator(corpus["qdata"].device, *key, k),)
-                     if exposure is not None else ())
-            params, opt_state, state, loss = step(params, opt_state, state,
-                                                  corpus, k, *extra)
-            losses.append(loss)
-        return params, opt_state, state, torch.stack(losses)
+    def build(m, specs):
+        step = _train_indexed(cfg, optimizer, geo, compute_dtype, exposure,
+                              m, specs)
 
-    return run_block
+        def run_block(params, opt_state, state, corpus, ks, key=()):
+            losses = []
+            for k in ks:
+                k = int(k)
+                extra = ((fold_generator(corpus["qdata"].device, *key, k),)
+                         if exposure is not None else ())
+                params, opt_state, state, loss = step(
+                    params, opt_state, state, corpus, k, *extra)
+                losses.append(loss)
+            return params, opt_state, state, torch.stack(losses)
+
+        return run_block
+
+    return with_mesh(mesh, build)
 
 
-def make_eval_block_scan(cfg: ModelConfig, seq_len: int, overlap_len: int,
-                         cond_in_seq: int, mesh=None):
-    """Multi-step eval over a device-resident corpus:
-    run_block(params, state, corpus, ks) -> (losses (len(ks),), state)."""
-    _no_mesh(mesh)
-    step = make_eval_step_indexed(cfg, seq_len, overlap_len, cond_in_seq)
+def _eval_block(cfg, geo, mesh, specs):
+    step = _eval_indexed(cfg, geo, mesh, specs)
 
     def run_block(params, state, corpus, ks):
         losses = []
@@ -299,15 +358,29 @@ def make_eval_block_scan(cfg: ModelConfig, seq_len: int, overlap_len: int,
     return run_block
 
 
+def make_eval_block_scan(cfg: ModelConfig, seq_len: int, overlap_len: int,
+                         cond_in_seq: int, mesh=None):
+    """Multi-step eval over a device-resident corpus:
+    run_block(params, state, corpus, ks) -> (losses (len(ks),), state);
+    with `mesh`, a builder as make_eval_step's."""
+    geo = (seq_len, overlap_len, cond_in_seq)
+    return with_mesh(mesh, lambda m, specs: _eval_block(cfg, geo, m, specs))
+
+
 def eval_device_corpus(cfg: ModelConfig, params, state, loader,
-                       scan_block: int = 16):
+                       scan_block: int = 16, mesh=None):
     """Block evaluation over a freshly uploaded device corpus (on the
     state's device) -> (mean NLL bits, final state). Used by the evaluate
     CLI; Trainer.evaluate keeps the uploaded corpora across epochs. The
-    corpus is released when this frame returns."""
-    corpus_dev = loader.device_arrays(state[0].device)
-    scan = make_eval_block_scan(cfg, loader.seq_len, loader.overlap_len,
-                                loader.cond_in_seq)
+    corpus is released when this frame returns. `params` is the full tree;
+    with `mesh`, `state` holds this rank's lanes, the corpus is uploaded as
+    this rank's lanes and the loss is the global mean."""
+    check_mesh(mesh)
+    geo = (loader.seq_len, loader.overlap_len, loader.cond_in_seq)
+    shardings = None if mesh is None else corpus_sharding(mesh)
+    corpus_dev = loader.device_arrays(state[0].device, shardings=shardings)
+    replicated = None if mesh is None else tree_map(lambda _: None, params)
+    scan = _eval_block(cfg, geo, mesh, replicated)
     ks = list(range(len(loader)))
     losses = []
     for i in range(0, len(ks), scan_block):

@@ -16,7 +16,17 @@ two-optimizer step of training/gan.py: the discriminator is initialized
 from a generator seeded with cfg.train.seed + 1 at cfg.train.disc_channels,
 its optimizer is the same clipped Adam, the iteration drives the lambda
 ramp, and the checkpoint carries "disc_params" and "disc_opt_state".
-`mesh=` (ROADMAP queue 1.7) raises NotImplementedError.
+
+Over a device mesh (`mesh=`, parallel/mesh.py; one process per GPU, every
+rank running this loop) the Trainer is given the FULL params and keeps this
+rank's storage of them (`shard_params`: the slices of the 'model'-sharded
+leaves; the params themselves when n_model is 1), its optimizer state in
+the same layout, and its lanes of the tier state; it uploads its lanes of
+the device corpus and slices its lanes of each host chunk. Every step
+returns the global loss, so the plugins see the same numbers on every
+rank. `checkpoint_state()` and `full_params()` gather (collectives: every
+rank calls them), `restore()` takes a full state and keeps this rank's part.
+Only rank 0 writes files and prints (training/plugins.py).
 """
 
 from __future__ import annotations
@@ -27,6 +37,10 @@ import torch
 from msnv_tpu_torch.config import ExperimentConfig, make_tag
 from msnv_tpu_torch.models.discriminator import discriminator_init
 from msnv_tpu_torch.models.samplernn import init_tier_state
+from msnv_tpu_torch.parallel.mesh import (batch_sharding, check_mesh,
+                                          corpus_sharding, gather_lanes,
+                                          gather_params, param_sharding,
+                                          shard_params, state_sharding)
 from msnv_tpu_torch.training.gan import (METRICS, make_gan_train_block_scan,
                                          make_gan_train_step,
                                          make_gan_train_step_indexed)
@@ -50,6 +64,12 @@ def _copy_opt_state(opt_state):
             for k, v in opt_state.items()}
 
 
+def _map_moments(fn, opt_state):
+    """An optimizer state with fn applied to its moment trees."""
+    return {k: v if isinstance(v, int) else fn(v)
+            for k, v in opt_state.items()}
+
+
 class Trainer:
     #: device-corpus "auto" threshold: upload a corpus to device memory
     #: only below this footprint (big corpora keep streaming from host RAM)
@@ -57,19 +77,25 @@ class Trainer:
 
     def __init__(self, cfg: ExperimentConfig, params, optimizer, loader,
                  mesh=None, compute_dtype=None, device_corpus="auto"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): multi-device training is not ported yet "
-                "(ROADMAP queue 1.7)")
+        check_mesh(mesh)
         self.cfg = cfg
         self.tag = make_tag(cfg)
-        self.params = params
+        self.mesh = mesh
         self.device = params["mlp"]["embedding"].device
         self.optimizer = optimizer
-        self.opt_state = optimizer.init(params)
+        # the full tree's shapes (no storage) fix the 'model' shard dims
+        self._template = tree_map(
+            lambda x: torch.empty_like(x, device="meta"), params)
+        if mesh is None:
+            self._specs = None
+            self.params = params
+        else:
+            self._specs = param_sharding(mesh, params)
+            self.params = shard_params(mesh, params, self._specs)
+        self.opt_state = optimizer.init(self.params)
         self.loader = loader
-        self.state = init_tier_state(cfg.model, loader._qdata.shape[0],
-                                     device=self.device)
+        self.state = init_tier_state(cfg.model, self._lanes(
+            loader._qdata).shape[0], device=self.device)
         self.epochs = 0        # completed epochs (resume sets this)
         self.iterations = 0
         self.chunk_index = 0   # data cursor within the current epoch
@@ -105,32 +131,50 @@ class Trainer:
                 device=self.device)
             self.disc_opt = optimizer         # the same clipped-Adam recipe
             self.disc_opt_state = self.disc_opt.init(self.disc_params)
-            self._step = make_gan_train_step(cfg.model, cfg.train, optimizer,
-                                             self.disc_opt,
-                                             compute_dtype=compute_dtype)
+            gan = (cfg.model, cfg.train, optimizer, self.disc_opt)
+            self._step = self._built(make_gan_train_step(
+                *gan, mesh=mesh, compute_dtype=compute_dtype))
         else:
-            self._step = make_train_step(cfg.model, optimizer,
-                                         compute_dtype=compute_dtype,
-                                         exposure=self._exposure)
-        self._eval = make_eval_step(cfg.model)
+            self._step = self._built(make_train_step(
+                cfg.model, optimizer, mesh=mesh, compute_dtype=compute_dtype,
+                exposure=self._exposure))
+        self._eval = self._built(make_eval_step(cfg.model, mesh=mesh))
         if self._want_device_corpus(loader):
             # window geometry comes from the LOADER, never from the train
             # config (they agree in the CLI; the API allows any loader)
             geo = (loader.seq_len, loader.overlap_len, loader.cond_in_seq)
-            self._corpus_dev = loader.device_arrays(self.device)
+            self._corpus_dev = self._upload(loader)
             if self.is_gan:
-                gan = (cfg.model, cfg.train, optimizer, self.disc_opt)
-                self._step_indexed = make_gan_train_step_indexed(
-                    *gan, *geo, compute_dtype=compute_dtype)
-                self._train_scan = make_gan_train_block_scan(
-                    *gan, *geo, compute_dtype=compute_dtype)
+                self._step_indexed = self._built(make_gan_train_step_indexed(
+                    *gan, *geo, compute_dtype=compute_dtype, mesh=mesh))
+                self._train_scan = self._built(make_gan_train_block_scan(
+                    *gan, *geo, mesh=mesh, compute_dtype=compute_dtype))
             else:
-                self._step_indexed = make_train_step_indexed(
+                self._step_indexed = self._built(make_train_step_indexed(
                     cfg.model, optimizer, *geo, compute_dtype=compute_dtype,
-                    exposure=self._exposure)
-                self._train_scan = make_train_block_scan(
-                    cfg.model, optimizer, *geo, compute_dtype=compute_dtype,
-                    exposure=self._exposure)
+                    exposure=self._exposure, mesh=mesh))
+                self._train_scan = self._built(make_train_block_scan(
+                    cfg.model, optimizer, *geo, mesh=mesh,
+                    compute_dtype=compute_dtype, exposure=self._exposure))
+
+    def _built(self, step_or_builder):
+        """A step: over a mesh, the builder's product from the full
+        params' template."""
+        return step_or_builder if self.mesh is None else \
+            step_or_builder(self._template)
+
+    def _upload(self, loader):
+        """The loader's packed corpus on the device: this rank's lanes
+        over a mesh."""
+        shardings = None if self.mesh is None else corpus_sharding(self.mesh)
+        return loader.device_arrays(self.device, shardings=shardings)
+
+    def _lanes(self, array):
+        """This rank's lanes of a host array (all of them without a mesh;
+        raises unless they divide over 'data')."""
+        if self.mesh is None:
+            return array
+        return batch_sharding(self.mesh).local(array)
 
     def _want_device_corpus(self, loader) -> bool:
         if self.device_corpus in (False, "false"):
@@ -159,9 +203,10 @@ class Trainer:
         the pipelined flush (its first two steps share a key and a ramp
         step); here the pipelined and the synchronous loops agree."""
         it = self.iterations if iteration is None else iteration
-        dev = self.device
-        batch = (_on(dev, chunk.data), chunk.reset, _on(dev, chunk.target),
-                 _on(dev, chunk.cond), _on(dev, chunk.spk))
+        dev, lanes = self.device, self._lanes
+        batch = (_on(dev, lanes(chunk.data)), chunk.reset,
+                 _on(dev, lanes(chunk.target)), _on(dev, lanes(chunk.cond)),
+                 _on(dev, lanes(chunk.spk)))
         if self.is_gan:
             (self.params, self.disc_params, self.opt_state,
              self.disc_opt_state, self.state, metrics) = self._step(
@@ -296,19 +341,21 @@ class Trainer:
         weighted like the reference (ref plugins.py:51-92); every chunk
         carries the full lane batch, so that is the mean. Fresh hidden
         state; the losses are fetched once. Evaluation corpora ride the
-        device-resident path too when training does."""
-        state = init_tier_state(self.cfg.model, loader._qdata.shape[0],
-                                device=self.device)
+        device-resident path too when training does; over a mesh each rank
+        evaluates its lanes and every chunk's loss is the global one."""
+        state = init_tier_state(self.cfg.model, self._lanes(
+            loader._qdata).shape[0], device=self.device)
         losses = []
         if self._corpus_dev is not None and self._want_device_corpus(loader):
             # keyed by the loader OBJECT (a held reference); the training
             # loader reuses the already-resident corpus
             if loader not in self._eval_dev:
                 corpus_dev = (self._corpus_dev if loader is self.loader
-                              else loader.device_arrays(self.device))
-                self._eval_dev[loader] = (corpus_dev, make_eval_block_scan(
-                    self.cfg.model, loader.seq_len, loader.overlap_len,
-                    loader.cond_in_seq))
+                              else self._upload(loader))
+                self._eval_dev[loader] = (corpus_dev, self._built(
+                    make_eval_block_scan(
+                        self.cfg.model, loader.seq_len, loader.overlap_len,
+                        loader.cond_in_seq, mesh=self.mesh)))
             corpus_dev, eval_scan = self._eval_dev[loader]
             ks = list(range(len(loader)))
             for i in range(0, len(ks), self.scan_block):
@@ -316,24 +363,48 @@ class Trainer:
                                               ks[i:i + self.scan_block])
                 losses.append(blk_losses)
             return float(torch.cat(losses).mean()) if losses else 0.0
-        dev = self.device
+        dev, lanes = self.device, self._lanes
         for chunk in loader.epoch():
             loss, state = self._eval(
-                self.params, state, _on(dev, chunk.data), chunk.reset,
-                _on(dev, chunk.target), _on(dev, chunk.cond),
-                _on(dev, chunk.spk))
+                self.params, state, _on(dev, lanes(chunk.data)), chunk.reset,
+                _on(dev, lanes(chunk.target)), _on(dev, lanes(chunk.cond)),
+                _on(dev, lanes(chunk.spk)))
             losses.append(loss)
         return float(torch.stack(losses).mean()) if losses else 0.0
 
-    # -- checkpoint interface ---------------------------------------------
+    # -- params and checkpoint interface ------------------------------------
+    def full_params(self):
+        """The full param tree: the live tensors without a mesh, gathered
+        over 'model' with one (a collective: every rank calls it)."""
+        if self.mesh is None:
+            return self.params
+        return gather_params(self.mesh, self.params, self._specs)
+
+    def warm_start(self, params):
+        """Train from full `params` (weights only): a fresh optimizer
+        state; the TBPTT state and the counters stay."""
+        if self.mesh is not None:
+            params = shard_params(self.mesh, params, self._specs)
+        self.params = params
+        self.opt_state = self.optimizer.init(params)
+
     def checkpoint_state(self):
         """The full resumable state (params + optimizer + TBPTT hidden), as
-        copies: the steps update the live tensors in place."""
+        copies: the steps update the live tensors in place. Over a mesh the
+        'model'-sharded leaves and moments and the tier state's lanes are
+        gathered (a collective: every rank calls it)."""
         copy = lambda x: x.detach().clone()             # noqa: E731
+        params, opt_state, tier = self.params, self.opt_state, self.state
+        if self.mesh is not None:
+            full = lambda t: gather_params(                 # noqa: E731
+                self.mesh, t, self._specs)
+            params = full(params)
+            opt_state = _map_moments(full, opt_state)
+            tier = [gather_lanes(self.mesh, s, axis=1) for s in tier]
         out = {
-            "params": tree_map(copy, self.params),
-            "opt_state": _copy_opt_state(self.opt_state),
-            "tier_state": [copy(s) for s in self.state],
+            "params": tree_map(copy, params),
+            "opt_state": _copy_opt_state(opt_state),
+            "tier_state": [copy(s) for s in tier],
         }
         if self.is_gan:
             out["disc_params"] = tree_map(copy, self.disc_params)
@@ -341,9 +412,18 @@ class Trainer:
         return out
 
     def restore(self, state, meta):
-        self.params = state["params"]
-        self.opt_state = state["opt_state"]
-        self.state = list(state["tier_state"])
+        """Take a full state (checkpoint_state's layout; over a mesh this
+        rank keeps its part) and the run's counters."""
+        params, opt_state = state["params"], state["opt_state"]
+        tier = list(state["tier_state"])
+        if self.mesh is not None:
+            part = lambda t: shard_params(                  # noqa: E731
+                self.mesh, t, self._specs)
+            params = part(params)
+            opt_state = _map_moments(part, opt_state)
+            tier = [state_sharding(self.mesh).local(s).contiguous()
+                    for s in tier]
+        self.params, self.opt_state, self.state = params, opt_state, tier
         if self.is_gan and "disc_params" in state:
             self.disc_params = state["disc_params"]
             self.disc_opt_state = state["disc_opt_state"]

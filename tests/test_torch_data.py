@@ -361,5 +361,13 @@ def test_device_arrays_equal_jax(loaders):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
     assert got["qdata"].dtype == got["spk"].dtype == torch.int32
     assert got["cond"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tl.device_arrays("cpu", shardings={})
+    # over a mesh only this rank's lanes are uploaded: the second of two
+    # data shards here (the rank's place is all the shardings read)
+    from types import SimpleNamespace
+    from msnv_tpu_torch.parallel.mesh import corpus_sharding
+    rank = SimpleNamespace(shape={"data": 2, "model": 1}, data_index=1)
+    mine = tl.device_arrays("cpu", shardings=corpus_sharding(rank))
+    half = got["qdata"].shape[0] // 2
+    assert torch.equal(mine["qdata"], got["qdata"][half:])
+    assert torch.equal(mine["cond"], got["cond"][half:])
+    assert torch.equal(mine["spk"], got["spk"][:, half:])

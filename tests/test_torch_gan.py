@@ -282,10 +282,11 @@ def test_step_refuses_other_variants_and_mesh():
     with pytest.raises(ValueError, match="gan"):
         tgan.make_gan_train_step(torch_cfg(dataclasses.replace(
             GAN, variant="bottleneck")), tc, opt, opt)
-    with pytest.raises(NotImplementedError, match="1.7.4"):
+    # mesh= takes a parallel.mesh.Mesh (tests/test_torch_parallel.py)
+    with pytest.raises(TypeError, match="mesh"):
         tgan.make_gan_train_step(torch_cfg(GAN), tc, opt, opt,
                                  mesh=object())
-    with pytest.raises(NotImplementedError, match="1.7.4"):
+    with pytest.raises(TypeError, match="mesh"):
         tgan.make_gan_train_block_scan(torch_cfg(GAN), tc, opt, opt, 64, 16,
                                        4, mesh=object())
 

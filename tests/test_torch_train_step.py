@@ -434,11 +434,14 @@ def test_exposure_perturbation_statistics():
 
 
 def test_unported_entry_points_raise():
+    """Every entry point of the steps is ported, mesh= included
+    (tests/test_torch_parallel.py); what is not a parallel.mesh.Mesh is
+    refused before a step exists."""
     cfg = torch_cfg(tiny())
     opt = toptim.make_optimizer(TorchTrainConfig())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         tstep.make_train_step(cfg, opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         tstep.make_eval_step(cfg, mesh=object())
 
 

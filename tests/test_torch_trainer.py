@@ -172,11 +172,13 @@ def test_eval_block_and_eval_device_corpus_equal_indexed_steps():
 
 
 def test_mesh_raises_for_the_blocks():
+    """The blocks take a parallel.mesh.Mesh (tests/test_torch_parallel.py)
+    and refuse anything else."""
     cfg = torch_cfg(tiny())
     opt = make_optimizer(TorchTrainConfig())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         tstep.make_train_block_scan(cfg, opt, 32, 16, 2, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         tstep.make_eval_block_scan(cfg, 32, 16, 2, mesh=object())
 
 
@@ -307,11 +309,12 @@ def test_checkpoint_state_is_a_snapshot_and_restore_feeds_the_steps():
 
 
 def test_trainer_unported_paths_raise():
-    """mesh= is not ported (ROADMAP queue 1.7); the GAN variant is, but
-    not with exposure-bias mitigation, which the JAX Trainer refuses too."""
+    """mesh= takes a parallel.mesh.Mesh (tests/test_torch_parallel.py) and
+    refuses anything else; the GAN variant trains, but not with
+    exposure-bias mitigation, which the JAX Trainer refuses too."""
     exp = _exp(tiny())
     tl, _ = _loaders(exp)
-    with pytest.raises(NotImplementedError, match="1.7"):
+    with pytest.raises(TypeError, match="mesh"):
         _port_trainer(exp, tl, mesh=object())
     gan = dataclasses.replace(exp, model=dataclasses.replace(
         exp.model, variant="gan"), train=dataclasses.replace(
