@@ -26,9 +26,10 @@ hosts, which requires that environment) the CLI initializes the process
 group (NCCL on CUDA, gloo with --device cpu; a group the caller already
 made is used as it is), each rank on cuda:LOCAL_RANK, and trains over a
 ('data', 'model') mesh of world / --n_model_shards by --n_model_shards
-(parallel/mesh.py) when --batch_size divides over 'data', as the JAX
-package does; otherwise every rank trains the whole batch. Only rank 0
-writes the log, stats.json, samples and checkpoints. Not ported, raising
+(parallel/mesh.py); --batch_size must divide over 'data' (ValueError
+otherwise). Only rank 0 writes the log, stats.json, samples and
+checkpoints; the ranks share the results directory and resume from rank
+0's newest checkpoint. Not ported, raising
 NotImplementedError: --ckpt_backend orbax (ROADMAP queue 1.7.5).
 """
 
@@ -268,6 +269,11 @@ def main(argv=None):
     if world % args.n_model_shards:
         raise ValueError(f"--n_model_shards {args.n_model_shards} does not "
                          f"divide the {world} processes")
+    n_data = world // args.n_model_shards
+    # the lane<->rank assignment must be static for TBPTT state carry
+    if world > 1 and args.batch_size % n_data:
+        raise ValueError(f"--batch_size {args.batch_size} does not divide "
+                         f"over the mesh's 'data' axis of {n_data} ranks")
     init_random_seed(args.seed)
 
     wav_path = os.path.join(args.datasets_path, args.dataset)
@@ -324,11 +330,8 @@ def main(argv=None):
     params = init_params(cfg.model, torch.Generator().manual_seed(args.seed),
                          device=device)
     optimizer = make_optimizer(cfg.train, steps_per_epoch=len(loader))
-    n_data = world // args.n_model_shards
-    # shard only when the lane count divides evenly over the data axis
-    # (the lane<->rank assignment must be static for TBPTT state carry)
     mesh = None
-    if world > 1 and args.batch_size % n_data == 0:
+    if world > 1:
         mesh = make_mesh(n_data, args.n_model_shards, device=device)
         say(f"mesh: {mesh.shape} over {world} devices")
     compute_dtype = torch.bfloat16 if args.bf16 else None
@@ -351,11 +354,13 @@ def main(argv=None):
                                    {"params": trainer.full_params()})
         trainer.warm_start(state["params"])
         say("warm-started (params only) from", args.model)
-    elif args.resume and manager.latest() is not None:
-        path, epoch, it = manager.latest()
-        state, meta = load_checkpoint(path, trainer.checkpoint_state())
-        trainer.restore(state, meta)
-        say(f"resumed from {path} (epoch {epoch}, iteration {it})")
+    elif args.resume:
+        point = manager.resume_point()
+        if point is not None:
+            path, epoch, it = point
+            state, meta = load_checkpoint(path, trainer.checkpoint_state())
+            trainer.restore(state, meta)
+            say(f"resumed from {path} (epoch {epoch}, iteration {it})")
 
     trainer.register_plugin(TrainingLossMonitor(smoothing=args.loss_smoothing))
     if val_loader is not None:

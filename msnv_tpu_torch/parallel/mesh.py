@@ -173,7 +173,10 @@ def _zip_specs(fn, tree, specs):
 
 def shard_params(mesh: Mesh, params, specs):
     """This rank's storage of a full tree: the model_index-th slice of each
-    sharded leaf (a copy), the replicated leaves themselves."""
+    sharded leaf (a copy), the replicated leaves themselves; the tree
+    itself when `specs` is None (every leaf replicated)."""
+    if specs is None:
+        return params
     n, i = mesh.shape["model"], mesh.model_index
 
     def take(x, dim):
@@ -186,9 +189,10 @@ def shard_params(mesh: Mesh, params, specs):
 
 def gather_params(mesh: Mesh, params, specs):
     """The full tree from this rank's storage: every sharded leaf
-    all-gathered over 'model'; the same tree when n_model is 1."""
+    all-gathered over 'model'; the same tree when n_model is 1 or `specs`
+    is None."""
     n = mesh.shape["model"]
-    if n == 1:
+    if n == 1 or specs is None:
         return params
 
     def gather(x, dim):
@@ -216,8 +220,9 @@ def data_mean(mesh: Mesh, tensors):
 
 
 def reduce_gradients(mesh: Mesh, grads, specs, *scalars):
-    """(this rank's slice of the 'data'-mean gradient tree, the means of
-    `scalars`): one all-reduce for the whole tree and the scalars."""
+    """(this rank's slice of the 'data'-mean gradient tree, the whole tree
+    when `specs` is None; the means of `scalars`): one all-reduce for the
+    whole tree and the scalars."""
     leaves = tree_leaves(grads)
     means = data_mean(mesh, leaves + list(scalars))
     it = iter(means)
@@ -263,6 +268,16 @@ def barrier() -> None:
         t = torch.zeros(1, device=_world_device())
         dist.all_reduce(t)
         t.item()
+
+
+def any_rank(flag: bool) -> bool:
+    """True on every rank when `flag` is true on any (an all-reduce); the
+    flag itself without a process group."""
+    if world_size() == 1:
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int64, device=_world_device())
+    dist.all_reduce(t)
+    return bool(t.item())
 
 
 def broadcast_int64(value: int) -> int:

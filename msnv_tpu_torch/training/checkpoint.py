@@ -33,7 +33,9 @@ package's npz discipline: the state handed to it is the full one
 (Trainer.checkpoint_state gathers model-sharded leaves and lanes), only
 rank 0 writes and deletes, a barrier follows each save, and rank 0's best
 loss is broadcast at start (as its float64 bit pattern), so every rank
-makes the same save decisions; every rank loads the same file. The JAX
+makes the same save decisions. The ranks need one shared checkpoints
+directory: `resume_point` is rank 0's newest checkpoint, and every rank
+must see it there, so every rank loads the same file. The JAX
 package's orbax backend (directory checkpoints for multi-host sharded
 state) is not ported (ROADMAP queue 1.7.5).
 """
@@ -49,8 +51,8 @@ import re
 import numpy as np
 import torch
 
-from msnv_tpu_torch.parallel.mesh import (barrier, broadcast_int64,
-                                          is_main_process)
+from msnv_tpu_torch.parallel.mesh import (any_rank, barrier,
+                                          broadcast_int64, is_main_process)
 from msnv_tpu_torch.tree import keystr, leaves_with_paths, map_with_paths
 
 LAST_PATTERN = "ep{}-it{}.npz"                    # ref plugins.py:117
@@ -172,10 +174,10 @@ class CheckpointManager:
                 self._best_loss = float(meta.get("val_loss", float("inf")))
             except (OSError, ValueError, KeyError):
                 pass
-        # ranks without a shared checkpoints filesystem would recover
-        # different best losses, and a save decision that differs between
-        # ranks leaves them at different barriers: adopt rank 0's, sent
-        # losslessly as the float64's bit pattern
+        # a rank whose read of the best checkpoint failed (the except
+        # above) would hold another best loss, and a save decision that
+        # differs between ranks leaves them at different barriers: adopt
+        # rank 0's, sent losslessly as the float64's bit pattern
         bits = np.asarray(self._best_loss, np.float64).view(np.int64)
         self._best_loss = float(np.asarray(
             broadcast_int64(int(bits)), np.int64).view(np.float64))
@@ -245,6 +247,22 @@ class CheckpointManager:
         natural sort on the numbers in the file name (ref
         train.py:110-126)."""
         return self._newest("ep*-it*.npz", _LAST_RE)
+
+    def resume_point(self):
+        """latest() as rank 0 sees it, on every rank (itself without a
+        process group). Every rank must see the same newest checkpoint in
+        its own directory, which the ranks share: where one does not, every
+        rank raises FileNotFoundError (none is left at a collective)."""
+        mine = self.latest()
+        key = (-1, -1) if mine is None else (mine[1], mine[2])
+        want = (broadcast_int64(key[0]), broadcast_int64(key[1]))
+        if any_rank(key != want):
+            raise FileNotFoundError(
+                f"the ranks see different newest checkpoints in {self.dir} "
+                f"(rank 0: epoch {want[0]}, iteration {want[1]}; -1 for "
+                f"none): multi-process training needs one checkpoints "
+                f"directory that every rank shares")
+        return mine
 
     def best(self):
         return self._newest("best-ep*-it*.npz", _BEST_RE)

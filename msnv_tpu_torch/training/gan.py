@@ -29,16 +29,15 @@ Three forms share the core, as in training/step.py: tensor arguments
 (`make_gan_train_block_scan`, whose ramp step is step_idx0 + position).
 params, disc_params and both optimizer states are updated IN PLACE.
 
-Over a device mesh (`mesh=`, parallel/mesh.py) the builders return, as
-training/step.py's, builder(params, disc_params, main_opt_state,
-disc_opt_state, state) -> the sharded step. The vocoder params follow
+Over a device mesh (`mesh=` and `specs=`, as in training/step.py) the
+builders return the sharded step. The vocoder params follow
 `param_sharding` (this rank's storage; full weights gathered once per
-step); the discriminator and both optimizer states' discriminator side are
-replicated. Each rank runs the step on its lanes; L1 and L2 are reduced
-over 'data' before the adaptive multiplier reads L2, and both gradient
-trees are reduced (sum / n_data) before their clips and updates: the
-vocoder's local gradient dL1_r - lambda dL2_r averages to the global
-batch's, since both losses are means over equal shards.
+step); the discriminator and its optimizer state are replicated. Each
+rank runs the step on its lanes; L1 and L2 are reduced over 'data' before
+the adaptive multiplier reads L2, and both gradient trees are reduced
+(sum / n_data) before their clips and updates: the vocoder's local
+gradient dL1_r - lambda dL2_r averages to the global batch's, since both
+losses are means over equal shards.
 """
 
 from __future__ import annotations
@@ -50,12 +49,12 @@ from msnv_tpu_torch.models.discriminator import discriminator_nll
 from msnv_tpu_torch.models.generate import cast_float_tree
 from msnv_tpu_torch.ops.xent import nll_bits_from_logits
 from msnv_tpu_torch.parallel.mesh import (data_mean, gather_params,
-                                          reduce_gradients)
-from msnv_tpu_torch.training.step import (_forward, chunk_slices,
-                                          freeze_h0_grads, grad_leaves,
-                                          grads_like, state_stop_gradient,
-                                          with_mesh)
-from msnv_tpu_torch.tree import tree_leaves, tree_map
+                                          reduce_gradients, shard_params)
+from msnv_tpu_torch.training.step import (_forward, check_mesh_specs,
+                                          chunk_slices, freeze_h0_grads,
+                                          grad_leaves, grads_like,
+                                          state_stop_gradient)
+from msnv_tpu_torch.tree import tree_leaves
 
 METRICS = ("loss", "disc_loss", "lambda")
 
@@ -143,11 +142,10 @@ def _make_gan_core(model_cfg: ModelConfig, train_cfg: TrainConfig,
         grads = freeze_h0_grads(model_cfg, grads)
         d_grads = grads_like(d_leaves, d_grads)
         if mesh is not None:
-            both = {"vocoder": grads, "disc": d_grads}
             both, = reduce_gradients(
-                mesh, both, {"vocoder": specs,
-                             "disc": tree_map(lambda _: None, d_grads)})
-            grads, d_grads = both["vocoder"], both["disc"]
+                mesh, {"vocoder": grads, "disc": d_grads}, None)
+            grads = shard_params(mesh, both["vocoder"], specs)
+            d_grads = both["disc"]
         params, main_opt_state = main_opt.update(grads, main_opt_state,
                                                  params)
         disc_params, disc_opt_state = disc_opt.update(
@@ -188,7 +186,8 @@ def naive_gan_grads(model_cfg: ModelConfig, train_cfg: TrainConfig, params,
 
 
 def make_gan_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
-                        main_opt, disc_opt, mesh=None, compute_dtype=None):
+                        main_opt, disc_opt, mesh=None, compute_dtype=None,
+                        specs=None):
     """The two-optimizer step:
 
     step(params, disc_params, main_opt_state, disc_opt_state, state,
@@ -198,12 +197,12 @@ def make_gan_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
 
     compute_dtype=torch.bfloat16 is mixed precision, for the vocoder and
     the discriminator alike; the metrics are 0-d float32 device tensors.
-    With `mesh`, builder(params, disc_params, main_opt_state,
-    disc_opt_state, state) -> the sharded step (module docstring).
+    With `mesh` (and `specs`), the sharded step (module docstring).
     """
     _check_gan(model_cfg)
-    return with_mesh(mesh, lambda m, specs: _make_gan_core(
-        model_cfg, train_cfg, main_opt, disc_opt, compute_dtype, m, specs))
+    check_mesh_specs(mesh, specs)
+    return _make_gan_core(model_cfg, train_cfg, main_opt, disc_opt,
+                          compute_dtype, mesh, specs)
 
 
 def _gan_indexed(model_cfg, train_cfg, main_opt, disc_opt, geo,
@@ -224,26 +223,26 @@ def make_gan_train_step_indexed(model_cfg: ModelConfig,
                                 train_cfg: TrainConfig, main_opt, disc_opt,
                                 seq_len: int, overlap_len: int,
                                 cond_in_seq: int, compute_dtype=None,
-                                mesh=None):
+                                mesh=None, specs=None):
     """The GAN step over a device-resident corpus:
 
     step(params, disc_params, main_opt_state, disc_opt_state, state,
          step_idx, corpus, k) -> (..., metrics)
 
     The same numbers as make_gan_train_step on the host-sliced tensors.
-    With `mesh`, a builder as make_gan_train_step's."""
+    With `mesh` (and `specs`), the sharded step."""
     _check_gan(model_cfg)
+    check_mesh_specs(mesh, specs)
     geo = (seq_len, overlap_len, cond_in_seq)
-    return with_mesh(mesh, lambda m, specs: _gan_indexed(
-        model_cfg, train_cfg, main_opt, disc_opt, geo, compute_dtype, m,
-        specs))
+    return _gan_indexed(model_cfg, train_cfg, main_opt, disc_opt, geo,
+                        compute_dtype, mesh, specs)
 
 
 def make_gan_train_block_scan(model_cfg: ModelConfig,
                               train_cfg: TrainConfig, main_opt, disc_opt,
                               seq_len: int, overlap_len: int,
                               cond_in_seq: int, mesh=None,
-                              compute_dtype=None):
+                              compute_dtype=None, specs=None):
     """Multi-step GAN training over a device-resident corpus:
 
     run_block(params, disc_params, main_opt_state, disc_opt_state, state,
@@ -253,28 +252,24 @@ def make_gan_train_block_scan(model_cfg: ModelConfig,
 
     The indexed step for each chunk index of `ks` in order, the ramp's
     step at step_idx0 + position, the metrics stacked on the device (one
-    fetch per block for the caller). With `mesh`, a builder as
-    make_gan_train_step's."""
+    fetch per block for the caller). With `mesh` (and `specs`), the
+    sharded form."""
     _check_gan(model_cfg)
+    check_mesh_specs(mesh, specs)
     geo = (seq_len, overlap_len, cond_in_seq)
+    step = _gan_indexed(model_cfg, train_cfg, main_opt, disc_opt, geo,
+                        compute_dtype, mesh, specs)
 
-    def build(m, specs):
-        step = _gan_indexed(model_cfg, train_cfg, main_opt, disc_opt, geo,
-                            compute_dtype, m, specs)
+    def run_block(params, disc_params, main_opt_state, disc_opt_state,
+                  state, step_idx0, corpus, ks):
+        out = {name: [] for name in METRICS}
+        for i, k in enumerate(ks):
+            (params, disc_params, main_opt_state, disc_opt_state, state,
+             metrics) = step(params, disc_params, main_opt_state,
+                             disc_opt_state, state, step_idx0 + i, corpus, k)
+            for name in METRICS:
+                out[name].append(metrics[name])
+        return (params, disc_params, main_opt_state, disc_opt_state, state,
+                {name: torch.stack(v) for name, v in out.items()})
 
-        def run_block(params, disc_params, main_opt_state, disc_opt_state,
-                      state, step_idx0, corpus, ks):
-            out = {name: [] for name in METRICS}
-            for i, k in enumerate(ks):
-                (params, disc_params, main_opt_state, disc_opt_state, state,
-                 metrics) = step(params, disc_params, main_opt_state,
-                                 disc_opt_state, state, step_idx0 + i,
-                                 corpus, k)
-                for name in METRICS:
-                    out[name].append(metrics[name])
-            return (params, disc_params, main_opt_state, disc_opt_state,
-                    state, {name: torch.stack(v) for name, v in out.items()})
-
-        return run_block
-
-    return with_mesh(mesh, build)
+    return run_block

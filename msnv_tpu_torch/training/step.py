@@ -24,12 +24,11 @@ chunk index), the counterpart of the JAX key chains, so a resumed run
 replays the same stream.
 
 Over a device mesh (parallel/mesh.py; one process per GPU), every builder
-takes `mesh=` and then returns, as the JAX package's does, a builder of the
-step from templates: builder(params[, opt_state, state]) -> step, where
-only the FULL params template is read (its shapes fix the 'model' shard
-dims). The sharded step takes this rank's storage of the params and of the
-optimizer state (`shard_params`; the params themselves when n_model is 1),
-its lanes of the batch or corpus and of the tier state, and returns the
+takes `mesh=` and `specs=`, the full params' `param_sharding(mesh, params)`
+(needed when the mesh has a 'model' axis; None replicates every leaf), and
+returns the sharded step. It takes this rank's storage of the params and of
+the optimizer state (`shard_params`; the params themselves when n_model is
+1), its lanes of the batch or corpus and of the tier state, and returns the
 global loss. Each rank runs the single-device step on its lanes; what JAX
 computes from the global batch is computed after the reduction over
 'data', in JAX's order: the loss (the mean of the shard means), the
@@ -52,8 +51,7 @@ from msnv_tpu_torch.models.samplernn import predictor_apply
 from msnv_tpu_torch.ops.xent import nll_bits_from_logits
 from msnv_tpu_torch.parallel.mesh import (batch_sharding, check_mesh,
                                           corpus_sharding, data_mean,
-                                          gather_params, param_sharding,
-                                          reduce_gradients)
+                                          gather_params, reduce_gradients)
 from msnv_tpu_torch.tree import tree_leaves, tree_map
 
 
@@ -68,18 +66,14 @@ def exposure_tuple(train_cfg) -> Optional[tuple]:
             int(train_cfg.input_noise_levels))
 
 
-def with_mesh(mesh, build):
-    """build(None, None) without a mesh; with one, the JAX-style builder
-    (params_template, *templates) -> build(mesh, param_sharding(mesh,
-    params_template))."""
+def check_mesh_specs(mesh, specs) -> None:
+    """Refuse a mesh that `make_mesh` did not make, and a 'model' axis
+    without the specs that say which leaves it shards."""
     check_mesh(mesh)
-    if mesh is None:
-        return build(None, None)
-
-    def builder(params_template, *templates):
-        return build(mesh, param_sharding(mesh, params_template))
-
-    return builder
+    if mesh is not None and specs is None and mesh.shape["model"] > 1:
+        raise ValueError(
+            f"a mesh with a 'model' axis of {mesh.shape['model']} needs "
+            f"specs=param_sharding(mesh, params) of the full params")
 
 
 def _forward(params, cfg, compute_dtype, state, data, reset, cond, spk):
@@ -205,7 +199,8 @@ def _eval_core(cfg, mesh, specs):
 
 
 def make_train_step(cfg: ModelConfig, optimizer, mesh=None,
-                    compute_dtype=None, exposure: Optional[tuple] = None):
+                    compute_dtype=None, exposure: Optional[tuple] = None,
+                    specs=None):
     """Build the train step.
 
     step(params, opt_state, state, data, reset, target, cond, spk[,
@@ -216,18 +211,19 @@ def make_train_step(cfg: ModelConfig, optimizer, mesh=None,
     differentiable cast, logits and loss in f32. With `exposure` (see
     `exposure_tuple`) the step takes a trailing torch.Generator on the
     data's device and perturbs its inputs first. params and opt_state are
-    updated in place. With `mesh`, returns builder(params_template[,
-    opt_template, state_template]) -> the sharded step (module docstring).
+    updated in place. With `mesh` (and `specs`), the sharded step (module
+    docstring).
     """
-    return with_mesh(mesh, lambda m, specs: _train_core(
-        cfg, optimizer, compute_dtype, exposure, m, specs))
+    check_mesh_specs(mesh, specs)
+    return _train_core(cfg, optimizer, compute_dtype, exposure, mesh, specs)
 
 
-def make_eval_step(cfg: ModelConfig, mesh=None):
+def make_eval_step(cfg: ModelConfig, mesh=None, specs=None):
     """Evaluation step: step(params, state, data, reset, target, cond, spk)
-    -> (loss_bits, new_state); with `mesh`, builder(params_template[,
-    state_template]) -> the sharded step, whose loss is the global one."""
-    return with_mesh(mesh, lambda m, specs: _eval_core(cfg, m, specs))
+    -> (loss_bits, new_state); with `mesh` (and `specs`), the sharded step,
+    whose loss is the global one."""
+    check_mesh_specs(mesh, specs)
+    return _eval_core(cfg, mesh, specs)
 
 
 def chunk_slices(corpus, k: int, seq_len: int, overlap_len: int,
@@ -270,27 +266,30 @@ def _eval_indexed(cfg, geo, mesh, specs):
 def make_train_step_indexed(cfg: ModelConfig, optimizer, seq_len: int,
                             overlap_len: int, cond_in_seq: int,
                             compute_dtype=None,
-                            exposure: Optional[tuple] = None, mesh=None):
+                            exposure: Optional[tuple] = None, mesh=None,
+                            specs=None):
     """Train step over a device-resident corpus:
 
     step(params, opt_state, state, corpus, k[, generator])
       -> (params, opt_state, state, loss_bits)
 
     The same numbers as make_train_step on the host-sliced tensors (the
-    slicing is exact). With `mesh`, a builder as make_train_step's; the
+    slicing is exact). With `mesh` (and `specs`), the sharded step; the
     corpus holds this rank's lanes (loader.device_arrays(shardings=))."""
+    check_mesh_specs(mesh, specs)
     geo = (seq_len, overlap_len, cond_in_seq)
-    return with_mesh(mesh, lambda m, specs: _train_indexed(
-        cfg, optimizer, geo, compute_dtype, exposure, m, specs))
+    return _train_indexed(cfg, optimizer, geo, compute_dtype, exposure, mesh,
+                          specs)
 
 
 def make_eval_step_indexed(cfg: ModelConfig, seq_len: int, overlap_len: int,
-                           cond_in_seq: int, mesh=None):
+                           cond_in_seq: int, mesh=None, specs=None):
     """Eval step over a device-resident corpus:
-    step(params, state, corpus, k) -> (loss_bits, new_state); with `mesh`,
-    a builder as make_eval_step's."""
+    step(params, state, corpus, k) -> (loss_bits, new_state); with `mesh`
+    (and `specs`), the sharded step."""
+    check_mesh_specs(mesh, specs)
     geo = (seq_len, overlap_len, cond_in_seq)
-    return with_mesh(mesh, lambda m, specs: _eval_indexed(cfg, geo, m, specs))
+    return _eval_indexed(cfg, geo, mesh, specs)
 
 
 _MASK64 = (1 << 64) - 1
@@ -311,7 +310,7 @@ def fold_generator(device, *ints) -> torch.Generator:
 def make_train_block_scan(cfg: ModelConfig, optimizer, seq_len: int,
                           overlap_len: int, cond_in_seq: int, mesh=None,
                           compute_dtype=None,
-                          exposure: Optional[tuple] = None):
+                          exposure: Optional[tuple] = None, specs=None):
     """Multi-step train over a device-resident corpus:
 
     run_block(params, opt_state, state, corpus, ks[, key])
@@ -320,29 +319,26 @@ def make_train_block_scan(cfg: ModelConfig, optimizer, seq_len: int,
     The indexed train step for each chunk index of `ks` in order, the
     losses stacked on the device (one fetch per block for the caller). With
     `exposure` it takes a trailing `key`, a tuple of integers; chunk k
-    draws from fold_generator(device, *key, k). With `mesh`, a builder as
-    make_train_step's.
+    draws from fold_generator(device, *key, k). With `mesh` (and `specs`),
+    the sharded form.
     """
+    check_mesh_specs(mesh, specs)
     geo = (seq_len, overlap_len, cond_in_seq)
+    step = _train_indexed(cfg, optimizer, geo, compute_dtype, exposure, mesh,
+                          specs)
 
-    def build(m, specs):
-        step = _train_indexed(cfg, optimizer, geo, compute_dtype, exposure,
-                              m, specs)
+    def run_block(params, opt_state, state, corpus, ks, key=()):
+        losses = []
+        for k in ks:
+            k = int(k)
+            extra = ((fold_generator(corpus["qdata"].device, *key, k),)
+                     if exposure is not None else ())
+            params, opt_state, state, loss = step(
+                params, opt_state, state, corpus, k, *extra)
+            losses.append(loss)
+        return params, opt_state, state, torch.stack(losses)
 
-        def run_block(params, opt_state, state, corpus, ks, key=()):
-            losses = []
-            for k in ks:
-                k = int(k)
-                extra = ((fold_generator(corpus["qdata"].device, *key, k),)
-                         if exposure is not None else ())
-                params, opt_state, state, loss = step(
-                    params, opt_state, state, corpus, k, *extra)
-                losses.append(loss)
-            return params, opt_state, state, torch.stack(losses)
-
-        return run_block
-
-    return with_mesh(mesh, build)
+    return run_block
 
 
 def _eval_block(cfg, geo, mesh, specs):
@@ -359,12 +355,13 @@ def _eval_block(cfg, geo, mesh, specs):
 
 
 def make_eval_block_scan(cfg: ModelConfig, seq_len: int, overlap_len: int,
-                         cond_in_seq: int, mesh=None):
+                         cond_in_seq: int, mesh=None, specs=None):
     """Multi-step eval over a device-resident corpus:
     run_block(params, state, corpus, ks) -> (losses (len(ks),), state);
-    with `mesh`, a builder as make_eval_step's."""
+    with `mesh` (and `specs`), the sharded form."""
+    check_mesh_specs(mesh, specs)
     geo = (seq_len, overlap_len, cond_in_seq)
-    return with_mesh(mesh, lambda m, specs: _eval_block(cfg, geo, m, specs))
+    return _eval_block(cfg, geo, mesh, specs)
 
 
 def eval_device_corpus(cfg: ModelConfig, params, state, loader,
@@ -379,8 +376,7 @@ def eval_device_corpus(cfg: ModelConfig, params, state, loader,
     geo = (loader.seq_len, loader.overlap_len, loader.cond_in_seq)
     shardings = None if mesh is None else corpus_sharding(mesh)
     corpus_dev = loader.device_arrays(state[0].device, shardings=shardings)
-    replicated = None if mesh is None else tree_map(lambda _: None, params)
-    scan = _eval_block(cfg, geo, mesh, replicated)
+    scan = _eval_block(cfg, geo, mesh, None)
     ks = list(range(len(loader)))
     losses = []
     for i in range(0, len(ks), scan_block):

@@ -83,9 +83,6 @@ class Trainer:
         self.mesh = mesh
         self.device = params["mlp"]["embedding"].device
         self.optimizer = optimizer
-        # the full tree's shapes (no storage) fix the 'model' shard dims
-        self._template = tree_map(
-            lambda x: torch.empty_like(x, device="meta"), params)
         if mesh is None:
             self._specs = None
             self.params = params
@@ -132,36 +129,32 @@ class Trainer:
             self.disc_opt = optimizer         # the same clipped-Adam recipe
             self.disc_opt_state = self.disc_opt.init(self.disc_params)
             gan = (cfg.model, cfg.train, optimizer, self.disc_opt)
-            self._step = self._built(make_gan_train_step(
-                *gan, mesh=mesh, compute_dtype=compute_dtype))
+            self._step = make_gan_train_step(
+                *gan, mesh=mesh, compute_dtype=compute_dtype,
+                specs=self._specs)
         else:
-            self._step = self._built(make_train_step(
+            self._step = make_train_step(
                 cfg.model, optimizer, mesh=mesh, compute_dtype=compute_dtype,
-                exposure=self._exposure))
-        self._eval = self._built(make_eval_step(cfg.model, mesh=mesh))
+                exposure=self._exposure, specs=self._specs)
+        self._eval = make_eval_step(cfg.model, mesh=mesh, specs=self._specs)
         if self._want_device_corpus(loader):
             # window geometry comes from the LOADER, never from the train
             # config (they agree in the CLI; the API allows any loader)
             geo = (loader.seq_len, loader.overlap_len, loader.cond_in_seq)
             self._corpus_dev = self._upload(loader)
+            sharded = dict(mesh=mesh, specs=self._specs)
             if self.is_gan:
-                self._step_indexed = self._built(make_gan_train_step_indexed(
-                    *gan, *geo, compute_dtype=compute_dtype, mesh=mesh))
-                self._train_scan = self._built(make_gan_train_block_scan(
-                    *gan, *geo, mesh=mesh, compute_dtype=compute_dtype))
+                self._step_indexed = make_gan_train_step_indexed(
+                    *gan, *geo, compute_dtype=compute_dtype, **sharded)
+                self._train_scan = make_gan_train_block_scan(
+                    *gan, *geo, compute_dtype=compute_dtype, **sharded)
             else:
-                self._step_indexed = self._built(make_train_step_indexed(
+                self._step_indexed = make_train_step_indexed(
                     cfg.model, optimizer, *geo, compute_dtype=compute_dtype,
-                    exposure=self._exposure, mesh=mesh))
-                self._train_scan = self._built(make_train_block_scan(
-                    cfg.model, optimizer, *geo, mesh=mesh,
-                    compute_dtype=compute_dtype, exposure=self._exposure))
-
-    def _built(self, step_or_builder):
-        """A step: over a mesh, the builder's product from the full
-        params' template."""
-        return step_or_builder if self.mesh is None else \
-            step_or_builder(self._template)
+                    exposure=self._exposure, **sharded)
+                self._train_scan = make_train_block_scan(
+                    cfg.model, optimizer, *geo, compute_dtype=compute_dtype,
+                    exposure=self._exposure, **sharded)
 
     def _upload(self, loader):
         """The loader's packed corpus on the device: this rank's lanes
@@ -352,10 +345,9 @@ class Trainer:
             if loader not in self._eval_dev:
                 corpus_dev = (self._corpus_dev if loader is self.loader
                               else self._upload(loader))
-                self._eval_dev[loader] = (corpus_dev, self._built(
-                    make_eval_block_scan(
-                        self.cfg.model, loader.seq_len, loader.overlap_len,
-                        loader.cond_in_seq, mesh=self.mesh)))
+                self._eval_dev[loader] = (corpus_dev, make_eval_block_scan(
+                    self.cfg.model, loader.seq_len, loader.overlap_len,
+                    loader.cond_in_seq, mesh=self.mesh, specs=self._specs))
             corpus_dev, eval_scan = self._eval_dev[loader]
             ks = list(range(len(loader)))
             for i in range(0, len(ks), self.scan_block):

@@ -185,7 +185,7 @@ def inputs():
                 "params": gan0, "disc": disc0, "channels": 8,
                 "batch": batch(GAN_MODEL)},
         "exposure": dict(step, train=fields(EXPO_TRAIN)),
-        "specs": step,
+        "specs": dict(step, train=fields(STEP_TRAIN)),
         "generate": gen,
         "greedy": dict(gen, temperature=0.0),
         "stream": {"model": fields(GEN_MODEL), "params": gen0, "spk": spk,
@@ -317,11 +317,19 @@ def test_sharded_exposure_step_equals_unsharded(runs):
 def test_param_sharding_specs_match_jax(runs):
     want = runs[0]["specs"]
     for r in results(runs, "specs"):
-        got = {k: v for k, v in r.items() if k != "mesh"}
+        got = {k: v for k, v in r.items() if k.startswith("leaf:")}
         assert got == want
         assert r["mesh"] == {"data": 2, "model": 2}
     assert 0 in want.values() and 2 in want.values()
     assert want["leaf:['params']['tiers'][0]['h0']"] is None
+
+
+def test_model_axis_needs_specs(runs):
+    """A step over a mesh with a 'model' axis is refused without the
+    param_sharding specs that say which leaves the axis shards."""
+    for r in results(runs, "specs"):
+        assert "needs specs=param_sharding(mesh, params)" in \
+            r["no_specs_error"]
 
 
 # --------------------------------------------------------------------------
@@ -554,6 +562,25 @@ def test_cli_train_two_ranks_checkpoint_loads_in_the_jax_trainer(cli_runs):
         for p, x in flat:
             np.testing.assert_array_equal(
                 np.asarray(x), z["leaf:" + jax.tree_util.keystr(p)])
+
+
+def test_cli_train_two_ranks_refuses_a_batch_that_does_not_divide(
+        cli_runs):
+    """--batch_size 3 over two data ranks: ValueError on both ranks, not
+    two ranks each training the whole batch."""
+    for c in cli_runs[3]:
+        assert "--batch_size 3 does not divide over the mesh's 'data' " \
+            "axis of 2 ranks" in c["odd_batch_error"]
+
+
+def test_resume_point_refuses_ranks_that_see_different_checkpoints(
+        cli_runs):
+    """Rank 0 sees a checkpoint that rank 1 does not: both ranks raise
+    (neither resumes alone, neither waits at a collective)."""
+    for c in cli_runs[3]:
+        assert "the ranks see different newest checkpoints" in \
+            c["unshared_error"]
+        assert "rank 0: epoch 1, iteration 4" in c["unshared_error"]
 
 
 def test_corpus_built_once_under_two_ranks(cli_runs):

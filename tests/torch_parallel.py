@@ -140,7 +140,7 @@ def _task_train(mesh, spec):
     full = _params(spec["params"], cfg)
     opt = make_optimizer(_train_cfg(spec["train"]))
     specs = param_sharding(mesh, full)
-    step = make_train_step(cfg, opt, mesh=mesh)(full)
+    step = make_train_step(cfg, opt, mesh=mesh, specs=specs)
     params = shard_params(mesh, full, specs)
     opt_state = opt.init(params)
     lanes = batch_sharding(mesh).local
@@ -171,8 +171,9 @@ def _task_eval(mesh, spec):
     from msnv_tpu_torch.training.step import make_eval_step
     cfg = _cfg(spec["model"])
     full = _params(spec["params"], cfg)
-    step = make_eval_step(cfg, mesh=mesh)(full)
-    params = shard_params(mesh, full, param_sharding(mesh, full))
+    specs = param_sharding(mesh, full)
+    step = make_eval_step(cfg, mesh=mesh, specs=specs)
+    params = shard_params(mesh, full, specs)
     lanes = batch_sharding(mesh).local
     data, target, cond, spk = (lanes(x) for x in _batch(spec["batch"]))
     state = init_tier_state(cfg, data.shape[0], device="cpu")
@@ -200,7 +201,8 @@ def _task_gan(mesh, spec):
                                   spec["channels"], device="cpu")
     main_opt, disc_opt = make_optimizer(tc), make_optimizer(tc)
     specs = param_sharding(mesh, full)
-    step = make_gan_train_step(cfg, tc, main_opt, disc_opt, mesh=mesh)(full)
+    step = make_gan_train_step(cfg, tc, main_opt, disc_opt, mesh=mesh,
+                               specs=specs)
     params = shard_params(mesh, full, specs)
     mo, do = main_opt.init(params), disc_opt.init(disc)
     lanes = batch_sharding(mesh).local
@@ -239,8 +241,6 @@ def _task_exposure(mesh, spec):
         params = _params(spec["params"], cfg)
         opt = make_optimizer(tc)
         step = make_train_step(cfg, opt, mesh=m, exposure=exposure)
-        if m is not None:
-            step = step(params)
         opt_state = opt.init(params)
         state = init_tier_state(cfg, data.shape[0], device="cpu")
         losses = []
@@ -270,10 +270,18 @@ def _task_specs(mesh, spec):
     """The port's param_sharding of the full tree, by checkpoint key."""
     from msnv_tpu_torch.parallel.mesh import param_sharding
     from msnv_tpu_torch.tree import keystr, leaves_with_paths
+    from msnv_tpu_torch.training.optim import make_optimizer
+    from msnv_tpu_torch.training.step import make_train_step
     cfg = _cfg(spec["model"])
     specs = param_sharding(mesh, _params(spec["params"], cfg))
-    return {"leaf:" + keystr(("params",) + tuple(path)): dim
-            for path, dim in leaves_with_paths(specs)}
+    out = {"leaf:" + keystr(("params",) + tuple(path)): dim
+           for path, dim in leaves_with_paths(specs)}
+    try:
+        make_train_step(cfg, make_optimizer(_train_cfg(spec["train"])),
+                        mesh=mesh)
+    except ValueError as e:
+        out["no_specs_error"] = str(e)
+    return out
 
 
 def _task_generate(mesh, spec):
@@ -463,4 +471,24 @@ def job_cli(rank, world, argv_two, argv_three):
         ckpt_mod.load_checkpoint = load
         corpus_mod._build_corpus_local = build
         json.dump = dump
+    # a batch of 3 lanes does not divide over two data ranks
+    odd = list(argv_two)
+    odd[odd.index("--batch_size") + 1] = "3"
+    try:
+        cli_train.main(odd)
+    except ValueError as e:
+        counts["odd_batch_error"] = str(e)
+    finally:
+        sys.stdout = stdout
+    # ranks that do not share their checkpoints: rank 0 sees one, rank 1
+    # none
+    results = argv_two[argv_two.index("--results_path") + 1]
+    own = os.path.join(os.path.dirname(results), f"unshared{rank}")
+    manager = ckpt_mod.CheckpointManager(own, keep_old=False)
+    if rank == 0:
+        open(os.path.join(own, "ep1-it4.npz"), "wb").close()
+    try:
+        manager.resume_point()
+    except FileNotFoundError as e:
+        counts["unshared_error"] = str(e)
     return counts
