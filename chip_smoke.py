@@ -188,23 +188,59 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                    first five and 5e-2 on all.
                 Each rank's K1 / K2 launches come back to the parent; a rank
                 that fails or hangs (deadline MESH_TIMEOUT) fails the phase
+ 12. serve-mesh — serving over a mesh and directory checkpoints, full
+                width, from phase 4's .npz:
+                a. one process, an NCCL group of world 1, a (1, 1) mesh:
+                   8 identical /synthesize requests x 160 frames through
+                   the batcher in one group, their WAVs those of
+                   generate_fn's 8 lanes with fold_generator(group seed,
+                   0); a greedy /synthesize byte-equal to the no-mesh
+                   service's (the service's /synthesize is the per-sample
+                   path in float32, as without a mesh);
+                b. `msnv_tpu_torch.serving --mesh_data 2 --mux_lanes 128`
+                   on two gloo ranks sharing the card (spawned as phase 11
+                   spawns them): /healthz mesh_shards 2; 4 pairs of
+                   identical /synthesize requests (one lane a rank), each
+                   pair's WAVs those of one lane with the folded generator
+                   of shard 0 and 1, rerun here; 128 concurrent /stream
+                   clients x 48 frames from a client process through the
+                   mux (64 lanes a rank, bf16, K 4), every one complete,
+                   every window of each rank resident; reported, not
+                   gated: aggregate audio-s/s, per-stream realtime, first
+                   audio;
+                c. SIGINT to rank 0: its front stops, STOP reaches rank 1,
+                   and both return and exit 0 before the deadline;
+                d. the full-width train state (params, Adam moments, tier
+                   state at B 128) saved as dcp from a (1, 2) mesh by two
+                   gloo ranks, each writing its slices, loaded on (2, 1)
+                   and in one process bit-equal to the gathered state
+                   (rank 0's .npz of it); write and read seconds and bytes
+                   beside the .npz's; then
+                   cli.train --ckpt_backend dcp on both ranks over (1, 2)
+                   (phase 11e's model at B 32, a corpus of one packing
+                   unit, 86 chunks an epoch, no validation): one epoch
+                   resumed to two equal to two straight, bit for bit, each
+                   rank writing its part of every checkpoint
 Then one JSON line of kernel numbers, the card's name and power limit, and
 last the {"ok": true, "device": ...} line. The kernels' `launches` add up
 the counts of every path that drives them: K1 the serving path (phase 4),
 the generate CLI (phase 7), the multiplexer (phase 8), the variants'
 generation, streaming and generate CLI (phase 9) and the artifact's
-generation, pushes and service (phase 10) and sharded generation and
-streaming (phase 11), K2 the train steps (phase 6), the training loop
-(phase 7), the variants' train steps and train CLI (phase 9) and the
-sharded steps and cli.train of every rank (phase 11), each count set to 0
-just before its path and read just after.
+generation, pushes and service (phase 10), sharded generation and
+streaming (phase 11) and the mux over a serving mesh on both ranks (phase
+12), K2 the train steps (phase 6), the training loop (phase 7), the
+variants' train steps and train CLI (phase 9), the sharded steps and
+cli.train of every rank (phase 11) and cli.train with dcp checkpoints on
+both ranks (phase 12), each count set to 0 just before its path and read
+just after.
 
 `--rehearse-cpu` runs the same phases on the CPU at dim 32 with the plain
 versions (no build, no timing on the card; phase 7 at B 4 on a small
 corpus; phase 8 with 4 and 8 lanes; phase 9 at B 4, seq_len 320 and an
 8-channel discriminator; phase 10 at B 2; phase 11 with gloo CPU ranks at
-B 4) and ends without the ok line. `--phases=5,6`, `--phases=7`,
-`--phases=8`, `--phases=9`, `--phases=10` or `--phases=11` runs only the
+B 4; phase 12 with gloo CPU ranks, 8 mux lanes and a B 4 state) and ends
+without the ok line. `--phases=5,6`, `--phases=7`, `--phases=8`,
+`--phases=9`, `--phases=10`, `--phases=11` or `--phases=12` runs only the
 named phases (and then prints no result line).
 """
 
@@ -3172,28 +3208,33 @@ def _narrow(exp, dim):
                                                               dim=dim))
 
 
-def _spawn_ranks(world, work, spec):
-    """Start the ranks (spawn), wait for all with a deadline; a rank that
-    fails or hangs fails the phase, and no rank outlives it."""
-    import pickle
-
+def _start_ranks(target, world, work, spec):
+    """target(rank, world, store, work, spec) in `world` spawned
+    processes; _join_ranks waits for them."""
     import torch.multiprocessing as mp
     ctx = mp.get_context("spawn")
     store = os.path.join(work, "ranks.store")
-    procs = [ctx.Process(target=_mesh_rank,
-                         args=(rank, world, store, work, spec))
+    procs = [ctx.Process(target=target, args=(rank, world, store, work,
+                                              spec))
              for rank in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + MESH_TIMEOUT
+    return procs
+
+
+def _join_ranks(procs, work, deadline_s):
+    """Wait for every rank (a rank that fails fails the phase at once);
+    kill what outlives the deadline. -> the ranks' pickled results."""
+    import pickle
+    deadline = time.monotonic() + deadline_s
     try:
         while any(p.is_alive() for p in procs):
             if time.monotonic() > deadline:
-                raise AssertionError(f"mesh ranks still running after "
-                                     f"{MESH_TIMEOUT} s")
+                raise AssertionError(f"ranks still running after "
+                                     f"{deadline_s} s")
             if any(p.exitcode not in (None, 0) for p in procs):
                 break
-            time.sleep(0.5)
+            time.sleep(0.2)
     finally:
         for p in procs:
             if p.is_alive():
@@ -3208,9 +3249,9 @@ def _spawn_ranks(world, work, spec):
         elif p.exitcode != 0:
             errors.append(f"rank {rank}: exit code {p.exitcode}")
     if errors:
-        raise AssertionError("a mesh rank failed:\n" + "\n".join(errors))
+        raise AssertionError("a rank failed:\n" + "\n".join(errors))
     out = []
-    for rank in range(world):
+    for rank in range(len(procs)):
         with open(os.path.join(work, f"rank{rank}.pkl"), "rb") as f:
             out.append(pickle.load(f))
     return out
@@ -3372,7 +3413,8 @@ def phase_mesh(exp, dev, dim, batch, seq_len, frames, gan, cli):
         if dev.type == "cuda":
             torch.cuda.empty_cache()   # the ranks share the card
         t0 = time.perf_counter()
-        ranks = _spawn_ranks(2, work, spec)
+        ranks = _join_ranks(_start_ranks(_mesh_rank, 2, work, spec), work,
+                            MESH_TIMEOUT)
         out["ranks_wall_s"] = time.perf_counter() - t0
         _check_ranks(dev, ranks, spec)
         resumed, _ = _stats(os.path.join(work, "ranks"))
@@ -3398,6 +3440,586 @@ def phase_mesh(exp, dev, dim, batch, seq_len, frames, gan, cli):
     log(f"[mesh] launches on the mesh paths: windows "
         f"{out['window_launches']}, GRU fwd {out['gru_fwd_launches']}, bwd "
         f"{out['gru_bwd_launches']}; ranks' wall {out['ranks_wall_s']:.1f} s")
+
+
+# --------------------------------------------------------------------------
+# phase 12: serving over a mesh, and directory checkpoints
+# --------------------------------------------------------------------------
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _concurrent_posts(addr, bodies):
+    """POST every body to /synthesize at once -> [(status, bytes)]."""
+    out = [None] * len(bodies)
+
+    def one(i):
+        r, data = _post(addr, "/synthesize", bodies[i])
+        out[i] = (r.status, data)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(bodies))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("a /synthesize request never returned")
+    return out
+
+
+def _group_seed(seed, n):
+    """The service's group seed for n requests that all carry `seed`."""
+    folded = seed
+    for _ in range(n - 1):
+        folded = (folded * 1000003 + seed) % (1 << 63)
+    return folded
+
+
+def _serve_mesh_world1(loaded, ckpt, cfg, dev, work, batch, frames,
+                       greedy_frames):
+    """12a: one process, a world-1 group (NCCL on the card), a (1, 1)
+    mesh: `batch` identical /synthesize requests through the batcher into
+    one group, whose WAVs are generate_fn's lanes with
+    fold_generator(group seed, 0) (one shard holds every lane); a greedy
+    /synthesize byte-equal to the no-mesh service's."""
+    import torch
+    import torch.distributed as dist
+    from msnv_tpu_torch.data.wavio import wav_bytes
+    from msnv_tpu_torch.models.generate import generate_fn
+    from msnv_tpu_torch.parallel.mesh import make_mesh
+    from msnv_tpu_torch.serving import VocoderService, make_server
+    from msnv_tpu_torch.training.step import fold_generator
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(
+        backend, store=dist.FileStore(os.path.join(work, "serve1.store"), 1),
+        rank=0, world_size=1)
+    C = cfg.effective_cond_dim
+    rng = np.random.RandomState(12)
+    cond = rng.rand(frames, C).astype(np.float32)
+    spk, seed = 2, 7
+    body = {"cond": base64.b64encode(cond.tobytes()).decode(), "spk": spk,
+            "seed": seed}
+    greedy = {"cond": rng.rand(greedy_frames, C).tolist(),
+              "spk": [1.0 / cfg.spk_dim] * cfg.spk_dim, "temperature": 0.0}
+    svc = plain = server = None
+    try:
+        svc = VocoderService(loaded, cfg, frame_bucket=16, max_batch=batch,
+                             linger_ms=5000, mesh=make_mesh(1, 1, device=dev),
+                             name=ckpt[1])
+        plain = VocoderService(loaded, cfg, frame_bucket=16, name=ckpt[1])
+        if svc.healthz()["mesh_shards"] != 1:
+            raise AssertionError(f"/healthz {svc.healthz()}")
+        server = make_server(svc, "127.0.0.1", 0)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        t0 = time.perf_counter()
+        got = _concurrent_posts(server.server_address, [body] * batch)
+        wall = time.perf_counter() - t0
+        if [s for s, _ in got] != [200] * batch or \
+                svc._batcher.batch_sizes != [batch]:
+            raise AssertionError(f"mesh /synthesize: statuses "
+                                 f"{[s for s, _ in got]}, groups "
+                                 f"{svc._batcher.batch_sizes}")
+        audio, _ = generate_fn(loaded, cfg)(
+            torch.from_numpy(np.stack([cond] * batch)).to(dev),
+            torch.full((batch,), spk, dtype=torch.int32, device=dev),
+            fold_generator(dev, _group_seed(seed, batch), 0))
+        audio = audio.cpu().numpy()
+        want = [wav_bytes(a[:frames * cfg.lookback], 16000) for a in audio]
+        if len(set(want)) != batch or \
+                sorted(w for _, w in got) != sorted(want):
+            raise AssertionError("the (1, 1) mesh service's /synthesize "
+                                 "differs from generate_fn with the folded "
+                                 "generator")
+        r, mesh_wav = _post(server.server_address, "/synthesize", greedy)
+        if r.status != 200 or mesh_wav != plain.synthesize(dict(greedy)):
+            raise AssertionError("greedy /synthesize over the (1, 1) mesh "
+                                 "differs from the no-mesh service's")
+        audio_s = batch * frames * cfg.lookback / 16000
+        log(f"[serve-mesh] 12a world 1 ({backend}), (1, 1) mesh: {batch} "
+            f"/synthesize x {frames} frames through the batcher in one "
+            f"group, bit-equal to generate_fn's lanes with the folded "
+            f"generator; {wall:.3f} s ({audio_s / wall:.2f} audio-s/s, the "
+            f"per-sample path in float32); greedy /synthesize byte-equal "
+            f"to the no-mesh service's")
+        return {"backend": backend, "batch": batch, "frames": frames,
+                "wall_s": wall, "audio_s_per_s": audio_s / wall}
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        for s in (svc, plain):
+            if s is not None:
+                s.close()
+        dist.destroy_process_group()
+
+
+def _serving_rank(rank, world, store, work, spec):
+    """12b-c on one rank: a gloo group over the card, as torchrun would
+    start it, then `python -m msnv_tpu_torch.serving --mesh_data 2`'s
+    main (rank 0 serves until SIGINT); this rank's window counts."""
+    import pickle
+    import traceback
+    from datetime import timedelta
+    try:
+        import torch
+        import torch.distributed as dist
+        torch.set_num_threads(2)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if spec["cuda"]:
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store, world), rank=rank,
+            world_size=world, timeout=timedelta(seconds=MESH_TIMEOUT))
+        from msnv_tpu_torch.serving import cli
+        _reset_window_counts()
+        cli.main(spec["argv"])
+        out = {"windows": _window_counts(), "returned": time.time()}
+        dist.destroy_process_group()
+        with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    except BaseException:
+        with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _healthz(addr, procs, deadline_s=300):
+    import http.client
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < deadline_s:
+        if any(p.exitcode not in (None, 0) for p in procs):
+            break
+        try:
+            c = http.client.HTTPConnection(*addr, timeout=60)
+            c.request("GET", "/healthz")
+            r = c.getresponse()
+            health = json.loads(r.read())
+            c.close()
+            return health
+        except OSError:
+            time.sleep(0.5)
+    raise AssertionError("the serving ranks never answered /healthz")
+
+
+def _serve_mesh_ranks(loaded, ckpt, cfg, dev, work, lanes, frames,
+                      synth_frames, K):
+    """12b-c: `msnv_tpu_torch.serving --mesh_data 2 --mux_lanes lanes` on
+    two gloo ranks sharing the card: /healthz; 4 pairs of identical
+    /synthesize requests (lanes 2: one per rank), each pair's WAVs those of
+    generate_fn on one lane with fold_generator(group seed, 0) and (.., 1)
+    as this process reruns them; `lanes` concurrent /stream clients x
+    `frames` frames from a client process, every one complete; SIGINT to
+    rank 0, and both ranks return and exit 0 before the deadline. Every
+    window of each rank resident."""
+    import signal
+
+    import torch
+    from msnv_tpu_torch.data.wavio import wav_bytes
+    from msnv_tpu_torch.models.generate import generate_fn
+    from msnv_tpu_torch.training.step import fold_generator
+    port = _free_port()
+    addr = ("127.0.0.1", port)
+    argv = ["--model", ckpt[0], "--device", dev.type, "--port", str(port),
+            "--mesh_data", "2", "--mux_lanes", str(lanes),
+            "--frames_per_push", str(K), "--max_batch", "2",
+            "--linger_ms", "5000", "--frame_bucket", "16"]
+    spec = {"cuda": dev.type == "cuda", "argv": argv}
+    C = cfg.effective_cond_dim
+    t_start = time.perf_counter()
+    procs = _start_ranks(_serving_rank, 2, work, spec)
+    proc = None
+    try:
+        health = _healthz(addr, procs)
+        startup = time.perf_counter() - t_start
+        if health.get("mesh_shards") != 2 or health.get("mux_lanes") != lanes:
+            raise AssertionError(f"/healthz {health}")
+        gen = generate_fn(loaded, cfg)
+        rng = np.random.RandomState(21)
+        t0 = time.perf_counter()
+        for pair in range(4):
+            cond = rng.rand(synth_frames, C).astype(np.float32)
+            spk, seed = pair % cfg.spk_dim, 30 + pair
+            body = {"cond": base64.b64encode(cond.tobytes()).decode(),
+                    "spk": spk, "seed": seed}
+            got = _concurrent_posts(addr, [body, body])
+            if [s for s, _ in got] != [200, 200]:
+                raise AssertionError(f"/synthesize over 2 ranks: {got}")
+            want = []
+            for shard in range(2):
+                audio, _ = gen(
+                    torch.from_numpy(cond[None]).to(dev),
+                    torch.tensor([spk], dtype=torch.int32, device=dev),
+                    fold_generator(dev, _group_seed(seed, 2), shard))
+                want.append(wav_bytes(audio[0].cpu().numpy(), 16000))
+            if want[0] == want[1] or sorted(w for _, w in got) != \
+                    sorted(want):
+                raise AssertionError(f"pair {pair}: a shard differs from "
+                                     f"its local run with the folded "
+                                     f"generator")
+        synth_wall = time.perf_counter() - t0
+        log(f"[serve-mesh] 12b /healthz mesh_shards 2, mux_lanes {lanes}; "
+            f"8 /synthesize x {synth_frames} frames (4 pairs, one lane a "
+            f"rank), every shard equal to its local run with the folded "
+            f"generator; {synth_wall:.3f} s with the reruns; ranks up in "
+            f"{startup:.1f} s")
+        cspec = {"host": addr[0], "port": port, "n": lanes,
+                 "frames": frames, "C": C, "spk_dim": cfg.spk_dim,
+                 "seed": 13}
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mux-clients",
+             json.dumps(cspec)], stdout=subprocess.PIPE, text=True)
+        t0 = time.perf_counter()
+        while proc.poll() is None:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                raise AssertionError("a serving rank died under the "
+                                     "streams")
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("mesh /stream clients still running "
+                                     "after 600 s")
+            time.sleep(0.2)
+        if proc.returncode != 0:
+            raise AssertionError(f"mesh /stream clients exited "
+                                 f"{proc.returncode}")
+        results = json.loads(proc.stdout.read().strip().splitlines()[-1])
+        want = 2 * frames * cfg.lookback
+        bad = [(i, r["status"], r["bytes"]) for i, r in enumerate(results)
+               if r["status"] != 200 or r["bytes"] != want or r["constant"]]
+        if bad:
+            raise AssertionError(f"mesh /stream wrong (index, status, "
+                                 f"bytes; {want} expected): {bad[:8]}")
+        streams = _stream_stats([r["start"] for r in results],
+                                [r["first"] for r in results],
+                                [r["end"] for r in results], frames,
+                                cfg.lookback)
+        t_stop = time.time()
+        os.kill(procs[0].pid, signal.SIGINT)
+        ranks = _join_ranks(procs, work, 120)
+        stop_s = max(r["returned"] for r in ranks) - t_stop
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    windows = [r["windows"] for r in ranks]
+    per_tick = K * cfg.frame_sizes[-1]
+    launches = windows[0][0]
+    if dev.type == "cuda" and (
+            any(w != (launches, launches, 0) for w in windows)
+            or launches % per_tick
+            or launches < -(-frames // K) * per_tick):
+        raise AssertionError(f"mesh mux windows per rank (launches, "
+                             f"resident, tiled): {windows}")
+    log(f"[serve-mesh] 12b {lanes} concurrent /stream x {frames} frames "
+        f"through the mux over 2 ranks ({lanes // 2} lanes a rank): all 200 "
+        f"and complete; {streams['audio_s_per_s']:.2f} audio-s/s over "
+        f"{streams['wall_s']:.3f} s; per-stream realtime "
+        f"x{streams['rtf_min']:.3f} (min) / x{streams['rtf_median']:.3f} "
+        f"(median); first audio {streams['first_audio_ms_median']:.1f} / "
+        f"{streams['first_audio_ms_max']:.1f} ms (median / max); windows "
+        f"per rank (launches, resident, tiled) {windows} (two ranks on one "
+        f"card measure no scaling)")
+    log(f"[serve-mesh] 12c SIGINT to rank 0: both ranks returned "
+        f"{stop_s:.3f} s later and exited 0")
+    return {"startup_s": startup, "synth_wall_s": synth_wall,
+            "streams": streams, "windows_by_rank": windows,
+            "stop_s": stop_s}
+
+
+def _dcp_state(cfg, train, dev, batch):
+    """The full-width train state from seeds: init params, Adam moments
+    drawn from a seeded generator, count 7, a random tier state."""
+    import torch
+    from msnv_tpu_torch.models.samplernn import init_params, init_tier_state
+    from msnv_tpu_torch.training.optim import make_optimizer
+    from msnv_tpu_torch.tree import tree_map
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    opt = make_optimizer(train).init(params)
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def rand(x):
+        return torch.rand(x.shape, generator=g, device=dev, dtype=x.dtype)
+
+    return {"params": params,
+            "opt_state": {"count": 7, "mu": tree_map(rand, opt["mu"]),
+                          "nu": tree_map(rand, opt["nu"])},
+            "tier_state": [rand(s) for s in init_tier_state(cfg, batch,
+                                                            device=dev)]}
+
+
+def _dcp_state_shapes(cfg, train, batch):
+    """The train state's structure with meta tensors (no draws)."""
+    from msnv_tpu_torch.models.samplernn import init_params, init_tier_state
+    from msnv_tpu_torch.training.optim import make_optimizer
+    params = init_params(cfg, device="meta")
+    opt = make_optimizer(train).init(params)
+    return {"params": params, "opt_state": opt,
+            "tier_state": init_tier_state(cfg, batch, device="meta")}
+
+
+def _dcp_layout(mesh, state, zero=False):
+    """`state` as this rank stores it over `mesh`, as DTensors
+    (Trainer.checkpoint_state(sharded=True)'s form); zeros with zero."""
+    import torch
+    from msnv_tpu_torch.parallel.mesh import (as_dtensors, param_sharding,
+                                              shard_params, state_sharding)
+    from msnv_tpu_torch.tree import tree_map
+    if zero:
+        state = tree_map(lambda x: x if isinstance(x, int)
+                         else torch.zeros_like(x), state)
+    specs = param_sharding(mesh, state["params"])
+
+    def part(tree):
+        return as_dtensors(mesh, shard_params(mesh, tree, specs), specs)
+
+    lanes = state_sharding(mesh).local
+    return {"params": part(state["params"]),
+            "opt_state": {"count": state["opt_state"]["count"],
+                          "mu": part(state["opt_state"]["mu"]),
+                          "nu": part(state["opt_state"]["nu"])},
+            "tier_state": as_dtensors(
+                mesh, [lanes(s) for s in state["tier_state"]],
+                lane_axis=1)}
+
+
+def _dcp_rank(rank, world, store, work, spec):
+    """12d on one rank (gloo over the card): the full-width state saved
+    as dcp from a (1, 2) mesh, loaded on (2, 1), and by rank 0 as `.npz`
+    (the gathered state, for the parent to hold the one-process load
+    against); then cli.train --ckpt_backend dcp over (1, 2): straight to
+    two epochs, and to one then resumed to two."""
+    import pickle
+    import traceback
+    from datetime import timedelta
+    try:
+        import dataclasses
+
+        import torch
+        import torch.distributed as dist
+        torch.set_num_threads(2)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if spec["cuda"]:
+            torch.cuda.set_device(0)
+            dev = torch.device("cuda", 0)
+        else:
+            dev = torch.device("cpu")
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store, world), rank=rank,
+            world_size=world, timeout=timedelta(seconds=MESH_TIMEOUT))
+        from msnv_tpu_torch.cli import train as cli_train
+        from msnv_tpu_torch.config import preset
+        from msnv_tpu_torch.parallel.mesh import (barrier, local_tensors,
+                                                  make_mesh)
+        from msnv_tpu_torch.training.checkpoint import (load_checkpoint_dcp,
+                                                        save_checkpoint,
+                                                        save_checkpoint_dcp)
+        from msnv_tpu_torch.tree import leaves_with_paths
+        exp = preset("samplernn")
+        cfg = dataclasses.replace(exp.model, dim=spec["dim"])
+        state = _dcp_state(cfg, exp.train, dev, spec["batch"])
+        path = spec["path"]
+
+        def synced(fn):
+            barrier()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            barrier()
+            return out, time.perf_counter() - t0
+
+        layout = _dcp_layout(make_mesh(1, 2, device=dev), state)
+        _, save_s = synced(lambda: save_checkpoint_dcp(path, layout,
+                                                       {"epoch": 1}))
+        written = os.path.getsize(os.path.join(path, f"__{rank}_0.distcp"))
+        del layout
+        mesh = make_mesh(2, 1, device=dev)
+        template = _dcp_layout(mesh, state, zero=True)
+        (loaded, meta), load_s = synced(
+            lambda: load_checkpoint_dcp(path, template))
+        want = local_tensors(_dcp_layout(mesh, state))
+        got = dict(leaves_with_paths(local_tensors(loaded)))
+        equal = meta == {"epoch": 1} and all(
+            torch.equal(got[p], x) if torch.is_tensor(x) else got[p] == x
+            for p, x in leaves_with_paths(want))
+        npz_save_s = None
+        if rank == 0:
+            _, npz_save_s = synced(lambda: save_checkpoint(
+                spec["npz"], state, {"epoch": 1}))
+        else:
+            barrier()
+            barrier()
+        del loaded, template, want, got, state
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        _reset_gru_counts()
+        for argv in spec["cli"]:
+            run_cli(cli_train.main, argv)
+        counts = _gru_counts()
+        out = {"save_s": save_s, "load_s": load_s, "written": written,
+               "equal": equal, "npz_save_s": npz_save_s,
+               "gru_fwd": counts[0], "gru_bwd": counts[2]}
+        dist.destroy_process_group()
+        with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    except BaseException:
+        with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _dcp_phase(exp, dev, work, dim, batch, cli):
+    """12d: the full-width state (params, Adam moments, tier state) saved
+    as dcp from (1, 2) by two gloo ranks, each writing its slices, loaded
+    on (2, 1) and in this process bit-equal to the gathered state (rank
+    0's `.npz` of it); write and read seconds and bytes beside the
+    `.npz`'s; then cli.train --ckpt_backend dcp on both ranks over (1, 2):
+    one epoch resumed to two equal to two straight, each rank writing its
+    part."""
+    import dataclasses
+
+    import torch
+    from msnv_tpu_torch.data.synthetic import make_synthetic_corpus
+    from msnv_tpu_torch.training.checkpoint import load_any
+    from msnv_tpu_torch.tree import leaves_with_paths
+    cli_dim, cli_batch, seq_len, utts, utt_frames = cli
+    data = os.path.join(work, "datasets")
+    # no validation partition: the float32 validation sweeps would take
+    # most of the phase, and the resume is held on the training losses
+    make_synthetic_corpus(data, n_speakers=6, utts_per_speaker=utts,
+                          frames_per_utt=utt_frames, cond_len=80,
+                          partitions=("train",), interleave=True)
+
+    def args(results, epochs):
+        return _mesh_cli_args(data, cli_dim, cli_batch, seq_len,
+                              os.path.join(work, results), epochs, dev) + [
+            "--ckpt_backend", "dcp", "--n_model_shards", "2"]
+
+    path = os.path.join(work, "state", "ep1-it1.dcp")
+    npz = os.path.join(work, "state", "ep1-it1.npz")
+    os.makedirs(os.path.dirname(path))
+    spec = {"cuda": dev.type == "cuda", "dim": dim, "batch": batch,
+            "path": path, "npz": npz,
+            "cli": [args("straight", 2), args("resumed", 1),
+                    args("resumed", 2)]}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()      # the ranks share the card
+    t0 = time.perf_counter()
+    ranks = _join_ranks(_start_ranks(_dcp_rank, 2, work, spec), work,
+                        MESH_TIMEOUT)
+    ranks_wall = time.perf_counter() - t0
+    if not all(r["equal"] for r in ranks):
+        raise AssertionError("the dcp state loaded on (2, 1) differs from "
+                             "the saved one")
+    template = _dcp_state_shapes(dataclasses.replace(exp.model, dim=dim),
+                                 exp.train, batch)
+
+    def synced(fn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (full, _), npz_load_s = synced(lambda: load_any(npz, template,
+                                                    device=dev))
+    (loaded, _), one_load_s = synced(lambda: load_any(path, template,
+                                                      device=dev))
+    pairs = list(zip(leaves_with_paths(loaded), leaves_with_paths(full)))
+    if not all(pa == pb and (torch.equal(a, b) if torch.is_tensor(b)
+                             else a == b) for (pa, a), (pb, b) in pairs):
+        raise AssertionError("the dcp state loaded in one process differs "
+                             "from the gathered state (rank 0's .npz)")
+    nbytes = sum(x.numel() * x.element_size()
+                 for _, x in leaves_with_paths(full) if torch.is_tensor(x))
+    del loaded, full
+    written = [r["written"] for r in ranks]
+    if not (nbytes < sum(written) < 1.2 * nbytes
+            and min(written) > 0.2 * nbytes):
+        raise AssertionError(f"dcp bytes per rank {written} for a state of "
+                             f"{nbytes} bytes")
+    npz_save_s = ranks[0]["npz_save_s"]
+    out = {"state_bytes": nbytes, "dcp_bytes_by_rank": written,
+           "dcp_save_s": max(r["save_s"] for r in ranks),
+           "dcp_load_2x1_s": max(r["load_s"] for r in ranks),
+           "dcp_load_one_process_s": one_load_s,
+           "npz_bytes": os.path.getsize(npz), "npz_save_s": npz_save_s,
+           "npz_load_s": npz_load_s, "ranks_wall_s": ranks_wall,
+           "gru_fwd": sum(r["gru_fwd"] for r in ranks),
+           "gru_bwd": sum(r["gru_bwd"] for r in ranks)}
+    log(f"[serve-mesh] 12d full-width state {nbytes / 1e9:.3f} GB: dcp from "
+        f"(1, 2) written {out['dcp_save_s']:.2f} s, each rank its slices "
+        f"({written} bytes); read on (2, 1) {out['dcp_load_2x1_s']:.2f} s "
+        f"and in one process {one_load_s:.2f} s, bit-equal to the gathered "
+        f"state; rank 0's .npz of it {out['npz_bytes'] / 1e9:.3f} GB, "
+        f"written {npz_save_s:.2f} s, read {npz_load_s:.2f} s")
+
+    (s_stats, s_dir), (r_stats, r_dir) = (_stats(os.path.join(work, n))
+                                          for n in ("straight", "resumed"))
+    n = len(r_stats["training_loss"])
+    if not (r_stats["epochs"] == [2] and n
+            and r_stats["training_loss"] == s_stats["training_loss"][-n:]):
+        raise AssertionError("cli.train --ckpt_backend dcp resumed off the "
+                             "straight run")
+    ckpts = os.path.join(r_dir, "checkpoints")
+    (last,) = [c for c in os.listdir(ckpts) if c.startswith("ep2-")]
+    parts = [os.path.getsize(os.path.join(ckpts, last, f"__{r}_0.distcp"))
+             for r in (0, 1)]
+    if min(parts) < 0.2 * sum(parts):
+        raise AssertionError(f"dcp checkpoint parts {parts}")
+    log(f"[serve-mesh] 12d cli.train --ckpt_backend dcp, 2 ranks over "
+        f"(1, 2), dim {cli_dim}: 1 epoch resumed to 2 equal to 2 straight "
+        f"({n} losses, bit for bit); {last} written in parts {parts}; GRU "
+        f"sweeps fwd {out['gru_fwd']}, bwd {out['gru_bwd']}")
+    out.update(cli_losses=n, cli_parts=parts)
+    return out
+
+
+def phase_serve_mesh(ckpt, cfg, exp, dev, world1, ranks, dcp):
+    import shutil
+    import tempfile
+    from msnv_tpu_torch.models.samplernn import init_params
+    from msnv_tpu_torch.training.checkpoint import load_any
+    build = os.path.join(REPO, "msnv_tpu_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="serve-mesh-", dir=build)
+    out = {}
+    try:
+        loaded, _ = load_any(ckpt[0], {"params": init_params(cfg,
+                                                             device="meta")},
+                             device=dev)
+        loaded = loaded["params"]
+        out["world1"] = _serve_mesh_world1(loaded, ckpt, cfg, dev, work,
+                                           *world1)
+        os.makedirs(os.path.join(work, "serve"))
+        out["ranks"] = _serve_mesh_ranks(loaded, ckpt, cfg, dev,
+                                         os.path.join(work, "serve"), *ranks)
+        os.makedirs(os.path.join(work, "dcp"))
+        out["dcp"] = _dcp_phase(exp, dev, os.path.join(work, "dcp"), *dcp)
+        out["window_launches"] = sum(
+            w[0] for w in out["ranks"]["windows_by_rank"])
+        out["gru_fwd_launches"] = out["dcp"]["gru_fwd"]
+        out["gru_bwd_launches"] = out["dcp"]["gru_bwd"]
+        out["card"] = card_line() if dev.type == "cuda" else "cpu"
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    RESULTS["serve_mesh"] = out
+    log(f"[serve-mesh] launches: windows {out['window_launches']} (the "
+        f"mux on both ranks), GRU fwd {out['gru_fwd_launches']}, bwd "
+        f"{out['gru_bwd_launches']} (12d's cli.train on both ranks)")
 
 
 # --------------------------------------------------------------------------
@@ -3453,16 +4075,19 @@ def kernel_entries():
                           "msnv_tpu/pallas/sample_kernel.py:183"],
         # the serving path (phase 4), the generate CLI (phase 7), the
         # multiplexer (phase 8; every one of its windows resident), the
-        # variants (phase 9), the serving artifact (phase 10) and sharded
-        # generation and streaming on every rank (phase 11)
+        # variants (phase 9), the serving artifact (phase 10), sharded
+        # generation and streaming on every rank (phase 11) and the mux
+        # over a serving mesh on every rank (phase 12)
         "launches": RESULTS["launches"] + RESULTS["loop"]["window_launches"]
         + RESULTS["mux"]["launches"] + RESULTS["variants"]["window_launches"]
-        + RESULTS["export"]["launches"] + RESULTS["mesh"]["window_launches"],
-        # phase 9's, 10's and 11's windows are all resident (checked there)
+        + RESULTS["export"]["launches"] + RESULTS["mesh"]["window_launches"]
+        + RESULTS["serve_mesh"]["window_launches"],
+        # phase 9's to 12's windows are all resident (checked there)
         "resident_launches": RESULTS["resident_launches"]
         + RESULTS["loop"]["window_resident"] + RESULTS["mux"]["launches"]
         + RESULTS["variants"]["window_launches"]
-        + RESULTS["export"]["launches"] + RESULTS["mesh"]["window_launches"],
+        + RESULTS["export"]["launches"] + RESULTS["mesh"]["window_launches"]
+        + RESULTS["serve_mesh"]["window_launches"],
         "launches_by_path": {"serve": RESULTS["launches"],
                              "generate_cli": RESULTS["loop"][
                                  "window_launches"],
@@ -3470,7 +4095,9 @@ def kernel_entries():
                              "variants": RESULTS["variants"][
                                  "window_launches"],
                              "export": RESULTS["export"]["launches"],
-                             "mesh": RESULTS["mesh"]["window_launches"]},
+                             "mesh": RESULTS["mesh"]["window_launches"],
+                             "serve_mesh": RESULTS["serve_mesh"][
+                                 "window_launches"]},
         # float32 (tiled kernel): samples equal to the plain version's;
         # bf16 (resident kernel): share of samples that differ on
         # sharpened logits, tolerance 1 %
@@ -3501,17 +4128,20 @@ def kernel_entries():
         "replaces": f"msnv_tpu/pallas/gru_kernel.py:{line}",
         # the train steps (phase 6), the training loop (phase 7: train
         # steps, and for the forward the float32 validation sweeps), the
-        # variants' train steps and train CLI (phase 9) and the sharded
-        # steps and cli.train on every rank (phase 11)
+        # variants' train steps and train CLI (phase 9), the sharded
+        # steps and cli.train on every rank (phase 11) and cli.train with
+        # dcp checkpoints on every rank (phase 12)
         "launches": RESULTS["train"][f"gru_{d}_launches"]
         + RESULTS["loop"][f"gru_{d}_launches"]
         + RESULTS["variants"][f"gru_{d}_launches"]
-        + RESULTS["mesh"][f"gru_{d}_launches"],
+        + RESULTS["mesh"][f"gru_{d}_launches"]
+        + RESULTS["serve_mesh"][f"gru_{d}_launches"],
         "launches_by_path": {"train_step": RESULTS["train"][
             f"gru_{d}_launches"], "train_loop": RESULTS["loop"][
                 f"gru_{d}_launches"], "variants": RESULTS["variants"][
                     f"gru_{d}_launches"],
-            "mesh": RESULTS["mesh"][f"gru_{d}_launches"]},
+            "mesh": RESULTS["mesh"][f"gru_{d}_launches"],
+            "serve_mesh": RESULTS["serve_mesh"][f"gru_{d}_launches"]},
         # against the plain version, in the working type of the main path
         # (bf16 products); largest |kernel - plain| over max(1, |plain|)
         "max_abs_err": RESULTS["gru_err"][f"{d}_bf16"],
@@ -3541,7 +4171,7 @@ def main(argv):
     if argv[:1] == ["--mux-clients"]:
         return mux_clients(json.loads(argv[1]))
     rehearse = "--rehearse-cpu" in argv
-    phases = set(range(1, 12))
+    phases = set(range(1, 13))
     for a in argv:
         if a.startswith("--phases="):
             phases = {int(x) for x in a.split("=", 1)[1].split(",")} | {1}
@@ -3582,7 +4212,8 @@ def main(argv):
           (4, Q, 128) if not rehearse else (4, Q, 16))
     timed(3, "generate", phase_generate, params, cfg,
           128 if not rehearse else 2, 16 if not rehearse else 2)
-    ckpt = smoke_checkpoint(params, exp) if phases & {4, 8, 10} else None
+    ckpt = smoke_checkpoint(params, exp) if phases & {4, 8, 10, 12} \
+        else None
     timed(4, "serve", phase_serve, params, ckpt, cfg, 4,
           8 if not rehearse else 2)
     del params
@@ -3613,10 +4244,16 @@ def main(argv):
           (64, exp.train.seq_len, 512) if not rehearse
           else (4, 4 * cfg.lookback, 8),
           (128, 128, 25, 1000) if not rehearse else (DIM, 2, 2, 50))
+    timed(12, "serve-mesh", phase_serve_mesh, ckpt, cfg, exp, dev,
+          (8, 160, 32) if not rehearse else (4, 16, 4),
+          (128, 48, 16, 4) if not rehearse else (8, 8, 16, 4),
+          (DIM, 128, (128, 32, exp.train.seq_len, 6, 1000))
+          if not rehearse else
+          (DIM, 4, (DIM, 2, 2 * cfg.lookback, 2, 50)))
     if rehearse:
         log("rehearsal on the CPU passed (no card: no result line)")
         return 1
-    if phases != set(range(1, 12)):
+    if phases != set(range(1, 13)):
         log(f"phases {sorted(phases)} passed (not all: no result line)")
         return 1
 
@@ -3629,6 +4266,7 @@ def main(argv):
                       "variants": RESULTS["variants"],
                       "export": RESULTS["export"],
                       "mesh": RESULTS["mesh"],
+                      "serve_mesh": RESULTS["serve_mesh"],
                       "build_s": RESULTS["build_s"]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,7 @@ def main(argv=None):
     from msnv_tpu_torch.data.loader import ChunkLoader
     from msnv_tpu_torch.device import resolve_device
     from msnv_tpu_torch.models.samplernn import init_params, init_tier_state
-    from msnv_tpu_torch.training.checkpoint import load_checkpoint
+    from msnv_tpu_torch.training.checkpoint import load_any
     from msnv_tpu_torch.training.step import eval_device_corpus, make_eval_step
     from msnv_tpu_torch.training.trainer import Trainer
 
@@ -54,7 +54,7 @@ def main(argv=None):
         cfg.model, gru_impl=resolve_gru_impl("auto", device))
     print("config from tag:", tag)
 
-    state, _ = load_checkpoint(
+    state, _ = load_any(
         args.model, {"params": init_params(m, device="meta")}, device=device)
     params = state["params"]
 

@@ -69,7 +69,8 @@ def main(argv=None):
     from msnv_tpu_torch.config import parse_tag, tag_from_checkpoint_path
     from msnv_tpu_torch.device import resolve_device
     from msnv_tpu_torch.export import save_artifact
-    from msnv_tpu_torch.interop import load_npz_params
+    from msnv_tpu_torch.models.samplernn import init_params
+    from msnv_tpu_torch.training.checkpoint import load_any
 
     if (args.seconds is None) == (args.frames is None):
         p.error("exactly one of --seconds / --frames is required")
@@ -98,7 +99,9 @@ def main(argv=None):
                   f"GenerationArtifact.call users are unaffected)",
                   file=sys.stderr)
 
-    params = load_npz_params(args.model, m, device=device)
+    state, _ = load_any(args.model, {"params": init_params(m, device="meta")},
+                        device=device)
+    params = state["params"]
     stream_buckets = None
     if args.stream:
         stream_buckets = [(1, int(k)) for k in args.stream.split(",") if k]

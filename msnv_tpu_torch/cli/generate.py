@@ -70,7 +70,7 @@ def main(argv=None):
     from msnv_tpu_torch.device import resolve_device
     from msnv_tpu_torch.models.generate import generate_fn
     from msnv_tpu_torch.models.samplernn import init_params
-    from msnv_tpu_torch.training.checkpoint import load_checkpoint
+    from msnv_tpu_torch.training.checkpoint import load_any
 
     p = argparse.ArgumentParser()
     p.add_argument("--model", required=True, help="checkpoint .npz path")
@@ -194,7 +194,7 @@ def main(argv=None):
         batch[i, c.shape[0]:] = c[-1]  # hold last frame through padding
 
     # rebuild the model's tree and load the weights onto the device
-    state, _ = load_checkpoint(
+    state, _ = load_any(
         args.model, {"params": init_params(m, device="meta")}, device=device)
     params = state["params"]
 
@@ -228,7 +228,7 @@ def main(argv=None):
         os.path.dirname(os.path.abspath(args.model))), "samples")
     os.makedirs(out_dir, exist_ok=True)
     ckpt_name = os.path.basename(os.path.normpath(args.model))
-    for ext in (".npz", ".orbax"):
+    for ext in (".npz", ".dcp"):
         ckpt_name = ckpt_name.removesuffix(ext)
     for i, (name, spk) in enumerate(zip(utts, spks)):
         wav = audio[i, : lengths[i] * m.lookback]

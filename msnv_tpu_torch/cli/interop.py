@@ -39,7 +39,7 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("mode", choices=["import", "export"])
     p.add_argument("--torch_ckpt", help="original checkpoint (import)")
-    p.add_argument("--model", help=".npz checkpoint (export)")
+    p.add_argument("--model", help=".npz or .dcp checkpoint (export)")
     p.add_argument("--tag", default=None,
                    help="experiment tag (default: from the checkpoint's "
                         "results/<tag>/checkpoints/ path)")
@@ -57,10 +57,10 @@ def main(argv=None):
 
     from msnv_tpu_torch.config import parse_tag
     from msnv_tpu_torch.device import resolve_device
-    from msnv_tpu_torch.interop import (load_npz_params,
-                                        params_from_reference_state_dict,
+    from msnv_tpu_torch.interop import (params_from_reference_state_dict,
                                         reference_state_dict_from_params)
-    from msnv_tpu_torch.training.checkpoint import save_checkpoint
+    from msnv_tpu_torch.models.samplernn import init_params
+    from msnv_tpu_torch.training.checkpoint import load_any, save_checkpoint
 
     device = resolve_device(args.device)
     if args.mode == "import":
@@ -85,9 +85,13 @@ def main(argv=None):
             p.error("export needs --model")
         tag = _tag_from_path(args.model, args.tag)
         cfg = parse_tag(tag)
-        params = load_npz_params(args.model, cfg.model, device=device)
+        state, _ = load_any(
+            args.model, {"params": init_params(cfg.model, device="meta")},
+            device=device)
+        params = state["params"]
         sd = reference_state_dict_from_params(params, cfg.model)
-        out = args.out or os.path.splitext(args.model)[0] + ".pt"
+        out = args.out or os.path.splitext(
+            os.path.normpath(args.model))[0] + ".pt"
         torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
                     for k, v in sd.items()}, out)
         print(f"exported {len(sd)} tensors -> {out} (reference "

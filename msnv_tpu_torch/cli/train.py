@@ -29,8 +29,11 @@ made is used as it is), each rank on cuda:LOCAL_RANK, and trains over a
 (parallel/mesh.py); --batch_size must divide over 'data' (ValueError
 otherwise). Only rank 0 writes the log, stats.json, samples and
 checkpoints; the ranks share the results directory and resume from rank
-0's newest checkpoint. Not ported, raising
-NotImplementedError: --ckpt_backend orbax (ROADMAP queue 1.7.5).
+0's newest checkpoint. --ckpt_backend dcp writes `.dcp` directories with
+torch.distributed.checkpoint instead, every rank its own slices
+(training/checkpoint.py); either format resumes. --ckpt_backend orbax
+raises NotImplementedError: orbax's format needs jax and tensorstore, and
+dcp is its counterpart.
 """
 
 from __future__ import annotations
@@ -91,10 +94,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--learning_rate", type=float, default=1e-3)
     p.add_argument("--resume", type=parse_bool, default=True)
     p.add_argument("--keep_old_checkpoints", type=parse_bool, default=False)
-    p.add_argument("--ckpt_backend", default="npz", choices=["npz", "orbax"],
+    p.add_argument("--ckpt_backend", default="npz",
+                   choices=["npz", "dcp", "orbax"],
                    help="npz: single-file checkpoints (the JAX "
-                        "trainer's format), written by rank 0; orbax is "
-                        "not ported (raises)")
+                        "trainer's format), written by rank 0; dcp: "
+                        "torch.distributed.checkpoint directories, every "
+                        "rank writing its slices; orbax is not available "
+                        "in the port (raises; dcp is its counterpart)")
     p.add_argument("--loss_smoothing", type=float, default=0.99)
     p.add_argument("--seed", type=int, default=77977)
     p.add_argument("--scheduler", type=parse_bool, default=False)
@@ -171,47 +177,14 @@ def resolve_gru_impl(name: str, device) -> str:
 
 
 def check_ported(args) -> None:
-    """Raise NotImplementedError for the flags whose paths the port does
-    not have yet, naming the ROADMAP item."""
-    if args.ckpt_backend != "npz":
+    """Raise NotImplementedError for the flags whose paths the port cannot
+    have, with the reason."""
+    if args.ckpt_backend == "orbax":
         raise NotImplementedError(
-            "--ckpt_backend orbax is not ported (ROADMAP queue 1.7.5)")
-
-
-def rank_device(name: str):
-    """This process's device: cuda:LOCAL_RANK under a launcher that sets
-    it (made the current device), else the named one."""
-    import torch
-
-    from msnv_tpu_torch.device import resolve_device
-    device = resolve_device(name)
-    if device.type == "cuda" and device.index is None \
-            and "LOCAL_RANK" in os.environ:
-        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
-        torch.cuda.set_device(device)
-    return device
-
-
-_LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
-
-
-def init_distributed(multihost: bool, device) -> int:
-    """The world size. A process group the caller made is used as it is;
-    with --multihost true or a launcher's WORLD_SIZE above 1 one is made
-    here from the launcher's environment (NCCL on CUDA, gloo on the CPU);
-    otherwise there is one process."""
-    import torch.distributed as dist
-    if not dist.is_initialized():
-        if not multihost and int(os.environ.get("WORLD_SIZE", "1")) <= 1:
-            return 1
-        missing = [v for v in _LAUNCHER_ENV if v not in os.environ]
-        if missing:
-            raise ValueError(
-                f"multi-process training needs the launcher's environment "
-                f"(torchrun sets it): {', '.join(missing)} not set")
-        dist.init_process_group(
-            "nccl" if device.type == "cuda" else "gloo")
-    return dist.get_world_size()
+            "--ckpt_backend orbax: orbax's format needs jax and "
+            "tensorstore, which the port does not import; its counterpart "
+            "is --ckpt_backend dcp (torch.distributed.checkpoint "
+            "directories, every rank writing its slices)")
 
 
 def config_from_args(args, spk_dim: int,
@@ -252,9 +225,10 @@ def main(argv=None):
     import torch
 
     from msnv_tpu_torch.models.samplernn import init_params
-    from msnv_tpu_torch.parallel.mesh import make_mesh
+    from msnv_tpu_torch.parallel.mesh import (init_distributed, make_mesh,
+                                              rank_device)
     from msnv_tpu_torch.training.checkpoint import (CheckpointManager,
-                                                    load_checkpoint)
+                                                    is_dcp, load_any)
     from msnv_tpu_torch.training.optim import make_optimizer
     from msnv_tpu_torch.training.plugins import (AbsoluteTimeMonitor, Logger,
                                                  SaverPlugin, StatsPlugin,
@@ -345,20 +319,21 @@ def main(argv=None):
 
     ckpt_dir = os.path.join(results_path, "checkpoints")
     manager = CheckpointManager(ckpt_dir, args.keep_old_checkpoints,
+                                backend=args.ckpt_backend,
                                 scheduled=cfg.train.scheduler)
 
     if args.model:  # warm start (ref train.py:224-233): WEIGHTS only —
         # optimizer moments, TBPTT hidden and counters start fresh, and the
         # checkpoint may come from a run with a different batch size
-        state, _ = load_checkpoint(args.model,
-                                   {"params": trainer.full_params()})
+        state, _ = load_any(args.model, {"params": trainer.full_params()})
         trainer.warm_start(state["params"])
         say("warm-started (params only) from", args.model)
     elif args.resume:
         point = manager.resume_point()
         if point is not None:
             path, epoch, it = point
-            state, meta = load_checkpoint(path, trainer.checkpoint_state())
+            state, meta = load_any(
+                path, trainer.checkpoint_state(sharded=is_dcp(path)))
             trainer.restore(state, meta)
             say(f"resumed from {path} (epoch {epoch}, iteration {it})")
 

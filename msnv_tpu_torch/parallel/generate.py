@@ -42,12 +42,15 @@ def shard_generator(mesh, seed: int):
 
 
 def sharded_generate_fn(params, cfg: ModelConfig, mesh, compute_dtype=None,
-                        use_kernel=False, temperature=1.0):
+                        use_kernel=False, temperature=1.0, gather=True):
     """Build generate(cond, spk, seed=0) sharded over mesh axis 'data'.
 
     cond (B, frames, C) and spk (B,) or (B, spk_dim) are the global batch
     (the same on every rank, on the params' device); params are the full
-    tree, replicated. Returns (audio, sequences), (B, ...) on every rank.
+    tree, replicated. Returns (audio, sequences), (B, ...) on every rank;
+    with gather=False this rank's lanes (B / n_data, ...), which the caller
+    gathers with gather_lanes (the serving mesh votes in between,
+    parallel/serve.py).
     """
     check_mesh(mesh)
     inner = generate_fn(params, cfg, compute_dtype=compute_dtype,
@@ -58,6 +61,8 @@ def sharded_generate_fn(params, cfg: ModelConfig, mesh, compute_dtype=None,
         _check_batch(mesh, cond.shape[0])
         audio, seq = inner(lanes.local(cond), lanes.local(spk),
                            shard_generator(mesh, seed))
+        if not gather:
+            return audio, seq
         return gather_lanes(mesh, audio), gather_lanes(mesh, seq)
 
     return generate

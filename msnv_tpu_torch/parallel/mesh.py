@@ -38,6 +38,7 @@ environment) before `make_mesh`.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
@@ -187,6 +188,38 @@ def shard_params(mesh: Mesh, params, specs):
     return _zip_specs(take, params, specs)
 
 
+def as_dtensors(mesh: Mesh, tree, specs=None, lane_axis=None):
+    """Copies of this rank's storage of `tree` as DTensors over the mesh,
+    the global view that torch.distributed.checkpoint saves and loads: a
+    leaf is sharded over 'model' along its spec's dim (`specs`, as
+    param_sharding gives them; None: every leaf replicated over 'model')
+    and, with `lane_axis`, over 'data' along that axis (the tier state's
+    lanes); replicated elsewhere. Int leaves stay ints."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    data = Replicate() if lane_axis is None else Shard(lane_axis)
+
+    def wrap(x, dim):
+        if isinstance(x, int):
+            return x
+        return DTensor.from_local(
+            x.detach().clone(memory_format=torch.contiguous_format),
+            mesh.device_mesh,
+            [data, Replicate() if dim is None else Shard(dim)],
+            run_check=False)
+
+    if specs is None:
+        specs = tree_map(lambda _: None, tree)
+    return _zip_specs(wrap, tree, specs)
+
+
+def local_tensors(tree):
+    """`tree` with every DTensor leaf replaced by this rank's part of it
+    (the inverse of as_dtensors)."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda x: x.to_local() if isinstance(x, DTensor) else x,
+                    tree)
+
+
 def gather_params(mesh: Mesh, params, specs):
     """The full tree from this rank's storage: every sharded leaf
     all-gathered over 'model'; the same tree when n_model is 1 or `specs`
@@ -242,6 +275,39 @@ def gather_lanes(mesh: Mesh, x, axis: int = 0):
 
 
 # -- process-wide helpers (the world group, with or without a mesh) --------
+
+def rank_device(name: str) -> torch.device:
+    """This process's device: cuda:LOCAL_RANK under a launcher that sets
+    it (made the current device), else the named one."""
+    device = resolve_device(name)
+    if device.type == "cuda" and device.index is None \
+            and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+    return device
+
+
+_LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def init_distributed(multihost: bool, device) -> int:
+    """The world size. A process group the caller made is used as it is;
+    with `multihost` or a launcher's WORLD_SIZE above 1 one is made here
+    from the launcher's environment (NCCL on CUDA, gloo on the CPU);
+    otherwise there is one process. The CLIs of training and serving share
+    it."""
+    if not dist.is_initialized():
+        if not multihost and int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+            return 1
+        missing = [v for v in _LAUNCHER_ENV if v not in os.environ]
+        if missing:
+            raise ValueError(
+                f"a multi-process run needs the launcher's environment "
+                f"(torchrun sets it): {', '.join(missing)} not set")
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo")
+    return dist.get_world_size()
+
 
 def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1

@@ -35,6 +35,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from msnv_tpu_torch.parallel.serve import MeshFailed
 from msnv_tpu_torch.serving.common import SAMPLE_RATE, Overloaded
 from msnv_tpu_torch.serving.service import VocoderService
 
@@ -290,6 +291,8 @@ class AsyncVocoderServer:
                               {"error": f"unknown path {path}"})
         except Overloaded as e:
             return self._json(writer, 429, {"error": str(e)})
+        except MeshFailed as e:
+            return self._json(writer, 500, {"error": str(e)}, close=True)
         except (KeyError, ValueError, TypeError) as e:
             return self._json(writer, 400, {"error": str(e)})
 

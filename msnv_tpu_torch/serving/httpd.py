@@ -9,6 +9,7 @@ from __future__ import annotations
 import json
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from msnv_tpu_torch.parallel.serve import MeshFailed
 from msnv_tpu_torch.serving.common import SAMPLE_RATE, Overloaded, _TooLarge
 from msnv_tpu_torch.serving.service import VocoderService
 
@@ -113,6 +114,8 @@ class _Handler(BaseHTTPRequestHandler):
                 self._json(404, {"error": f"unknown path {self.path}"})
         except Overloaded as e:
             self._json(429, {"error": str(e)})
+        except MeshFailed as e:
+            self._json(500, {"error": str(e)}, close=True)
         except (KeyError, ValueError, TypeError) as e:
             self._json(400, {"error": str(e)})
 

@@ -14,6 +14,10 @@ import torch
 
 from msnv_tpu_torch.config import ModelConfig
 from msnv_tpu_torch.models.generate import streaming_fn
+from msnv_tpu_torch.parallel.generate import shard_generator
+from msnv_tpu_torch.parallel.mesh import (batch_sharding, check_mesh,
+                                          gather_lanes)
+from msnv_tpu_torch.parallel.serve import TICK
 from msnv_tpu_torch.serving.common import Overloaded, _Fetch
 
 
@@ -48,32 +52,47 @@ class StreamMultiplexer:
     On CUDA at temperature > 0 the push runs bf16 weights and the
     sample-window kernel (Philox mode) at B = lanes; greedy decoding and
     the CPU keep the per-sample path in the params' dtype.
+
+    Over a device mesh (`mesh=`, one process per GPU; the lanes must
+    divide by the 'data' size) every rank holds lanes / shards lanes of
+    the carry, the streaming_fn carry that sharded_streaming_fn builds
+    (its generator folded with the rank's data index), and the masked
+    push and the attach splice run on the rank's slice of their inputs
+    (`_mesh_tick`). Rank 0's pump leads each tick through the serving
+    `channel` (parallel/serve.py); the other ranks tick in follow(). The
+    audio is all-gathered, and only rank 0 converts and delivers it.
     """
 
     FETCH_DEPTH = 4
 
     def __init__(self, params, cfg: ModelConfig, lanes: int = 32,
                  frames_per_push: int = 4, temperature: float = 1.0,
-                 seed: int = 0, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mux lanes over a device mesh are not ported yet (ROADMAP "
-                "queue 1, item 7.4)")
+                 seed: int = 0, mesh=None, channel=None):
+        check_mesh(mesh)
         self.cfg = cfg
         self.lanes = int(lanes)
         self.K = int(frames_per_push)
         self.temperature = float(temperature)
         self.device = params["mlp"]["embedding"].device
+        self.mesh = mesh
+        self._channel = channel
+        shards = mesh.shape["data"] if mesh is not None else 1
+        if self.lanes % shards:
+            raise ValueError(f"mux lanes {self.lanes} must divide by the "
+                             f"mesh 'data' axis size {shards}")
+        self._local_lanes = self.lanes // shards   # this rank's carry
         use_kernel = self.device.type == "cuda" and self.temperature > 0.0
         self._init_state, self._push = streaming_fn(
             params, cfg, frames_per_push=self.K,
             compute_dtype=torch.bfloat16 if use_kernel else None,
             use_kernel=use_kernel, temperature=self.temperature)
-        self._generator = torch.Generator(device=self.device).manual_seed(
-            int(seed))
+        self._generator = (
+            shard_generator(mesh, int(seed)) if mesh is not None else
+            torch.Generator(device=self.device).manual_seed(int(seed)))
         self._carry = self._init_state(
-            self.lanes, torch.zeros((self.lanes,), dtype=torch.int64,
-                                    device=self.device), self._generator)
+            self._local_lanes,
+            torch.zeros((self._local_lanes,), dtype=torch.int64,
+                        device=self.device), self._generator)
         self._zeros_cond = np.zeros(
             (self.lanes, self.K, cfg.effective_cond_dim), np.float32)
         self._cv = threading.Condition()
@@ -127,7 +146,7 @@ class StreamMultiplexer:
         one-hot / mix rows (a one-hot matmul selects the embedding row
         exactly, so int-id and row speakers give the same numbers). The
         fresh state draws nothing: the carry keeps the mux's generator."""
-        fs, fb, fh, _ = self._init_state(self.lanes, spk_rows,
+        fs, fb, fh, _ = self._init_state(self._local_lanes, spk_rows,
                                          self._generator)
         spk_vec, buf, hs, generator = carry
         spk_vec = torch.where(mask[:, None], fs.to(spk_vec.dtype), spk_vec)
@@ -184,6 +203,56 @@ class StreamMultiplexer:
             self._carry, torch.from_numpy(mask).to(self.device),
             torch.from_numpy(self._spk_rows.copy()).to(self.device))
 
+    # -- over a mesh --------------------------------------------------------
+
+    def _lead_tick(self, attach_lanes, cond, active):
+        """Rank 0's pump, under _carry_lock + _device_lock: one tick on
+        every rank of the mesh (the attach splice of `attach_lanes`, and
+        with `cond` the masked push) -> the gathered audio, or None."""
+        attach, push = bool(attach_lanes), cond is not None
+        if not (attach or push):
+            return None
+        parts = []
+        if attach:
+            mask = np.zeros((self.lanes,), np.float32)
+            mask[list(attach_lanes)] = 1.0
+            parts += [mask, self._spk_rows.reshape(-1)]
+        if push:
+            parts += [active.astype(np.float32), cond.reshape(-1)]
+        buf = torch.from_numpy(np.concatenate(parts)).to(self.device)
+        with self._channel.leading():
+            self._channel.send(TICK, int(attach), int(push), buf.numel())
+            return self._mesh_tick(attach, push, buf)
+
+    @torch.no_grad()
+    def _mesh_tick(self, attach, push, buf):
+        """Every rank: rank 0's tick buffer (broadcast into `buf`), the
+        attach splice and the masked push on this rank's lanes, the vote,
+        then the audio (lanes, K * lookback) gathered over 'data' (None
+        without a push)."""
+        self._channel.share([buf])
+        L, S = self.lanes, self.cfg.spk_dim
+        local = batch_sharding(self.mesh).local
+
+        def tick():
+            rest = buf
+            if attach:
+                mask, rows, rest = rest.split([L, L * S, rest.numel()
+                                               - L - L * S])
+                self._carry = self._attach_many(
+                    self._carry, local(mask > 0.5), local(rows.view(L, S)))
+            if not push:
+                return None
+            active, cond = rest.split([L, rest.numel() - L])
+            self._carry, audio = self._masked_push(
+                self._carry, local(cond.view(L, self.K, -1)),
+                local(active > 0.5))
+            self.ticks += 1
+            return audio
+
+        audio = self._channel.run(tick)
+        return None if audio is None else gather_lanes(self.mesh, audio)
+
     def feed(self, lane: int, cond_blocks):
         """Queue (K, C) conditioner blocks for a lane and wake the pump."""
         with self._cv:
@@ -213,6 +282,9 @@ class StreamMultiplexer:
     # -- pump -------------------------------------------------------------
 
     def start(self, device_lock=None) -> None:
+        if self.mesh is not None and self._channel is None:
+            raise ValueError("a pump over a mesh leads the other ranks "
+                             "through a serving channel (channel=)")
         if device_lock is not None:
             self._device_lock = device_lock
         self._thread = threading.Thread(target=self._pump, daemon=True,
@@ -299,14 +371,21 @@ class StreamMultiplexer:
             active = np.zeros((self.lanes,), bool)
             active[[lane for lane, _ in served]] = True
             with self._carry_lock, self._device_lock:
-                self._flush_attaches(attach_lanes)
-                self._revalidate_served(served, active)
-                if not served:
-                    continue
-                self._carry, audio = self._masked_push(
-                    self._carry, torch.from_numpy(cond).to(self.device),
-                    torch.from_numpy(active).to(self.device))
-                self.ticks += 1
+                if self.mesh is not None:
+                    self._revalidate_served(served, active)
+                    audio = self._lead_tick(attach_lanes,
+                                            cond if served else None, active)
+                    if not served:
+                        continue
+                else:
+                    self._flush_attaches(attach_lanes)
+                    self._revalidate_served(served, active)
+                    if not served:
+                        continue
+                    self._carry, audio = self._masked_push(
+                        self._carry, torch.from_numpy(cond).to(self.device),
+                        torch.from_numpy(active).to(self.device))
+                    self.ticks += 1
             self._inflight.append((_Fetch(audio), served))
             while len(self._inflight) > self.FETCH_DEPTH:
                 self._drain_one()

@@ -32,8 +32,16 @@ programs; /stream pushes likewise where it holds a 1-lane stream bucket
 of the push's width. Everything else takes the live path. The artifact is
 checked against the served model and device at construction.
 
-Not ported yet: the device mesh (ROADMAP queue 1, item 7.4); the
-constructor raises NotImplementedError for it.
+Over a device mesh (`mesh=`, an N x 1 ('data', 'model') mesh of
+parallel/mesh.py, one process per GPU), every rank builds the same
+service: rank 0 serves (front, batcher, multiplexer pump) and leads, the
+other ranks run `parallel.serve.follow(service)`. A /synthesize group's
+lanes (padded to a power of two, then to a multiple of the 'data' size)
+are sharded over 'data': every rank generates its lanes with the folded
+generator (parallel/generate.py), and rank 0 gathers the audio. Mux lanes
+are sharded likewise (serving/mux.py). The artifact's programs are
+single-device: a mesh's /synthesize never takes them. The per-connection
+/stream stays on rank 0's device.
 """
 
 from __future__ import annotations
@@ -49,6 +57,10 @@ import torch
 from msnv_tpu_torch.config import ModelConfig
 from msnv_tpu_torch.data.wavio import pcm16_bytes, wav_bytes
 from msnv_tpu_torch.models.generate import generate_fn, streaming_fn
+from msnv_tpu_torch.parallel.generate import sharded_generate_fn
+from msnv_tpu_torch.parallel.mesh import check_mesh, gather_lanes
+from msnv_tpu_torch.parallel.serve import (SYNTH, ControlChannel,
+                                           float_bits, seed_slot)
 from msnv_tpu_torch.serving.batcher import _Batcher
 from msnv_tpu_torch.serving.common import (SAMPLE_RATE, Overloaded, _armed,
                                            _Fetch)
@@ -62,11 +74,12 @@ class VocoderService:
                  frame_bucket: int = 16, frames_per_push: int = 1,
                  max_batch: int = 1, linger_ms: float = 10.0,
                  max_streams: int = 8, name: str = "msnv", artifact=None,
-                 mux_lanes: int = 0, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device serving is not ported yet (ROADMAP queue 1, "
-                "item 7.4)")
+                 mux_lanes: int = 0, mesh=None, mesh_timeout_s=600.0):
+        check_mesh(mesh)
+        if mesh is not None and mesh.shape["model"] > 1:
+            raise ValueError(
+                f"serving shards lanes over 'data' only (an N x 1 mesh, as "
+                f"the JAX service's), got {mesh.shape}")
         self.params = params
         self.cfg = cfg
         self.device = params["mlp"]["embedding"].device
@@ -84,15 +97,23 @@ class VocoderService:
             raise ValueError(
                 f"frames_per_push must be >= 1, got {frames_per_push}")
         self.name = name
+        # multi-device serving: rank 0 leads every other rank through the
+        # control channel (parallel/serve.py); `mesh_timeout_s` is its
+        # header group's timeout, which the heartbeat stays well under
+        self.mesh = mesh
+        self._mesh_shards = mesh.shape["data"] if mesh is not None else 1
+        self._lock = threading.Lock()  # one device user at a time
+        self._channel = (ControlChannel(mesh, self._lock, mesh_timeout_s)
+                         if mesh is not None else None)
+        leader = self._channel is None or self._channel.leader
         self._gen_cache = {}       # temperature -> generate fn
         self._stream_cache = {}    # (T, K) -> (init_state, push)
-        self._lock = threading.Lock()  # one device user at a time
         # dynamic batching (max_batch > 1): concurrent /synthesize
         # requests coalesce into one device call; per-request `seed`
         # reproducibility then holds only for identical batch composition
         self._batcher = (_Batcher(self._run_group, max_batch,
                                   linger_ms / 1000.0)
-                         if max_batch > 1 else None)
+                         if max_batch > 1 and leader else None)
         # concurrent-stream cap: each open /stream holds device state and
         # an HTTP thread for its lifetime; excess requests get 429
         self.max_streams = int(max_streams)
@@ -104,16 +125,25 @@ class VocoderService:
         # temperatures and seed-exact requests use the per-connection path.
         self._mux = None
         if mux_lanes > 0:
+            # over a mesh every rank holds its lanes of the carry; only
+            # rank 0 pumps (the others tick in follow())
             self._mux = StreamMultiplexer(
                 params, cfg, lanes=mux_lanes,
                 frames_per_push=max(self.frames_per_push, 1),
-                temperature=self.temperature_default)
-            self._mux.start(device_lock=self._lock)
+                temperature=self.temperature_default, mesh=mesh,
+                channel=self._channel)
+            if leader:
+                self._mux.start(device_lock=self._lock)
+        if self._channel is not None and leader:
+            self._channel.start_heartbeat()
 
     def close(self) -> None:
-        """Stop background machinery (the mux pump); idempotent."""
+        """Stop background machinery (the mux pump); over a mesh, rank 0
+        then sends the followers STOP. Idempotent."""
         if self._mux is not None:
             self._mux.stop()
+        if self._channel is not None and self._channel.leader:
+            self._channel.stop()
 
     @staticmethod
     def _validate_artifact(artifact, cfg: ModelConfig, device) -> None:
@@ -199,7 +229,7 @@ class VocoderService:
                               if self._batcher else 1),
                 "max_streams": self.max_streams,
                 "mux_lanes": self._mux.lanes if self._mux else 0,
-                "mesh_shards": 1,
+                "mesh_shards": self._mesh_shards,
                 "artifact_buckets": (list(self.artifact.buckets)
                                      if self.artifact else None),
                 "artifact_streams": (list(self.artifact.stream_buckets)
@@ -255,8 +285,10 @@ class VocoderService:
         _padded, temperature, kind = gkey
         b = len(items)
         # pad lanes to the next power of two (padded lanes repeat lane 0
-        # and are sliced away), as the JAX service does
+        # and are sliced away), then to a multiple of the mesh's 'data'
+        # size (an equal slice per shard), as the JAX service does
         lanes = 1 << (b - 1).bit_length()
+        lanes = -(-lanes // self._mesh_shards) * self._mesh_shards
         conds = np.stack([it["cond"] for it in items]
                          + [items[0]["cond"]] * (lanes - b))
         spks = np.concatenate([it["spk"] for it in items]
@@ -267,21 +299,58 @@ class VocoderService:
             seed = (seed * 1000003 + it["seed"]) % (1 << 63)
         art = self.artifact
         with self._lock:
-            if self._artifact_serves(temperature, kind) and \
-                    art.has_bucket(lanes, conds.shape[1]):
-                gen = functools.partial(art.call, self.params)
+            if self.mesh is not None:
+                # the artifact's programs are single-device: a mesh always
+                # takes the live sharded path
+                audio = self._lead_synth(temperature, conds, spks, seed)
             else:
-                if temperature not in self._gen_cache:
-                    self._evict(self._gen_cache)
-                    self._gen_cache[temperature] = generate_fn(
-                        self.params, self.cfg, temperature=temperature)
-                gen = self._gen_cache[temperature]
-            audio, _ = gen(torch.from_numpy(conds).to(self.device),
-                           torch.from_numpy(spks).to(self.device),
-                           self._generator(seed))
+                if self._artifact_serves(temperature, kind) and \
+                        art.has_bucket(lanes, conds.shape[1]):
+                    gen = functools.partial(art.call, self.params)
+                else:
+                    if temperature not in self._gen_cache:
+                        self._evict(self._gen_cache)
+                        self._gen_cache[temperature] = generate_fn(
+                            self.params, self.cfg, temperature=temperature)
+                    gen = self._gen_cache[temperature]
+                audio, _ = gen(torch.from_numpy(conds).to(self.device),
+                               torch.from_numpy(spks).to(self.device),
+                               self._generator(seed))
             audio = audio.cpu().numpy()
         return [audio[i, :it["n"] * self.cfg.lookback]
                 for i, it in enumerate(items)]
+
+    def _sharded_gen(self, temperature):
+        """This rank's shard of a group call at `temperature` (cached; the
+        build checks the temperature)."""
+        if temperature not in self._gen_cache:
+            self._evict(self._gen_cache)
+            self._gen_cache[temperature] = sharded_generate_fn(
+                self.params, self.cfg, self.mesh, temperature=temperature,
+                gather=False)
+        return self._gen_cache[temperature]
+
+    def _lead_synth(self, temperature, conds, spks, seed):
+        """Rank 0, under the device lock: one /synthesize group on every
+        rank of the mesh -> the gathered audio (lanes, samples)."""
+        self._sharded_gen(temperature)   # a bad temperature stops here
+        seed = seed_slot(seed)
+        with self._channel.leading():
+            self._channel.send(SYNTH, conds.shape[0], conds.shape[1],
+                               float_bits(temperature),
+                               int(spks.dtype.kind == "f"), seed)
+            return self._mesh_synth(
+                temperature, torch.from_numpy(conds).to(self.device),
+                torch.from_numpy(spks).to(self.device), seed)
+
+    def _mesh_synth(self, temperature, cond, spk, seed):
+        """Every rank: rank 0's request tensors (broadcast into `cond` and
+        `spk`), this rank's lanes generated with the folded generator, the
+        vote, then the audio gathered over 'data'."""
+        self._channel.share([cond, spk])
+        audio = self._channel.run(
+            lambda: self._sharded_gen(temperature)(cond, spk, seed)[0])
+        return gather_lanes(self.mesh, audio)
 
     MAX_CACHED_CALLABLES = 8
 

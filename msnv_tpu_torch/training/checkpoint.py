@@ -35,18 +35,33 @@ rank 0 writes and deletes, a barrier follows each save, and rank 0's best
 loss is broadcast at start (as its float64 bit pattern), so every rank
 makes the same save decisions. The ranks need one shared checkpoints
 directory: `resume_point` is rank 0's newest checkpoint, and every rank
-must see it there, so every rank loads the same file. The JAX
-package's orbax backend (directory checkpoints for multi-host sharded
-state) is not ported (ROADMAP queue 1.7.5).
+must see it there, so every rank loads the same file.
+
+The directory backend, `backend="dcp"`: `ep{E}-it{I}.dcp/` directories
+written with torch.distributed.checkpoint, the port's counterpart of the
+JAX package's orbax backend (orbax's own format needs jax and
+tensorstore). It keeps the same leaf keys. Every rank calls the save (a
+collective): each writes the slices it stores, given as DTensors over the
+mesh (Trainer.checkpoint_state(sharded=True): the 'model' slices of the
+params and moments, the tier state's lanes over 'data'), and a replicated
+leaf is written once. The meta is `msnv_meta.json`, which rank 0 writes;
+the directory is written as `<name>.tmp` and renamed by rank 0 between
+barriers, so a `.dcp` name is always whole. Loading reshards into the
+template's layout (DTensor leaves take their slices, plain leaves the
+whole tensor; one process reads any), and a partial template reads its
+subtree. `load_any` reads either format; the manager finds both.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import io
 import json
 import os
 import re
+import shutil
+import warnings
 
 import numpy as np
 import torch
@@ -57,8 +72,10 @@ from msnv_tpu_torch.tree import keystr, leaves_with_paths, map_with_paths
 
 LAST_PATTERN = "ep{}-it{}.npz"                    # ref plugins.py:117
 BEST_PATTERN = "best-ep{}-it{}.npz"               # ref plugins.py:118
-_LAST_RE = re.compile(r"^ep(\d+)-it(\d+)\.npz$")
-_BEST_RE = re.compile(r"^best-ep(\d+)-it(\d+)\.npz$")
+_LAST_RE = re.compile(r"^ep(\d+)-it(\d+)\.(npz|dcp)$")
+_BEST_RE = re.compile(r"^best-ep(\d+)-it(\d+)\.(npz|dcp)$")
+DCP_META = "msnv_meta.json"
+BACKENDS = ("npz", "dcp")
 
 # the optimizer states, each an optax chain whose ScaleByAdamState is at
 # [1][0] and, with the scheduler, whose ScaleByScheduleState is at [1][1]
@@ -146,23 +163,142 @@ def load_checkpoint(path: str, template, device=None):
     return state, meta
 
 
+# -- the directory backend (torch.distributed.checkpoint) -------------------
+
+def _norm_ckpt_path(path: str) -> str:
+    """Without trailing slashes, so that a tab-completed `x.dcp/` dispatches
+    on its extension."""
+    return os.path.abspath(os.path.normpath(path))
+
+
+def is_dcp(path: str) -> bool:
+    return _norm_ckpt_path(path).endswith(".dcp")
+
+
+@contextlib.contextmanager
+def _one_process_quiet():
+    """DCP warns at every save and load without a process group; one
+    process is a use this module intends."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "torch.distributed is disabled")
+        yield
+
+
+def _dcp_leaf(x):
+    # the optimizer's step count is an int in the port's state
+    return torch.tensor(x, dtype=torch.int32) if isinstance(x, int) else x
+
+
+def save_checkpoint_dcp(path: str, state, meta: dict | None = None) -> None:
+    """Save a state tree (tensors, DTensors, ints) as a `.dcp` directory.
+
+    Under a process group every rank calls it (a collective): each writes
+    the slices it stores, a replicated leaf is written once, and rank 0
+    writes the meta and renames `<path>.tmp` to `path` between barriers."""
+    import torch.distributed.checkpoint as dcp
+    path = _norm_ckpt_path(path)
+    tmp = path + ".tmp"
+    main = is_main_process()
+    if main and os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    barrier()
+    with _one_process_quiet():
+        dcp.save({_key(p): _dcp_leaf(x)
+                  for p, x in leaves_with_paths(state)}, checkpoint_id=tmp)
+    if main:
+        with open(os.path.join(tmp, DCP_META), "w") as f:
+            json.dump(meta or {}, f)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+    barrier()
+
+
+def load_checkpoint_dcp(path: str, template, device=None):
+    """Load a `.dcp` directory into the structure of `template`; returns
+    (state, meta). The load_checkpoint contract (missing entries raise
+    KeyError, a shape that differs ValueError; extra entries are ignored;
+    plain tensor leaves come back in the template leaf's dtype on `device`
+    or the template leaf's device, int leaves as ints). DTensor leaves are
+    loaded in place, each rank reading its slices; under a process group
+    every rank calls it."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.tensor import DTensor
+    path = _norm_ckpt_path(path)
+    saved = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    buffers = {}
+    for path_in_tree, t in leaves_with_paths(template):
+        key = _key(path_in_tree)
+        if key not in saved:
+            raise KeyError(f"checkpoint {path} has no entry {key}")
+        shape = () if isinstance(t, int) else tuple(t.shape)
+        if tuple(saved[key].size) != shape:
+            raise ValueError(
+                f"checkpoint {path}: shape mismatch at {key}: saved "
+                f"{tuple(saved[key].size)} vs expected {shape} — wrong "
+                f"config/tag for this checkpoint?")
+        if isinstance(t, int):
+            buffers[key] = torch.zeros((), dtype=torch.int32)
+        elif isinstance(t, DTensor):
+            buffers[key] = t
+        else:
+            buffers[key] = torch.empty(shape, dtype=t.dtype)
+    with _one_process_quiet():
+        dcp.load(buffers, checkpoint_id=path)
+
+    def fill(path_in_tree, t):
+        out = buffers[_key(path_in_tree)]
+        if isinstance(t, int):
+            return int(out)
+        if isinstance(t, DTensor):
+            return out
+        return out.to(device if device is not None else t.device)
+
+    return map_with_paths(fill, template), _load_meta(path)
+
+
+def load_any(path: str, template, device=None):
+    """Format-dispatching load: a `.dcp` directory or an `.npz` file."""
+    path = _norm_ckpt_path(path)
+    if is_dcp(path):
+        return load_checkpoint_dcp(path, template, device)
+    return load_checkpoint(path, template, device)
+
+
 def _load_meta(path: str) -> dict:
+    """The meta dict of either format."""
+    if is_dcp(path):
+        meta_path = os.path.join(_norm_ckpt_path(path), DCP_META)
+        if not os.path.isfile(meta_path):
+            return {}
+        with open(meta_path) as f:
+            return json.load(f)
     with np.load(path) as z:
         return json.loads(bytes(z["__meta__"].tobytes()).decode() or "{}")
 
 
 class CheckpointManager:
-    """last/best retention policy over a checkpoints directory (npz)."""
+    """last/best retention policy over a checkpoints directory.
+
+    backend: "npz" (single files, rank 0 writes the full state) or "dcp"
+    (directories, every rank writes its slices). latest() and best() find
+    both formats, so a run can switch backends and resume its history."""
 
     def __init__(self, checkpoints_dir: str, keep_old: bool = False,
                  backend: str = "npz", scheduled: bool = False):
-        if backend != "npz":
+        if backend == "orbax":
             raise NotImplementedError(
-                f"checkpoint backend {backend!r} is not ported (only npz; "
-                f"orbax is ROADMAP queue 1.7.5)")
+                "checkpoint backend 'orbax' is not available in the port: "
+                "orbax's format needs jax and tensorstore. Its counterpart "
+                "is backend 'dcp' (torch.distributed.checkpoint "
+                "directories, --ckpt_backend dcp)")
+        if backend not in BACKENDS:
+            raise ValueError(f"checkpoint backend {backend!r}: one of "
+                             f"{BACKENDS}")
         self.dir = checkpoints_dir
         self.keep_old = keep_old
-        self.scheduled = scheduled      # see flatten_state
+        self.backend = backend
+        self.scheduled = scheduled      # see flatten_state (npz)
         os.makedirs(checkpoints_dir, exist_ok=True)
         # recover the historical best from an existing best checkpoint's
         # meta, so a resumed run never overwrites a better past best
@@ -183,18 +319,28 @@ class CheckpointManager:
             broadcast_int64(int(bits)), np.int64).view(np.float64))
 
     def _save(self, path, state, meta):
-        """Rank 0 writes; the barrier keeps the other ranks from resuming
-        or reading around a write in flight."""
+        """npz: rank 0 writes, and the barrier keeps the other ranks from
+        resuming or reading around a write in flight. dcp: every rank
+        writes its part (fenced inside)."""
+        if self.backend == "dcp":
+            save_checkpoint_dcp(path, state, meta)
+            return
         if is_main_process():
             save_checkpoint(path, state, meta, self.scheduled)
         barrier()
+
+    def _path(self, pattern, epoch, iteration):
+        name = pattern.format(epoch, iteration)
+        if self.backend == "dcp":
+            name = name.removesuffix(".npz") + ".dcp"
+        return os.path.join(self.dir, name)
 
     def _retain_only(self, keep_path, regex):
         """Delete checkpoints matching `regex` except `keep_path`."""
         for p in glob.glob(os.path.join(self.dir, "*ep*-it*.*")):
             if regex.match(os.path.basename(p)) and \
                     os.path.abspath(p) != os.path.abspath(keep_path):
-                os.remove(p)
+                (shutil.rmtree if os.path.isdir(p) else os.remove)(p)
 
     @property
     def best_loss(self) -> float:
@@ -214,7 +360,7 @@ class CheckpointManager:
         # resumable checkpoints. Deletes are rank 0's; the barrier in
         # _save fences them from the other ranks' reads.
         main = is_main_process()
-        path = os.path.join(self.dir, LAST_PATTERN.format(epoch, iteration))
+        path = self._path(LAST_PATTERN, epoch, iteration)
         written = None
         if save_last:
             self._save(path, state, meta)
@@ -223,8 +369,7 @@ class CheckpointManager:
             written = path
         if val_loss is not None and val_loss < self._best_loss:
             self._best_loss = val_loss
-            best = os.path.join(self.dir,
-                                BEST_PATTERN.format(epoch, iteration))
+            best = self._path(BEST_PATTERN, epoch, iteration)
             self._save(best, state, dict(meta, val_loss=val_loss))
             if main:
                 self._retain_only(best, _BEST_RE)
@@ -246,7 +391,7 @@ class CheckpointManager:
         """Newest last-checkpoint (path, epoch, iteration), or None:
         natural sort on the numbers in the file name (ref
         train.py:110-126)."""
-        return self._newest("ep*-it*.npz", _LAST_RE)
+        return self._newest("ep*-it*.*", _LAST_RE)
 
     def resume_point(self):
         """latest() as rank 0 sees it, on every rank (itself without a
@@ -265,4 +410,4 @@ class CheckpointManager:
         return mine
 
     def best(self):
-        return self._newest("best-ep*-it*.npz", _BEST_RE)
+        return self._newest("best-ep*-it*.*", _BEST_RE)

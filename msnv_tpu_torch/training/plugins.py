@@ -152,7 +152,7 @@ class SaverPlugin(Plugin):
         if (self.every_n_iterations and
                 t.iterations % self.every_n_iterations == 0):
             self.manager.save_epoch(
-                t.checkpoint_state(), t.epochs, t.iterations,
+                self._state(), t.epochs, t.iterations,
                 meta={"tag": t.tag, "chunk": t.chunk_index + 1})
 
     def epoch(self, epoch_index: int):
@@ -165,8 +165,14 @@ class SaverPlugin(Plugin):
         if not (due or improved):
             return   # skip the device->host state fetch entirely
         self.manager.save_epoch(
-            t.checkpoint_state(), epoch_index, t.iterations,
+            self._state(), epoch_index, t.iterations,
             val_loss=val, meta={"tag": t.tag}, save_last=due)
+
+    def _state(self):
+        # the dcp backend saves every rank's storage; npz the gathered
+        # full state, which rank 0 writes
+        return self.trainer.checkpoint_state(
+            sharded=self.manager.backend == "dcp")
 
 
 class Logger(Plugin):

@@ -26,7 +26,11 @@ the device corpus and slices its lanes of each host chunk. Every step
 returns the global loss, so the plugins see the same numbers on every
 rank. `checkpoint_state()` and `full_params()` gather (collectives: every
 rank calls them), `restore()` takes a full state and keeps this rank's part.
-Only rank 0 writes files and prints (training/plugins.py).
+Only rank 0 writes files and prints (training/plugins.py). The directory
+checkpoints (`checkpoint_state(sharded=True)`, the dcp backend of
+training/checkpoint.py) gather nothing: they hold this rank's storage as
+DTensors over the mesh, which every rank saves, and restore() takes such a
+state as it is.
 """
 
 from __future__ import annotations
@@ -37,9 +41,10 @@ import torch
 from msnv_tpu_torch.config import ExperimentConfig, make_tag
 from msnv_tpu_torch.models.discriminator import discriminator_init
 from msnv_tpu_torch.models.samplernn import init_tier_state
-from msnv_tpu_torch.parallel.mesh import (batch_sharding, check_mesh,
-                                          corpus_sharding, gather_lanes,
-                                          gather_params, param_sharding,
+from msnv_tpu_torch.parallel.mesh import (as_dtensors, batch_sharding,
+                                          check_mesh, corpus_sharding,
+                                          gather_lanes, gather_params,
+                                          local_tensors, param_sharding,
                                           shard_params, state_sharding)
 from msnv_tpu_torch.training.gan import (METRICS, make_gan_train_block_scan,
                                          make_gan_train_step,
@@ -50,7 +55,7 @@ from msnv_tpu_torch.training.step import (exposure_tuple, fold_generator,
                                           make_train_block_scan,
                                           make_train_step,
                                           make_train_step_indexed)
-from msnv_tpu_torch.tree import tree_map
+from msnv_tpu_torch.tree import tree_leaves, tree_map
 
 
 def _on(device, array):
@@ -380,11 +385,15 @@ class Trainer:
         self.params = params
         self.opt_state = self.optimizer.init(params)
 
-    def checkpoint_state(self):
+    def checkpoint_state(self, sharded: bool = False):
         """The full resumable state (params + optimizer + TBPTT hidden), as
         copies: the steps update the live tensors in place. Over a mesh the
         'model'-sharded leaves and moments and the tier state's lanes are
-        gathered (a collective: every rank calls it)."""
+        gathered (a collective: every rank calls it); with `sharded` they
+        are not: every tensor is this rank's storage as a DTensor over the
+        mesh (as_dtensors), the form the dcp backend saves and loads."""
+        if sharded and self.mesh is not None:
+            return self._sharded_state()
         copy = lambda x: x.detach().clone()             # noqa: E731
         params, opt_state, tier = self.params, self.opt_state, self.state
         if self.mesh is not None:
@@ -403,12 +412,32 @@ class Trainer:
             out["disc_opt_state"] = _copy_opt_state(self.disc_opt_state)
         return out
 
+    def _sharded_state(self):
+        mesh, specs = self.mesh, self._specs
+        out = {
+            "params": as_dtensors(mesh, self.params, specs),
+            "opt_state": _map_moments(
+                lambda t: as_dtensors(mesh, t, specs), self.opt_state),
+            "tier_state": as_dtensors(mesh, list(self.state), lane_axis=1),
+        }
+        if self.is_gan:
+            out["disc_params"] = as_dtensors(mesh, self.disc_params)
+            out["disc_opt_state"] = _map_moments(
+                lambda t: as_dtensors(mesh, t), self.disc_opt_state)
+        return out
+
     def restore(self, state, meta):
         """Take a full state (checkpoint_state's layout; over a mesh this
-        rank keeps its part) and the run's counters."""
+        rank keeps its part), or checkpoint_state(sharded=True)'s, whose
+        DTensors hold this rank's part; and the run's counters."""
+        from torch.distributed.tensor import DTensor
+        sharded = any(isinstance(x, DTensor)
+                      for x in tree_leaves(state["params"]))
+        if sharded:
+            state = local_tensors(state)
         params, opt_state = state["params"], state["opt_state"]
         tier = list(state["tier_state"])
-        if self.mesh is not None:
+        if self.mesh is not None and not sharded:
             part = lambda t: shard_params(                  # noqa: E731
                 self.mesh, t, self._specs)
             params = part(params)

@@ -213,5 +213,7 @@ def test_manager_retention_and_best_recovery(tmp_path):
 
 
 def test_orbax_backend_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="orbax"):
+    """orbax's format needs jax: the manager refuses it and names dcp."""
+    with pytest.raises(NotImplementedError,
+                       match="orbax's format needs jax.*backend 'dcp'"):
         tckpt.CheckpointManager(str(tmp_path), backend="orbax")

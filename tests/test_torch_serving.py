@@ -236,7 +236,9 @@ def test_batcher_coalesces_and_cache_is_bounded(params):
                                 {"mesh": object()}, {"frame_bucket": 0},
                                 {"frames_per_push": 0}])
 def test_service_rejects_unported_and_degenerate_options(params, kw):
-    with pytest.raises((NotImplementedError, ValueError)):
+    """A mesh that make_mesh did not make is a TypeError (meshes that
+    serve: tests/test_torch_serving_mesh.py); the rest ValueError."""
+    with pytest.raises(TypeError if "mesh" in kw else ValueError):
         VocoderService(params[1], TCFG, **kw)
 
 
@@ -299,10 +301,15 @@ def test_cli_frontends_and_mux_lanes(params, tmp_path, args, frontend):
     assert h["mux_lanes"] == 2 and h["mesh_shards"] == 1
 
 
-@pytest.mark.parametrize("args,item", [(["--mesh_data", "2"], "7.4")])
-def test_cli_rejects_unported_options(args, item):
+@pytest.mark.parametrize("args,item", [(["--mesh_data", "2"],
+                                        "the world has 1")])
+def test_cli_rejects_unported_options(args, item, monkeypatch):
+    """--mesh_data 2 in one process (no launcher, no process group): the
+    world must equal N (two ranks serve in tests/test_torch_serving_mesh.
+    py)."""
     from msnv_tpu_torch.serving.cli import main
-    with pytest.raises(NotImplementedError, match=item):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match=item):
         main(["--model", "results/t/checkpoints/ep1-it1.npz",
               "--device", "cpu", *args])
 

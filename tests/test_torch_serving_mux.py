@@ -2,7 +2,8 @@
 StreamMultiplexer) against the JAX package's, on the CPU at the tiny shapes
 of tests/test_serving_mux.py.
 
-Every case of that file is ported (the mesh case becomes "mesh= raises"),
+Every case of that file is ported (the mesh case in
+tests/test_torch_serving_mesh.py; here the mesh shapes it refuses),
 plus cross-package cases at temperature 0, where sampling draws nothing:
 the masked push of both packages from the same carry (buffer exact, hidden
 state within 5e-5, docs/DESIGN.md's bar), and concurrent greedy streams
@@ -11,6 +12,7 @@ the port's own per-connection stream. The real stack runs: pump thread,
 masked pushes, HTTP over a socket.
 """
 
+import dataclasses
 import gc
 import http.client
 import json
@@ -27,6 +29,7 @@ from msnv_tpu.serving import VocoderService as JaxService
 from msnv_tpu_torch.ops.quantize import q_zero
 from msnv_tpu_torch.serving import (Overloaded, StreamMultiplexer,
                                     VocoderService, make_server)
+import torch_parallel
 from torch_parity import both_params, torch_cfg
 
 CFG = ModelConfig(frame_sizes=(2, 2), n_rnn=1, dim=16, cond_dim=3,
@@ -229,15 +232,22 @@ def test_unstarted_stream_generator_releases_lane(params):
         service.close()
 
 
-def test_mux_over_mesh_raises(params):
-    """Mux lanes over a device mesh wait for the port's parallel/ modules;
-    until then both entry points refuse a mesh before starting anything."""
-    with pytest.raises(NotImplementedError, match="7.4"):
+def test_mux_over_mesh_raises(params, tmp_path):
+    """Mux lanes over a mesh (tests/test_torch_serving_mesh.py) refuse,
+    before starting anything, a mesh that make_mesh did not make
+    (TypeError, both entry points) and lanes that do not divide by the
+    'data' size (ValueError: 3 lanes over two gloo ranks)."""
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         StreamMultiplexer(params[1], TCFG, lanes=8, mesh=object())
     threads = threading.active_count()
-    with pytest.raises(NotImplementedError, match="7.4"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         VocoderService(params[1], TCFG, mux_lanes=8, mesh=object())
     assert threading.active_count() == threads
+    for r in torch_parallel.Ranks("job_serving_refusals", 2, str(tmp_path),
+                                  dataclasses.asdict(CFG),
+                                  timeout=120).results():
+        assert r["odd_lanes"] == ("mux lanes 3 must divide by the mesh "
+                                  "'data' axis size 2")
 
 
 # -- held against the JAX multiplexer ---------------------------------------

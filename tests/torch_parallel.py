@@ -76,6 +76,28 @@ class Ranks:
         return out
 
 
+    def outcomes(self):
+        """(exit code, error text or None) of every rank, in rank order,
+        once all have ended; a rank still running at the deadline is
+        killed and reported with exit code None."""
+        for p in self.procs:
+            p.join(max(0.0, self.deadline - time.monotonic()))
+        out = []
+        for rank, p in enumerate(self.procs):
+            code = p.exitcode
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+                code = None
+            err = os.path.join(self.tmp_dir, f"{self.job}-{rank}.err")
+            text = None
+            if os.path.exists(err):
+                with open(err) as f:
+                    text = f.read()
+            out.append((code, text))
+        return out
+
+
 def _rank_main(job, rank, world, store, tmp_dir, args):
     torch.set_num_threads(1)
     try:
@@ -492,3 +514,291 @@ def job_cli(rank, world, argv_two, argv_three):
     except FileNotFoundError as e:
         counts["unshared_error"] = str(e)
     return counts
+
+
+# -- serving over a mesh (tests/test_torch_serving_mesh.py) ----------------
+
+def _post(addr, path, body):
+    import http.client
+    c = http.client.HTTPConnection(*addr, timeout=120)
+    c.request("POST", path, json.dumps(body),
+              {"Content-Type": "application/json"})
+    r = c.getresponse()
+    data = r.read()
+    c.close()
+    return r.status, data
+
+
+def _threaded_front(service):
+    import threading
+
+    from msnv_tpu_torch.serving import make_server
+    srv = make_server(service, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
+def _lead_or_follow(service, lead):
+    """Rank 0 runs lead(service) and closes the service (STOP); the other
+    ranks follow it until then. -> lead's result on rank 0, else None."""
+    from msnv_tpu_torch.parallel.serve import follow
+    try:
+        if not service._channel.leader:
+            follow(service)
+            return None
+        return lead(service)
+    finally:
+        service.close()
+
+
+def _synth_items(spec):
+    return [{"cond": np.asarray(c, np.float32),
+             "spk": np.asarray([s], np.int32), "seed": seed,
+             "n": len(c)} for c, s, seed in spec["items"]]
+
+
+def _folded(items):
+    seed = items[0]["seed"]
+    for it in items[1:]:
+        seed = (seed * 1000003 + it["seed"]) % (1 << 63)
+    return seed
+
+
+def job_serving_synth(rank, world, spec):
+    """VocoderService(mesh=) over (world, 1): rank 0 runs the group calls
+    (8 items, then 3), greedy /synthesize bodies and one HTTP request, and
+    after a heartbeat-covered idle spell one more group on a service whose
+    header group times out after spec["short_timeout"] s; every rank then
+    runs generate_fn on its lanes of the 8-item group with the folded
+    generator (its shard's reference)."""
+    from msnv_tpu_torch.models.generate import generate_fn
+    from msnv_tpu_torch.parallel.generate import shard_generator
+    from msnv_tpu_torch.parallel.mesh import batch_sharding, make_mesh
+    from msnv_tpu_torch.serving import VocoderService
+    cfg = _cfg(spec["model"])
+    params = _params(spec["params"], cfg)
+    mesh = make_mesh(world, 1, device="cpu")
+    items = _synth_items(spec)
+    frames = len(spec["items"][0][0])
+
+    def lead(svc):
+        out = {"healthz": svc.healthz()}
+        gkey = (frames, 1.0, "i")
+        out["group8"] = svc._run_group(gkey, items)
+        out["group3"] = svc._run_group(gkey, items[:3])
+        out["greedy"] = [svc.synthesize(b) for b in spec["greedy"]]
+        srv = _threaded_front(svc)
+        try:
+            out["http"] = _post(srv.server_address, "/synthesize",
+                                spec["greedy"][0])
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        return out
+
+    out = {"lead": _lead_or_follow(
+        VocoderService(params, cfg, frame_bucket=1, mesh=mesh), lead)}
+
+    def idle(svc):
+        time.sleep(spec["idle_s"])
+        return svc._run_group((frames, 1.0, "i"), items[:2])
+
+    out["after_idle"] = _lead_or_follow(
+        VocoderService(params, cfg, frame_bucket=1, mesh=mesh,
+                       mesh_timeout_s=spec["short_timeout"]), idle)
+    lanes = batch_sharding(mesh).local
+    conds = torch.from_numpy(np.stack([it["cond"] for it in items]))
+    spks = torch.from_numpy(np.concatenate([it["spk"] for it in items]))
+    audio, _ = generate_fn(params, cfg)(
+        lanes(conds), lanes(spks), shard_generator(mesh, _folded(items)))
+    out["local8"] = audio.numpy()
+    out["data_index"] = mesh.data_index
+    return out
+
+
+def job_serving_mux(rank, world, spec):
+    """StreamMultiplexer(mesh=) over (world, 1): the masked push on this
+    rank's carry; then a service with mux lanes over the mesh, rank 0
+    serving HTTP: four concurrent /stream clients at the default
+    temperature, then greedy streams on a greedy service."""
+    import threading
+
+    from msnv_tpu_torch.parallel.mesh import batch_sharding, make_mesh
+    from msnv_tpu_torch.serving import StreamMultiplexer, VocoderService
+    cfg = _cfg(spec["model"])
+    params = _params(spec["params"], cfg)
+    mesh = make_mesh(world, 1, device="cpu")
+    lanes = batch_sharding(mesh).local
+    out = {}
+    mux = StreamMultiplexer(params, cfg, lanes=spec["lanes"],
+                            frames_per_push=2, mesh=mesh)
+    carry0 = mux._carry
+    carry1, audio = mux._masked_push(carry0, lanes(_t(spec["cond"])),
+                                     lanes(_t(spec["active"])))
+    out["push"] = {"audio": audio.numpy(), "buf0": carry0[1].numpy(),
+                   "buf1": carry1[1].numpy(),
+                   "hs0": [h.numpy() for h in carry0[2]],
+                   "hs1": [h.numpy() for h in carry1[2]],
+                   "local_lanes": mux._local_lanes}
+
+    def clients(svc, bodies):
+        srv = _threaded_front(svc)
+        got = {}
+
+        def one(i):
+            got[i] = _post(srv.server_address, "/stream", bodies[i])
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(bodies))]
+        try:
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        return ([got.get(i) for i in range(len(bodies))], svc.healthz(),
+                svc._mux.ticks)
+
+    kw = dict(frames_per_push=2, mux_lanes=spec["lanes"], mesh=mesh)
+    out["streams"] = _lead_or_follow(
+        VocoderService(params, cfg, **kw),
+        lambda svc: clients(svc, [spec["body"]] * 4))
+    greedy = VocoderService(params, cfg, temperature_default=0.0, **kw)
+    out["greedy"] = _lead_or_follow(
+        greedy, lambda svc: clients(svc, spec["greedy"]))
+    out["ticks"] = greedy._mux.ticks     # every rank ticks
+    return out
+
+
+def job_serving_cli(rank, world, spec):
+    """`python -m msnv_tpu_torch.serving --mesh_data` on every rank: first
+    a --mesh_data that differs from the world (ValueError), then
+    --mesh_data `world` until rank 0 is sent SIGINT (the parent's HTTP
+    requests run meanwhile). With spec["fail_rank"] that rank's shard of
+    the first /synthesize raises."""
+    from msnv_tpu_torch.serving import cli
+    from msnv_tpu_torch.serving import service as service_mod
+    out = {}
+    try:
+        cli.main(spec["argv"][:-2] + ["--mesh_data", str(2 * world)])
+    except ValueError as e:
+        out["world_error"] = str(e)
+    if rank == spec.get("fail_rank"):
+        def broken(self, temperature, cond, spk, seed):
+            # the request tensors arrive, then this rank's shard raises
+            self._channel.share([cond, spk])
+
+            def shard():
+                raise RuntimeError(f"the shard of rank {rank} broke")
+
+            self._channel.run(shard)
+
+        service_mod.VocoderService._mesh_synth = broken
+    cli.main(spec["argv"])
+    out["returned"] = True
+    return out
+
+
+def job_serving_refusals(rank, world, model):
+    """The mesh shapes serving refuses: a (1, world) mesh (n_model > 1)
+    and mux lanes that do not divide over (world, 1)."""
+    from msnv_tpu_torch.models.samplernn import init_params
+    from msnv_tpu_torch.parallel.mesh import make_mesh
+    from msnv_tpu_torch.serving import StreamMultiplexer, VocoderService
+    cfg = _cfg(model)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    out = {}
+    try:
+        VocoderService(params, cfg, mesh=make_mesh(1, world, device="cpu"))
+    except ValueError as e:
+        out["model_axis"] = str(e)
+    try:
+        StreamMultiplexer(params, cfg, lanes=world + 1,
+                          mesh=make_mesh(world, 1, device="cpu"))
+    except ValueError as e:
+        out["odd_lanes"] = str(e)
+    return out
+
+
+# -- directory checkpoints (tests/test_torch_checkpoint_dcp.py) ------------
+
+def _dcp_state(spec):
+    """The port's train state from spec's numpy: params, Adam moments
+    and count, tier state."""
+    from msnv_tpu_torch.interop import params_from_numpy
+    cfg = _cfg(spec["model"])
+    return {"params": _params(spec["params"], cfg),
+            "opt_state": {"count": spec["count"],
+                          "mu": params_from_numpy(spec["mu"], cfg, "cpu"),
+                          "nu": params_from_numpy(spec["nu"], cfg, "cpu")},
+            "tier_state": [_t(s) for s in spec["tier_state"]]}
+
+
+def _dcp_layout(mesh, state, zero=False):
+    """`state` in a mesh's checkpoint layout (Trainer.checkpoint_state
+    (sharded=True)'s): this rank's storage as DTensors; zeros with
+    `zero`."""
+    from msnv_tpu_torch.parallel.mesh import (as_dtensors, param_sharding,
+                                              shard_params, state_sharding)
+    from msnv_tpu_torch.tree import tree_map
+    if zero:
+        state = tree_map(lambda x: x if isinstance(x, int)
+                         else torch.zeros_like(x), state)
+    specs = param_sharding(mesh, state["params"])
+
+    def part(tree):
+        return as_dtensors(mesh, shard_params(mesh, tree, specs), specs)
+
+    lanes = state_sharding(mesh).local
+    return {"params": part(state["params"]),
+            "opt_state": {"count": state["opt_state"]["count"],
+                          "mu": part(state["opt_state"]["mu"]),
+                          "nu": part(state["opt_state"]["nu"])},
+            "tier_state": as_dtensors(
+                mesh, [lanes(s) for s in state["tier_state"]],
+                lane_axis=1)}
+
+
+def job_dcp_sharded(rank, world, spec):
+    """Save the state from a (1, world) mesh (each rank its 'model'
+    slices), then load it on (world, 1) (each rank its lanes of the tier
+    state): this rank's bytes written and whether every loaded local
+    tensor equals the full state's slice of it, bit for bit."""
+    from msnv_tpu_torch.parallel.mesh import local_tensors, make_mesh
+    from msnv_tpu_torch.training.checkpoint import (load_checkpoint_dcp,
+                                                    save_checkpoint_dcp)
+    from msnv_tpu_torch.tree import leaves_with_paths
+    state = _dcp_state(spec)
+    save_checkpoint_dcp(spec["path"],
+                        _dcp_layout(make_mesh(1, world, device="cpu"),
+                                    state), {"sharded": True})
+    written = os.path.getsize(os.path.join(spec["path"],
+                                           f"__{rank}_0.distcp"))
+    mesh = make_mesh(world, 1, device="cpu")
+    loaded, meta = load_checkpoint_dcp(
+        spec["path"], _dcp_layout(mesh, state, zero=True))
+    want = local_tensors(_dcp_layout(mesh, state))
+    got = dict(leaves_with_paths(local_tensors(loaded)))
+    equal = all(torch.equal(got[p], x) if torch.is_tensor(x)
+                else got[p] == x for p, x in leaves_with_paths(want))
+    return {"written": written, "equal": equal, "meta": meta,
+            "tier_lanes": int(got[("tier_state", 0)].shape[1])}
+
+
+def job_cli_dcp(rank, world, argv_straight, argv_one, argv_two):
+    """cli.train --ckpt_backend dcp on every rank: straight to two epochs,
+    and to one epoch then resumed to two; this rank's checkpoint files."""
+    from msnv_tpu_torch.cli import train as cli_train
+    stdout = sys.stdout
+    try:
+        for argv in (argv_straight, argv_one, argv_two):
+            try:
+                cli_train.main(argv)
+            finally:
+                sys.stdout = stdout        # the train CLI tees stdout
+    finally:
+        sys.stdout = stdout
+    return {"rank": rank}
