@@ -2720,6 +2720,32 @@ def _same_on_every_rank(digest: bytes) -> bool:
     return all(torch.equal(every[0], d) for d in every)
 
 
+def _broadcast_to_rank0(tree, dev):
+    """broadcast_tree(tree), the mesh's starting state: -> {"drawn_apart":
+    the ranks' trees differed before it (each rank draws from its own
+    seed), "equal": every rank's tree equals rank 0's after it (rank 0's
+    own is left as drawn), "ms": its wall, synchronised, "bytes": the
+    tree's, "threads": this rank's CPU thread count}. Raises unless the ranks drew apart and now agree."""
+    import torch
+    from msnv_tpu_torch.parallel.mesh import broadcast_tree
+    from msnv_tpu_torch.tree import tree_leaves
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    apart = not _same_on_every_rank(_params_digest(tree))
+    sync()
+    t0 = time.perf_counter()
+    broadcast_tree(tree)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    out = {"drawn_apart": apart,
+           "equal": _same_on_every_rank(_params_digest(tree)), "ms": ms,
+           "bytes": sum(x.numel() * x.element_size()
+                        for x in tree_leaves(tree)),
+           "threads": torch.get_num_threads()}
+    if not (out["drawn_apart"] and out["equal"]):
+        raise AssertionError(f"the replicas' starting state: {out}")
+    return out
+
+
 def _mesh_world1(exp, dev, batch, seq_len, frames, work):
     """11a: one process, a process group of world 1 (NCCL on the card),
     the (1, 1) mesh against no mesh: three bf16 train steps bit-equal, and
@@ -2835,7 +2861,9 @@ def _rank_steps(rank, cfg, train, dev, batch, seq_len, bf16_steps):
     whose losses, reduced gradients and first updated params rank 0 holds
     against one process's unsharded steps; then bf16 steps with the
     replicas' params bit-equal after each, the GRU sweeps counted and
-    timed."""
+    timed. Each rank draws its params from its own seed (rank 0: 0, the
+    reference's), and every sharded run starts from broadcast_tree's
+    copy of rank 0's."""
     import torch
     from msnv_tpu_torch.models.samplernn import init_params, init_tier_state
     from msnv_tpu_torch.parallel.mesh import (batch_sharding, gather_params,
@@ -2847,7 +2875,7 @@ def _rank_steps(rank, cfg, train, dev, batch, seq_len, bf16_steps):
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     batch_in = train_inputs(cfg, batch, seq_len, dev)
-    init = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    init = init_params(cfg, torch.Generator().manual_seed(rank), device=dev)
     fresh = lambda: tree_map(torch.clone, init)             # noqa: E731
     ref = None
     if rank == 0:
@@ -2873,6 +2901,7 @@ def _rank_steps(rank, cfg, train, dev, batch, seq_len, bf16_steps):
         lanes = batch_sharding(mesh).local
         data, target, cond, spk = (lanes(x) for x in batch_in)
         full = fresh()
+        start = {"f32": _broadcast_to_rank0(full, dev)}
         specs = param_sharding(mesh, full)
         tap = GradTap(make_optimizer(train))
         step = make_train_step(cfg, tap, mesh=mesh, specs=specs)
@@ -2904,6 +2933,7 @@ def _rank_steps(rank, cfg, train, dev, batch, seq_len, bf16_steps):
 
         # bf16: the replicas' params after each step, the sweeps, the time
         full = fresh()
+        start["bf16"] = _broadcast_to_rank0(full, dev)
         specs = param_sharding(mesh, full)
         opt = make_optimizer(train)
         step = make_train_step(cfg, opt, mesh=mesh, specs=specs,
@@ -2925,7 +2955,8 @@ def _rank_steps(rank, cfg, train, dev, batch, seq_len, bf16_steps):
             same.append(_same_on_every_rank(_params_digest(
                 gather_params(mesh, params, specs))))
         counts = _check_sweeps(dev, cfg, bf16_steps, f"mesh {key} bf16 step")
-        row.update(bf16_losses=bf16_losses, replicas_bit_equal=same,
+        row.update(start=start, bf16_losses=bf16_losses,
+                   replicas_bit_equal=same,
                    ms_per_step=[w * 1e3 for w in walls],
                    gru_fwd=counts[0], gru_bwd=counts[2],
                    gru_fwd_persistent=counts[1],
@@ -2936,9 +2967,10 @@ def _rank_steps(rank, cfg, train, dev, batch, seq_len, bf16_steps):
 
 
 def _rank_generation(rank, cfg, dev, batch, frames, stream_batch, pushes):
-    """11c on this rank: sharded generation and streaming over (2, 1), each
-    rank's shard against a local run on its lanes with the folded
-    generator, every window counted."""
+    """11c on this rank: sharded generation and streaming over (2, 1) from
+    rank 0's params (this rank's own draw, broadcast), each rank's shard
+    against a local run on its lanes with the folded generator, every
+    window counted."""
     import torch
     from msnv_tpu_torch.models.generate import generate_fn, streaming_fn
     from msnv_tpu_torch.models.samplernn import init_params
@@ -2949,7 +2981,9 @@ def _rank_generation(rank, cfg, dev, batch, frames, stream_batch, pushes):
     on_card = dev.type == "cuda"
     mesh = make_mesh(2, 1, device=dev)
     lanes = batch_sharding(mesh).local
-    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    params = init_params(cfg, torch.Generator().manual_seed(rank),
+                         device=dev)
+    start = _broadcast_to_rank0(params, dev)
     kw = dict(compute_dtype=torch.bfloat16, use_kernel=on_card)
     g = torch.Generator(device=dev).manual_seed(6)   # the same on both ranks
     C = cfg.effective_cond_dim
@@ -2983,7 +3017,8 @@ def _rank_generation(rank, cfg, dev, batch, frames, stream_batch, pushes):
         ref.append(s)
     stream_equal = bool(torch.equal(lanes(torch.cat(got, 1)),
                                     torch.cat(ref, 1)))
-    return {"generate_equal": gen_equal, "generate_windows": gen_windows,
+    return {"start": start,
+            "generate_equal": gen_equal, "generate_windows": gen_windows,
             "stream_equal": stream_equal, "stream_windows": stream_windows,
             "seq_shape": list(seq.shape)}
 
@@ -3039,7 +3074,9 @@ def _relu_flips(a, b, diff):
 
 def _rank_gan(rank, exp, dev, batch, seq_len, channels):
     """11d on this rank: one GAN step over (2, 1) (past the lambda ramp),
-    in float32 (the GRU kernels) and in float64 (the plain GRU loop).
+    in float32 (the GRU kernels) and in float64 (the plain GRU loop),
+    each from rank 0's params and discriminator (this rank's own draws,
+    broadcast).
     Rank 0 also runs one process's unsharded steps: float32 on the whole
     batch and on each half of it (the lanes each rank takes), float64 on
     the whole batch; the ReLU units of the sample MLP that the whole batch
@@ -3058,12 +3095,17 @@ def _rank_gan(rank, exp, dev, batch, seq_len, channels):
     train = dataclasses.replace(exp.train, disc_channels=channels)
     step_idx = float(train.lambda_weight[2])
     batch_in = train_inputs(cfg, batch, seq_len, dev, seed=9)
-    params0 = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    params0 = init_params(cfg, torch.Generator().manual_seed(rank),
+                          device=dev)
+    starts = []
 
     def run(mesh, lanes=slice(None), cfg=cfg, dtype=None):
         params = tree_map(torch.clone, params0)
-        disc = discriminator_init(torch.Generator().manual_seed(1),
+        disc = discriminator_init(torch.Generator().manual_seed(1 + 2 * rank),
                                   cfg.spk_dim, channels, device=dev)
+        if mesh is not None:
+            starts.append({"vocoder": _broadcast_to_rank0(params, dev),
+                           "disc": _broadcast_to_rank0(disc, dev)})
         taps = GradTap(make_optimizer(train)), GradTap(make_optimizer(train))
         step = make_gan_train_step(cfg, train, *taps, mesh=mesh,
                                    compute_dtype=dtype)
@@ -3087,7 +3129,8 @@ def _rank_gan(rank, exp, dev, batch, seq_len, channels):
     if dev.type == "cuda" and (counts[0], counts[2]) != (want, want):
         raise AssertionError(f"sharded GAN step: GRU sweeps {counts}")
     got64 = run(mesh, cfg=cfg64, dtype=torch.float64)
-    out = {"metrics": got[0], "gru_fwd": counts[0], "gru_bwd": counts[2]}
+    out = {"metrics": got[0], "gru_fwd": counts[0], "gru_bwd": counts[2],
+           "start": starts}
     if rank != 0:
         return out
     one = run(None)
@@ -3169,7 +3212,9 @@ def _mesh_rank(rank, world, store, work, spec):
     try:
         import torch
         import torch.distributed as dist
-        torch.set_num_threads(2)
+        # the ranks run at different CPU thread counts and draw from
+        # different seeds: only the broadcast makes their replicas equal
+        torch.set_num_threads(2 + rank)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         if spec["cuda"]:
@@ -3257,10 +3302,29 @@ def _join_ranks(procs, work, deadline_s):
     return out
 
 
+def _starts_line(what, starts):
+    """Logs one broadcast of the replicas' starting state as every rank saw
+    it (starts: each rank's _broadcast_to_rank0 result); raises unless the
+    ranks drew apart and every rank then held rank 0's tree."""
+    ok = all(s["drawn_apart"] and s["equal"] for s in starts)
+    log(f"[mesh] {what}: the ranks drew apart (a seed each, CPU threads "
+        f"{[s['threads'] for s in starts]}): "
+        f"{all(s['drawn_apart'] for s in starts)}; after "
+        f"broadcast_tree every rank's equal to rank 0's draw, bit for bit: "
+        f"{all(s['equal'] for s in starts)}; "
+        f"{starts[0]['bytes'] / 1e6:.3f} MB, broadcast wall ms per rank "
+        f"{[round(s['ms'], 3) for s in starts]}")
+    if not ok:
+        raise AssertionError(f"{what}: the replicas' starting state {starts}")
+
+
 def _check_ranks(dev, ranks, spec):
     """The parent's checks of 11b-d on the ranks' results."""
     r0 = ranks[0]
     for key, row in r0["steps"].items():
+        for kind in ("f32", "bf16"):
+            _starts_line(f"11b mesh {key} {kind} steps",
+                         [r["steps"][key]["start"][kind] for r in ranks])
         log(f"[mesh] 11b mesh {key}: f32 losses {row['f32_losses']}, "
             f"against one process: loss {row['f32_loss_rel_err']:.2e}, "
             f"reduced gradients {[f'{e:.2e}' for e in row['f32_grad_rel_err']]}"
@@ -3305,6 +3369,11 @@ def _check_ranks(dev, ranks, spec):
         g = r["generation"]
         if not (g["generate_equal"] and g["stream_equal"]):
             raise AssertionError(f"a shard differs from its local run: {g}")
+    _starts_line("11c generation", [r["generation"]["start"] for r in ranks])
+    for i, what in enumerate(("float32", "float64")):
+        for tree in ("vocoder", "disc"):
+            _starts_line(f"11d GAN {what} step, {tree}",
+                         [r["gan"]["start"][i][tree] for r in ranks])
     g = r0["generation"]
     log(f"[mesh] 11c sharded generation {g['seq_shape']} and 8 streaming "
         f"pushes at B 2 equal per shard to local runs with the folded "

@@ -18,11 +18,14 @@ layout mirrors the JAX package so each counterpart is easy to find:
   training/    — clipped Adam, the TBPTT train / eval steps and their
                  device-corpus blocks, the GAN variant's two-optimizer
                  step, the Trainer loop and its plugins, checkpoints in
-                 the JAX trainer's .npz format; each over a device mesh
-                 too (mesh=)
+                 the JAX trainer's .npz format and as
+                 torch.distributed.checkpoint (dcp) directories; each
+                 over a device mesh too (mesh=)
   parallel/    — the ('data', 'model') mesh over torch.distributed (one
-                 process per GPU), sharding rules and collectives;
-                 sharded generation and streaming
+                 process per GPU), sharding rules and collectives, one
+                 starting state for every replica (broadcast_tree);
+                 sharded generation and streaming; serving over a mesh
+                 (parallel/serve.py: rank 0 leads, the others follow)
   data/        — WAV I/O, the corpus build (the same npy cache), the
                  TBPTT chunk loader, synthetic corpora, log-mel features,
                  the native data library
@@ -47,9 +50,14 @@ the training loop with its corpus, loader, checkpoints and the
 train / evaluate / generate CLIs, the variants (the bottleneck and
 GAN heads, the speaker discriminator and the GAN trainer, QRNN tiers), the
 serving artifact (export and its service lanes), profiling and the host
-CLIs, and training and generation over a device mesh (torch.distributed:
-`torchrun --nproc_per_node N -m msnv_tpu_torch.cli.train ...`). Not yet:
-serving over a mesh and the orbax checkpoint backend.
+CLIs, training and generation over a device mesh (torch.distributed:
+`torchrun --nproc_per_node N -m msnv_tpu_torch.cli.train ...`) and serving
+over a mesh (`-m msnv_tpu_torch.serving --mesh_data N`). Not ported:
+orbax's on-disk checkpoint format. It is an OCDBT database whose B-tree
+nodes and chunks are zstd frames; reading it needs tensorstore or a zstd
+decoder, and neither PyTorch nor Python's standard library has one. The
+dcp directories are the port's sharded checkpoints, and .npz carries
+weights between the two packages both ways.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 CUDA device and no explicit CPU request they raise.

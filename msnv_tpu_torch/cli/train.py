@@ -27,7 +27,9 @@ group (NCCL on CUDA, gloo with --device cpu; a group the caller already
 made is used as it is), each rank on cuda:LOCAL_RANK, and trains over a
 ('data', 'model') mesh of world / --n_model_shards by --n_model_shards
 (parallel/mesh.py); --batch_size must divide over 'data' (ValueError
-otherwise). Only rank 0 writes the log, stats.json, samples and
+otherwise). Every rank draws the params from --seed and the Trainer
+makes them rank 0's, so the replicas start equal whatever a rank drew.
+Only rank 0 writes the log, stats.json, samples and
 checkpoints; the ranks share the results directory and resume from rank
 0's newest checkpoint. --ckpt_backend dcp writes `.dcp` directories with
 torch.distributed.checkpoint instead, every rank its own slices

@@ -46,9 +46,18 @@ def lecun_uniform(generator, shape, fan_in=None, *, device="cpu"):
 
 
 def orthogonal(generator, shape, *, device="cpu"):
-    """Orthogonal matrix (ref model.py:163)."""
-    return _draw(shape, lambda w: torch.nn.init.orthogonal_(
-        w, generator=generator), device)
+    """Orthogonal matrix (ref model.py:163). The QR runs on one CPU thread
+    (the caller's count is restored after): its bits depend on the thread
+    count, and so a seed draws the same matrix whatever the caller set."""
+    def fill(w):
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            torch.nn.init.orthogonal_(w, generator=generator)
+        finally:
+            torch.set_num_threads(threads)
+
+    return _draw(shape, fill, device)
 
 
 def normal(generator, shape, *, device="cpu"):

@@ -14,7 +14,8 @@ folded from the caller's seed and its data index
 `jax.random.fold_in(key, idx)`), so a sharded batch is defined as n_data
 independent local generators: shard i equals a local run on its lanes with
 that generator, sample for sample. Every rank takes the same global
-inputs; B must divide by the 'data' size. Ranks that share a data index
+inputs and the same params (`broadcast_tree`; the serving service sees
+to it); B must divide by the 'data' size. Ranks that share a data index
 (over 'model') generate the same lanes.
 """
 

@@ -25,6 +25,11 @@ cannot carry it.
   gradient. The numbers are those of one rank.
 - Gradients and losses are means over 'data' (`data_mean`): the shards
   are equal, so the mean of the shard means is the global batch's mean.
+- Every replica starts from global rank 0's state (`broadcast_tree`, as
+  PyTorch's DDP does at construction): the steps update each replica in
+  place from the same reduced gradient, so replicas that start apart
+  never meet. The Trainer and the serving service broadcast the full
+  params they are given; the step builders take the caller's storage.
 
 Every collective is an all_reduce, a broadcast or an all_gather (a
 reduce-scatter is an all-reduce, then a slice), so the same code runs on
@@ -344,6 +349,32 @@ def any_rank(flag: bool) -> bool:
     t = torch.tensor([int(flag)], dtype=torch.int64, device=_world_device())
     dist.all_reduce(t)
     return bool(t.item())
+
+
+def broadcast_tree(tree, src: int = 0):
+    """Every rank's tensor tree made global rank `src`'s, in place: each
+    leaf keeps this rank's storage, device and dtype and takes `src`'s
+    bits. One broadcast over the world group per dtype of the leaves, of
+    one flat buffer packing them (as data_mean packs its all-reduce, with
+    no cast, so every dtype arrives bit for bit). Every rank passes a tree
+    of the same structure, shapes and dtypes on one device. Without a
+    process group, or in a world of 1, nothing is sent. Returns the
+    tree."""
+    if world_size() == 1:
+        return tree
+    buckets = {}        # in tree order of first use: the same on every rank
+    for x in tree_leaves(tree):
+        buckets.setdefault(x.dtype, []).append(x)
+    receive = dist.get_rank() != src
+    with torch.no_grad():
+        for leaves in buckets.values():
+            flat = torch.cat([x.reshape(-1) for x in leaves])
+            dist.broadcast(flat, src=src)
+            if receive:
+                parts = flat.split([x.numel() for x in leaves])
+                for x, part in zip(leaves, parts):
+                    x.copy_(part.view(x.shape))
+    return tree
 
 
 def broadcast_int64(value: int) -> int:

@@ -60,7 +60,8 @@ class StreamMultiplexer:
     push and the attach splice run on the rank's slice of their inputs
     (`_mesh_tick`). Rank 0's pump leads each tick through the serving
     `channel` (parallel/serve.py); the other ranks tick in follow(). The
-    audio is all-gathered, and only rank 0 converts and delivers it.
+    audio is all-gathered, and only rank 0 converts and delivers it. The
+    ranks' params must be equal; VocoderService(mesh=) sees to that.
     """
 
     FETCH_DEPTH = 4

@@ -34,12 +34,14 @@ checked against the served model and device at construction.
 
 Over a device mesh (`mesh=`, an N x 1 ('data', 'model') mesh of
 parallel/mesh.py, one process per GPU), every rank builds the same
-service: rank 0 serves (front, batcher, multiplexer pump) and leads, the
-other ranks run `parallel.serve.follow(service)`. A /synthesize group's
-lanes (padded to a power of two, then to a multiple of the 'data' size)
-are sharded over 'data': every rank generates its lanes with the folded
-generator (parallel/generate.py), and rank 0 gathers the audio. Mux lanes
-are sharded likewise (serving/mux.py). The artifact's programs are
+service, whose constructor makes every rank's params global rank 0's
+(`broadcast_tree`, in place, before any other collective): rank 0 serves
+(front, batcher, multiplexer pump) and leads, the other ranks run
+`parallel.serve.follow(service)`. A /synthesize group's lanes (padded to
+a power of two, then to a multiple of the 'data' size) are sharded over
+'data': every rank generates its lanes with the folded generator
+(parallel/generate.py), and rank 0 gathers the audio. Mux lanes are
+sharded likewise (serving/mux.py). The artifact's programs are
 single-device: a mesh's /synthesize never takes them. The per-connection
 /stream stays on rank 0's device.
 """
@@ -58,7 +60,8 @@ from msnv_tpu_torch.config import ModelConfig
 from msnv_tpu_torch.data.wavio import pcm16_bytes, wav_bytes
 from msnv_tpu_torch.models.generate import generate_fn, streaming_fn
 from msnv_tpu_torch.parallel.generate import sharded_generate_fn
-from msnv_tpu_torch.parallel.mesh import check_mesh, gather_lanes
+from msnv_tpu_torch.parallel.mesh import (broadcast_tree, check_mesh,
+                                          gather_lanes)
 from msnv_tpu_torch.parallel.serve import (SYNTH, ControlChannel,
                                            float_bits, seed_slot)
 from msnv_tpu_torch.serving.batcher import _Batcher
@@ -80,6 +83,10 @@ class VocoderService:
             raise ValueError(
                 f"serving shards lanes over 'data' only (an N x 1 mesh, as "
                 f"the JAX service's), got {mesh.shape}")
+        if mesh is not None:
+            # every replica serves global rank 0's weights; sent before
+            # the channel exists, so the collective order stays serve.py's
+            broadcast_tree(params)
         self.params = params
         self.cfg = cfg
         self.device = params["mlp"]["embedding"].device

@@ -37,7 +37,8 @@ rank runs the step on its lanes; L1 and L2 are reduced over 'data' before
 the adaptive multiplier reads L2, and both gradient trees are reduced
 (sum / n_data) before their clips and updates: the vocoder's local
 gradient dL1_r - lambda dL2_r averages to the global batch's, since both
-losses are means over equal shards.
+losses are means over equal shards. The replicas of both trees must be
+equal when the first step runs (`broadcast_tree`; Trainer sees to it).
 """
 
 from __future__ import annotations

@@ -33,10 +33,11 @@ global loss. Each rank runs the single-device step on its lanes; what JAX
 computes from the global batch is computed after the reduction over
 'data', in JAX's order: the loss (the mean of the shard means), the
 gradient (sum / n_data), then the element-wise clip and Adam, on the slice
-the rank stores. Every rank gets the same reduced bits, so the replicas
-stay bit-identical. Exposure-bias draws are made at the global batch's
-shape from the step's generator and sliced, so a sharded run draws what
-the single-device run draws.
+the rank stores. Every rank gets the same reduced bits, so replicas that
+start equal stay bit-identical: the replicas must be equal when the first
+step runs (`broadcast_tree`; Trainer sees to it). Exposure-bias draws are
+made at the global batch's shape from the step's generator and sliced, so
+a sharded run draws what the single-device run draws.
 """
 
 from __future__ import annotations

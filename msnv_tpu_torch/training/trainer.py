@@ -18,14 +18,17 @@ its optimizer is the same clipped Adam, the iteration drives the lambda
 ramp, and the checkpoint carries "disc_params" and "disc_opt_state".
 
 Over a device mesh (`mesh=`, parallel/mesh.py; one process per GPU, every
-rank running this loop) the Trainer is given the FULL params and keeps this
-rank's storage of them (`shard_params`: the slices of the 'model'-sharded
-leaves; the params themselves when n_model is 1), its optimizer state in
-the same layout, and its lanes of the tier state; it uploads its lanes of
-the device corpus and slices its lanes of each host chunk. Every step
-returns the global loss, so the plugins see the same numbers on every
-rank. `checkpoint_state()` and `full_params()` gather (collectives: every
-rank calls them), `restore()` takes a full state and keeps this rank's part.
+rank running this loop) the Trainer is given the FULL params, makes them
+global rank 0's (`broadcast_tree`: every replica starts from one state,
+whatever each rank drew; the discriminator and a warm start's params
+alike), and keeps this rank's storage of them (`shard_params`: the
+slices of the 'model'-sharded leaves; the params themselves when n_model
+is 1), its optimizer state in the same layout, and its lanes of the tier
+state; it uploads its lanes of the device corpus and slices its lanes of
+each host chunk. Every step returns the global loss, so the plugins see
+the same numbers on every rank. `checkpoint_state()` and `full_params()`
+gather (collectives: every rank calls them), `restore()` takes a full
+state and keeps this rank's part.
 Only rank 0 writes files and prints (training/plugins.py). The directory
 checkpoints (`checkpoint_state(sharded=True)`, the dcp backend of
 training/checkpoint.py) gather nothing: they hold this rank's storage as
@@ -42,7 +45,8 @@ from msnv_tpu_torch.config import ExperimentConfig, make_tag
 from msnv_tpu_torch.models.discriminator import discriminator_init
 from msnv_tpu_torch.models.samplernn import init_tier_state
 from msnv_tpu_torch.parallel.mesh import (as_dtensors, batch_sharding,
-                                          check_mesh, corpus_sharding,
+                                          broadcast_tree, check_mesh,
+                                          corpus_sharding,
                                           gather_lanes, gather_params,
                                           local_tensors, param_sharding,
                                           shard_params, state_sharding)
@@ -92,6 +96,7 @@ class Trainer:
             self._specs = None
             self.params = params
         else:
+            broadcast_tree(params)
             self._specs = param_sharding(mesh, params)
             self.params = shard_params(mesh, params, self._specs)
         self.opt_state = optimizer.init(self.params)
@@ -131,7 +136,9 @@ class Trainer:
                 torch.Generator().manual_seed(cfg.train.seed + 1),
                 cfg.model.spk_dim, cfg.train.disc_channels,
                 device=self.device)
-            self.disc_opt = optimizer         # the same clipped-Adam recipe
+            if mesh is not None:
+                broadcast_tree(self.disc_params)
+            self.disc_opt = optimizer        # the same clipped-Adam recipe
             self.disc_opt_state = self.disc_opt.init(self.disc_params)
             gan = (cfg.model, cfg.train, optimizer, self.disc_opt)
             self._step = make_gan_train_step(
@@ -379,9 +386,11 @@ class Trainer:
 
     def warm_start(self, params):
         """Train from full `params` (weights only): a fresh optimizer
-        state; the TBPTT state and the counters stay."""
+        state; the TBPTT state and the counters stay. Over a mesh every
+        rank takes global rank 0's params."""
         if self.mesh is not None:
-            params = shard_params(self.mesh, params, self._specs)
+            params = shard_params(self.mesh, broadcast_tree(params),
+                                  self._specs)
         self.params = params
         self.opt_state = self.optimizer.init(params)
 

@@ -802,3 +802,172 @@ def job_cli_dcp(rank, world, argv_straight, argv_one, argv_two):
     finally:
         sys.stdout = stdout
     return {"rank": rank}
+
+
+# -- one starting state for every replica (parallel.mesh.broadcast_tree) ----
+
+def _snap(flat):
+    """Copies of a {key: array} dict (params_to_numpy shares CPU storage,
+    and the trees change in place)."""
+    return {k: np.array(v, copy=True) for k, v in flat.items()}
+
+
+def _bits(x):
+    """A tensor's bits as numpy (bf16 as its int16 pattern)."""
+    if x.dtype == torch.bfloat16:
+        x = x.view(torch.int16)
+    return x.detach().clone().numpy()
+
+
+def _broadcast_case(rank):
+    """broadcast_tree on a tree of float32, bf16 and int64 leaves drawn
+    from this rank's seed: the bits before and after, whether each leaf
+    kept its storage and dtype, and the broadcasts it sent."""
+    from msnv_tpu_torch.parallel.mesh import broadcast_tree
+    from msnv_tpu_torch.tree import tree_leaves
+    g = torch.Generator().manual_seed(rank)
+    tree = {"a": torch.randn(3, 4, generator=g),
+            "b": [torch.randn(5, generator=g).to(torch.bfloat16)],
+            "c": torch.randint(0, 1 << 40, (6,), generator=g),
+            "d": torch.randn(2, 3, generator=g).t()}   # a strided view
+    tensors = tree_leaves(tree)
+    before = [_bits(x) for x in tensors]
+    ptrs = [x.data_ptr() for x in tensors]
+    calls, real = [], dist.broadcast
+
+    def counted(t, *a, **kw):
+        calls.append(str(t.dtype))
+        return real(t, *a, **kw)
+
+    dist.broadcast = counted
+    try:
+        out = broadcast_tree(tree)
+    finally:
+        dist.broadcast = real
+    return {"before": before, "after": [_bits(x) for x in tensors],
+            "in_place": out is tree and ptrs == [x.data_ptr()
+                                                 for x in tensors],
+            "dtypes": [str(x.dtype) for x in tensors], "calls": calls}
+
+
+def _init_trainer(rank, spec, variant, shape):
+    """Trainer(mesh=shape) from this rank's own draw (seed `rank`; the GAN's
+    discriminator from train seed + 100 rank, + 1): the draws, the full
+    params (and discriminator) at construction, after one epoch of two
+    steps, and after warm_start from another draw of this rank's (seed
+    10 + rank) and one more epoch."""
+    import dataclasses
+
+    from msnv_tpu_torch.config import ExperimentConfig
+    from msnv_tpu_torch.data.corpus import Corpus
+    from msnv_tpu_torch.data.loader import ChunkLoader
+    from msnv_tpu_torch.interop import disc_params_to_numpy
+    from msnv_tpu_torch.models.discriminator import discriminator_init
+    from msnv_tpu_torch.models.samplernn import init_params
+    from msnv_tpu_torch.parallel.mesh import make_mesh
+    from msnv_tpu_torch.training.optim import make_optimizer
+    from msnv_tpu_torch.training.plugins import Plugin
+    from msnv_tpu_torch.training.trainer import Trainer
+
+    class Losses(Plugin):
+        def __init__(self):
+            self.losses = []
+
+        def iteration(self, loss):
+            self.losses.append(loss)
+
+    case = spec[variant]
+    cfg = _cfg(case["model"])
+    train = _train_cfg(case["train"])
+    train = dataclasses.replace(train, seed=train.seed + 100 * rank)
+    exp = ExperimentConfig(exp="t", model=cfg, train=train)
+    loader = ChunkLoader(Corpus(**case["corpus"]), train.seq_len,
+                         cfg.lookback, cfg.cond_len, cfg.q_levels, cfg.ulaw)
+    mesh = make_mesh(*shape, device="cpu")
+    draw = lambda seed: init_params(                     # noqa: E731
+        cfg, torch.Generator().manual_seed(seed), device="cpu")
+    params = draw(rank)
+    out = {"drawn": _snap(_numpy(params))}
+    gan = variant == "gan"
+    if gan:
+        out["disc_drawn"] = _snap(disc_params_to_numpy(discriminator_init(
+            torch.Generator().manual_seed(train.seed + 1), cfg.spk_dim,
+            train.disc_channels, device="cpu")))
+    t = Trainer(exp, params, make_optimizer(train, len(loader)), loader,
+                mesh=mesh)
+    disc = lambda: _snap(disc_params_to_numpy(t.disc_params))  # noqa: E731
+    out["initial"] = _snap(_numpy(t.full_params()))
+    if gan:
+        out["disc_initial"] = disc()
+    cap = t.register_plugin(Losses())
+    t.run(1)
+    out["losses"] = list(cap.losses)
+    out["trained"] = _snap(_numpy(t.full_params()))
+    if gan:
+        out["disc_trained"] = disc()
+    warm = draw(10 + rank)
+    out["warm_drawn"] = _snap(_numpy(warm))
+    t.warm_start(warm)
+    out["warm_initial"] = _snap(_numpy(t.full_params()))
+    t.run(2)
+    out["warm_trained"] = _snap(_numpy(t.full_params()))
+    return out
+
+
+def _init_serving(rank, world, spec):
+    """VocoderService(mesh=) with mux lanes over (world, 1) built from this
+    rank's own draw (seed `rank`): the service's params, rank 0's
+    /synthesize group, and this rank's local generate_fn run on its lanes
+    with rank 0's draw; the service's multiplexer's push of its carry and
+    a local streaming push of rank 0's draw with the mux's generator."""
+    from msnv_tpu_torch.models.generate import generate_fn, streaming_fn
+    from msnv_tpu_torch.models.samplernn import init_params
+    from msnv_tpu_torch.parallel.generate import shard_generator
+    from msnv_tpu_torch.parallel.mesh import batch_sharding, make_mesh
+    from msnv_tpu_torch.serving import VocoderService
+    cfg = _cfg(spec["model"])
+    mesh = make_mesh(world, 1, device="cpu")
+    lanes = batch_sharding(mesh).local
+    draw = lambda seed: init_params(                     # noqa: E731
+        cfg, torch.Generator().manual_seed(seed), device="cpu")
+    rank0 = draw(0)
+    items = _synth_items(spec)
+    frames = len(spec["items"][0][0])
+    own = draw(rank)
+    out = {"drawn": _snap(_numpy(own))}
+    svc = VocoderService(own, cfg, frame_bucket=1, frames_per_push=2,
+                         mux_lanes=2 * world, mesh=mesh)
+    out.update({"service_params": _snap(_numpy(svc.params)),
+                "rank0": _snap(_numpy(rank0)),
+                "data_index": mesh.data_index})
+    # the carry's push is this rank's alone (no collective): the pump,
+    # idle without streams, is not involved
+    cond = lanes(_t(spec["mux_cond"]))
+    active = torch.ones(cond.shape[0], dtype=torch.bool)
+    _, audio = svc._mux._masked_push(svc._mux._carry, cond, active)
+    init_l, push_l = streaming_fn(rank0, cfg, frames_per_push=2)
+    carry = init_l(cond.shape[0], torch.zeros(cond.shape[0],
+                                              dtype=torch.int64),
+                   shard_generator(mesh, 0))
+    _, local, _ = push_l(carry, cond)
+    out["mux_audio"], out["mux_local"] = audio.numpy(), local.numpy()
+    out["group"] = _lead_or_follow(
+        svc, lambda s: s._run_group((frames, 1.0, "i"), items))
+    conds = torch.from_numpy(np.stack([it["cond"] for it in items]))
+    spks = torch.from_numpy(np.concatenate([it["spk"] for it in items]))
+    audio, _ = generate_fn(rank0, cfg)(
+        lanes(conds), lanes(spks), shard_generator(mesh, _folded(items)))
+    out["local_group"] = audio.numpy()
+    return out
+
+
+def job_mesh_init(rank, world, spec):
+    """The broadcast on its own, the Trainer over (2, 1) and (1, 2) for
+    each variant of spec["trainer"], and serving over (world, 1), every
+    rank starting from its own draw."""
+    return {"broadcast": _broadcast_case(rank),
+            "trainer": {(variant, shape): _init_trainer(rank, spec["trainer"],
+                                                        variant, shape)
+                        for variant in spec["trainer"]
+                        for shape in ((2, 1), (1, 2))},
+            "serving": _init_serving(rank, world, spec["serving"])}
