@@ -221,27 +221,49 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                    unit, 86 chunks an epoch, no validation): one epoch
                    resumed to two equal to two straight, bit for bit, each
                    rank writing its part of every checkpoint
+ 13. orbax    — the JAX package's orbax checkpoints, read and written with
+                no jax (training/ocdbt.py, training/zstd.py and the
+                repository's zstd decoder, csrc/zstd_decode.cc, built with
+                the host's C++ compiler):
+                a. the committed fixtures that orbax and tensorstore wrote
+                   (tests/data/orbax: a JAX Trainer's state, the 8-device
+                   sharded layout, two processes) loaded onto the card
+                   bit-equal to their .npz twins; the decoder's MB/s over
+                   their chunks' zstd frames, on this host;
+                b. 12d's full-width train state saved as orbax from a
+                   (1, 2) mesh by two gloo ranks, each writing its slices
+                   into its own database, loaded on (2, 1) and in one
+                   process bit-equal to rank 0's .npz of it; write and read
+                   seconds and bytes beside the .npz's and 12d's dcp;
+                c. cli.train --ckpt_backend orbax on both ranks over (1, 2)
+                   (12d's model and corpus): one epoch resumed to two equal
+                   to two straight, bit for bit;
+                d. cli.generate from 13c's .orbax and from an .npz of the
+                   same weights, greedy and sampled with one seed: the
+                   WAVs byte-equal
 Then one JSON line of kernel numbers, the card's name and power limit, and
 last the {"ok": true, "device": ...} line. The kernels' `launches` add up
 the counts of every path that drives them: K1 the serving path (phase 4),
 the generate CLI (phase 7), the multiplexer (phase 8), the variants'
 generation, streaming and generate CLI (phase 9) and the artifact's
 generation, pushes and service (phase 10), sharded generation and
-streaming (phase 11) and the mux over a serving mesh on both ranks (phase
-12), K2 the train steps (phase 6), the training loop (phase 7), the
-variants' train steps and train CLI (phase 9), the sharded steps and
-cli.train of every rank (phase 11) and cli.train with dcp checkpoints on
-both ranks (phase 12), each count set to 0 just before its path and read
-just after.
+streaming (phase 11), the mux over a serving mesh on both ranks (phase
+12) and the generate CLI from an orbax checkpoint (phase 13), K2 the train
+steps (phase 6), the training loop (phase 7), the variants' train steps
+and train CLI (phase 9), the sharded steps and cli.train of every rank
+(phase 11) and cli.train with dcp (phase 12) and orbax checkpoints (phase
+13) on both ranks, each count set to 0 just before its path and read just
+after.
 
 `--rehearse-cpu` runs the same phases on the CPU at dim 32 with the plain
 versions (no build, no timing on the card; phase 7 at B 4 on a small
 corpus; phase 8 with 4 and 8 lanes; phase 9 at B 4, seq_len 320 and an
 8-channel discriminator; phase 10 at B 2; phase 11 with gloo CPU ranks at
-B 4; phase 12 with gloo CPU ranks, 8 mux lanes and a B 4 state) and ends
-without the ok line. `--phases=5,6`, `--phases=7`, `--phases=8`,
-`--phases=9`, `--phases=10`, `--phases=11` or `--phases=12` runs only the
-named phases (and then prints no result line).
+B 4; phase 12 with gloo CPU ranks, 8 mux lanes and a B 4 state; phase 13
+likewise) and ends without the ok line. `--phases=5,6`, `--phases=7`,
+`--phases=8`, `--phases=9`, `--phases=10`, `--phases=11`, `--phases=12`
+or `--phases=13` runs only the named phases (and then prints no result
+line).
 """
 
 from __future__ import annotations
@@ -3859,12 +3881,30 @@ def _dcp_layout(mesh, state, zero=False):
                 lane_axis=1)}
 
 
-def _dcp_rank(rank, world, store, work, spec):
-    """12d on one rank (gloo over the card): the full-width state saved
-    as dcp from a (1, 2) mesh, loaded on (2, 1), and by rank 0 as `.npz`
-    (the gathered state, for the parent to hold the one-process load
-    against); then cli.train --ckpt_backend dcp over (1, 2): straight to
-    two epochs, and to one then resumed to two."""
+def _dir_format(backend):
+    """(save, load, the bytes one rank wrote into a checkpoint directory)
+    of a directory checkpoint backend, "dcp" or "orbax"."""
+    from msnv_tpu_torch.training import checkpoint as ck
+    if backend == "dcp":
+        return (ck.save_checkpoint_dcp, ck.load_checkpoint_dcp,
+                lambda path, rank: os.path.getsize(
+                    os.path.join(path, f"__{rank}_0.distcp")))
+    return (ck.save_checkpoint_orbax, ck.load_checkpoint_orbax,
+            lambda path, rank: _dir_bytes(
+                os.path.join(path, f"ocdbt.process_{rank}")))
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _dir_ckpt_rank(rank, world, store, work, spec):
+    """12d and 13b-c on one rank (gloo over the card): the full-width state
+    saved as spec["backend"] (dcp or orbax) from a (1, 2) mesh, loaded on
+    (2, 1), and by rank 0 as `.npz` (the gathered state, for the parent to
+    hold the one-process load against); then cli.train with that backend
+    over (1, 2): straight to two epochs, and to one then resumed to two."""
     import pickle
     import traceback
     from datetime import timedelta
@@ -3888,10 +3928,9 @@ def _dcp_rank(rank, world, store, work, spec):
         from msnv_tpu_torch.config import preset
         from msnv_tpu_torch.parallel.mesh import (barrier, local_tensors,
                                                   make_mesh)
-        from msnv_tpu_torch.training.checkpoint import (load_checkpoint_dcp,
-                                                        save_checkpoint,
-                                                        save_checkpoint_dcp)
+        from msnv_tpu_torch.training.checkpoint import save_checkpoint
         from msnv_tpu_torch.tree import leaves_with_paths
+        save_dir, load_dir, rank_bytes = _dir_format(spec["backend"])
         exp = preset("samplernn")
         cfg = dataclasses.replace(exp.model, dim=spec["dim"])
         state = _dcp_state(cfg, exp.train, dev, spec["batch"])
@@ -3909,14 +3948,12 @@ def _dcp_rank(rank, world, store, work, spec):
             return out, time.perf_counter() - t0
 
         layout = _dcp_layout(make_mesh(1, 2, device=dev), state)
-        _, save_s = synced(lambda: save_checkpoint_dcp(path, layout,
-                                                       {"epoch": 1}))
-        written = os.path.getsize(os.path.join(path, f"__{rank}_0.distcp"))
+        _, save_s = synced(lambda: save_dir(path, layout, {"epoch": 1}))
+        written = rank_bytes(path, rank)
         del layout
         mesh = make_mesh(2, 1, device=dev)
         template = _dcp_layout(mesh, state, zero=True)
-        (loaded, meta), load_s = synced(
-            lambda: load_checkpoint_dcp(path, template))
+        (loaded, meta), load_s = synced(lambda: load_dir(path, template))
         want = local_tensors(_dcp_layout(mesh, state))
         got = dict(leaves_with_paths(local_tensors(loaded)))
         equal = meta == {"epoch": 1} and all(
@@ -3932,7 +3969,7 @@ def _dcp_rank(rank, world, store, work, spec):
         del loaded, template, want, got, state
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-        _reset_gru_counts()
+        _reset_gru_counts()                 # the train CLI starts here
         for argv in spec["cli"]:
             run_cli(cli_train.main, argv)
         counts = _gru_counts()
@@ -3948,14 +3985,14 @@ def _dcp_rank(rank, world, store, work, spec):
         raise
 
 
-def _dcp_phase(exp, dev, work, dim, batch, cli):
-    """12d: the full-width state (params, Adam moments, tier state) saved
-    as dcp from (1, 2) by two gloo ranks, each writing its slices, loaded
-    on (2, 1) and in this process bit-equal to the gathered state (rank
-    0's `.npz` of it); write and read seconds and bytes beside the
-    `.npz`'s; then cli.train --ckpt_backend dcp on both ranks over (1, 2):
-    one epoch resumed to two equal to two straight, each rank writing its
-    part."""
+def _dir_ckpt_run(exp, dev, work, dim, batch, cli, backend):
+    """12d and 13b-c: the ranks (_dir_ckpt_rank) on a corpus of one packing
+    unit (no validation partition: the float32 validation sweeps would
+    take most of the phase, and the resume is held on the training
+    losses); then the state read in this process, bit-equal to rank 0's
+    `.npz` of it, and the resumed cli.train's losses equal to the straight
+    run's. -> (the ranks' results, the measures, the resumed run's
+    checkpoints directory, the corpus)."""
     import dataclasses
 
     import torch
@@ -3964,8 +4001,6 @@ def _dcp_phase(exp, dev, work, dim, batch, cli):
     from msnv_tpu_torch.tree import leaves_with_paths
     cli_dim, cli_batch, seq_len, utts, utt_frames = cli
     data = os.path.join(work, "datasets")
-    # no validation partition: the float32 validation sweeps would take
-    # most of the phase, and the resume is held on the training losses
     make_synthetic_corpus(data, n_speakers=6, utts_per_speaker=utts,
                           frames_per_utt=utt_frames, cond_len=80,
                           partitions=("train",), interleave=True)
@@ -3973,24 +4008,24 @@ def _dcp_phase(exp, dev, work, dim, batch, cli):
     def args(results, epochs):
         return _mesh_cli_args(data, cli_dim, cli_batch, seq_len,
                               os.path.join(work, results), epochs, dev) + [
-            "--ckpt_backend", "dcp", "--n_model_shards", "2"]
+            "--ckpt_backend", backend, "--n_model_shards", "2"]
 
-    path = os.path.join(work, "state", "ep1-it1.dcp")
+    path = os.path.join(work, "state", f"ep1-it1.{backend}")
     npz = os.path.join(work, "state", "ep1-it1.npz")
     os.makedirs(os.path.dirname(path))
     spec = {"cuda": dev.type == "cuda", "dim": dim, "batch": batch,
-            "path": path, "npz": npz,
+            "path": path, "npz": npz, "backend": backend,
             "cli": [args("straight", 2), args("resumed", 1),
                     args("resumed", 2)]}
     if dev.type == "cuda":
         torch.cuda.empty_cache()      # the ranks share the card
     t0 = time.perf_counter()
-    ranks = _join_ranks(_start_ranks(_dcp_rank, 2, work, spec), work,
+    ranks = _join_ranks(_start_ranks(_dir_ckpt_rank, 2, work, spec), work,
                         MESH_TIMEOUT)
     ranks_wall = time.perf_counter() - t0
     if not all(r["equal"] for r in ranks):
-        raise AssertionError("the dcp state loaded on (2, 1) differs from "
-                             "the saved one")
+        raise AssertionError(f"the {backend} state loaded on (2, 1) differs "
+                             f"from the saved one")
     template = _dcp_state_shapes(dataclasses.replace(exp.model, dim=dim),
                                  exp.train, batch)
 
@@ -4010,50 +4045,65 @@ def _dcp_phase(exp, dev, work, dim, batch, cli):
     pairs = list(zip(leaves_with_paths(loaded), leaves_with_paths(full)))
     if not all(pa == pb and (torch.equal(a, b) if torch.is_tensor(b)
                              else a == b) for (pa, a), (pb, b) in pairs):
-        raise AssertionError("the dcp state loaded in one process differs "
-                             "from the gathered state (rank 0's .npz)")
+        raise AssertionError(f"the {backend} state loaded in one process "
+                             f"differs from the gathered state (rank 0's "
+                             f".npz)")
     nbytes = sum(x.numel() * x.element_size()
                  for _, x in leaves_with_paths(full) if torch.is_tensor(x))
     del loaded, full
-    written = [r["written"] for r in ranks]
+    out = {"state_bytes": nbytes,
+           f"{backend}_bytes_by_rank": [r["written"] for r in ranks],
+           f"{backend}_save_s": max(r["save_s"] for r in ranks),
+           f"{backend}_load_2x1_s": max(r["load_s"] for r in ranks),
+           f"{backend}_load_one_process_s": one_load_s,
+           "npz_bytes": os.path.getsize(npz),
+           "npz_save_s": ranks[0]["npz_save_s"], "npz_load_s": npz_load_s,
+           "ranks_wall_s": ranks_wall,
+           "gru_fwd": sum(r["gru_fwd"] for r in ranks),
+           "gru_bwd": sum(r["gru_bwd"] for r in ranks)}
+    (s_stats, _), (r_stats, r_dir) = (_stats(os.path.join(work, n))
+                                      for n in ("straight", "resumed"))
+    n = len(r_stats["training_loss"])
+    if not (r_stats["epochs"] == [2] and n
+            and r_stats["training_loss"] == s_stats["training_loss"][-n:]):
+        raise AssertionError(f"cli.train --ckpt_backend {backend} resumed "
+                             f"off the straight run")
+    out["cli_losses"] = n
+    return ranks, out, os.path.join(r_dir, "checkpoints"), data
+
+
+def _dcp_phase(exp, dev, work, dim, batch, cli):
+    """12d: the full-width state (params, Adam moments, tier state) saved
+    as dcp from (1, 2) by two gloo ranks, each writing its slices, loaded
+    on (2, 1) and in this process bit-equal to the gathered state (rank
+    0's `.npz` of it); write and read seconds and bytes beside the
+    `.npz`'s; then cli.train --ckpt_backend dcp on both ranks over (1, 2):
+    one epoch resumed to two equal to two straight, each rank writing its
+    part."""
+    ranks, out, ckpts, _ = _dir_ckpt_run(exp, dev, work, dim, batch, cli,
+                                         "dcp")
+    nbytes, written = out["state_bytes"], out["dcp_bytes_by_rank"]
     if not (nbytes < sum(written) < 1.2 * nbytes
             and min(written) > 0.2 * nbytes):
         raise AssertionError(f"dcp bytes per rank {written} for a state of "
                              f"{nbytes} bytes")
-    npz_save_s = ranks[0]["npz_save_s"]
-    out = {"state_bytes": nbytes, "dcp_bytes_by_rank": written,
-           "dcp_save_s": max(r["save_s"] for r in ranks),
-           "dcp_load_2x1_s": max(r["load_s"] for r in ranks),
-           "dcp_load_one_process_s": one_load_s,
-           "npz_bytes": os.path.getsize(npz), "npz_save_s": npz_save_s,
-           "npz_load_s": npz_load_s, "ranks_wall_s": ranks_wall,
-           "gru_fwd": sum(r["gru_fwd"] for r in ranks),
-           "gru_bwd": sum(r["gru_bwd"] for r in ranks)}
     log(f"[serve-mesh] 12d full-width state {nbytes / 1e9:.3f} GB: dcp from "
         f"(1, 2) written {out['dcp_save_s']:.2f} s, each rank its slices "
         f"({written} bytes); read on (2, 1) {out['dcp_load_2x1_s']:.2f} s "
-        f"and in one process {one_load_s:.2f} s, bit-equal to the gathered "
-        f"state; rank 0's .npz of it {out['npz_bytes'] / 1e9:.3f} GB, "
-        f"written {npz_save_s:.2f} s, read {npz_load_s:.2f} s")
-
-    (s_stats, s_dir), (r_stats, r_dir) = (_stats(os.path.join(work, n))
-                                          for n in ("straight", "resumed"))
-    n = len(r_stats["training_loss"])
-    if not (r_stats["epochs"] == [2] and n
-            and r_stats["training_loss"] == s_stats["training_loss"][-n:]):
-        raise AssertionError("cli.train --ckpt_backend dcp resumed off the "
-                             "straight run")
-    ckpts = os.path.join(r_dir, "checkpoints")
+        f"and in one process {out['dcp_load_one_process_s']:.2f} s, "
+        f"bit-equal to the gathered state; rank 0's .npz of it "
+        f"{out['npz_bytes'] / 1e9:.3f} GB, written "
+        f"{out['npz_save_s']:.2f} s, read {out['npz_load_s']:.2f} s")
     (last,) = [c for c in os.listdir(ckpts) if c.startswith("ep2-")]
     parts = [os.path.getsize(os.path.join(ckpts, last, f"__{r}_0.distcp"))
              for r in (0, 1)]
     if min(parts) < 0.2 * sum(parts):
         raise AssertionError(f"dcp checkpoint parts {parts}")
     log(f"[serve-mesh] 12d cli.train --ckpt_backend dcp, 2 ranks over "
-        f"(1, 2), dim {cli_dim}: 1 epoch resumed to 2 equal to 2 straight "
-        f"({n} losses, bit for bit); {last} written in parts {parts}; GRU "
-        f"sweeps fwd {out['gru_fwd']}, bwd {out['gru_bwd']}")
-    out.update(cli_losses=n, cli_parts=parts)
+        f"(1, 2), dim {cli[0]}: 1 epoch resumed to 2 equal to 2 straight "
+        f"({out['cli_losses']} losses, bit for bit); {last} written in parts "
+        f"{parts}; GRU sweeps fwd {out['gru_fwd']}, bwd {out['gru_bwd']}")
+    out.update(cli_parts=parts)
     return out
 
 
@@ -4089,6 +4139,265 @@ def phase_serve_mesh(ckpt, cfg, exp, dev, world1, ranks, dcp):
     log(f"[serve-mesh] launches: windows {out['window_launches']} (the "
         f"mux on both ranks), GRU fwd {out['gru_fwd_launches']}, bwd "
         f"{out['gru_bwd_launches']} (12d's cli.train on both ranks)")
+
+
+# --------------------------------------------------------------------------
+# phase 13: orbax checkpoints, the JAX package's format without jax
+# --------------------------------------------------------------------------
+
+ORBAX_FIXTURES = os.path.join(REPO, "tests", "data", "orbax")
+
+
+def _fixture_template(name):
+    """The port template (CPU tensors) of a committed orbax fixture, from
+    its msnv_meta.json."""
+    import torch
+    with open(os.path.join(ORBAX_FIXTURES, f"{name}.orbax",
+                           "msnv_meta.json")) as f:
+        meta = json.load(f)
+    if name != "trainer":
+        return {k: torch.zeros(v["shape"], dtype=getattr(torch, v["dtype"]))
+                for k, v in meta["leaves"].items()}
+    from msnv_tpu_torch.config import ModelConfig, TrainConfig
+    from msnv_tpu_torch.models.samplernn import init_params, init_tier_state
+    from msnv_tpu_torch.training.optim import make_optimizer
+
+    def fields(d):
+        return {k: tuple(v) if isinstance(v, list) else v
+                for k, v in d.items()}
+
+    cfg = ModelConfig(**fields(meta["model"]))
+    train = TrainConfig(**fields(meta["train"]))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    return {"params": params, "opt_state": make_optimizer(train).init(params),
+            "tier_state": init_tier_state(cfg, train.batch_size,
+                                          device="cpu")}
+
+
+def _equal_trees(a, b, dev):
+    """Same paths, dtypes and bits, every tensor on `dev`'s type."""
+    import torch
+    from msnv_tpu_torch.tree import leaves_with_paths
+    pa, pb = list(leaves_with_paths(a)), list(leaves_with_paths(b))
+    return len(pa) == len(pb) and all(
+        p == q and (x == y if not torch.is_tensor(y) else
+                    x.device.type == dev.type and x.dtype == y.dtype
+                    and torch.equal(x, y))
+        for (p, x), (q, y) in zip(pa, pb))
+
+
+def _orbax_fixtures(dev, work):
+    """13a: fixtures (a)-(c), written by orbax and tensorstore, loaded onto
+    `dev` bit-equal to their .npz twins, and written again by the port
+    (bytes beside orbax's: the port stores raw zstd blocks); the decoder's
+    rate over their chunks' zstd frames on this host."""
+    from msnv_tpu_torch.training import ocdbt, zstd
+    from msnv_tpu_torch.training.checkpoint import (load_any,
+                                                    save_checkpoint_orbax)
+    import torch.distributed.tensor  # noqa: F401  (imported by the
+    # loader; its first import takes about a second, not a load's time)
+    t0 = time.perf_counter()
+    lib = zstd.build()
+    out = {"decoder_build_s": time.perf_counter() - t0}
+    log(f"[orbax] 13a zstd decoder {lib.name}: compiled from "
+        f"{os.path.relpath(zstd.SOURCE, REPO)} and loaded in "
+        f"{out['decoder_build_s']:.2f} s (no compile when this checkout "
+        f"had built it)")
+    for name in ("trainer", "sharded", "twoproc"):
+        template = _fixture_template(name)
+        path = os.path.join(ORBAX_FIXTURES, f"{name}.orbax")
+        t0 = time.perf_counter()
+        got, meta = load_any(path, template, device=dev)
+        load_s = time.perf_counter() - t0
+        twin, twin_meta = load_any(path[:-len(".orbax")] + ".npz", template,
+                                   device=dev)
+        if meta != twin_meta or not _equal_trees(got, twin, dev):
+            raise AssertionError(f"fixture {name}.orbax differs from its "
+                                 f".npz twin")
+        again = os.path.join(work, f"{name}.orbax")
+        save_checkpoint_orbax(again, got, meta, scheduled=name == "trainer")
+        back, _ = load_any(again, template, device=dev)
+        if not _equal_trees(back, got, dev):
+            raise AssertionError(f"the port's rewrite of {name}.orbax "
+                                 f"differs")
+        out[name] = {"load_s": load_s, "orbax_bytes": _dir_bytes(path),
+                     "port_bytes": _dir_bytes(again),
+                     "processes": len([d for d in os.listdir(path)
+                                       if d.startswith("ocdbt.process_")])}
+    frames = []
+    for name in ("trainer", "sharded", "twoproc"):
+        items = ocdbt.Database(os.path.join(ORBAX_FIXTURES,
+                                            f"{name}.orbax")).items()
+        frames += [ocdbt.value_array(v) for k, v in items.items()
+                   if not k.endswith(b"/.zarray")]
+    sizes = [zstd.decompress(f).size for f in frames]
+    runs, t0 = 0, time.perf_counter()
+    while runs < 3 or time.perf_counter() - t0 < 1.0:
+        for f, n in zip(frames, sizes):
+            zstd.decompress(f, n)
+        runs += 1
+    wall = time.perf_counter() - t0
+    # the largest frame alone (a 32 KiB Huffman-coded float chunk or so)
+    big = max(range(len(frames)), key=lambda i: sizes[i])
+    reps, t1 = 0, time.perf_counter()
+    while reps < 20 or time.perf_counter() - t1 < 0.5:
+        zstd.decompress(frames[big], sizes[big])
+        reps += 1
+    big_wall = time.perf_counter() - t1
+    out["decoder"] = {
+        "frames": len(frames), "compressed_bytes": sum(f.size for f in frames),
+        "decoded_bytes": sum(sizes),
+        "mb_per_s": runs * sum(sizes) / wall / 1e6,
+        "largest_frame": {"compressed_bytes": int(frames[big].size),
+                          "decoded_bytes": sizes[big],
+                          "mb_per_s": reps * sizes[big] / big_wall / 1e6}}
+    loads = ", ".join(
+        f"{n} {out[n]['load_s']:.3f} s, {out[n]['orbax_bytes']} bytes, "
+        f"{out[n]['port_bytes']} as the port writes it"
+        for n in ("trainer", "sharded", "twoproc"))
+    log(f"[orbax] 13a fixtures written by orbax (trainer, 8-device sharded, "
+        f"two processes) loaded on {dev.type} bit-equal to their .npz twins "
+        f"({loads}); decoder: {len(frames)} frames, {sum(sizes)} bytes, "
+        f"{out['decoder']['mb_per_s']:.1f} MB/s; largest frame "
+        f"{sizes[big]} bytes at "
+        f"{out['decoder']['largest_frame']['mb_per_s']:.1f} MB/s")
+    return out
+
+
+def _orbax_state(exp, dev, work, dim, batch, cli):
+    """13b-c: 12d's run with orbax: the full-width state saved from (1, 2)
+    by two gloo ranks, each writing its slices into its own database,
+    loaded on (2, 1) and in this process bit-equal to rank 0's `.npz`;
+    then cli.train --ckpt_backend orbax on both ranks over (1, 2), one
+    epoch resumed to two equal to two straight."""
+    ranks, out, ckpts, data = _dir_ckpt_run(exp, dev, work, dim, batch,
+                                            cli, "orbax")
+    nbytes, written = out["state_bytes"], out["orbax_bytes_by_rank"]
+    path = os.path.join(work, "state", "ep1-it1.orbax")
+    out["orbax_bytes"] = _dir_bytes(path)
+    # each rank its 'model' slices, rank 0 the replicated leaves and the
+    # tier state: no leaf twice, rank 1 more than a third of the bytes
+    if not (nbytes < sum(written) < 1.05 * nbytes
+            and written[1] > 0.3 * nbytes):
+        raise AssertionError(f"orbax bytes per rank {written} for a state "
+                             f"of {nbytes} bytes")
+    dcp = RESULTS.get("serve_mesh", {}).get("dcp")
+    beside = "" if dcp is None else (
+        f"; dcp in this run (12d) written {dcp['dcp_save_s']:.2f} s, read "
+        f"{dcp['dcp_load_2x1_s']:.2f} / {dcp['dcp_load_one_process_s']:.2f}"
+        f" s")
+    log(f"[orbax] 13b full-width state {nbytes / 1e9:.3f} GB: orbax from "
+        f"(1, 2) written {out['orbax_save_s']:.2f} s, each rank its slices "
+        f"({written} bytes, {out['orbax_bytes']} in all); read on (2, 1) "
+        f"{out['orbax_load_2x1_s']:.2f} s and in one process "
+        f"{out['orbax_load_one_process_s']:.2f} s, bit-equal to the "
+        f"gathered state; rank 0's .npz {out['npz_bytes'] / 1e9:.3f} GB, "
+        f"written {out['npz_save_s']:.2f} s, read "
+        f"{out['npz_load_s']:.2f} s{beside}")
+    (last,) = [c for c in os.listdir(ckpts) if c.startswith("ep2-")]
+    parts = [_dir_bytes(os.path.join(ckpts, last, f"ocdbt.process_{r}"))
+             for r in (0, 1)]
+    if not last.endswith(".orbax") or min(parts) < 0.2 * sum(parts):
+        raise AssertionError(f"orbax checkpoint {last}: parts {parts}")
+    log(f"[orbax] 13c cli.train --ckpt_backend orbax, 2 ranks over (1, 2), "
+        f"dim {cli[0]}: 1 epoch resumed to 2 equal to 2 straight "
+        f"({out['cli_losses']} losses, bit for bit); {last} written in "
+        f"parts {parts}; GRU sweeps fwd {out['gru_fwd']}, bwd "
+        f"{out['gru_bwd']}")
+    out.update(cli_parts=parts, cli_checkpoint=os.path.join(ckpts, last),
+               cli_data=data)
+    return out
+
+
+def _orbax_generate(dev, work, ckpt, data):
+    """13d: cli.generate from 13c's `.orbax` and from an `.npz` of the same
+    state: greedy (the per-sample path) and sampled with one seed (the
+    sample-window kernel on a card), each pair of WAVs byte-equal; one
+    short utterance a speaker of two."""
+    import filecmp
+
+    from msnv_tpu_torch.cli import generate as cli_generate
+    from msnv_tpu_torch.data.synthetic import make_synthetic_corpus
+    from msnv_tpu_torch.training.checkpoint import load_any, save_checkpoint
+    cond_root = os.path.join(work, "gen_cond")
+    _, cond_dir, names = make_synthetic_corpus(
+        cond_root, n_speakers=2, utts_per_speaker=1, frames_per_utt=12,
+        cond_len=80, uneven_lengths=False)
+    lists = os.path.join(work, "gen_cond.list"), os.path.join(
+        work, "gen_spk.list")
+    with open(lists[0], "w") as f:
+        f.write("\n".join(names))
+    with open(lists[1], "w") as f:
+        f.write("0\n1\n")
+    from msnv_tpu_torch.config import parse_tag, tag_from_checkpoint_path
+    from msnv_tpu_torch.models.samplernn import init_params
+    cfg = parse_tag(tag_from_checkpoint_path(ckpt)).model
+    state, meta = load_any(ckpt, {"params": init_params(cfg,
+                                                        device="meta")},
+                           device="cpu")
+    npz = ckpt[:-len(".orbax")] + ".npz"
+    save_checkpoint(npz, state, meta)
+    out = {"utterances": len(names)}
+    _reset_window_counts()                  # the generate CLI starts here
+    for mode, extra in (("greedy", ["--temperature", "0"]),
+                        ("sampled", ["--seed", "5"])):
+        dirs = []
+        for fmt, model in (("orbax", ckpt), ("npz", npz)):
+            d = os.path.join(work, f"gen_{mode}_{fmt}")
+            t0 = time.perf_counter()
+            run_cli(cli_generate.main, [
+                "--model", model, "--cond_path", cond_dir,
+                "--cond_list", lists[0], "--spk_list", lists[1],
+                "--min_max", os.path.join(data, "npy_datasets",
+                                          "min_max_ind.npy"),
+                "--out_dir", d, "--device", dev.type] + extra)
+            out[f"{mode}_{fmt}_s"] = time.perf_counter() - t0
+            dirs.append(d)
+        wavs = sorted(os.listdir(dirs[0]))
+        if len(wavs) != len(names) or wavs != sorted(os.listdir(dirs[1])) \
+                or not all(filecmp.cmp(os.path.join(dirs[0], w),
+                                       os.path.join(dirs[1], w),
+                                       shallow=False) for w in wavs):
+            raise AssertionError(f"cli.generate ({mode}) from the .orbax "
+                                 f"differs from the .npz's")
+    windows = _window_counts()
+    out.update(window_launches=windows[0], window_resident=windows[1])
+    if dev.type == "cuda" and windows[0] == 0:
+        raise AssertionError("sampled cli.generate launched no window")
+    log(f"[orbax] 13d cli.generate from the .orbax and the .npz, greedy and "
+        f"sampled (seed 5): {len(names)} WAVs each, byte-equal; "
+        f"{windows[0]} windows ({windows[1]} resident)")
+    return out
+
+
+def phase_orbax(exp, dev, dim, batch, cli):
+    import shutil
+    import tempfile
+    build = os.path.join(REPO, "msnv_tpu_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="orbax-", dir=build)
+    out = {}
+    try:
+        os.makedirs(os.path.join(work, "fixtures"))
+        out["fixtures"] = _orbax_fixtures(dev, os.path.join(work,
+                                                            "fixtures"))
+        os.makedirs(os.path.join(work, "ranks"))
+        out["state"] = _orbax_state(exp, dev, os.path.join(work, "ranks"),
+                                    dim, batch, cli)
+        out["generate"] = _orbax_generate(
+            dev, work, out["state"].pop("cli_checkpoint"),
+            out["state"].pop("cli_data"))
+        out["window_launches"] = out["generate"]["window_launches"]
+        out["window_resident"] = out["generate"]["window_resident"]
+        out["gru_fwd_launches"] = out["state"]["gru_fwd"]
+        out["gru_bwd_launches"] = out["state"]["gru_bwd"]
+        out["card"] = card_line() if dev.type == "cuda" else "cpu"
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    RESULTS["orbax"] = out
+    log(f"[orbax] launches: windows {out['window_launches']} (13d's "
+        f"sampled cli.generate), GRU fwd {out['gru_fwd_launches']}, bwd "
+        f"{out['gru_bwd_launches']} (13c's cli.train on both ranks)")
 
 
 # --------------------------------------------------------------------------
@@ -4145,18 +4454,22 @@ def kernel_entries():
         # the serving path (phase 4), the generate CLI (phase 7), the
         # multiplexer (phase 8; every one of its windows resident), the
         # variants (phase 9), the serving artifact (phase 10), sharded
-        # generation and streaming on every rank (phase 11) and the mux
-        # over a serving mesh on every rank (phase 12)
+        # generation and streaming on every rank (phase 11), the mux
+        # over a serving mesh on every rank (phase 12) and the generate
+        # CLI from an orbax checkpoint (phase 13)
         "launches": RESULTS["launches"] + RESULTS["loop"]["window_launches"]
         + RESULTS["mux"]["launches"] + RESULTS["variants"]["window_launches"]
         + RESULTS["export"]["launches"] + RESULTS["mesh"]["window_launches"]
-        + RESULTS["serve_mesh"]["window_launches"],
-        # phase 9's to 12's windows are all resident (checked there)
+        + RESULTS["serve_mesh"]["window_launches"]
+        + RESULTS["orbax"]["window_launches"],
+        # phase 9's to 12's windows are all resident (checked there);
+        # phase 13's as counted
         "resident_launches": RESULTS["resident_launches"]
         + RESULTS["loop"]["window_resident"] + RESULTS["mux"]["launches"]
         + RESULTS["variants"]["window_launches"]
         + RESULTS["export"]["launches"] + RESULTS["mesh"]["window_launches"]
-        + RESULTS["serve_mesh"]["window_launches"],
+        + RESULTS["serve_mesh"]["window_launches"]
+        + RESULTS["orbax"]["window_resident"],
         "launches_by_path": {"serve": RESULTS["launches"],
                              "generate_cli": RESULTS["loop"][
                                  "window_launches"],
@@ -4166,7 +4479,8 @@ def kernel_entries():
                              "export": RESULTS["export"]["launches"],
                              "mesh": RESULTS["mesh"]["window_launches"],
                              "serve_mesh": RESULTS["serve_mesh"][
-                                 "window_launches"]},
+                                 "window_launches"],
+                             "orbax": RESULTS["orbax"]["window_launches"]},
         # float32 (tiled kernel): samples equal to the plain version's;
         # bf16 (resident kernel): share of samples that differ on
         # sharpened logits, tolerance 1 %
@@ -4199,18 +4513,20 @@ def kernel_entries():
         # steps, and for the forward the float32 validation sweeps), the
         # variants' train steps and train CLI (phase 9), the sharded
         # steps and cli.train on every rank (phase 11) and cli.train with
-        # dcp checkpoints on every rank (phase 12)
+        # dcp (phase 12) and orbax checkpoints (phase 13) on every rank
         "launches": RESULTS["train"][f"gru_{d}_launches"]
         + RESULTS["loop"][f"gru_{d}_launches"]
         + RESULTS["variants"][f"gru_{d}_launches"]
         + RESULTS["mesh"][f"gru_{d}_launches"]
-        + RESULTS["serve_mesh"][f"gru_{d}_launches"],
+        + RESULTS["serve_mesh"][f"gru_{d}_launches"]
+        + RESULTS["orbax"][f"gru_{d}_launches"],
         "launches_by_path": {"train_step": RESULTS["train"][
             f"gru_{d}_launches"], "train_loop": RESULTS["loop"][
                 f"gru_{d}_launches"], "variants": RESULTS["variants"][
                     f"gru_{d}_launches"],
             "mesh": RESULTS["mesh"][f"gru_{d}_launches"],
-            "serve_mesh": RESULTS["serve_mesh"][f"gru_{d}_launches"]},
+            "serve_mesh": RESULTS["serve_mesh"][f"gru_{d}_launches"],
+            "orbax": RESULTS["orbax"][f"gru_{d}_launches"]},
         # against the plain version, in the working type of the main path
         # (bf16 products); largest |kernel - plain| over max(1, |plain|)
         "max_abs_err": RESULTS["gru_err"][f"{d}_bf16"],
@@ -4240,7 +4556,7 @@ def main(argv):
     if argv[:1] == ["--mux-clients"]:
         return mux_clients(json.loads(argv[1]))
     rehearse = "--rehearse-cpu" in argv
-    phases = set(range(1, 13))
+    phases = set(range(1, 14))
     for a in argv:
         if a.startswith("--phases="):
             phases = {int(x) for x in a.split("=", 1)[1].split(",")} | {1}
@@ -4319,10 +4635,14 @@ def main(argv):
           (DIM, 128, (128, 32, exp.train.seq_len, 6, 1000))
           if not rehearse else
           (DIM, 4, (DIM, 2, 2 * cfg.lookback, 2, 50)))
+    timed(13, "orbax", phase_orbax, exp, dev, DIM,
+          128 if not rehearse else 4,
+          (128, 32, exp.train.seq_len, 6, 1000) if not rehearse
+          else (DIM, 2, 2 * cfg.lookback, 2, 50))
     if rehearse:
         log("rehearsal on the CPU passed (no card: no result line)")
         return 1
-    if phases != set(range(1, 13)):
+    if phases != set(range(1, 14)):
         log(f"phases {sorted(phases)} passed (not all: no result line)")
         return 1
 
@@ -4336,6 +4656,7 @@ def main(argv):
                       "export": RESULTS["export"],
                       "mesh": RESULTS["mesh"],
                       "serve_mesh": RESULTS["serve_mesh"],
+                      "orbax": RESULTS["orbax"],
                       "build_s": RESULTS["build_s"]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,13 +14,15 @@ layout mirrors the JAX package so each counterpart is easy to find:
   kernels/     — Python wrappers of the hand-written CUDA kernels: the
                  sample window (serving) and the fused GRU layer, forward
                  and backward (training); each beside its plain version
-  csrc/        — the CUDA sources (built with nvcc at first use)
+  csrc/        — the CUDA sources (built with nvcc at first use) and the
+                 host C++ zstd decoder (built with the C++ compiler)
   training/    — clipped Adam, the TBPTT train / eval steps and their
                  device-corpus blocks, the GAN variant's two-optimizer
                  step, the Trainer loop and its plugins, checkpoints in
-                 the JAX trainer's .npz format and as
-                 torch.distributed.checkpoint (dcp) directories; each
-                 over a device mesh too (mesh=)
+                 the JAX trainer's .npz and orbax formats (orbax's OCDBT
+                 store and a zstd decoder of the repository's own, no
+                 jax or tensorstore) and as torch.distributed.checkpoint
+                 (dcp) directories; each over a device mesh too (mesh=)
   parallel/    — the ('data', 'model') mesh over torch.distributed (one
                  process per GPU), sharding rules and collectives, one
                  starting state for every replica (broadcast_tree);
@@ -52,12 +54,11 @@ GAN heads, the speaker discriminator and the GAN trainer, QRNN tiers), the
 serving artifact (export and its service lanes), profiling and the host
 CLIs, training and generation over a device mesh (torch.distributed:
 `torchrun --nproc_per_node N -m msnv_tpu_torch.cli.train ...`) and serving
-over a mesh (`-m msnv_tpu_torch.serving --mesh_data N`). Not ported:
-orbax's on-disk checkpoint format. It is an OCDBT database whose B-tree
-nodes and chunks are zstd frames; reading it needs tensorstore or a zstd
-decoder, and neither PyTorch nor Python's standard library has one. The
-dcp directories are the port's sharded checkpoints, and .npz carries
-weights between the two packages both ways.
+over a mesh (`-m msnv_tpu_torch.serving --mesh_data N`), and every
+checkpoint format of the JAX package: .npz, and orbax's directories (an
+OCDBT database of zarr arrays, read and written in training/ocdbt.py with
+the zstd decoder of csrc/zstd_decode.cc), both ways, besides the port's
+dcp directories. The port does all that the JAX package does.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 CUDA device and no explicit CPU request they raise.

@@ -73,7 +73,9 @@ def main(argv=None):
     from msnv_tpu_torch.training.checkpoint import load_any
 
     p = argparse.ArgumentParser()
-    p.add_argument("--model", required=True, help="checkpoint .npz path")
+    p.add_argument("--model", required=True,
+                   help="checkpoint: an .npz file, a .dcp or .orbax "
+                        "directory")
     p.add_argument("--cond_path", required=True)
     p.add_argument("--cond_list", required=True,
                    help="file listing utterance names")
@@ -228,7 +230,7 @@ def main(argv=None):
         os.path.dirname(os.path.abspath(args.model))), "samples")
     os.makedirs(out_dir, exist_ok=True)
     ckpt_name = os.path.basename(os.path.normpath(args.model))
-    for ext in (".npz", ".dcp"):
+    for ext in (".npz", ".dcp", ".orbax"):
         ckpt_name = ckpt_name.removesuffix(ext)
     for i, (name, spk) in enumerate(zip(utts, spks)):
         wav = audio[i, : lengths[i] * m.lookback]

@@ -39,7 +39,8 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("mode", choices=["import", "export"])
     p.add_argument("--torch_ckpt", help="original checkpoint (import)")
-    p.add_argument("--model", help=".npz or .dcp checkpoint (export)")
+    p.add_argument("--model",
+                   help=".npz, .dcp or .orbax checkpoint (export)")
     p.add_argument("--tag", default=None,
                    help="experiment tag (default: from the checkpoint's "
                         "results/<tag>/checkpoints/ path)")

@@ -32,10 +32,10 @@ makes them rank 0's, so the replicas start equal whatever a rank drew.
 Only rank 0 writes the log, stats.json, samples and
 checkpoints; the ranks share the results directory and resume from rank
 0's newest checkpoint. --ckpt_backend dcp writes `.dcp` directories with
-torch.distributed.checkpoint instead, every rank its own slices
-(training/checkpoint.py); either format resumes. --ckpt_backend orbax
-raises NotImplementedError: orbax's format needs jax and tensorstore, and
-dcp is its counterpart.
+torch.distributed.checkpoint instead, and --ckpt_backend orbax `.orbax`
+directories in the JAX package's orbax format (which its
+load_checkpoint_orbax restores), every rank its own slices
+(training/checkpoint.py); resume takes the newest of all three formats.
 """
 
 from __future__ import annotations
@@ -100,9 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["npz", "dcp", "orbax"],
                    help="npz: single-file checkpoints (the JAX "
                         "trainer's format), written by rank 0; dcp: "
-                        "torch.distributed.checkpoint directories, every "
-                        "rank writing its slices; orbax is not available "
-                        "in the port (raises; dcp is its counterpart)")
+                        "torch.distributed.checkpoint directories; orbax: "
+                        "the JAX trainer's orbax directories (OCDBT + "
+                        "zarr); in both every rank writes its slices")
     p.add_argument("--loss_smoothing", type=float, default=0.99)
     p.add_argument("--seed", type=int, default=77977)
     p.add_argument("--scheduler", type=parse_bool, default=False)
@@ -178,17 +178,6 @@ def resolve_gru_impl(name: str, device) -> str:
     return "pallas" if device.type == "cuda" else "xla"
 
 
-def check_ported(args) -> None:
-    """Raise NotImplementedError for the flags whose paths the port cannot
-    have, with the reason."""
-    if args.ckpt_backend == "orbax":
-        raise NotImplementedError(
-            "--ckpt_backend orbax: orbax's format needs jax and "
-            "tensorstore, which the port does not import; its counterpart "
-            "is --ckpt_backend dcp (torch.distributed.checkpoint "
-            "directories, every rank writing its slices)")
-
-
 def config_from_args(args, spk_dim: int,
                      gru_impl: str = "xla") -> ExperimentConfig:
     return ExperimentConfig(
@@ -230,7 +219,8 @@ def main(argv=None):
     from msnv_tpu_torch.parallel.mesh import (init_distributed, make_mesh,
                                               rank_device)
     from msnv_tpu_torch.training.checkpoint import (CheckpointManager,
-                                                    is_dcp, load_any)
+                                                    is_sharded_format,
+                                                    load_any)
     from msnv_tpu_torch.training.optim import make_optimizer
     from msnv_tpu_torch.training.plugins import (AbsoluteTimeMonitor, Logger,
                                                  SaverPlugin, StatsPlugin,
@@ -239,7 +229,6 @@ def main(argv=None):
     from msnv_tpu_torch.training.trainer import Trainer
 
     args = build_parser().parse_args(argv)
-    check_ported(args)
     device = rank_device(args.device)
     world = init_distributed(args.multihost, device)
     if world % args.n_model_shards:
@@ -335,7 +324,8 @@ def main(argv=None):
         if point is not None:
             path, epoch, it = point
             state, meta = load_any(
-                path, trainer.checkpoint_state(sharded=is_dcp(path)))
+                path, trainer.checkpoint_state(
+                    sharded=is_sharded_format(path)))
             trainer.restore(state, meta)
             say(f"resumed from {path} (epoch {epoch}, iteration {it})")
 

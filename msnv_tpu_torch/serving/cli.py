@@ -20,8 +20,8 @@ def main(argv=None):
     torchrun --nproc_per_node N -m msnv_tpu_torch.serving --mesh_data N ...
 
     The experiment tag (the results directory name) rebuilds the config;
-    the checkpoint is a `.npz` (the JAX trainer's) or a `.dcp` directory
-    (training/checkpoint.py, load_any).
+    the checkpoint is a `.npz` (the JAX trainer's), a `.dcp` or an `.orbax`
+    directory (training/checkpoint.py, load_any).
 
     --mesh_data N > 1 serves over an N x 1 ('data', 'model') mesh, one
     process per GPU: under torchrun the process group is made from the

@@ -169,10 +169,10 @@ class SaverPlugin(Plugin):
             val_loss=val, meta={"tag": t.tag}, save_last=due)
 
     def _state(self):
-        # the dcp backend saves every rank's storage; npz the gathered
-        # full state, which rank 0 writes
+        # the dcp and orbax backends save every rank's storage; npz the
+        # gathered full state, which rank 0 writes
         return self.trainer.checkpoint_state(
-            sharded=self.manager.backend == "dcp")
+            sharded=self.manager.backend in ("dcp", "orbax"))
 
 
 class Logger(Plugin):

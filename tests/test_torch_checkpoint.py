@@ -211,9 +211,3 @@ def test_manager_retention_and_best_recovery(tmp_path):
     assert keep.latest()[1:] == (10, 10)
     assert len(os.listdir(str(tmp_path / "keep"))) == 3
 
-
-def test_orbax_backend_raises(tmp_path):
-    """orbax's format needs jax: the manager refuses it and names dcp."""
-    with pytest.raises(NotImplementedError,
-                       match="orbax's format needs jax.*backend 'dcp'"):
-        tckpt.CheckpointManager(str(tmp_path), backend="orbax")

@@ -240,11 +240,9 @@ def test_sampling_generate_cli_lengths(trained, engine, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--multihost", "true"],
-                                  ["--n_model_shards", "2"],
-                                  ["--ckpt_backend", "orbax"]])
+                                  ["--n_model_shards", "2"]])
 def test_unported_train_flags_raise(flag, tmp_path, monkeypatch):
-    """--ckpt_backend orbax cannot be ported (its format needs jax) and
-    names dcp, its counterpart; --multihost and --n_model_shards are
+    """--multihost and --n_model_shards are ported
     (tests/test_torch_parallel.py), and refuse before anything runs what
     they cannot do: --multihost without the launcher's environment, model
     shards that do not divide the processes (one here)."""
@@ -254,8 +252,6 @@ def test_unported_train_flags_raise(flag, tmp_path, monkeypatch):
     error, match = {
         "--multihost": (ValueError, "launcher's environment"),
         "--n_model_shards": (ValueError, "does not divide the 1 processes"),
-        "--ckpt_backend": (NotImplementedError,
-                           "its counterpart is --ckpt_backend dcp"),
     }[flag[0]]
     with pytest.raises(error, match=match):
         port_train(_train_args(str(tmp_path), str(tmp_path), 1, "--device",

@@ -788,9 +788,36 @@ def job_dcp_sharded(rank, world, spec):
             "tier_lanes": int(got[("tier_state", 0)].shape[1])}
 
 
+def job_orbax_sharded(rank, world, spec):
+    """Save the state as orbax from a spec["save"] (n_data, n_model) mesh
+    (each rank its slices into its own database), then load it on
+    spec["load"]: this rank's bytes written and whether every loaded local
+    tensor equals the full state's slice of it, bit for bit."""
+    from msnv_tpu_torch.parallel.mesh import local_tensors, make_mesh
+    from msnv_tpu_torch.training.checkpoint import (load_checkpoint_orbax,
+                                                    save_checkpoint_orbax)
+    from msnv_tpu_torch.tree import leaves_with_paths
+    state = _dcp_state(spec)
+    save_checkpoint_orbax(spec["path"],
+                          _dcp_layout(make_mesh(*spec["save"], device="cpu"),
+                                      state), {"sharded": True},
+                          scheduled=spec["scheduled"])
+    db = os.path.join(spec["path"], f"ocdbt.process_{rank}")
+    written = sum(os.path.getsize(os.path.join(d, f))
+                  for d, _, files in os.walk(db) for f in files)
+    mesh = make_mesh(*spec["load"], device="cpu")
+    loaded, meta = load_checkpoint_orbax(
+        spec["path"], _dcp_layout(mesh, state, zero=True))
+    want = local_tensors(_dcp_layout(mesh, state))
+    got = dict(leaves_with_paths(local_tensors(loaded)))
+    equal = all(torch.equal(got[p], x) if torch.is_tensor(x)
+                else got[p] == x for p, x in leaves_with_paths(want))
+    return {"written": written, "equal": equal, "meta": meta}
+
+
 def job_cli_dcp(rank, world, argv_straight, argv_one, argv_two):
-    """cli.train --ckpt_backend dcp on every rank: straight to two epochs,
-    and to one epoch then resumed to two; this rank's checkpoint files."""
+    """cli.train on every rank (its --ckpt_backend from the arguments):
+    straight to two epochs, and to one epoch then resumed to two."""
     from msnv_tpu_torch.cli import train as cli_train
     stdout = sys.stdout
     try:
