@@ -37,26 +37,30 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 B 64 and 16 (the GAN step's and the GAN CLI's batches), the
                 ragged (5, 3, 1024), (5, 70, 1024), (4, 70, 128) and
                 (3, 8, 256) (partial row tiles; K-slices that arrive in 1, 2
-                or 4 chunks), which all take the persistent kernels, and
-                (3, 300, 1024), whose grid cannot be resident at once and
-                takes the per-step ones:
+                or 4 chunks), which all take the persistent kernels in
+                both types, and (3, 300, 1024), whose grid cannot be
+                resident at once and takes the per-step ones:
                 forward (ys, hproj) and the reverse sweep (dxp, dhproj, dh0)
-                with float32 products (tolerance 1e-4 of the largest
+                with float32 products (split TF32 persistent kernels and
+                the FMA per-step ones; tolerance 1e-4 of the largest
                 reference value: another summation order over K = 1024 /
                 3072, compounded over T steps) and with bfloat16 products
                 on the persistent and on the per-step kernels (3e-2: a sum
                 that differs in its last bits can round h to the
                 neighbouring bf16 value, and the next steps carry that on);
-                two runs bit-equal, and 200 runs of each bf16 persistent
-                sweep at (52, 128) and (52, 64) bit-equal to the first;
+                two runs bit-equal, and 200 runs of each persistent sweep
+                at (52, 128) and (52, 64) in bf16 and at (52, 128) and
+                (13, 128) in float32 bit-equal to the first;
                 the autograd.Function (dx_proj, dw, db,
                 dh0) in float32 and bfloat16 against autograd through the
                 plain forward; a shape the kernels cannot take raises;
-                persistent / per-step / empty-sweep / plain / nn.GRU times,
-                each the median over runs of 10 calls in a row (nn.GRU's
-                bf16 weights flattened into one cuDNN buffer, any warning
-                in its timed calls an error; the module as
-                flatten_parameters() leaves it timed beside)
+                at B 128 in each type, persistent / per-step / plain /
+                nn.GRU in the same type times, each the median over runs
+                of 10 calls in a row, the persistent kernels faster than
+                the per-step ones at T 52 (nn.GRU's weights in one cuDNN
+                buffer, any warning in its timed calls an error; bf16: the
+                empty sweep, and the module as flatten_parameters() leaves
+                it timed beside; float32: TF32 off, the FMA floor)
   6. train    — the train step at full width (B 128, seq_len 1040, bf16
                 mixed precision, gru_impl="pallas"): one step with reset,
                 six without, on one fixed batch; losses finite and falling,
@@ -65,7 +69,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 carried state detached; ms per step and samples/s; then two
                 float32 steps with gru_impl="pallas" against gru_impl="xla"
                 from the same weights (cudnn TF32 off: `embed_conv_direct`
-                is the only conv and is not on this path)
+                is the only conv and is not on this path); then the default
+                float32 train step (no --bf16), one with reset and three
+                without: ms per step and samples/s, every sweep through the
+                float32 persistent kernels
   7. loop     — the training loop at full width through the port's CLIs
                 (`main(argv)` in-process, in a temporary directory under
                 msnv_tpu_torch/build/, removed at the end): a synthetic
@@ -74,8 +81,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 cli.train (`samplernn` widths, look-ahead, norm_ind, bf16)
                 run A to 3 epochs, run B to 2 and resumed to 3: losses
                 finite and falling, checkpoints and stats.json written,
-                "resumed from", every train-step GRU sweep persistent (the
-                f32 validation sweeps take the per-step kernels), run B's
+                "resumed from", every GRU sweep persistent (the train
+                steps' in bf16, the validation's in float32), run B's
                 epoch-3 losses equal to run A's (bit for bit, else within
                 2e-3 bits); cli.evaluate on A's last checkpoint equal to the
                 trainer's last validation loss (1e-4 bits); cli.generate
@@ -284,7 +291,10 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 FS0, Q, DIM = 20, 256, 1024
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+# dense peaks: bf16 tensor cores; float32 on the CUDA cores (FMA); float32
+# products in split TF32 on the tensor cores, three TF32 products (495
+# TFLOP/s) for each float32 one
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "float32_tf32x3": 165e12}
 RESULTS = {}
 REPEAT_RUNS = 200           # phase 2: runs of a window on the same inputs
 
@@ -846,7 +856,9 @@ GRU_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 def gru_bound_ms(T, B, H, mxu_dtype, backward):
     """Least time for one layer sweep: the larger of the bytes it must move
     (each input read once, each output written once) over HBM bandwidth and
-    its multiply-adds over the peak rate for the products' type."""
+    its multiply-adds over the peak rate for the products' type on the
+    tensor cores (float32: split TF32, a third of the TF32 rate; its FMA
+    floor on the CUDA cores is gru_fma_floor_ms)."""
     import torch
     wbytes = 3 * H * H * (2 if mxu_dtype == torch.bfloat16 else 4)
     bh = 4 * B * H
@@ -856,10 +868,16 @@ def gru_bound_ms(T, B, H, mxu_dtype, backward):
     else:          # in x_proj, h0, b_hh; out ys, hproj
         nbytes = T * bh * 3 + bh + 12 * H + wbytes + T * bh * (1 + 3)
     ops = 2 * T * B * H * 3 * H
-    peak = PEAK_OPS[str(mxu_dtype).replace("torch.", "")]
+    peak = PEAK_OPS["bfloat16" if mxu_dtype == torch.bfloat16
+                    else "float32_tf32x3"]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def gru_fma_floor_ms(T, B, H):
+    """A sweep's float32 products at the CUDA cores' FMA peak."""
+    return 2 * T * B * H * 3 * H / PEAK_OPS["float32"] * 1e3
 
 
 def gru_inputs(T, B, H, dev, seed):
@@ -902,15 +920,16 @@ def phase_gru(dev, shapes):
     for T, B, H in shapes:
         x = gru_inputs(T, B, H, dev, seed=T * 1000 + B)
         w_hh = x["w_hh_t"].t().contiguous()
-        # float32 products (FMA, per step), then bfloat16 ones (tensor
-        # cores) on the kernels the shape's plan names and, where that is
-        # the persistent kernels, on the per-step ones as well
+        # float32 products (split TF32 persistent, or FMA per step), then
+        # bfloat16 ones, on the kernels the shape's plan names and, where
+        # that is the persistent kernels, on the per-step ones as well
         runs = [(torch.float32, None), (torch.bfloat16, None)]
         if on_card:
-            paths[(T, B, H)] = gl.sweep_plan(
-                T, B, H, torch.bfloat16, *gl.device_limits(dev, H)).path
-            if paths[(T, B, H)] == "persistent":
-                runs.append((torch.bfloat16, "per_step"))
+            for mxu in (torch.float32, torch.bfloat16):
+                paths[(T, B, H, mxu)] = gl.sweep_plan(
+                    T, B, H, mxu, *gl.device_limits(dev, H, mxu)).path
+                if paths[(T, B, H, mxu)] == "persistent":
+                    runs.append((mxu, "per_step"))
         for mxu, path in runs:
             name = str(mxu).replace("torch.", "")
             kw = {"path": path} if on_card else {}
@@ -948,8 +967,8 @@ def phase_gru(dev, shapes):
             e_f = max(_rel_err(ys, ys_p), _rel_err(hproj, hproj_p))
             e_b = max(_rel_err(a, b) for a, b in
                       list(zip(got, want)) + list(zip(with_dhT, want_dhT)))
-            which = ("plain" if not on_card else "per_step"
-                     if mxu == torch.float32 else path or paths[(T, B, H)])
+            which = ("plain" if not on_card
+                     else path or paths[(T, B, H, mxu)])
             log(f"[gru] T={T} B={B} H={H} {name} {which}: forward err "
                 f"{e_f:.2e}, backward err {e_b:.2e} (tolerance "
                 f"{GRU_TOL[name]:.0e}); two runs bit-equal")
@@ -982,25 +1001,30 @@ def phase_gru(dev, shapes):
     if not on_card:
         return
     for H in sorted({shape[2] for shape in shapes}):
-        held, smem = gl.device_limits(dev, H)
-        log(f"[gru] H={H}: CTAs of the persistent kernels that the card "
-            f"holds at once: {held}, with {gl.persistent_smem_bytes(H)} of "
-            f"{smem} bytes of shared memory each")
-    for T, B, H in shapes:
+        for mxu in (torch.float32, torch.bfloat16):
+            held, smem = gl.device_limits(dev, H, mxu)
+            log(f"[gru] H={H} {str(mxu).replace('torch.', '')}: CTAs of the "
+                f"persistent kernels that the card holds at once: {held}, "
+                f"with {gl.persistent_smem_bytes(H, mxu)} of {smem} bytes of "
+                f"shared memory each")
+    for (T, B, H, mxu), path in paths.items():
         want = "persistent" if B <= 128 else "per_step"
-        if paths[(T, B, H)] != want:
-            raise AssertionError(f"({T}, {B}, {H}) took the "
-                                 f"{paths[(T, B, H)]} kernels, not {want}")
-    # many runs of the bf16 persistent sweeps on the same inputs, each
-    # bit-equal to the first (counted on the card, as in phase 2)
-    for T, B, H in ((52, 128, shapes[0][2]), (52, 64, shapes[0][2])):
+        if path != want:
+            raise AssertionError(f"({T}, {B}, {H}) in {mxu} took the {path} "
+                                 f"kernels, not {want}")
+    # many runs of the persistent sweeps on the same inputs, each bit-equal
+    # to the first (counted on the card, as in phase 2)
+    for T, B, H, mxu in ((52, 128, shapes[0][2], torch.bfloat16),
+                         (52, 64, shapes[0][2], torch.bfloat16),
+                         (52, 128, shapes[0][2], torch.float32),
+                         (13, 128, shapes[0][2], torch.float32)):
         x = gru_inputs(T, B, H, dev, seed=7 * T + B)
         w_hh = x["w_hh_t"].t().contiguous()
         fwd = lambda: gl.gru_layer_forward(                   # noqa: E731
-            x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], torch.bfloat16)
+            x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], mxu)
         ys, hproj = fwd()
         bwd = lambda: gl.gru_layer_backward(                  # noqa: E731
-            x["x_proj"], hproj, x["h0"], ys, x["dy"], w_hh, torch.bfloat16)
+            x["x_proj"], hproj, x["h0"], ys, x["dy"], w_hh, mxu)
         for name, run in (("forward", fwd), ("backward", bwd)):
             first = run()
             differ = torch.zeros((), dtype=torch.int64, device=dev)
@@ -1011,8 +1035,8 @@ def phase_gru(dev, shapes):
                 raise AssertionError(f"{int(differ)} of {REPEAT_RUNS} runs "
                                      f"of the {name} sweep differ at T={T} "
                                      f"B={B}")
-        log(f"[gru] T={T} B={B} bf16: {REPEAT_RUNS} runs of each sweep "
-            f"bit-equal to the first")
+        log(f"[gru] T={T} B={B} {str(mxu).replace('torch.', '')}: "
+            f"{REPEAT_RUNS} runs of each sweep bit-equal to the first")
     for width, mxu in ((40, torch.float32), (96, torch.bfloat16)):
         bad = gru_inputs(2, 2, width, dev, seed=1)
         try:
@@ -1023,78 +1047,91 @@ def phase_gru(dev, shapes):
         else:
             raise AssertionError(f"H={width} did not raise")
 
-    # times at the train step's shapes, bf16 products: the persistent
-    # kernels, the per-step kernels and the empty sweep (the barriers of a
-    # sweep and nothing else) in turns, the weight handed over as the train
-    # step hands it over (the transposed view of a stored bf16 (3H, H))
+    # times at the train step's shapes, in each products' type: the
+    # persistent kernels and the per-step kernels in turns (bf16: the empty
+    # sweep beside them, the barriers of a sweep and nothing else), the
+    # weight handed over as the train step hands it over (the transposed
+    # view of a stored (3H, H) parameter)
     rows = []
-    mxu = torch.bfloat16
     for T, B, H in shapes:
         if B != 128:
             continue
-        x = gru_inputs(T, B, H, dev, seed=T)
-        w_hh = x["w_hh_t"].t().contiguous().to(mxu)
-        w_hh_t = w_hh.t()
-        ys, hproj = gl.gru_layer_forward(x["x_proj"], w_hh_t, x["b_hh"],
-                                         x["h0"], mxu)
-        h_prev = torch.cat([x["h0"][None], ys[:-1]], dim=0)
+        for mxu in (torch.bfloat16, torch.float32):
+            rows.append(_gru_times(gl, dev, T, B, H, mxu))
+    RESULTS["gru_shapes"] = rows
 
-        def fwd_on(path):
-            return lambda: gl.gru_layer_forward(
-                x["x_proj"], w_hh_t, x["b_hh"], x["h0"], mxu, path=path)
 
-        def bwd_on(path):
-            return lambda: gl.gru_layer_backward(
-                x["x_proj"], hproj, x["h0"], ys, x["dy"], w_hh, mxu,
-                path=path)
+def _gru_times(gl, dev, T, B, H, mxu):
+    """One row of phase 5's times for (T, B, H) with products in `mxu`:
+    persistent and per-step kernels, plain version, bound and nn.GRU in the
+    same type (float32: TF32 off, as main() sets it)."""
+    import torch
+    name = str(mxu).replace("torch.", "")
+    x = gru_inputs(T, B, H, dev, seed=T)
+    w_hh = x["w_hh_t"].t().contiguous().to(mxu)
+    w_hh_t = w_hh.t()
+    ys, hproj = gl.gru_layer_forward(x["x_proj"], w_hh_t, x["b_hh"],
+                                     x["h0"], mxu)
+    h_prev = torch.cat([x["h0"][None], ys[:-1]], dim=0)
 
-        # runs of 10 calls, per-step / persistent / persistent / per-step
-        run = {"iters": 5, "batch": 10}
-        fwd_step = cuda_ms(fwd_on("per_step"), **run)
-        fwd = cuda_ms(fwd_on("persistent"), **run)
-        fwd = min(fwd, cuda_ms(fwd_on("persistent"), **run))
-        fwd_step = min(fwd_step, cuda_ms(fwd_on("per_step"), **run))
-        bwd_step = cuda_ms(bwd_on("per_step"), **run)
-        bwd = cuda_ms(bwd_on("persistent"), **run)
-        bwd = min(bwd, cuda_ms(bwd_on("persistent"), **run))
-        bwd_step = min(bwd_step, cuda_ms(bwd_on("per_step"), **run))
-        empty = cuda_ms(lambda: gl.empty_sweep(T, B, H, dev), **run)
-        # one call at a time: with the launch on an idle card
-        fwd_alone = cuda_ms(fwd_on("persistent"), 20)
-        bwd_alone = cuda_ms(bwd_on("persistent"), 20)
-        w32_t = x["w_hh_t"]
-        fwd32 = cuda_ms(lambda: gl.gru_layer_forward(
-            x["x_proj"], w32_t, x["b_hh"], x["h0"], torch.float32), 3,
-            batch=5)
-        bwd32 = cuda_ms(lambda: gl.gru_layer_backward(
-            x["x_proj"], hproj, x["h0"], ys, x["dy"],
-            w32_t.t().contiguous(), torch.float32), 3, batch=5)
-        fwd_plain = cuda_ms(lambda: gl.gru_layer_reference(
-            x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], mxu), 5)
-        bwd_plain = cuda_ms(lambda: gl.gru_layer_backward_reference(
-            x["x_proj"], hproj, h_prev, x["dy"], w_hh, mxu), 5)
-        # the library's yardstick: one nn.GRU layer in bf16, which also does
-        # the input projection that gru_layer leaves outside, its weights in
-        # one cuDNN buffer; any warning in its timed calls is an error (the
-        # one to catch: cuDNN compacting scattered weights on every call)
-        inp = torch.randn(T, B, H, device=dev, dtype=torch.bfloat16,
-                          requires_grad=True)
-        h0 = x["h0"][None].to(torch.bfloat16)
-        dy16 = x["dy"].to(torch.bfloat16)
+    def fwd_on(path):
+        return lambda: gl.gru_layer_forward(
+            x["x_proj"], w_hh_t, x["b_hh"], x["h0"], mxu, path=path)
 
-        def lib_times(rnn, guard):
-            def both():
-                out, _ = rnn(inp, h0)
-                out.backward(dy16)
-            with warnings.catch_warnings():
-                if guard:
-                    warnings.simplefilter("error")
-                with torch.no_grad():
-                    fwd_ms = cuda_ms(lambda: rnn(inp, h0), **run)
-                return fwd_ms, cuda_ms(both, **run)
+    def bwd_on(path):
+        return lambda: gl.gru_layer_backward(
+            x["x_proj"], hproj, x["h0"], ys, x["dy"], w_hh, mxu, path=path)
 
-        # what the yardstick timed until now: flatten_parameters() after
-        # the bf16 conversion, which leaves bf16 weights scattered
+    # runs of 10 calls, per-step / persistent / persistent / per-step
+    run = {"iters": 5, "batch": 10}
+    fwd_step = cuda_ms(fwd_on("per_step"), **run)
+    fwd = cuda_ms(fwd_on("persistent"), **run)
+    fwd = min(fwd, cuda_ms(fwd_on("persistent"), **run))
+    fwd_step = min(fwd_step, cuda_ms(fwd_on("per_step"), **run))
+    bwd_step = cuda_ms(bwd_on("per_step"), **run)
+    bwd = cuda_ms(bwd_on("persistent"), **run)
+    bwd = min(bwd, cuda_ms(bwd_on("persistent"), **run))
+    bwd_step = min(bwd_step, cuda_ms(bwd_on("per_step"), **run))
+    # one call at a time: with the launch on an idle card
+    fwd_alone = cuda_ms(fwd_on("persistent"), 20)
+    bwd_alone = cuda_ms(bwd_on("persistent"), 20)
+    fwd_plain = cuda_ms(lambda: gl.gru_layer_reference(
+        x["x_proj"], w_hh_t, x["b_hh"], x["h0"], mxu), 5)
+    bwd_plain = cuda_ms(lambda: gl.gru_layer_backward_reference(
+        x["x_proj"], hproj, h_prev, x["dy"], w_hh, mxu), 5)
+    # the library's yardstick: one nn.GRU layer in the same type, which also
+    # does the input projection that gru_layer leaves outside, its weights
+    # in one cuDNN buffer; any warning in its timed calls is an error (the
+    # one to catch: cuDNN compacting scattered weights on every call)
+    inp = torch.randn(T, B, H, device=dev, dtype=mxu, requires_grad=True)
+    h0 = x["h0"][None].to(mxu)
+    dy = x["dy"].to(mxu)
+
+    def lib_times(rnn, guard):
+        def both():
+            out, _ = rnn(inp, h0)
+            out.backward(dy)
+        with warnings.catch_warnings():
+            if guard:
+                warnings.simplefilter("error")
+            with torch.no_grad():
+                fwd_ms = cuda_ms(lambda: rnn(inp, h0), **run)
+            return fwd_ms, cuda_ms(both, **run)
+
+    b_f, by_f = gru_bound_ms(T, B, H, mxu, backward=False)
+    b_b, by_b = gru_bound_ms(T, B, H, mxu, backward=True)
+    row = {"T": T, "B": B, "H": H, "dtype": name,
+           "fwd_ms": fwd, "bwd_ms": bwd,
+           "fwd_per_step_ms": fwd_step, "bwd_per_step_ms": bwd_step,
+           "fwd_alone_ms": fwd_alone, "bwd_alone_ms": bwd_alone,
+           "fwd_plain_ms": fwd_plain, "bwd_plain_ms": bwd_plain,
+           "fwd_bound_ms": b_f, "fwd_bound_by": by_f, "bwd_bound_ms": b_b,
+           "bwd_bound_by": by_b}
+    if mxu == torch.bfloat16:
+        row["empty_sweep_ms"] = cuda_ms(
+            lambda: gl.empty_sweep(T, B, H, dev), **run)
+        # the yardstick as first timed: flatten_parameters() after the bf16
+        # conversion, which leaves bf16 weights scattered
         scattered = torch.nn.GRU(H, H).to(dev, torch.bfloat16)
         scattered.flatten_parameters()
         try:
@@ -1106,38 +1143,31 @@ def phase_gru(dev, shapes):
             log(f"[gru] nn.GRU bf16 after flatten_parameters(): {e}")
         else:
             log("[gru] nn.GRU bf16 after flatten_parameters(): no warning")
-        lib_fwd_old, lib_fb_old = lib_times(scattered, guard=False)
-        lib_fwd, lib_fb = lib_times(flat_bf16_gru(H, dev), guard=True)
-        b_f, by_f = gru_bound_ms(T, B, H, mxu, backward=False)
-        b_b, by_b = gru_bound_ms(T, B, H, mxu, backward=True)
-        rows.append({"T": T, "B": B, "H": H, "dtype": "bfloat16",
-                     "fwd_ms": fwd, "bwd_ms": bwd,
-                     "fwd_per_step_ms": fwd_step, "bwd_per_step_ms": bwd_step,
-                     "empty_sweep_ms": empty, "fwd_alone_ms": fwd_alone,
-                     "bwd_alone_ms": bwd_alone, "fwd_f32_ms": fwd32,
-                     "bwd_f32_ms": bwd32, "fwd_plain_ms": fwd_plain,
-                     "bwd_plain_ms": bwd_plain, "fwd_bound_ms": b_f,
-                     "fwd_bound_by": by_f, "bwd_bound_ms": b_b,
-                     "bwd_bound_by": by_b, "nn_gru_fwd_ms": lib_fwd,
-                     "nn_gru_fwd_bwd_ms": lib_fb,
-                     "nn_gru_scattered_fwd_ms": lib_fwd_old,
-                     "nn_gru_scattered_fwd_bwd_ms": lib_fb_old})
-        log(f"[gru] T={T} B={B} bf16: forward {fwd:.4f} ms "
-            f"({fwd / T * 1e3:.1f} us/step; one call alone {fwd_alone:.4f}; "
-            f"per-step kernels {fwd_step:.4f}; f32 {fwd32:.4f}), plain "
-            f"{fwd_plain:.4f}, "
-            f"bound {b_f:.4f} ({by_f}); backward {bwd:.4f} ms "
-            f"({bwd / (T + 1) * 1e3:.1f} us/step; one call alone "
-            f"{bwd_alone:.4f}; per-step kernels {bwd_step:.4f}; f32 "
-            f"{bwd32:.4f}), plain {bwd_plain:.4f}, "
-            f"bound {b_b:.4f} ({by_b}); empty sweep of {T} barriers "
-            f"{empty:.4f} ms; nn.GRU bf16 (with the input projection) "
-            f"forward {lib_fwd:.4f}, forward+backward {lib_fb:.4f} (weights "
-            f"scattered: {lib_fwd_old:.4f}, {lib_fb_old:.4f})")
-        if T == 52 and not (fwd < fwd_step and bwd < bwd_step):
-            raise AssertionError("the persistent kernels are not faster than "
-                                 "the per-step ones")
-    RESULTS["gru_shapes"] = rows
+        row["nn_gru_scattered_fwd_ms"], row["nn_gru_scattered_fwd_bwd_ms"] = \
+            lib_times(scattered, guard=False)
+        lib = flat_bf16_gru(H, dev)
+    else:
+        lib = torch.nn.GRU(H, H).to(dev)
+        lib.flatten_parameters()          # float32: one cuDNN buffer
+    row["nn_gru_fwd_ms"], row["nn_gru_fwd_bwd_ms"] = lib_times(lib,
+                                                               guard=True)
+    extra = (f"empty sweep of {T} barriers {row['empty_sweep_ms']:.4f} ms"
+             if mxu == torch.bfloat16 else
+             f"FMA floor {gru_fma_floor_ms(T, B, H):.4f} ms")
+    log(f"[gru] T={T} B={B} {name}: forward {fwd:.4f} ms "
+        f"({fwd / T * 1e3:.1f} us/step; one call alone {fwd_alone:.4f}; "
+        f"per-step kernels {fwd_step:.4f}), plain {fwd_plain:.4f}, "
+        f"bound {b_f:.4f} ({by_f}); backward {bwd:.4f} ms "
+        f"({bwd / (T + 1) * 1e3:.1f} us/step; one call alone "
+        f"{bwd_alone:.4f}; per-step kernels {bwd_step:.4f}), plain "
+        f"{bwd_plain:.4f}, bound {b_b:.4f} ({by_b}); {extra}; nn.GRU "
+        f"{name} (with the input projection) forward "
+        f"{row['nn_gru_fwd_ms']:.4f}, forward+backward "
+        f"{row['nn_gru_fwd_bwd_ms']:.4f}")
+    if T == 52 and not (fwd < fwd_step and bwd < bwd_step):
+        raise AssertionError(f"the {name} persistent kernels are not faster "
+                             f"than the per-step ones")
+    return row
 
 
 # --------------------------------------------------------------------------
@@ -1151,12 +1181,40 @@ def _gru_counts():
             gru_layer_backward.launches, gru_layer_backward.persistent)
 
 
-def _reset_gru_counts():
+def _gru_f32_counts():
+    """(forward, backward) sweeps through the float32 persistent kernels."""
     from msnv_tpu_torch.kernels.gru_layer import (gru_layer_backward,
                                                   gru_layer_forward)
+    return gru_layer_forward.persistent_f32, gru_layer_backward.persistent_f32
+
+
+def _gru_types():
+    """Sweeps by their products' type: "gru_<fwd|bwd>_<bf16|f32>" through
+    either path's kernels, "..._persistent" through the persistent one."""
+    from msnv_tpu_torch.kernels.gru_layer import (gru_layer_backward,
+                                                  gru_layer_forward)
+    out = {}
+    for d, w in (("fwd", gru_layer_forward), ("bwd", gru_layer_backward)):
+        for t in ("bf16", "f32"):
+            out[f"gru_{d}_{t}_persistent"] = getattr(w, f"persistent_{t}")
+            out[f"gru_{d}_{t}"] = (getattr(w, f"persistent_{t}")
+                                   + getattr(w, f"per_step_{t}"))
+    return out
+
+
+def _launch_keys(*types):
+    """The per-type counts of `types` (from _gru_types) summed, under the
+    kernels line's keys: {"gru_fwd_bf16_launches", ...}."""
+    return {f"{k}_launches": sum(t[k] for t in types) for k in types[0]}
+
+
+def _reset_gru_counts():
+    from msnv_tpu_torch.kernels.gru_layer import (COUNTERS,
+                                                  gru_layer_backward,
+                                                  gru_layer_forward)
     for wrapper in (gru_layer_forward, gru_layer_backward):
-        wrapper.launches = 0
-        wrapper.persistent = wrapper.per_step = 0
+        for name in COUNTERS:
+            setattr(wrapper, name, 0)
 
 
 def train_inputs(cfg, batch, seq_len, dev, seed=0):
@@ -1175,7 +1233,7 @@ def train_inputs(cfg, batch, seq_len, dev, seed=0):
             torch.from_numpy(spk.astype(np.int64)).to(dev))
 
 
-def phase_train(exp, dev, batch, seq_len, steps):
+def phase_train(exp, dev, batch, seq_len, steps, f32_steps):
     import dataclasses
 
     import torch
@@ -1207,6 +1265,7 @@ def phase_train(exp, dev, batch, seq_len, steps):
         losses.append(float(loss))
     launches = (gru_layer_forward.launches, gru_layer_backward.launches)
     persistent = (gru_layer_forward.persistent, gru_layer_backward.persistent)
+    types = _gru_types()
     log(f"[train] bf16 losses (bits): {[round(x, 4) for x in losses]}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError("non-finite loss")
@@ -1284,6 +1343,45 @@ def phase_train(exp, dev, batch, seq_len, steps):
                              f"{errs}")
     RESULTS["train"]["f32_loss_diff"] = d_loss
     RESULTS["train"]["f32_grad_err_vs_f64"] = errs
+
+    # the default train step (float32, no compute_dtype), as msnv-train-torch
+    # runs it without --bf16: ms per step, samples/s, and all 4 forward and
+    # 4 backward GRU sweeps of every step through the float32 persistent
+    # kernels
+    p = tree_map(torch.clone, params0)
+    opt = make_optimizer(exp.train)
+    o, st = opt.init(p), fresh_state()
+    f32_step = make_train_step(cfg, opt)
+    _reset_gru_counts()                     # the float32 path starts here
+    walls32 = []
+    for i in range(1 + f32_steps):
+        sync()
+        t0 = time.perf_counter()
+        p, o, st, loss = f32_step(p, o, st, data, i == 0, target, cond, spk)
+        sync()
+        walls32.append(time.perf_counter() - t0)
+    counts, f32, types32 = _gru_counts(), _gru_f32_counts(), _gru_types()
+    want = per_step * (1 + f32_steps)
+    if on_card and not (counts == (want,) * 4 and f32 == (want, want)):
+        raise AssertionError(f"float32 steps: GRU (fwd, persistent, bwd, "
+                             f"persistent) {counts}, float32 persistent "
+                             f"{f32}; expected {want} each")
+    if not math.isfinite(float(loss)):
+        raise AssertionError("non-finite float32 loss")
+    ms32 = statistics.median(walls32[1:]) * 1e3
+    # the phase's sweeps: the bf16 steps' and these
+    RESULTS["train"].update(
+        f32_ms_per_step=ms32, f32_samples_per_s=batch * seq_len / ms32 * 1e3,
+        f32_steps=1 + f32_steps, f32_first_step_ms=walls32[0] * 1e3,
+        gru_fwd_launches=launches[0] + counts[0],
+        gru_bwd_launches=launches[1] + counts[2],
+        **_launch_keys(types, types32))
+    log(f"[train] B={batch} seq_len={seq_len} float32 gru_impl=pallas: "
+        f"{ms32:.3f} ms/step = {batch * seq_len / ms32 * 1e3:.0f} samples/s "
+        f"(median of the last {f32_steps} steps; first step "
+        f"{walls32[0] * 1e3:.1f} ms); GRU sweeps fwd {counts[0]}, bwd "
+        f"{counts[2]}, through the float32 persistent kernels {f32[0]}, "
+        f"{f32[1]}")
 
 # --------------------------------------------------------------------------
 # phase 7: the training loop through the CLIs
@@ -1416,6 +1514,7 @@ def phase_loop(dev, dim, batch, seq_len, utts, frames):
         fwd = (gru_layer_forward.launches, gru_layer_forward.persistent,
                gru_layer_forward.per_step)
         bwd = (gru_layer_backward.launches, gru_layer_backward.persistent)
+        f32, types = _gru_f32_counts(), _gru_types()
         stats_a, dir_a = _stats(run_a)
         stats_b, dir_b = _stats(run_b)
         chunks = len(stats_a["training_loss"]) // 3
@@ -1447,24 +1546,25 @@ def phase_loop(dev, dim, batch, seq_len, utts, frames):
             f"{'bit-equal' if diff == 0 else f'max |diff| {diff:.3e} bits'}")
         if diff > 2e-3:
             raise AssertionError(f"resume differs by {diff} bits")
-        # every GRU sweep of a train step through the persistent kernels;
-        # the float32 validation sweeps take the per-step kernels
+        # every GRU sweep through the persistent kernels: the bf16 ones of
+        # the train steps, and the float32 ones of the validation
         steps = 3 * chunks + 2 * chunks + chunks
         evals = len(clock.times["evaluate"])
         sweeps = 4                            # 2 tiers x n_rnn 2
         log(f"[loop] GRU sweeps: forward {fwd[0]} ({fwd[1]} persistent, "
-            f"{fwd[2]} per-step), backward {bwd[0]} ({bwd[1]} persistent) "
-            f"for {steps} train steps and {evals} evaluations of {chunks} "
-            f"chunks")
-        if on_card and not (bwd == (sweeps * steps,) * 2
-                            and fwd[1] == sweeps * steps
-                            and fwd[2] == sweeps * evals * chunks
-                            and fwd[0] == fwd[1] + fwd[2]):
-            raise AssertionError("a train-step GRU sweep did not take the "
+            f"{f32[0]} of them float32; {fwd[2]} per-step), backward "
+            f"{bwd[0]} ({bwd[1]} persistent) for {steps} train steps and "
+            f"{evals} evaluations of {chunks} chunks")
+        if on_card and not (bwd == (sweeps * steps,) * 2 and f32[1] == 0
+                            and fwd[0] == fwd[1] == sweeps * (
+                                steps + evals * chunks)
+                            and f32[0] == sweeps * evals * chunks):
+            raise AssertionError("a GRU sweep of the loop did not take the "
                                  "persistent kernels")
         out.update(gru_fwd_launches=fwd[0], gru_fwd_persistent=fwd[1],
                    gru_fwd_per_step=fwd[2], gru_bwd_launches=bwd[0],
-                   gru_bwd_persistent=bwd[1], train_steps=steps,
+                   gru_bwd_persistent=bwd[1], **_launch_keys(types),
+                   train_steps=steps,
                    chunks_per_epoch=chunks, evaluations=evals)
         epoch_s = clock.times["train_epoch"]
         rate = [chunks * batch * seq_len / s for s in epoch_s]
@@ -1485,7 +1585,8 @@ def phase_loop(dev, dim, batch, seq_len, utts, frames):
         log(f"[loop] checkpoint {size} bytes: write "
             f"{statistics.median(writes):.3f} s (median of {len(writes)}), "
             f"read {statistics.median(clock.times['load_checkpoint']):.3f} s")
-        log(f"[loop] evaluation in the trainer (float32, {chunks} chunks): "
+        log(f"[loop] evaluation in the trainer (float32, {chunks} chunks, "
+            f"every sweep persistent): "
             f"{statistics.median(clock.times['evaluate']):.3f} s (median of "
             f"{evals})")
 
@@ -2014,7 +2115,7 @@ def _gan_phase(exp, dev, batch, seq_len, channels, out):
 
     _reset_gru_counts()                     # the GAN step's path starts here
     walls, metrics = _timed_steps(one, 6, sync)
-    counts = _check_sweeps(dev, cfg, 6, "GAN step")
+    counts, types = _check_sweeps(dev, cfg, 6, "GAN step"), _gru_types()
     losses = [float(m["loss"]) for m in metrics]
     disc_losses = [float(m["disc_loss"]) for m in metrics]
     lams = [m["lambda"] for m in metrics]
@@ -2047,7 +2148,7 @@ def _gan_phase(exp, dev, batch, seq_len, channels, out):
                gan_disc_losses=disc_losses,
                gan_lambdas=[float(x) for x in lams],
                gan_disc_channels=channels, gan_disc_params=n_disc,
-               gan_gru_counts=counts)
+               gan_gru_counts=counts, gan_gru_types=types)
     log(f"[variants] gan step: {ms:.3f} ms = "
         f"{out['gan_samples_per_s']:.0f} samples/s (median of the last "
         f"{len(walls) - 2} of 6; first {walls[0] * 1e3:.1f} ms); GRU sweeps "
@@ -2158,13 +2259,14 @@ def _plain_steps(exp_model, train, dev, batch, seq_len, n, what, out, key,
 
     _reset_gru_counts()                     # this variant's path starts here
     walls, losses = _timed_steps(one, n, sync)
-    counts = _gru_counts()
+    counts, types = _gru_counts(), _gru_types()
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         raise AssertionError(f"{what}: losses {losses}")
     ms = statistics.median(walls[1:]) * 1e3
     out.update({f"{key}_ms_per_step": ms, f"{key}_batch": batch,
                 f"{key}_losses": losses, f"{key}_first_step_ms":
-                walls[0] * 1e3, f"{key}_gru_counts": counts})
+                walls[0] * 1e3, f"{key}_gru_counts": counts,
+                f"{key}_gru_types": types})
     log(f"[variants] {what} B={batch} bf16: {ms:.3f} ms/step "
         f"(steps after the first; first {walls[0] * 1e3:.1f} ms), losses "
         f"{[round(x, 4) for x in losses]}, GRU sweeps (fwd, persistent, bwd,"
@@ -2266,6 +2368,7 @@ def _gan_cli(dev, dim, batch, seq_len, utts, frames, channels, out):
         sync()
         out["cli_train_s"] = time.perf_counter() - t0
         fwd, fwd_p, bwd, bwd_p = _gru_counts()
+        f32, types = _gru_f32_counts(), _gru_types()
         if "resumed from" not in resumed:
             raise AssertionError("cli.train --variant gan did not resume")
         stats, exp_dir = _stats(results)
@@ -2286,18 +2389,23 @@ def _gan_cli(dev, dim, batch, seq_len, utts, frames, channels, out):
         chunks = len(stats["training_loss"])
         out.update(cli_chunks_per_epoch=chunks, cli_gru_fwd=fwd,
                    cli_gru_fwd_persistent=fwd_p, cli_gru_bwd=bwd,
-                   cli_gru_bwd_persistent=bwd_p,
+                   cli_gru_bwd_persistent=bwd_p, cli_gru_types=types,
                    cli_disc_loss=stats["disc_loss"],
                    cli_lambda=stats["lambda"])
+        # the train steps' bf16 sweeps and the validation's float32 ones,
+        # all persistent
         if dev.type == "cuda" and not (bwd == bwd_p == 4 * 2 * chunks
-                                       and fwd_p == 4 * 2 * chunks):
+                                       and fwd == fwd_p
+                                       and fwd_p - f32[0] == 4 * 2 * chunks
+                                       and f32[1] == 0):
             raise AssertionError(f"cli.train GRU sweeps "
-                                 f"{(fwd, fwd_p, bwd, bwd_p)} for "
-                                 f"{2 * chunks} steps")
+                                 f"{(fwd, fwd_p, bwd, bwd_p)}, float32 "
+                                 f"{f32}, for {2 * chunks} steps")
         log(f"[variants] cli.train --variant gan: {chunks} chunks an epoch, "
             f"1 + 1 epochs (resumed) in {out['cli_train_s']:.1f} s; "
             f"disc_loss {stats['disc_loss']}, lambda {stats['lambda']}; "
-            f"GRU sweeps fwd {fwd} ({fwd_p} persistent), bwd {bwd}")
+            f"GRU sweeps fwd {fwd} ({fwd_p} persistent, {f32[0]} of them "
+            f"float32), bwd {bwd}")
         utt = names[:2]
         lists = os.path.join(work, "c.list"), os.path.join(work, "s.list")
         with open(lists[0], "w") as f:
@@ -2362,6 +2470,8 @@ def phase_variants(dev, dim, gan_batch, batch, seq_len, channels, gen_batch,
     out["window_launches"] = windows
     out["gru_fwd_launches"] = sum(c[0] for c in gru) + out["cli_gru_fwd"]
     out["gru_bwd_launches"] = sum(c[2] for c in gru) + out["cli_gru_bwd"]
+    out.update(_launch_keys(*(out[f"{k}_gru_types"] for k in (
+        "gan", "bottleneck", "qrnn", "cli"))))
     RESULTS["variants"] = out
 
 
@@ -2813,6 +2923,7 @@ def _mesh_world1(exp, dev, batch, seq_len, frames, work):
                 losses.append(float(loss))
             runs[name] = (losses, params)
         counts = _check_sweeps(dev, cfg, 3, "world-1 mesh step")
+        types = _gru_types()
         equal = runs["none"][0] == runs["mesh"][0] and all(
             torch.equal(a, b) for a, b in zip(tree_leaves(runs["none"][1]),
                                               tree_leaves(runs["mesh"][1])))
@@ -2822,7 +2933,7 @@ def _mesh_world1(exp, dev, batch, seq_len, frames, work):
         if not equal:
             raise AssertionError("the (1, 1) mesh differs from no mesh")
         out.update(losses=runs["mesh"][0], gru_fwd=counts[0],
-                   gru_bwd=counts[2])
+                   gru_bwd=counts[2], gru_types=types)
 
         params = runs["mesh"][1]
         g = torch.Generator(device=dev).manual_seed(4)
@@ -2977,10 +3088,11 @@ def _rank_steps(rank, cfg, train, dev, batch, seq_len, bf16_steps):
             same.append(_same_on_every_rank(_params_digest(
                 gather_params(mesh, params, specs))))
         counts = _check_sweeps(dev, cfg, bf16_steps, f"mesh {key} bf16 step")
+        types = _gru_types()
         row.update(start=start, bf16_losses=bf16_losses,
                    replicas_bit_equal=same,
                    ms_per_step=[w * 1e3 for w in walls],
-                   gru_fwd=counts[0], gru_bwd=counts[2],
+                   gru_fwd=counts[0], gru_bwd=counts[2], gru_types=types,
                    gru_fwd_persistent=counts[1],
                    gru_bwd_persistent=counts[3])
         out[key] = row
@@ -3146,13 +3258,13 @@ def _rank_gan(rank, exp, dev, batch, seq_len, channels):
     mesh = make_mesh(2, 1, device=dev)
     _reset_gru_counts()
     got = run(mesh)
-    counts = _gru_counts()        # float32 products: the per-step kernels
+    counts, types = _gru_counts(), _gru_types()   # float32 products
     want = cfg.n_tiers * cfg.n_rnn
     if dev.type == "cuda" and (counts[0], counts[2]) != (want, want):
         raise AssertionError(f"sharded GAN step: GRU sweeps {counts}")
     got64 = run(mesh, cfg=cfg64, dtype=torch.float64)
     out = {"metrics": got[0], "gru_fwd": counts[0], "gru_bwd": counts[2],
-           "start": starts}
+           "gru_types": types, "start": starts}
     if rank != 0:
         return out
     one = run(None)
@@ -3222,7 +3334,8 @@ def _rank_cli(rank, dev, data, args_two, args_three):
     counts = _gru_counts()
     return {"saves": saves, "loads": loads, "first_stats": first,
             "resumed_line": "resumed from" in text,
-            "gru_fwd": counts[0], "gru_bwd": counts[2]}
+            "gru_fwd": counts[0], "gru_bwd": counts[2],
+            "gru_types": _gru_types()}
 
 
 def _mesh_rank(rank, world, store, work, spec):
@@ -3524,6 +3637,9 @@ def phase_mesh(exp, dev, dim, batch, seq_len, frames, gan, cli):
             out[f"gru_{d}_launches"] = out["world1"][f"gru_{d}"] + sum(
                 sum(row[f"gru_{d}"] for row in r["steps"].values())
                 + r["gan"][f"gru_{d}"] + r["cli"][f"gru_{d}"] for r in ranks)
+        out.update(_launch_keys(out["world1"]["gru_types"], *(
+            part["gru_types"] for r in ranks
+            for part in [*r["steps"].values(), r["gan"], r["cli"]])))
         out["card"] = card_line() if dev.type == "cuda" else "cpu"
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3975,7 +4091,8 @@ def _dir_ckpt_rank(rank, world, store, work, spec):
         counts = _gru_counts()
         out = {"save_s": save_s, "load_s": load_s, "written": written,
                "equal": equal, "npz_save_s": npz_save_s,
-               "gru_fwd": counts[0], "gru_bwd": counts[2]}
+               "gru_fwd": counts[0], "gru_bwd": counts[2],
+               "gru_types": _gru_types()}
         dist.destroy_process_group()
         with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
@@ -4060,7 +4177,8 @@ def _dir_ckpt_run(exp, dev, work, dim, batch, cli, backend):
            "npz_save_s": ranks[0]["npz_save_s"], "npz_load_s": npz_load_s,
            "ranks_wall_s": ranks_wall,
            "gru_fwd": sum(r["gru_fwd"] for r in ranks),
-           "gru_bwd": sum(r["gru_bwd"] for r in ranks)}
+           "gru_bwd": sum(r["gru_bwd"] for r in ranks),
+           **_launch_keys(*(r["gru_types"] for r in ranks))}
     (s_stats, _), (r_stats, r_dir) = (_stats(os.path.join(work, n))
                                       for n in ("straight", "resumed"))
     n = len(r_stats["training_loss"])
@@ -4130,8 +4248,11 @@ def phase_serve_mesh(ckpt, cfg, exp, dev, world1, ranks, dcp):
         out["dcp"] = _dcp_phase(exp, dev, os.path.join(work, "dcp"), *dcp)
         out["window_launches"] = sum(
             w[0] for w in out["ranks"]["windows_by_rank"])
-        out["gru_fwd_launches"] = out["dcp"]["gru_fwd"]
-        out["gru_bwd_launches"] = out["dcp"]["gru_bwd"]
+        for d in ("fwd", "bwd"):
+            out[f"gru_{d}_launches"] = out["dcp"][f"gru_{d}"]
+            for t in ("bf16", "f32", "bf16_persistent", "f32_persistent"):
+                key = f"gru_{d}_{t}_launches"
+                out[key] = out["dcp"][key]
         out["card"] = card_line() if dev.type == "cuda" else "cpu"
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4389,8 +4510,11 @@ def phase_orbax(exp, dev, dim, batch, cli):
             out["state"].pop("cli_data"))
         out["window_launches"] = out["generate"]["window_launches"]
         out["window_resident"] = out["generate"]["window_resident"]
-        out["gru_fwd_launches"] = out["state"]["gru_fwd"]
-        out["gru_bwd_launches"] = out["state"]["gru_bwd"]
+        for d in ("fwd", "bwd"):
+            out[f"gru_{d}_launches"] = out["state"][f"gru_{d}"]
+            for t in ("bf16", "f32", "bf16_persistent", "f32_persistent"):
+                key = f"gru_{d}_{t}_launches"
+                out[key] = out["state"][key]
         out["card"] = card_line() if dev.type == "cuda" else "cpu"
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4437,9 +4561,12 @@ def build_kernels():
     log(f"[build] sample_window.cu and gru_layer.cu in "
         f"{RESULTS['build_s']:.1f} s")
     for mod in (sample_window, gru_layer):
+        kernel = ""
         for line in mod.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {mod.SOURCE.name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {mod.SOURCE.name} {kernel}: {line.strip()}")
 
 
 def kernel_entries():
@@ -4501,53 +4628,65 @@ def kernel_entries():
         "shapes": RESULTS["shapes"],
     }
     # the GRU kernels at the bottom tier's sweep (T 52), where a train step
-    # spends most of its GRU time; one "launch" is one layer sweep
-    row = next(r for r in RESULTS["gru_shapes"] if r["T"] == 52)
-    shape = {k: row[k] for k in ("T", "B", "H", "dtype")}
-    gru = [{
-        "name": f"gru_layer_{d}",
-        "route": "cuda",
-        "source": "msnv_tpu_torch/csrc/gru_layer.cu",
-        "replaces": f"msnv_tpu/pallas/gru_kernel.py:{line}",
-        # the train steps (phase 6), the training loop (phase 7: train
-        # steps, and for the forward the float32 validation sweeps), the
-        # variants' train steps and train CLI (phase 9), the sharded
-        # steps and cli.train on every rank (phase 11) and cli.train with
-        # dcp (phase 12) and orbax checkpoints (phase 13) on every rank
-        "launches": RESULTS["train"][f"gru_{d}_launches"]
-        + RESULTS["loop"][f"gru_{d}_launches"]
-        + RESULTS["variants"][f"gru_{d}_launches"]
-        + RESULTS["mesh"][f"gru_{d}_launches"]
-        + RESULTS["serve_mesh"][f"gru_{d}_launches"]
-        + RESULTS["orbax"][f"gru_{d}_launches"],
-        "launches_by_path": {"train_step": RESULTS["train"][
-            f"gru_{d}_launches"], "train_loop": RESULTS["loop"][
-                f"gru_{d}_launches"], "variants": RESULTS["variants"][
-                    f"gru_{d}_launches"],
-            "mesh": RESULTS["mesh"][f"gru_{d}_launches"],
-            "serve_mesh": RESULTS["serve_mesh"][f"gru_{d}_launches"],
-            "orbax": RESULTS["orbax"][f"gru_{d}_launches"]},
-        # against the plain version, in the working type of the main path
-        # (bf16 products); largest |kernel - plain| over max(1, |plain|)
-        "max_abs_err": RESULTS["gru_err"][f"{d}_bf16"],
-        "max_abs_err_f32": RESULTS["gru_err"][d],
-        "ms": row[f"{d}_ms"],
-        "ms_per_step_kernels": row[f"{d}_per_step_ms"],
-        "empty_sweep_ms": row["empty_sweep_ms"],
-        "plain_ms": row[f"{d}_plain_ms"],
-        "bound_ms": row[f"{d}_bound_ms"],
-        "bound_by": row[f"{d}_bound_by"],
-        "library_ms": lib,
-        "library_note": note,
-        "main_shape": shape,
-        "shapes": RESULTS["gru_shapes"],
-    } for d, line, lib, note in (
-        ("fwd", 111, row["nn_gru_fwd_ms"],
-         "torch.nn.GRU(1024, 1024) forward in bf16; it also does the input "
-         "projection"),
-        ("bwd", 167, row["nn_gru_fwd_bwd_ms"] - row["nn_gru_fwd_ms"],
-         "torch.nn.GRU forward+backward minus forward, bf16; it also "
-         "computes the input projection's and the weights' gradients"))]
+    # spends most of its GRU time; one "launch" is one layer sweep, counted
+    # on the train steps (phase 6), the training loop (phase 7: train steps
+    # and validation), the variants' train steps and train CLI (phase 9),
+    # the sharded steps and cli.train on every rank (phase 11) and
+    # cli.train with dcp (phase 12) and orbax checkpoints (phase 13) on
+    # every rank. Each entry counts the sweeps whose products are of its
+    # type, by the wrappers' per-type counters, and those of them that took
+    # the persistent kernel.
+    paths = ("train", "loop", "variants", "mesh", "serve_mesh", "orbax")
+    names = {"train": "train_step", "loop": "train_loop"}
+
+    def by_path(key):
+        return {names.get(p, p): RESULTS[p][key] for p in paths}
+
+    def entry(d, line, mxu, kind, lib, note):
+        row = next(r for r in RESULTS["gru_shapes"]
+                   if r["T"] == 52 and r["dtype"] == mxu)
+        suffix = "_bf16" if mxu == "bfloat16" else ""
+        out = {
+            "name": f"gru_layer_{d}" + ("" if mxu == "bfloat16" else "_f32"),
+            "route": "cuda",
+            "source": "msnv_tpu_torch/csrc/gru_layer.cu",
+            "replaces": f"msnv_tpu/pallas/gru_kernel.py:{line}",
+            "launches": sum(by_path(f"gru_{d}_{kind}_launches").values()),
+            "launches_by_path": by_path(f"gru_{d}_{kind}_launches"),
+            "persistent_launches": sum(by_path(
+                f"gru_{d}_{kind}_persistent_launches").values()),
+            # against the plain version in the same products' type; largest
+            # |kernel - plain| over max(1, |plain|)
+            "max_abs_err": RESULTS["gru_err"][d + suffix],
+            "ms": row[f"{d}_ms"],
+            "ms_per_step_kernels": row[f"{d}_per_step_ms"],
+            "plain_ms": row[f"{d}_plain_ms"],
+            "bound_ms": row[f"{d}_bound_ms"],
+            "bound_by": row[f"{d}_bound_by"],
+            "library_ms": lib(row),
+            "library_note": note,
+            "main_shape": {k: row[k] for k in ("T", "B", "H", "dtype")},
+            "shapes": [r for r in RESULTS["gru_shapes"]
+                       if r["dtype"] == mxu],
+        }
+        if mxu == "bfloat16":
+            out["empty_sweep_ms"] = row["empty_sweep_ms"]
+        return out
+
+    gru = []
+    for d, line in (("fwd", 111), ("bwd", 167)):
+        lib = {"fwd": lambda r: r["nn_gru_fwd_ms"],
+               "bwd": lambda r: r["nn_gru_fwd_bwd_ms"] - r["nn_gru_fwd_ms"]}[d]
+        for mxu in ("bfloat16", "float32"):
+            what = ("forward" if d == "fwd" else
+                    "forward+backward minus forward")
+            note = (f"torch.nn.GRU(1024, 1024) {what} in {mxu}"
+                    + (", TF32 off" if mxu == "float32" else "")
+                    + "; it also does the input projection"
+                    + ("'s and the weights' gradients" if d == "bwd"
+                       else ""))
+            kind = "f32" if mxu == "float32" else "bf16"
+            gru.append(entry(d, line, mxu, kind, lib, note))
     return [window] + gru
 
 
@@ -4608,7 +4747,7 @@ def main(argv):
            (5, 70, DIM), (3, 8, 256), (3, 300, DIM))
           if not rehearse else ((3, 4, DIM), (5, 8, DIM), (5, 3, DIM)))
     timed(6, "train", phase_train, exp, dev, 128 if not rehearse else 4,
-          exp.train.seq_len if not rehearse else 2 * cfg.lookback, 6)
+          exp.train.seq_len if not rehearse else 2 * cfg.lookback, 6, 3)
     timed(7, "loop", phase_loop, dev, DIM, 128 if not rehearse else 2,
           exp.train.seq_len if not rehearse else 2 * cfg.lookback,
           25 if not rehearse else 2, 1000 if not rehearse else 50)

@@ -60,10 +60,47 @@
 //    bf16 copy for the weight-gradient product; backward dxp, dhproj) are
 //    written, and the next step's inputs from device memory are fetched,
 //    between the arrival and the wait.
+// Design for float32 products (the default float32 train step, and every
+// evaluation): ONE PERSISTENT KERNEL PER SWEEP as well, with the products
+// on the tensor cores in split TF32. Each operand x is cut into
+// x_hi = tf32(x) and x_lo = tf32(x - x_hi), and a product is the three TF32
+// products a_hi b_hi + a_hi b_lo + a_lo b_hi summed in float32 (wgmma
+// m64nNk8 .tf32): each operand keeps 22 of its 24 bits and the dropped
+// a_lo b_lo is 2^-22 of the product, so the sum is float32's up to the
+// order of its terms.
+//  - What bounds it. A (B 128, H 1024) step is 0.8 GFLOP, 2.4 GFLOP of TF32
+//    work in three passes: 4.9 us of the card's 495 TFLOP/s dense, 0.254 ms
+//    for a sweep of 52 steps, against 0.625 ms of float32 FMA at 67 TFLOP/s.
+//    So the design is the bf16 one with what float32 costs in room: W_hh's
+//    hi and lo parts are 24 MiB, which only the whole card's shared memory
+//    holds (132 x 227 KB), so no CTA may hold a copy another CTA holds.
+//  - A cluster of 2 CTAs owns TN columns of the state for a 128-row tile of
+//    the batch; its CTAs split the depth in halves and each keeps, for the
+//    whole sweep, its half of the cluster's columns of W_hh, hi and lo (192
+//    H bytes: 192 KiB at H 1024, in both directions). Each computes the
+//    whole tile over its half (two warpgroups of 64 rows), then takes 64
+//    rows: its own and the other CTA's partial sums, through distributed
+//    shared memory, in rank order.
+//  - The weight is split once per call to the layer by the wrapper (the
+//    forward's split is kept for the backward); the left operand (h, resp.
+//    dhproj) is split in registers, since wgmma takes A from registers. It
+//    crosses the grid barrier as float32 in the order of wgmma's A
+//    fragments (16 rows x 8 columns in 512 contiguous bytes, a thread's
+//    four values one 16-byte word), so a warp brings its 16 rows in with one
+//    coalesced load per thread and k8 step, straight into registers through
+//    L2 (ld.global.cg: where the other SMs' writes are) and 16 k8 steps
+//    ahead of the products: the weights leave no shared memory for a ring.
+//    Each CTA reads 128 rows x K/2 of it a step (256 KB forward, 768 KB
+//    backward at H 1024).
+//  - What a step costs on an H100: ptxas serializes these kernels' wgmmas
+//    (each waits for the one before; C7510, though their SASS has no call),
+//    so the small m64n48k8 and m64n16k8 products run at about a half and
+//    a quarter of the tensor cores' rate, and they, not the loads, set the
+//    time of a step.
 // Sums are in a fixed order and there are no float atomics: two runs give
 // the same bits. Shapes the persistent kernels cannot hold (a grid that is
-// not resident at once, a slice larger than shared memory) and float32
-// products take the per-step version below; the caller chooses by shape.
+// not resident at once, a slice larger than shared memory) take the
+// per-step version below; the caller chooses by shape.
 //
 // The per-step version: ONE LAUNCH PER TIMESTEP, ordered by the stream, all
 // enqueued by one C call. Forward: a grid over (16-column slices of H) x
@@ -637,6 +674,8 @@ struct ClusterPlan {
     const size_t p = (size_t)C * P_BLOCK * sizeof(float);
     return w_bytes(K) + (a > p ? a : p);
   }
+  // a CTA per column slice and row tile
+  static dim3 grid(int B, int H) { return dim3(H / TN, (B + ROWS - 1) / ROWS); }
 };
 using FwdPlan = ClusterPlan<3 * TN, 2, 64>;
 using BwdPlan = ClusterPlan<TN, 8, 128>;
@@ -1388,6 +1427,495 @@ __global__ void __launch_bounds__(BwdPlan::THREADS, 1)
   cluster_sync();   // no CTA leaves while another may read its partial sums
 }
 
+// ---------------------------------------------------------------------------
+// Persistent version (float32 products): split TF32, one launch per sweep
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Round = 8;              // k8 steps split and issued at once
+constexpr int kF32Ahead = 2 * kF32Round;  // k8 steps of A in flight
+
+// A cluster of 2 CTAs per TN columns of the state and 128-row tile of the
+// batch; N the width of the cluster's product (3 TN forward, TN backward).
+// Shared memory of a CTA: its K-slice of the cluster's N columns of W_hh,
+// the hi part then the lo part (K-major, no swizzle: 8 operand rows x 4
+// floats form a 128-byte core matrix, neighbours along K kCoreBytes apart),
+// then the partial sums of all 128 rows [row][N + 4].
+template <int N_>
+struct F32Plan {
+  static constexpr int C = 2;
+  static constexpr int ROWS = 128;
+  static constexpr int THREADS = 256;    // two warpgroups, 64 rows each
+  static constexpr int N = N_;
+  static constexpr int P_LD = N + 4;
+  __host__ __device__ static size_t w_bytes(int K) {
+    return 2 * (size_t)N * (K / C) * sizeof(float);
+  }
+  __host__ __device__ static size_t bytes(int K) {
+    return w_bytes(K) + (size_t)ROWS * P_LD * sizeof(float);
+  }
+  static dim3 grid(int B, int H) {
+    return dim3(C * H / TN, (B + ROWS - 1) / ROWS);
+  }
+};
+using FwdPlanF32 = F32Plan<3 * TN>;
+using BwdPlanF32 = F32Plan<TN>;
+
+// Where (row, col) of one row tile's 128 x K float32 left operand lies in
+// its slab: [16-row strip][k8 block][lane][4], the 16-byte word of lane
+// (row % 8) * 4 + col % 4 holding rows row % 8 + {0, 8} x cols col % 4 +
+// {0, 4} of the 16 x 8 block in the order of wgmma's A fragment a0..a3.
+__device__ __forceinline__ size_t frag_offset(int row, int col, int K) {
+  return ((size_t)(row >> 4) * (K >> 3) + (col >> 3)) * 128 +
+         ((row & 7) * 4 + (col & 3)) * 4 + ((row >> 3) & 1) +
+         2 * ((col >> 2) & 1);
+}
+
+// x rounded to TF32 (to nearest, ties away from zero): a float32 bit
+// pattern whose 13 low mantissa bits are zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + (2^-22 of x at most); x - hi is exact in float32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d (64 x 48, f32) = or += a (64 x 8, tf32, registers) * b^T (b: 48 x 8,
+// K-major)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[24],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// d (64 x 16, f32) = or += a (64 x 8, tf32, registers) * b^T (b: 16 x 8)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// One round of f32_slice_product: the A fragments of k8 steps s0 ..
+// s0 + kF32Round - 1 (in raw[HALF * kF32Round ..]) split, their slots
+// refilled kF32Ahead steps on (the slice's last block again past its end:
+// no branch), then 3 wgmmas a step. The round waits for its wgmmas: their A
+// registers are rewritten by the next round.
+template <int N, int HALF>
+__device__ __forceinline__ void f32_round(float4 (&raw)[kF32Ahead],
+                                          const float4* a4, int s0,
+                                          int steps, uint32_t w_hi,
+                                          uint32_t w_lo, uint32_t sbo,
+                                          float (&acc)[N / 2]) {
+  uint32_t hi[kF32Round][4], lo[kF32Round][4];
+#pragma unroll
+  for (int i = 0; i < kF32Round; ++i) {
+    float4& v = raw[HALF * kF32Round + i];
+    split_tf32(v.x, hi[i][0], lo[i][0]);
+    split_tf32(v.y, hi[i][1], lo[i][1]);
+    split_tf32(v.z, hi[i][2], lo[i][2]);
+    split_tf32(v.w, hi[i][3], lo[i][3]);
+    v = __ldcg(a4 + (size_t)min(s0 + kF32Ahead + i, steps - 1) * 32);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < kF32Round; ++i) {
+    const uint32_t k = (uint32_t)(s0 + i) * 2 * kCoreBytes;   // 8 floats
+    wgmma_tf32(acc, hi[i], wgmma_desc(w_hi + k, kCoreBytes, sbo),
+               s0 + i != 0);
+    wgmma_tf32(acc, hi[i], wgmma_desc(w_lo + k, kCoreBytes, sbo), 1);
+    wgmma_tf32(acc, lo[i], wgmma_desc(w_hi + k, kCoreBytes, sbo), 1);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+}
+
+// acc (64 x N, f32, in wgmma's register layout; the warpgroup's 64 of the
+// tile's rows) = a * w^T over this CTA's K-slice of `steps` k8 steps (a
+// multiple of kF32Round). a4 is this thread's 16-byte word of the slice's
+// first k8 block of its warp's 16 rows in the slab (the next block 512
+// bytes on); w_hi, w_lo the resident weight (N x kslice, 8-row groups
+// `sbo` apart).
+template <int N>
+__device__ __forceinline__ void f32_slice_product(const float4* a4,
+                                                  int steps, uint32_t w_hi,
+                                                  uint32_t w_lo, uint32_t sbo,
+                                                  float (&acc)[N / 2]) {
+  float4 raw[kF32Ahead];
+#pragma unroll
+  for (int i = 0; i < kF32Ahead; ++i)
+    raw[i] = __ldcg(a4 + (size_t)min(i, steps - 1) * 32);
+  for (int s0 = 0; s0 < steps; s0 += kF32Ahead) {
+    f32_round<N, 0>(raw, a4, s0, steps, w_hi, w_lo, sbo, acc);
+    if (s0 + kF32Round < steps)
+      f32_round<N, 1>(raw, a4, s0 + kF32Round, steps, w_hi, w_lo, sbo, acc);
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+}
+
+// the warpgroups' partial sums, as wgmma left them, into the CTA's
+// [row][P_LD] buffer
+template <class P>
+__device__ __forceinline__ void store_partials_f32(
+    float* partial, const float (&acc)[P::N / 2]) {
+  const AccThread at;
+#pragma unroll
+  for (int i = 0; i < P::N / 8; ++i)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+      st2(partial + at.row(hr) * P::P_LD + 8 * i + at.col(),
+          acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1]);
+}
+
+// What a thread owns of the cluster's (128 rows x TN columns) tile after
+// the partial sums are added: row row() of the tile, columns 4 q .. 4 q + 3
+// of the cluster's TN; CTA `rank` takes the rows 64 rank .. 64 rank + 63.
+struct F32Thread {
+  int r, q;
+  __device__ F32Thread(unsigned rank)
+      : r((int)rank * 64 + (threadIdx.x >> 2)), q(threadIdx.x & 3) {}
+  __device__ int col() const { return 4 * q; }
+};
+
+// The forward sweep of one layer, float32. w is W_hh split, (2, 3H, H)
+// float32: hi then lo, column j of gate g a row g * H + j of each. slabs
+// holds two steps of the left operand, each (row tiles x 128 x H) in
+// frag_offset's order: step t reads slab t % 2 and writes slab (t + 1) %
+// 2, so no slab is read and written in one step. The CTA of rank q holds the
+// K-slice q of the cluster's 3 TN columns (operand row g * TN + jj is
+// column j0 + jj of gate g) and computes it for all 128 rows; its own tile
+// of h stays in registers as float32. Only the slab is written before the
+// barrier's arrival; ys and hproj are written and x_proj[t + 1] is fetched
+// between the arrival and the wait.
+__global__ void __launch_bounds__(FwdPlanF32::THREADS, 1)
+    gru_fwd_persistent_f32(const float* __restrict__ x_proj,
+                           const float* __restrict__ w,
+                           const float* __restrict__ b_hh,
+                           const float* __restrict__ h0,
+                           float* __restrict__ ys, float* __restrict__ hproj,
+                           float* slabs, unsigned* counter, int T, int B,
+                           int H) {
+  using P = FwdPlanF32;
+  constexpr int N = P::N;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int kslice = H / P::C;
+  const int steps = kslice / 8;
+  const uint32_t w_hi = smem_addr(smem);
+  const uint32_t w_lo = w_hi + (uint32_t)(P::w_bytes(H) / 2);
+  float* const partial = reinterpret_cast<float*>(smem + P::w_bytes(H));
+  const uint32_t sbo = (kslice / 4) * kCoreBytes;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned rank = cluster_rank();
+  const F32Thread me(rank);
+  const int j0 = (blockIdx.x >> 1) * TN;     // the cluster's first column
+  const int row0 = blockIdx.y * P::ROWS;
+  const unsigned nblocks = gridDim.x * gridDim.y;
+  const size_t slab = (size_t)gridDim.y * P::ROWS * H;
+  float* const tile = slabs + (size_t)blockIdx.y * P::ROWS * H;
+  const float4* const a4 =
+      reinterpret_cast<const float4*>(
+          tile + ((size_t)warp * (H / 8) + rank * steps) * 128) + lane;
+
+  // 8 operand rows x 4 k-groups a warp: each 16 bytes of the weight as
+  // stored, K contiguous
+  for (int u = warp; u < (N / 8) * (kslice / 16); u += P::THREADS / 32) {
+    const int n8 = u % (N / 8);
+    const int kg = (u / (N / 8)) * 4 + (lane >> 3);
+    const int n = n8 * 8 + (lane & 7);
+    const float* const src =
+        w + ((size_t)(n / TN) * H + j0 + n % TN) * H + rank * kslice + kg * 4;
+    const uint32_t dst = n8 * sbo + kg * kCoreBytes + (lane & 7) * 16;
+    cp_async_16(w_hi + dst, src);
+    cp_async_16(w_lo + dst, src + (size_t)3 * H * H);
+  }
+  cp_async_commit();
+
+  // rows past the batch compute on row 0's inputs and store nothing
+  const int j = j0 + me.col();
+  const bool live = row0 + me.r < B;
+  const size_t brow = row0 + (live ? me.r : 0);
+  float h[4];
+  float4 bias[3], xp[3];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) bias[g] = ld4(b_hh + g * H + j);
+  auto fetch_xp = [&](int t) {
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+      xp[g] = ld4(x_proj + ((size_t)t * B + brow) * 3 * H + g * H + j);
+  };
+  auto put_h = [&](int t) {       // this thread's h into slab t % 2
+    if (!live) return;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      tile[(t & 1) * slab + frag_offset(me.r, j + e, H)] = h[e];
+  };
+  {
+    const float4 v = ld4(h0 + brow * H + j);
+    h[0] = v.x, h[1] = v.y, h[2] = v.z, h[3] = v.w;
+  }
+  put_h(0);
+  cp_async_wait_all();
+  fence_proxy_async();
+  grid_arrive(counter);
+  fetch_xp(0);
+  grid_wait(counter, nblocks, [] {});
+
+  float hp[3][4];
+  auto write_outputs = [&](int t) {   // ys and hproj, read by no CTA
+    if (!live) return;
+    const size_t b = (size_t)t * B + brow;
+    st4(ys + b * H + j, h);
+    if (hproj != nullptr) {
+#pragma unroll
+      for (int g = 0; g < 3; ++g) st4(hproj + b * 3 * H + g * H + j, hp[g]);
+    }
+  };
+
+  for (int t = 0; t < T; ++t) {
+    {
+      float acc[N / 2];
+      f32_slice_product<N>(a4 + (t & 1) * (slab / 4), steps, w_hi, w_lo,
+                           sbo, acc);
+      store_partials_f32<P>(partial, acc);
+    }
+    cluster_sync();
+    float4 part[P::C][3];
+#pragma unroll
+    for (int q = 0; q < P::C; ++q)
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        const float* const mine =
+            partial + me.r * P::P_LD + g * TN + me.col();
+        part[q][g] = q == (int)rank ? ld4(mine)
+                                    : ld_cluster4(smem_addr(mine), q);
+      }
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      hp[g][0] = bias[g].x, hp[g][1] = bias[g].y;
+      hp[g][2] = bias[g].z, hp[g][3] = bias[g].w;
+#pragma unroll
+      for (int q = 0; q < P::C; ++q) add4(hp[g], part[q][g]);
+    }
+    const float xr[4] = {xp[0].x, xp[0].y, xp[0].z, xp[0].w};
+    const float xz[4] = {xp[1].x, xp[1].y, xp[1].z, xp[1].w};
+    const float xn[4] = {xp[2].x, xp[2].y, xp[2].z, xp[2].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float r = sigmoid_f32(xr[e] + hp[0][e]);
+      const float z = sigmoid_f32(xz[e] + hp[1][e]);
+      const float n = tanhf(xn[e] + r * hp[2][e]);
+      h[e] = (1.0f - z) * n + z * h[e];
+    }
+    if (t + 1 == T) {
+      write_outputs(t);
+      break;
+    }
+    put_h(t + 1);
+    grid_arrive(counter);
+    write_outputs(t);
+    fetch_xp(t + 1);
+    grid_wait(counter, nblocks * (t + 2), [] {});
+  }
+  cluster_sync();   // no CTA leaves while another may read its partial sums
+}
+
+// The reverse sweep of one layer, float32, T + 1 steps (t = T - 1 .. -1)
+// as in the bf16 version: step t adds the product of step t + 1
+// (dhproj[t + 1] times the columns of W_hh) to the carried dh_total * z,
+// which stays in registers, then does the elementwise part of step t and
+// puts dhproj[t] into slab t % 2 (each (row tiles x 128 x 3H) in
+// frag_offset's order). The operand of the CTA of rank q is the cluster's
+// TN columns of the K-slice q of W_hh's rows (w split as in the forward),
+// transposed on the way into shared memory, once. dhT, if given, starts the
+// carry. Only the slab is written before the barrier's arrival; dxp and
+// dhproj are written and the saved tensors of step t - 1 are fetched
+// between the arrival and the wait.
+__global__ void __launch_bounds__(BwdPlanF32::THREADS, 1)
+    gru_bwd_persistent_f32(const float* __restrict__ x_proj,
+                           const float* __restrict__ hproj,
+                           const float* __restrict__ h0,
+                           const float* __restrict__ ys,
+                           const float* __restrict__ dy,
+                           const float* __restrict__ dhT,
+                           const float* __restrict__ w,
+                           float* __restrict__ dxp,
+                           float* __restrict__ dhproj, float* slabs,
+                           float* __restrict__ dh0, unsigned* counter, int T,
+                           int B, int H) {
+  using P = BwdPlanF32;
+  constexpr int N = P::N;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int K = 3 * H;
+  const int kslice = K / P::C;
+  const int steps = kslice / 8;
+  const uint32_t w_hi = smem_addr(smem);
+  const uint32_t w_lo = w_hi + (uint32_t)(P::w_bytes(K) / 2);
+  float* const partial = reinterpret_cast<float*>(smem + P::w_bytes(K));
+  const uint32_t sbo = (kslice / 4) * kCoreBytes;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned rank = cluster_rank();
+  const F32Thread me(rank);
+  const int j0 = (blockIdx.x >> 1) * TN;
+  const int row0 = blockIdx.y * P::ROWS;
+  const unsigned nblocks = gridDim.x * gridDim.y;
+  const size_t bh = (size_t)B * H;
+  const size_t slab = (size_t)gridDim.y * P::ROWS * K;
+  float* const tile = slabs + (size_t)blockIdx.y * P::ROWS * K;
+  const float4* const a4 =
+      reinterpret_cast<const float4*>(
+          tile + ((size_t)warp * (K / 8) + rank * steps) * 128) + lane;
+
+  // operand row n (< TN), depth k: w[rank * kslice + k][j0 + n]. A thread
+  // moves 4 depths x 4 columns, transposed, of the hi and of the lo part.
+  for (int u = threadIdx.x; u < (N / 4) * (kslice / 4); u += P::THREADS) {
+    const int n4 = u % (N / 4);
+    const int k4 = u / (N / 4);
+#pragma unroll
+    for (int part = 0; part < 2; ++part) {
+      const float* const src = w + (size_t)part * K * H +
+                               (size_t)(rank * kslice + 4 * k4) * H + j0 +
+                               4 * n4;
+      float in[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 v = ld4(src + (size_t)i * H);
+        in[i][0] = v.x, in[i][1] = v.y, in[i][2] = v.z, in[i][3] = v.w;
+      }
+      unsigned char* const base = smem + part * (P::w_bytes(K) / 2);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int n = 4 * n4 + m;
+        *reinterpret_cast<float4*>(base + (size_t)(n / 8) * sbo +
+                                   (size_t)k4 * kCoreBytes + (n % 8) * 16) =
+            make_float4(in[0][m], in[1][m], in[2][m], in[3][m]);
+      }
+    }
+  }
+  fence_proxy_async();   // the first barrier's __syncthreads completes this
+
+  // rows past the batch compute on row 0's inputs and store nothing
+  const int j = j0 + me.col();
+  const bool live = row0 + me.r < B;
+  const size_t brow = row0 + (live ? me.r : 0);
+  float dhz[4];
+  float4 xp[3], hp[3], hprev, dyv;
+  auto fetch = [&](int t) {
+    const float* const prev = t == 0 ? h0 : ys + (t - 1) * bh;
+    const size_t b = (size_t)t * B + brow;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      xp[g] = ld4(x_proj + b * 3 * H + g * H + j);
+      hp[g] = ld4(hproj + b * 3 * H + g * H + j);
+    }
+    hprev = ld4(prev + brow * H + j);
+    dyv = ld4(dy + b * H + j);
+  };
+  {
+    const float4 v = dhT != nullptr ? ld4(dhT + brow * H + j)
+                                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    dhz[0] = v.x, dhz[1] = v.y, dhz[2] = v.z, dhz[3] = v.w;
+  }
+  fetch(T - 1);
+
+  float dr_pre[4], dz_pre[4], dn_pre[4], dnr[4];
+  auto write_outputs = [&](int t) {   // dxp and dhproj, read by no CTA
+    if (!live) return;
+    const size_t at = ((size_t)t * B + brow) * 3 * H + j;
+    st4(dxp + at, dr_pre);
+    st4(dxp + at + H, dz_pre);
+    st4(dxp + at + 2 * H, dn_pre);
+    st4(dhproj + at, dr_pre);
+    st4(dhproj + at + H, dz_pre);
+    st4(dhproj + at + 2 * H, dnr);
+  };
+
+  for (int t = T - 1; t >= -1; --t) {
+    if (t < T - 1) {
+      {
+        float acc[N / 2];
+        f32_slice_product<N>(a4 + ((t + 1) & 1) * (slab / 4), steps, w_hi,
+                             w_lo, sbo, acc);
+        store_partials_f32<P>(partial, acc);
+      }
+      cluster_sync();
+      float4 part[P::C];
+#pragma unroll
+      for (int q = 0; q < P::C; ++q) {
+        const float* const mine = partial + me.r * P::P_LD + me.col();
+        part[q] = q == (int)rank ? ld4(mine) : ld_cluster4(smem_addr(mine), q);
+      }
+#pragma unroll
+      for (int q = 0; q < P::C; ++q) add4(dhz, part[q]);
+    }
+    // dhz now holds dh, the carry into step t
+    if (t < 0) {
+      if (live) st4(dh0 + brow * H + j, dhz);
+      break;
+    }
+    const float xr[4] = {xp[0].x, xp[0].y, xp[0].z, xp[0].w};
+    const float xz[4] = {xp[1].x, xp[1].y, xp[1].z, xp[1].w};
+    const float xn[4] = {xp[2].x, xp[2].y, xp[2].z, xp[2].w};
+    const float pr[4] = {hp[0].x, hp[0].y, hp[0].z, hp[0].w};
+    const float pz[4] = {hp[1].x, hp[1].y, hp[1].z, hp[1].w};
+    const float hn[4] = {hp[2].x, hp[2].y, hp[2].z, hp[2].w};
+    const float hv[4] = {hprev.x, hprev.y, hprev.z, hprev.w};
+    const float dv[4] = {dyv.x, dyv.y, dyv.z, dyv.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float r = sigmoid_f32(xr[e] + pr[e]);
+      const float z = sigmoid_f32(xz[e] + pz[e]);
+      const float n = tanhf(xn[e] + r * hn[e]);
+      const float dh_total = dv[e] + dhz[e];
+      dn_pre[e] = dh_total * (1.0f - z) * (1.0f - n * n);
+      dz_pre[e] = dh_total * (hv[e] - n) * z * (1.0f - z);
+      dr_pre[e] = dn_pre[e] * hn[e] * r * (1.0f - r);
+      dnr[e] = dn_pre[e] * r;
+      dhz[e] = dh_total * z;
+    }
+    if (live) {
+      float* const s = tile + (t & 1) * slab;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[frag_offset(me.r, j + e, K)] = dr_pre[e];
+        s[frag_offset(me.r, H + j + e, K)] = dz_pre[e];
+        s[frag_offset(me.r, 2 * H + j + e, K)] = dnr[e];
+      }
+    }
+    grid_arrive(counter);
+    write_outputs(t);
+    if (t >= 1) fetch(t - 1);
+    grid_wait(counter, nblocks * (T - t), [] {});
+  }
+  cluster_sync();   // no CTA leaves while another may read its partial sums
+}
+
 // `steps` grid barriers and nothing else: what a sweep of that many steps
 // costs before it loads, multiplies or stores anything.
 __global__ void __launch_bounds__(FwdPlan::THREADS, 1)
@@ -1409,11 +1937,11 @@ struct PersistentLaunch {
   // Clusters of `cluster` CTAs along x, launched cooperatively: the runtime
   // refuses a grid that cannot be resident all at once, so a barrier never
   // waits for a CTA that has not started.
-  PersistentLaunch(int B, int H, int cluster, int rows, size_t smem,
+  PersistentLaunch(dim3 grid, int threads, int cluster, size_t smem,
                    cudaStream_t stream) {
     config = cudaLaunchConfig_t{};
-    config.gridDim = dim3(H / TN, (B + rows - 1) / rows);
-    config.blockDim = dim3(2 * rows);
+    config.gridDim = grid;
+    config.blockDim = dim3(threads);
     config.dynamicSmemBytes = smem;
     config.stream = stream;
     attrs[0].id = cudaLaunchAttributeClusterDimension;
@@ -1438,7 +1966,7 @@ cudaError_t launch_persistent(const void* kernel, void** args,
   if (err != cudaSuccess) return err;
   err = cudaMemsetAsync(counter, 0, sizeof(unsigned), stream);
   if (err != cudaSuccess) return err;
-  PersistentLaunch launch(B, H, P::C, P::ROWS, smem, stream);
+  PersistentLaunch launch(P::grid(B, H), P::THREADS, P::C, smem, stream);
   return cudaLaunchKernelExC(&launch.config, kernel, args);
 }
 
@@ -1452,7 +1980,8 @@ int resident_ctas(const void* kernel, int H, int K) {
   if (err != cudaSuccess) return -(int)err;
   // the occupancy depends on the cluster's shape and the CTA's resources,
   // not on the grid: ask with one cluster's worth of batch rows
-  PersistentLaunch launch(P::ROWS, H, P::C, P::ROWS, smem, nullptr);
+  PersistentLaunch launch(P::grid(P::ROWS, H), P::THREADS, P::C, smem,
+                          nullptr);
   launch.config.numAttrs = 1;            // the cluster's shape only
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &launch.config);
@@ -1464,7 +1993,8 @@ int resident_ctas(const void* kernel, int H, int K) {
 
 extern "C" {
 
-// dtype: 0 = float32 weight (FMA), 1 = bfloat16 weight (tensor cores). All
+// The per-step sweeps. dtype: 0 = float32 weight (FMA), 1 = bfloat16
+// weight (tensor cores). All
 // other tensors are float32 and contiguous: x_proj (T, B, 3H), w_hh_t
 // (H, 3H) in `dtype`, b_hh (3H), h0 (B, H), ys (T, B, H), hproj (T, B, 3H)
 // or null. With dtype 1, scratch_b is two (B, H) bf16 buffers of which the
@@ -1523,7 +2053,7 @@ int gru_layer_bwd_launch(int dtype, const void* x_proj, const void* hproj,
   return cudaErrorInvalidValue;
 }
 
-// The persistent sweeps (bfloat16 products only): ONE cooperative launch
+// The persistent sweeps with bfloat16 products: ONE cooperative launch
 // each. w_hh is (3H, H) bf16 as stored, for both directions. hb (T + 1, B,
 // H) and dhb (T, B, 3H) are bf16 outputs: h0 and ys, resp. dhproj, rounded
 // to bf16 (the left operands of the weight-gradient product outside). hbt
@@ -1566,6 +2096,46 @@ int gru_layer_bwd_persistent_launch(const void* x_proj, const void* hproj,
       static_cast<cudaStream_t>(stream));
 }
 
+// The persistent sweeps with float32 products (split TF32 on the tensor
+// cores): ONE cooperative launch each. w_split is W_hh split by the
+// caller, (2, 3H, H) float32: [0] = tf32(W_hh) (round to nearest, ties away
+// from zero), [1] = tf32(W_hh - [0]); both directions read it as stored.
+// slabs is scratch for two steps of the left operand in the kernels' own
+// order: 2 x ceil(B / 128) row tiles x 128 x H (forward) resp. 3H
+// (backward) float32. counter is one 32-bit word of scratch. hproj may be
+// null (no residual), and so may dhT. Other tensors as for the bf16
+// persistent sweeps, all float32. H must be a multiple of 128 and the grid
+// resident at once: (H / 8) x ceil(B / 128) CTAs in clusters of 2 in both
+// directions, with gru_layer_persistent_smem(H, backward, 0) bytes each.
+int gru_layer_fwd_persistent_f32_launch(const void* x_proj,
+                                        const void* w_split,
+                                        const void* b_hh, const void* h0,
+                                        void* ys, void* hproj, void* slabs,
+                                        void* counter, int T, int B, int H,
+                                        void* stream) {
+  if (bad_persistent_shape(T, B, H)) return cudaErrorInvalidValue;
+  void* args[] = {&x_proj, &w_split, &b_hh,    &h0, &ys, &hproj,
+                  &slabs,  &counter, &T,       &B,  &H};
+  return launch_persistent<FwdPlanF32>(
+      reinterpret_cast<const void*>(gru_fwd_persistent_f32), args,
+      static_cast<unsigned*>(counter), B, H, H,
+      static_cast<cudaStream_t>(stream));
+}
+
+int gru_layer_bwd_persistent_f32_launch(
+    const void* x_proj, const void* hproj, const void* h0, const void* ys,
+    const void* dy, const void* dhT, const void* w_split, void* dxp,
+    void* dhproj, void* slabs, void* dh0, void* counter, int T, int B, int H,
+    void* stream) {
+  if (bad_persistent_shape(T, B, H)) return cudaErrorInvalidValue;
+  void* args[] = {&x_proj, &hproj, &h0,  &ys,      &dy, &dhT, &w_split,
+                  &dxp,    &dhproj, &slabs, &dh0, &counter, &T, &B, &H};
+  return launch_persistent<BwdPlanF32>(
+      reinterpret_cast<const void*>(gru_bwd_persistent_f32), args,
+      static_cast<unsigned*>(counter), B, H, 3 * H,
+      static_cast<cudaStream_t>(stream));
+}
+
 // `steps` grid barriers on the persistent sweeps' grid for (B, H), with
 // their shared memory, and no other work.
 int gru_layer_empty_sweep_launch(void* counter, int steps, int B, int H,
@@ -1579,8 +2149,11 @@ int gru_layer_empty_sweep_launch(void* counter, int steps, int B, int H,
 }
 
 // the shared memory a CTA of the persistent forward (backward != 0: the
-// backward) sweep asks for
-int gru_layer_persistent_smem(int H, int backward) {
+// backward) sweep asks for, with products in dtype (0 = float32, 1 =
+// bfloat16)
+int gru_layer_persistent_smem(int H, int backward, int dtype) {
+  if (dtype == 0)
+    return (int)(backward ? BwdPlanF32::bytes(3 * H) : FwdPlanF32::bytes(H));
   return (int)(backward ? BwdPlan::bytes(3 * H) : FwdPlan::bytes(H));
 }
 
@@ -1595,11 +2168,19 @@ int gru_layer_smem_limit(int* smem_optin) {
 }
 
 // How many CTAs of the persistent forward (backward != 0: backward) sweep
-// the current device holds at once at width H, in whole clusters, from the
-// occupancy API: what the choice between the persistent and the per-step
-// sweeps is made from. Negative: minus the cudaError_t.
-int gru_layer_persistent_capacity(int H, int backward) {
+// with products in dtype (as above) the current device holds at once at
+// width H, in whole clusters, from the occupancy API: what the choice
+// between the persistent and the per-step sweeps is made from. Negative:
+// minus the cudaError_t.
+int gru_layer_persistent_capacity(int H, int backward, int dtype) {
   if (bad_persistent_shape(1, 1, H)) return -(int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return backward ? resident_ctas<BwdPlanF32>(
+                          reinterpret_cast<const void*>(
+                              gru_bwd_persistent_f32), H, 3 * H)
+                    : resident_ctas<FwdPlanF32>(
+                          reinterpret_cast<const void*>(
+                              gru_fwd_persistent_f32), H, H);
   return backward
              ? resident_ctas<BwdPlan>(
                    reinterpret_cast<const void*>(gru_bwd_persistent), H, 3 * H)

@@ -25,10 +25,16 @@ dhproj) crosses the barrier in the tiled order of the readers' shared
 memory, so that one TMA bulk copy per chunk brings it in; the product runs
 on wgmma, the partial sums meet through distributed shared memory, and only
 what the next step needs is written before the barrier (see the source's
-header). Shapes whose grid cannot be resident at once, and float32 products
-(exact FMA sums), take the per-step kernels: one launch per timestep, all
-enqueued by one C call. `sweep_plan` chooses by shape, before anything is
-launched.
+header). Float32 products take persistent kernels of their own: the
+products run on the tensor cores in split TF32 (each operand cut into a
+TF32 high part and a TF32 rest, three TF32 products summed in float32:
+float32's accuracy), the weight's two parts, 24 MiB at H 1024, held once
+across the clusters' shared memory (`tf32_split` cuts the weight once per
+call to `gru_layer`; the backward reuses the forward's parts). Shapes whose
+grid cannot be resident at once take the per-step kernels: one launch per
+timestep, all enqueued by one C call (float32 products on CUDA cores, exact
+FMA sums). `sweep_plan` chooses by shape, type and what the card grants,
+before anything is launched.
 
 Layouts (the JAX kernel's): x_proj (T, B, 3H) f32 incl. b_ih, gate order
 [r, z, n]; w_hh_t (H, 3H), float32 or bfloat16, also as the transposed view
@@ -37,15 +43,18 @@ copy; b_hh (3H,); h0 (B, H). Returns (ys (T, B, H), hT (B, H)), float32.
 `mxu_dtype` is the type both operands of the recurrent products are rounded
 to (sums are float32): torch.bfloat16 on the mixed-precision train path,
 torch.float32 for exactness. On a GPU H must be a multiple of 128 for
-bfloat16 products and of 32 for float32 ones.
+bfloat16 products and of 32 for float32 ones (of 128 for their persistent
+kernels).
 
 On CPU tensors `gru_layer` runs the plain versions (`gru_layer_reference`,
 `gru_layer_backward_reference`); on CUDA tensors it launches the kernels or
 raises. `gru_layer_forward.launches` / `gru_layer_backward.launches` count
 the wrapper calls that launched (one per layer sweep); `.persistent` and
 `.per_step` count them by path (one kernel launch per sweep, resp. T or
-T + 1). Every call brings its own barrier counter and scratch, so sweeps on
-two streams do not disturb each other; a cooperative launch waits until its
+T + 1), and `.persistent_bf16`, `.per_step_bf16`, `.persistent_f32`,
+`.per_step_f32` by path and products' type (`COUNTERS` names them all).
+Every call brings its own barrier counter and scratch, so sweeps on two
+streams do not disturb each other; a cooperative launch waits until its
 whole grid fits, so they run one after the other.
 """
 
@@ -65,12 +74,15 @@ SOURCE = CSRC / "gru_layer.cu"
 H_MULTIPLE = {torch.float32: 32, torch.bfloat16: 128}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # a CTA's tile of the (B, H) state: batch rows (per-step kernels; the
-# persistent forward and backward kernels) x columns, and how many CTAs
-# (neighbouring column slices) form a cluster of a persistent kernel and
-# split one product between them
+# persistent forward and backward kernels, by the products' type) x
+# columns, and how many CTAs form a cluster of a persistent kernel and split
+# the depth of one product between them. A bf16 cluster's CTAs are
+# neighbouring column slices; a float32 cluster's two CTAs share one slice
+# of TILE_COLS columns and a 128-row tile, and each takes 64 of its rows.
 TILE_ROWS = {"per_step": 64, "forward": 64, "backward": 128}
 TILE_COLS = 16
 CLUSTER = {"forward": 2, "backward": 8}
+F32_ROWS, F32_CLUSTER = 128, 2
 DIRECTIONS = ("forward", "backward")
 
 _lib = None
@@ -97,13 +109,19 @@ def build() -> ctypes.CDLL:
         lib.gru_layer_bwd_persistent_launch.argtypes = (
             [vp] * 13 + [ci] * 3 + [vp])
         lib.gru_layer_bwd_persistent_launch.restype = ci
+        lib.gru_layer_fwd_persistent_f32_launch.argtypes = (
+            [vp] * 8 + [ci] * 3 + [vp])
+        lib.gru_layer_fwd_persistent_f32_launch.restype = ci
+        lib.gru_layer_bwd_persistent_f32_launch.argtypes = (
+            [vp] * 12 + [ci] * 3 + [vp])
+        lib.gru_layer_bwd_persistent_f32_launch.restype = ci
         lib.gru_layer_empty_sweep_launch.argtypes = [vp, ci, ci, ci, vp]
         lib.gru_layer_empty_sweep_launch.restype = ci
-        lib.gru_layer_persistent_smem.argtypes = [ci, ci]
+        lib.gru_layer_persistent_smem.argtypes = [ci, ci, ci]
         lib.gru_layer_persistent_smem.restype = ci
         lib.gru_layer_smem_limit.argtypes = [ctypes.POINTER(ci)]
         lib.gru_layer_smem_limit.restype = ci
-        lib.gru_layer_persistent_capacity.argtypes = [ci, ci]
+        lib.gru_layer_persistent_capacity.argtypes = [ci, ci, ci]
         lib.gru_layer_persistent_capacity.restype = ci
         lib.gru_layer_error_string.argtypes = [ci]
         lib.gru_layer_error_string.restype = ctypes.c_char_p
@@ -121,6 +139,18 @@ def _gates(xp, hproj, H):
     hn = hproj[:, 2 * H:]
     n = torch.tanh(xp[:, 2 * H:] + r * hn)
     return r, z, n, hn
+
+
+def tf32_split(w):
+    """(2, *w.shape) float32: w rounded to TF32 (to nearest, ties away from
+    zero, as the kernels' cvt.rna.tf32.f32 rounds) and the rest w - hi
+    rounded the same way; hi + lo is w within 2^-22 of it. The float32
+    persistent kernels' weight operand, cut once per call."""
+    def rna(x):
+        bits = x.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(w)
+    return torch.stack([hi, rna(w - hi)])
 
 
 def _product(a, w, mxu_dtype):
@@ -182,15 +212,30 @@ def _grids(B, H, rows_of):
     return {d: (H // TILE_COLS, -(-B // rows_of(d))) for d in DIRECTIONS}
 
 
-def persistent_smem_bytes(H: int) -> dict:
-    """direction -> shared memory a CTA of that persistent sweep needs: its
-    slice of W_hh (96 H bytes) and one region for its K-slice of a step's
-    left operand (forward 64 rows x H / 2, backward 128 rows x 3H / 8,
-    bf16) and, after the products, the cluster's partial sums (a block of
-    rows x (3 * 16 resp. 16 columns + 4) floats for each CTA of the
-    cluster)."""
-    depth = {"forward": H, "backward": 3 * H}
+def persistent_grids(B, H, dtype) -> dict:
+    """direction -> CTAs of that persistent sweep (along the columns, row
+    tiles) for products in `dtype`."""
+    if dtype == torch.float32:
+        return dict.fromkeys(DIRECTIONS, (F32_CLUSTER * H // TILE_COLS,
+                                          -(-B // F32_ROWS)))
+    return _grids(B, H, TILE_ROWS.get)
+
+
+def persistent_smem_bytes(H: int, dtype) -> dict:
+    """direction -> shared memory a CTA of that persistent sweep needs.
+
+    bfloat16 products: its slice of W_hh (96 H bytes) and one region for
+    its K-slice of a step's left operand (forward 64 rows x H / 2, backward
+    128 rows x 3H / 8, bf16) and, after the products, the cluster's partial
+    sums (a block of rows x (3 * 16 resp. 16 columns + 4) floats for each
+    CTA of the cluster). float32 products: its half of the depth of the
+    cluster's columns of W_hh, hi and lo parts (2 x (3 * 16 resp. 16) x K /
+    2 x 4 bytes, K = H resp. 3H: 192 H bytes both ways) and the partial
+    sums of all 128 rows (128 x (3 * 16 resp. 16 + 4) floats)."""
     cols = {"forward": 3 * TILE_COLS, "backward": TILE_COLS}
+    if dtype == torch.float32:
+        return {d: 192 * H + F32_ROWS * (cols[d] + 4) * 4 for d in DIRECTIONS}
+    depth = {"forward": H, "backward": 3 * H}
     return {d: 3 * TILE_COLS * H * 2 + max(
         TILE_ROWS[d] * (depth[d] // CLUSTER[d]) * 2,
         CLUSTER[d] * TILE_ROWS[d] * (cols[d] + 4) * 4) for d in DIRECTIONS}
@@ -199,12 +244,13 @@ def persistent_smem_bytes(H: int) -> dict:
 def sweep_plan(T, B, H, dtype, resident_ctas, smem_bytes) -> SweepPlan:
     """Choose the kernels for a (T, B, H) sweep with products in `dtype`
     on a device whose CTAs may use `smem_bytes` of shared memory and which
-    holds `resident_ctas[direction]` CTAs of that persistent kernel at once
-    at this width (on a card: from the occupancy API, in whole clusters).
-    The persistent kernels need bfloat16 products, their operands inside
-    one CTA's shared memory, and the whole grid resident at once, because
-    its CTAs wait for each other; if either direction's does not fit, both
-    take the per-step kernels. Raises for a shape no kernel takes."""
+    holds `resident_ctas[direction]` CTAs of that dtype's persistent kernel
+    at once at this width (on a card: from the occupancy API, in whole
+    clusters). The persistent kernels need H a multiple of 128, their
+    operands inside one CTA's shared memory, and the whole grid resident at
+    once, because its CTAs wait for each other; if either direction's does
+    not fit, both take the per-step kernels. Raises for a shape no kernel
+    takes."""
     if dtype not in _DTYPES:
         raise TypeError(f"mxu_dtype must be float32 or bfloat16, got {dtype}")
     if T < 1 or B < 1:
@@ -213,9 +259,9 @@ def sweep_plan(T, B, H, dtype, resident_ctas, smem_bytes) -> SweepPlan:
         raise ValueError(
             f"the GRU kernels need H to be a multiple of "
             f"{H_MULTIPLE[dtype]} for {dtype} products, got {H}")
-    grids = _grids(B, H, TILE_ROWS.get)
-    need = persistent_smem_bytes(H)
-    if dtype == torch.bfloat16 and all(
+    grids = persistent_grids(B, H, dtype)
+    need = persistent_smem_bytes(H, dtype)
+    if H % 128 == 0 and all(
             need[d] <= smem_bytes
             and grids[d][0] * grids[d][1] <= resident_ctas[d]
             for d in DIRECTIONS):
@@ -224,39 +270,41 @@ def sweep_plan(T, B, H, dtype, resident_ctas, smem_bytes) -> SweepPlan:
                      dict.fromkeys(DIRECTIONS, 0))
 
 
-_limits = {}        # (device index, H) -> (resident CTAs, shared memory)
+_limits = {}   # (device index, H, dtype) -> (resident CTAs, shared memory)
 
 
-def device_limits(device, H):
-    """(direction -> CTAs of that persistent sweep which a CUDA device holds
-    at once at width H, most dynamic shared memory of a CTA): sweep_plan's
-    last two arguments. 0 CTAs where H is no width of the persistent
-    kernels."""
+def device_limits(device, H, dtype):
+    """(direction -> CTAs of that persistent sweep with products in `dtype`
+    which a CUDA device holds at once at width H, most dynamic shared memory
+    of a CTA): sweep_plan's last two arguments. 0 CTAs where H is no width
+    of the persistent kernels."""
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    if (index, H) not in _limits:
+    key = (index, H, dtype)
+    if key not in _limits:
         lib = build()
         smem = ctypes.c_int()
         held = dict.fromkeys(DIRECTIONS, 0)
         with torch.cuda.device(index):
             _raise_on(lib, lib.gru_layer_smem_limit(ctypes.byref(smem)),
                       "device query")
-            need = persistent_smem_bytes(H)
-            if (H >= H_MULTIPLE[torch.bfloat16]
-                    and H % H_MULTIPLE[torch.bfloat16] == 0
-                    and max(need.values()) <= smem.value):
+            need = persistent_smem_bytes(H, dtype)
+            if H >= 128 and H % 128 == 0 and max(need.values()) <= smem.value:
                 for back, d in enumerate(DIRECTIONS):
-                    if lib.gru_layer_persistent_smem(H, back) != need[d]:
+                    if lib.gru_layer_persistent_smem(
+                            H, back, _DTYPES[dtype]) != need[d]:
                         raise RuntimeError("the kernels' shared-memory plan "
                                            "differs from persistent_smem_bytes")
-                    held[d] = lib.gru_layer_persistent_capacity(H, back)
+                    held[d] = lib.gru_layer_persistent_capacity(
+                        H, back, _DTYPES[dtype])
                     _raise_on(lib, max(-held[d], 0), "occupancy query")
-        _limits[index, H] = (held, smem.value)
-    return _limits[index, H]
+        _limits[key] = (held, smem.value)
+    return _limits[key]
 
 
 def _plan_on(device, T, B, H, mxu_dtype, path):
-    plan = sweep_plan(T, B, H, mxu_dtype, *device_limits(device, H))
+    plan = sweep_plan(T, B, H, mxu_dtype,
+                      *device_limits(device, H, mxu_dtype))
     if path is None or path == plan.path:
         return plan
     if path == "per_step":
@@ -317,18 +365,28 @@ def _tiled_scratch(steps, plan, direction, K, device):
                         K), dtype=torch.bfloat16, device=device)
 
 
-def _count(wrapper, plan):
-    wrapper.launches += 1
-    if plan.path == "persistent":
-        wrapper.persistent += 1
-    else:
-        wrapper.per_step += 1
+def _slabs(plan, K, device):
+    """The float32 persistent kernels' two steps of their (B, K) left
+    operand, in their own order: whole 128-row tiles."""
+    return torch.empty((2, plan.grids["forward"][1], F32_ROWS, K),
+                       dtype=torch.float32, device=device)
+
+
+COUNTERS = ("launches", "persistent", "per_step", "persistent_bf16",
+            "per_step_bf16", "persistent_f32", "per_step_f32")
+
+
+def _count(wrapper, plan, mxu_dtype):
+    kind = "_f32" if mxu_dtype == torch.float32 else "_bf16"
+    for name in ("launches", plan.path, plan.path + kind):
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def _forward(x_proj, w_hh_t, b_hh, h0, mxu_dtype, with_residual, path=None):
-    """gru_layer_forward, and what the persistent kernel leaves for the
+    """gru_layer_forward, and what the persistent kernels leave for the
     backward: -> (ys, hproj or None, kept), kept = (w_hh (3H, H) bf16,
-    hb (T + 1, B, H) bf16 holding h0 and ys) or None."""
+    hb (T + 1, B, H) bf16 holding h0 and ys) with bfloat16 products,
+    (tf32_split of w_hh,) with float32 ones, or None."""
     T, B, H = _check(x_proj, w_hh_t, b_hh, h0, mxu_dtype,
                      lambda H: (H, 3 * H))
     if x_proj.device.type == "cpu":
@@ -346,7 +404,15 @@ def _forward(x_proj, w_hh_t, b_hh, h0, mxu_dtype, with_residual, path=None):
     hproj_ptr = None if hproj is None else hproj.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     kept = None
-    if plan.path == "persistent":
+    if plan.path == "persistent" and mxu_dtype == torch.float32:
+        w = tf32_split(w_hh_t.t())
+        counter = torch.empty((1,), dtype=torch.int32, device=dev)
+        err = lib.gru_layer_fwd_persistent_f32_launch(
+            x_proj.data_ptr(), w.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
+            ys.data_ptr(), hproj_ptr, _slabs(plan, H, dev).data_ptr(),
+            counter.data_ptr(), T, B, H, stream)
+        kept = (w,)
+    elif plan.path == "persistent":
         # the weight as stored: no copy when w_hh_t is the transposed view
         # of a bf16 (3H, H) parameter
         w = w_hh_t.t().to(torch.bfloat16).contiguous()
@@ -369,7 +435,7 @@ def _forward(x_proj, w_hh_t, b_hh, h0, mxu_dtype, with_residual, path=None):
             b_hh.data_ptr(), h0.data_ptr(), ys.data_ptr(), hproj_ptr,
             None if scratch is None else scratch.data_ptr(), T, B, H, stream)
     _raise_on(lib, err, "gru_layer forward")
-    _count(gru_layer_forward, plan)
+    _count(gru_layer_forward, plan, mxu_dtype)
     return ys, hproj, kept
 
 
@@ -385,16 +451,14 @@ def gru_layer_forward(x_proj, w_hh_t, b_hh, h0, mxu_dtype=torch.bfloat16,
     return ys, hproj
 
 
-gru_layer_forward.launches = 0
-gru_layer_forward.persistent = 0
-gru_layer_forward.per_step = 0
 
 
 def _backward(x_proj, hproj, h0, ys, dy, w_hh, mxu_dtype, dhT=None,
-              path=None, w_bf16=None):
+              path=None, w_kept=None):
     """gru_layer_backward -> (dxp, dhproj, dh0, dhb), dhb (T, B, 3H) bf16 =
-    dhproj rounded, from the persistent kernel, else None. `w_bf16` is the
-    forward's bf16 (3H, H) copy of the weight, if it kept one."""
+    dhproj rounded, from the bf16 persistent kernel, else None. `w_kept` is
+    the weight as the forward's persistent kernel took it, if it kept it:
+    the bf16 (3H, H) copy, or the (2, 3H, H) tf32_split."""
     T, B, H = _check(x_proj, w_hh, None, h0, mxu_dtype, lambda H: (3 * H, H))
     on_cpu = x_proj.device.type == "cpu"
     if not on_cpu:
@@ -418,9 +482,18 @@ def _backward(x_proj, hproj, h0, ys, dy, w_hh, mxu_dtype, dhT=None,
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     dhb = None
-    if plan.path == "persistent":
-        w = (w_hh.to(torch.bfloat16).contiguous() if w_bf16 is None
-             else w_bf16)
+    if plan.path == "persistent" and mxu_dtype == torch.float32:
+        w = tf32_split(w_hh) if w_kept is None else w_kept
+        counter = torch.empty((1,), dtype=torch.int32, device=dev)
+        err = lib.gru_layer_bwd_persistent_f32_launch(
+            x_proj.data_ptr(), hproj.data_ptr(), h0.data_ptr(), ys.data_ptr(),
+            dy.data_ptr(), None if dhT is None else dhT.data_ptr(),
+            w.data_ptr(), dxp.data_ptr(), dhproj.data_ptr(),
+            _slabs(plan, 3 * H, dev).data_ptr(), dh0.data_ptr(),
+            counter.data_ptr(), T, B, H, stream)
+    elif plan.path == "persistent":
+        w = (w_hh.to(torch.bfloat16).contiguous() if w_kept is None
+             else w_kept)
         dhb = torch.empty((T, B, 3 * H), dtype=torch.bfloat16, device=dev)
         tiled = _tiled_scratch(T, plan, "backward", 3 * H, dev)
         counter = torch.empty((1,), dtype=torch.int32, device=dev)
@@ -443,7 +516,7 @@ def _backward(x_proj, hproj, h0, ys, dy, w_hh, mxu_dtype, dhT=None,
             dhz.data_ptr(),
             None if scratch is None else scratch.data_ptr(), T, B, H, stream)
     _raise_on(lib, err, "gru_layer backward")
-    _count(gru_layer_backward, plan)
+    _count(gru_layer_backward, plan, mxu_dtype)
     return dxp, dhproj, dh0, dhb
 
 
@@ -460,9 +533,9 @@ def gru_layer_backward(x_proj, hproj, h0, ys, dy, w_hh,
                      path)[:3]
 
 
-gru_layer_backward.launches = 0
-gru_layer_backward.persistent = 0
-gru_layer_backward.per_step = 0
+for _wrapper in (gru_layer_forward, gru_layer_backward):
+    for _name in COUNTERS:
+        setattr(_wrapper, _name, 0)
 
 
 def empty_sweep(steps, B, H, device):
@@ -505,10 +578,10 @@ class _GruLayer(torch.autograd.Function):
             dhT = dhT.to(torch.float32).contiguous()
         dxp, dhproj, dh0, dhb = _backward(
             x_proj, hproj, h0, ys, dy, w_hh_t.t(), mxu_dtype, dhT,
-            w_bf16=kept[0] if kept else None)
+            w_kept=kept[0] if kept else None)
         # weight/bias gradients: one time-parallel contraction outside the
-        # kernel, in the products' type (f32 sums). The persistent kernels
-        # have left both operands in that type already.
+        # kernel, in the products' type (f32 sums). The bf16 persistent
+        # kernels have left both operands in that type already.
         if dhb is not None and kept:
             h_prev, dhp = kept[1][:-1], dhb
         else:

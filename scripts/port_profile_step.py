@@ -2,7 +2,7 @@
 """Where the time of one train step goes, in the PyTorch/CUDA port.
 
     python3 scripts/port_profile_step.py [--batch 128] [--steps 5]
-        [--gru-impl pallas] [--dtype bf16]
+        [--gru-impl pallas] [--dtype bf16|f32] [--eval]
         [--preset samplernn|samplernn_gan|bottleneck] [--qrnn]
 
 Builds a preset's model (default the canonical `samplernn`) at full width
@@ -12,7 +12,9 @@ torch.profiler trace of `--steps` steps summed by device kernel name, and
 the share of the traced wall the device was busy. `samplernn_gan` takes the
 two-optimizer GAN step (training/gan.py) past its lambda ramp, with the
 preset's 512-channel discriminator; --qrnn gives the tiers fo-pool QRNN cells.
-Needs a CUDA device.
+`--dtype f32` takes the default float32 step (no mixed precision), and
+`--eval` the evaluation step (`make_eval_step`, float32 as the Trainer's
+validation runs it) in place of the train step. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ def main(argv=None):
     p.add_argument("--preset", default="samplernn",
                    choices=("samplernn", "samplernn_gan", "bottleneck"))
     p.add_argument("--qrnn", action="store_true")
+    p.add_argument("--eval", action="store_true")
     args = p.parse_args(argv)
 
     import torch
@@ -49,7 +52,7 @@ def main(argv=None):
     from msnv_tpu_torch.models.samplernn import init_params, init_tier_state
     from msnv_tpu_torch.training.gan import make_gan_train_step
     from msnv_tpu_torch.training.optim import make_optimizer
-    from msnv_tpu_torch.training.step import make_train_step
+    from msnv_tpu_torch.training.step import make_eval_step, make_train_step
 
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -65,8 +68,13 @@ def main(argv=None):
     state = init_tier_state(cfg, args.batch, device=dev)
     data, target, cond, spk = train_inputs(cfg, args.batch, seq_len, dev)
     compute_dtype = torch.bfloat16 if args.dtype == "bf16" else None
-    is_gan = cfg.variant == "gan"
-    if is_gan:
+    is_gan = cfg.variant == "gan" and not args.eval
+    if args.eval and compute_dtype is not None:
+        p.error("the evaluation step is float32: --eval needs --dtype f32")
+    if args.eval:
+        disc = disc_state = None
+        eval_step = make_eval_step(cfg)
+    elif is_gan:
         disc = discriminator_init(torch.Generator().manual_seed(1),
                                   cfg.spk_dim, exp.train.disc_channels,
                                   device=dev)
@@ -81,7 +89,10 @@ def main(argv=None):
         nonlocal params, opt_state, state
         nonlocal disc, disc_state
         for _ in range(n):
-            if is_gan:
+            if args.eval:
+                loss, state = eval_step(params, state, data, reset, target,
+                                        cond, spk)
+            elif is_gan:
                 # past the lambda ramp: the reversal term is live
                 (params, disc, opt_state, disc_state, state,
                  metrics) = gan_step(params, disc, opt_state, disc_state,
@@ -116,7 +127,8 @@ def main(argv=None):
     busy_us = sum(r[0] for r in rows)
     n = args.steps
     what = (f"{args.preset}{' qrnn' if args.qrnn else ''}"
-            f"{f' disc {exp.train.disc_channels}' if is_gan else ''}")
+            f"{f' disc {exp.train.disc_channels}' if is_gan else ''}"
+            f"{' eval step' if args.eval else ''}")
     print(f"{card_line()}: {what}, B={args.batch}, seq_len={seq_len}, "
           f"{args.dtype}, gru_impl={args.gru_impl}, {n} steps")
     print(f"wall per step {wall * 1e3:.3f} ms = "

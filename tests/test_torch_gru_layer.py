@@ -264,6 +264,7 @@ def test_gru_apply_pallas_bf16_keeps_dtype():
 
 SMEM = 232448                               # a CTA's most on an H100
 HELD = {"forward": 132, "backward": 120}    # CTAs resident at once at H 1024
+HELD_F32 = {"forward": 132, "backward": 132}   # float32: clusters of 2
 BF16, F32 = torch.bfloat16, torch.float32
 
 
@@ -272,7 +273,17 @@ BF16, F32 = torch.bfloat16, torch.float32
     (13, 128, 1024, BF16, HELD, SMEM, "persistent"),   # two tiers
     (1, 3, 1024, BF16, HELD, SMEM, "persistent"),      # T = 1, ragged B
     (4, 70, 128, BF16, HELD, SMEM, "persistent"),
-    (52, 128, 1024, F32, HELD, SMEM, "per_step"),      # exact products
+    (52, 128, 1024, F32, HELD_F32, SMEM, "persistent"),   # split TF32
+    (13, 128, 1024, F32, HELD_F32, SMEM, "persistent"),
+    (1, 3, 1024, F32, HELD_F32, SMEM, "persistent"),
+    (4, 70, 128, F32, HELD_F32, SMEM, "persistent"),
+    (52, 129, 1024, F32, HELD_F32, SMEM, "per_step"),     # 256 CTAs
+    (3, 300, 1024, F32, HELD_F32, SMEM, "per_step"),
+    (52, 128, 1024, F32, {"forward": 132, "backward": 120}, SMEM,
+     "per_step"),                                      # backward not resident
+    (52, 128, 1024, F32, HELD_F32, 200 * 1024, "per_step"),  # 218 KiB a CTA
+    (52, 128, 2048, F32, HELD_F32, SMEM, "per_step"),  # 384 KiB of weights
+    (52, 128, 96, F32, HELD_F32, SMEM, "per_step"),    # H not 128's multiple
     (52, 129, 1024, BF16, HELD, SMEM, "per_step"),     # 192 CTAs forward
     (3, 300, 1024, BF16, HELD, SMEM, "per_step"),
     (52, 128, 1024, BF16, {"forward": 132, "backward": 56}, SMEM,
@@ -287,9 +298,13 @@ def test_sweep_plan_chooses_by_shape(T, B, H, dtype, held, smem, want):
     assert plan.path == want
     cols = H // 16
     if want == "persistent":
-        assert plan.grids == {"forward": (cols, -(-B // 64)),
-                              "backward": (cols, -(-B // 128))}
-        assert plan.smem_bytes == gl.persistent_smem_bytes(H)
+        if dtype == BF16:
+            assert plan.grids == {"forward": (cols, -(-B // 64)),
+                                  "backward": (cols, -(-B // 128))}
+        else:       # a cluster of 2 CTAs per 16 columns and 128-row tile
+            assert plan.grids == dict.fromkeys(gl.DIRECTIONS,
+                                               (2 * cols, -(-B // 128)))
+        assert plan.smem_bytes == gl.persistent_smem_bytes(H, dtype)
         assert all(plan.grids[d][0] * plan.grids[d][1] <= held[d]
                    and plan.smem_bytes[d] <= smem for d in gl.DIRECTIONS)
     else:
@@ -315,13 +330,79 @@ def test_persistent_shared_memory_at_the_train_width():
     shapes in the module and the formula agree with what the source's plan
     states for them (forward 96 H + 64 rows x H / 2 x 2 bytes, backward
     96 H + 128 rows x 3H / 8 x 2 bytes)."""
-    need = gl.persistent_smem_bytes(1024)
+    need = gl.persistent_smem_bytes(1024, BF16)
     assert need == {"forward": 96 * 1024 + 64 * 512 * 2,
                     "backward": 96 * 1024 + 128 * 384 * 2}
     assert max(need.values()) <= SMEM
     # a narrow layer: the partial sums, not the operand, set the size
-    assert gl.persistent_smem_bytes(128)["backward"] == (
+    assert gl.persistent_smem_bytes(128, BF16)["backward"] == (
         96 * 128 + 8 * 128 * (16 + 4) * 4)
+
+
+def test_f32_persistent_fits_an_h100_at_the_train_width():
+    """At H 1024 a float32 persistent CTA holds its half of the depth of 48
+    (forward) resp. 16 (backward) columns of W_hh twice, TF32 hi and lo
+    parts (192 KiB), and the partial sums of 128 rows; it fits an H100's
+    232,448 bytes, and each direction's grid (64 clusters of 2 at B 128) is
+    at most the card's 132 SMs."""
+    need = gl.persistent_smem_bytes(1024, F32)
+    assert need == {"forward": 2 * 48 * 512 * 4 + 128 * (48 + 4) * 4,
+                    "backward": 2 * 16 * 1536 * 4 + 128 * (16 + 4) * 4}
+    assert max(need.values()) <= SMEM
+    grids = gl.persistent_grids(128, 1024, F32)
+    assert all(x * y <= 132 for x, y in grids.values())
+    assert gl.sweep_plan(52, 128, 1024, F32, dict.fromkeys(gl.DIRECTIONS, 128),
+                         max(need.values())).path == "persistent"
+
+
+def _tf32_bits_clear(x):
+    return bool(((x.view(torch.int32) & 0x1FFF) == 0).all())
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    """tf32_split's parts are TF32 values (13 low mantissa bits zero),
+    rounded as cvt.rna.tf32.f32 rounds, and add up to w within 2^-22 of
+    it."""
+    one = 1.0 + 2.0 ** -11                  # halfway between two TF32 values
+    w = torch.tensor([one, -one, 1.0 + 2.0 ** -12, 3.0e-39, 0.0],
+                     dtype=torch.float32)
+    hi, lo = gl.tf32_split(w)
+    assert hi.tolist()[:3] == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0]
+    assert lo.tolist()[2] == 2.0 ** -12 and hi[4] == lo[4] == 0.0
+    x = torch.from_numpy(np.random.RandomState(12).randn(4096).astype(
+        np.float32))
+    hi, lo = gl.tf32_split(x)
+    assert _tf32_bits_clear(hi) and _tf32_bits_clear(lo)
+    err = ((hi.double() + lo.double() - x.double()).abs()
+           / x.double().abs()).max().item()
+    assert err <= 2.0 ** -22
+
+
+@pytest.mark.parametrize("K,N", [(1024, 3072), (3072, 1024)])
+def test_split_tf32_product_holds_the_float32_tolerance(K, N):
+    """The float32 persistent kernels' product emulated on the CPU at a
+    sweep's shape (B 128; forward h (128 x 1024) . W_hh^T (1024 x 3072),
+    backward dhproj (128 x 3072) . W_hh (3072 x 1024)): both operands split
+    by tf32_split, the three TF32 products a_hi b_hi + a_hi b_lo + a_lo
+    b_hi, each exact in float32 and summed in float32. Against float64 it
+    stays inside chip_smoke.py's float32 tolerance (1e-4 of the largest
+    value) with room: observed 4.9e-7 both ways, as close as a float32
+    matmul of the unsplit operands (4.2e-7, 4.4e-7), where one TF32 product
+    alone is off by 3.2e-4 and 2.4e-4, above the tolerance (values in the
+    ranges of the state and of W_hh at init)."""
+    rng = np.random.RandomState(K)
+    a = rng.uniform(-1, 1, (128, K)).astype(np.float32)
+    b = (rng.randn(K, N) / np.sqrt(K)).astype(np.float32)
+    (a_hi, a_lo), (b_hi, b_lo) = gl.tf32_split(t(a)), gl.tf32_split(t(b))
+    assert all(map(_tf32_bits_clear, (a_hi, a_lo, b_hi, b_lo)))
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    scale = max(1.0, float(np.abs(want).max()))
+    split = (a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi).numpy()
+    one_pass = (a_hi @ b_hi).numpy()
+    err = float(np.abs(split - want).max()) / scale
+    err_one = float(np.abs(one_pass - want).max()) / scale
+    assert err <= 1e-4
+    assert err * 100 <= err_one
 
 
 @pytest.mark.parametrize("dtype,atol", [
