@@ -8,8 +8,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 kernels from csrc/ (sm_90a), one nvcc process each, together
   2. kernel   — the sample-window kernels against the plain version at the
                 canonical shape (fs0 20, q 256, dim 1024): float32 (the
-                tiled kernel by plan), given noise and Philox, B 1/2/32/128,
-                every tile: samples equal exactly (TF32 off); bf16 (the
+                grid kernel by plan: weights in the shared memory of 32
+                CTAs, replicated over the card; its counter moves, the
+                tiled one does not), given noise and Philox, B 1/2/32/128/
+                1024, and the tiled kernel at every tile (path="tiled") up
+                to B 128: samples equal exactly (TF32 off); bf16 (the
                 resident kernel by plan: weights in a cluster's shared
                 memory), given noise and Philox, B 1/2/32/128/1024 and the
                 ragged 3/17/130, and at the narrow (fs0 4, dim 128): on a
@@ -17,18 +20,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 another order than the plain matmul, which can move a
                 near-tie), two runs bit-equal, and at B 128 and 1024 200
                 runs in each mode bit-equal to the first (a race shows as
-                a rare run that differs); a width no cluster holds
-                (dim 2048) takes the tiled kernel by plan; the Philox draws
-                pass a chi-square test against the softmax and are the same
-                with 1 cluster, with the most the card grants and from the
-                tiled kernel at every tile; times as medians over runs of
-                10 calls: resident / tiled kernel / empty window / plain /
-                bound
+                a rare run that differs), and the same for float32 on the
+                grid kernel; a bf16 width no cluster holds (dim 2048) takes
+                the grid kernel by plan; the Philox draws pass a chi-square
+                test against the softmax and are the same with 1 cluster,
+                with the most the card grants, from the grid kernel and from
+                the tiled kernel at every tile; times as medians over runs
+                of 10 calls: bf16 resident / tiled kernel / empty window /
+                plain / bound, and float32 at B 1, 128 and 1024 grid / the
+                tiled kernel at every tile / the grid's empty window (its
+                barriers alone) / plain / bound (FMA rate, split TF32 beside
+                it), the grid faster than the tiled kernel at the tile its
+                own plan names (what float32 windows took before) at every
+                batch, its ratio to the best tile logged
   3. generate — full-width `samplernn` from a seeded init: the model stack
                 on the card agrees with its teacher-forced predictor and with
-                greedy decoding on a small input, then generate_fn with the
-                kernel (bf16, B 128, 16 frames, T 1), every window through
-                the resident kernel — audio-seconds/second
+                greedy decoding on a small input (float32 windows: the grid
+                kernel), then generate_fn with the kernel (bf16, B 128, 16
+                frames, T 1), every window through the resident kernel, and
+                the same in float32 (generate_fn's default), every window
+                through the grid kernel — audio-seconds/second, the float32
+                one beside what phase 2's float32 tiled window would make
+                of it
   4. serve    — VocoderService + make_server on 127.0.0.1 from a JAX-format
                 .npz written here: /healthz, two /synthesize, two /stream
                 (every window through the resident kernel), bad bodies (400)
@@ -118,7 +131,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 the discriminator's forward and forward + backward times
                 alone; a float32 step (TF32 off) against the two-backward
                 form (grad of L1 - lambda L2, then of L2), to 1e-4 of the
-                largest gradient, and both forms' bf16 gradient times.
+                largest gradient, and both forms' bf16 gradient times; the
+                same float32 step with cuDNN's TF32 on (PyTorch's default)
+                against off: the losses' and gradients' gaps over their
+                largest values (the CLIs turn it off: float32_convolutions).
                 The `bottleneck` preset at B 128 (two
                 steps, the same sweep counts) and `samplernn` with
                 qrnn=True at B 128 (two steps, falling loss, no GRU kernel
@@ -144,7 +160,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 byte-equal to the live service's, a bucket /synthesize to
                 the live generation of the artifact's engine, a mismatched
                 artifact refused at startup. Every window of the artifact's
-                runs through the resident kernel
+                runs through the resident kernel. Then a float32 artifact
+                (--engine pallas without --bf16, one bucket (128, 4)): its
+                generation equal to the live float32 generator's for the
+                same seed, every window through the grid kernel
  11. mesh    — training and generation over a device mesh
                 (torch.distributed, one process per rank), full width:
                 a. one process, an NCCL group of world 1: the (1, 1) mesh's
@@ -250,7 +269,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                    WAVs byte-equal
 Then one JSON line of kernel numbers, the card's name and power limit, and
 last the {"ok": true, "device": ...} line. The kernels' `launches` add up
-the counts of every path that drives them: K1 the serving path (phase 4),
+the counts of every path that drives them: K1's grid kernel phase 3's
+float32 generation and phase 10's float32 artifact, K1's other kernels the
+serving path (phase 4),
 the generate CLI (phase 7), the multiplexer (phase 8), the variants'
 generation, streaming and generate CLI (phase 9) and the artifact's
 generation, pushes and service (phase 10), sharded generation and
@@ -293,7 +314,9 @@ FS0, Q, DIM = 20, 256, 1024
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 # dense peaks: bf16 tensor cores; float32 on the CUDA cores (FMA); float32
 # products in split TF32 on the tensor cores, three TF32 products (495
-# TFLOP/s) for each float32 one
+# TFLOP/s) for each float32 one. A float32 bound (K1 and K2) takes the
+# split-TF32 rate, the fastest the card computes float32 products at; the
+# FMA rate is printed beside it as a floor of the CUDA cores alone.
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "float32_tf32x3": 165e12}
 RESULTS = {}
 REPEAT_RUNS = 200           # phase 2: runs of a window on the same inputs
@@ -328,11 +351,12 @@ def cuda_ms(fn, iters, warmup=3, batch=1):
 # phase 2: the kernel against its plain version
 # --------------------------------------------------------------------------
 
-def window_bound_ms(table, wh, bh, wo, bo, slots, buf, out, noise=None):
+def window_bound_ms(table, wh, bh, wo, bo, slots, buf, out, noise=None,
+                    peak=None):
     """Least time for one window call: the larger of (bytes it must move,
     each input read once — only the table rows this run's windows touch —
     over HBM bandwidth) and (its multiply-adds over the peak rate for the
-    weight type)."""
+    weight type, float32 in split TF32, or over `peak`)."""
     import torch
     batch, fs0 = buf.shape
     q = wo.shape[1]
@@ -348,7 +372,9 @@ def window_bound_ms(table, wh, bh, wo, bo, slots, buf, out, noise=None):
               + 4 * out.numel()
               + (0 if noise is None else 4 * noise.numel()))
     ops = batch * fs0 * (2 * (dim * dim + dim * q) + fs0 * dim)
-    peak = PEAK_OPS[str(table.dtype).replace("torch.", "")]
+    if peak is None:
+        peak = PEAK_OPS["bfloat16" if table.dtype == torch.bfloat16
+                        else "float32_tf32x3"]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -404,29 +430,43 @@ def phase_kernel(params, batches, narrow):
     bf16 = torch.bfloat16
     max_err = 0
     counts = lambda: (sw.sample_window.resident,              # noqa: E731
-                      sw.sample_window.tiled)
-    # given noise, f32: exact equality with the plain version, every tile
-    # of the tiled kernel (which the plan names for float32)
-    for batch in batches:
+                      sw.sample_window.grid, sw.sample_window.tiled)
+    # given noise, f32: exact equality with the plain version, the grid
+    # kernel (which the plan names for float32), then the tiled kernel at
+    # every tile (path="tiled")
+    f32_batches = tuple(batches) + ((1024,) if on_card else ())
+    tiled_err = 0
+    for batch in f32_batches:
         table, wh, bh, wo, bo, slots, buf, g = kernel_inputs(
             params, batch, torch.float32, seed=batch)
         noise = sw.gumbel_noise((batch, FS0, Q), g, dev)
         want = sw.sample_window_reference(table, wh, bh, wo, bo, slots, buf,
                                           noise)
         before = counts()
-        for tile in (sw.TILES if on_card else (None,)):
-            got = sw.sample_window(table, wh, bh, wo, bo, slots, buf,
-                                   noise=noise, tile=tile)
-            err = int((got - want).abs().max())
-            max_err = max(max_err, err)
-            if err:
+        got = sw.sample_window(table, wh, bh, wo, bo, slots, buf,
+                               noise=noise)
+        if on_card and counts() != (before[0], before[1] + 1, before[2]):
+            raise AssertionError(f"float32 B={batch} did not take the grid "
+                                 f"kernel by plan: {counts()} after "
+                                 f"{before}")
+        for tile in (sw.TILES if on_card and batch <= 128 else ()):
+            tiled = sw.sample_window(table, wh, bh, wo, bo, slots, buf,
+                                     noise=noise, tile=tile, path="tiled")
+            tiled_err = max(tiled_err, int((tiled - want).abs().max()))
+            if not torch.equal(tiled, want):
                 raise AssertionError(
-                    f"f32 kernel != plain at B={batch} tile={tile}: "
-                    f"{float((got != want).float().mean()):.4%} differ")
-        if on_card and counts() != (before[0], before[1] + len(sw.TILES)):
-            raise AssertionError("float32 did not take the tiled kernel")
-        log(f"[kernel] f32 given-noise B={batch}: equal to the plain "
-            f"version at tiles {list(sw.TILES) if on_card else 'cpu'}")
+                    f"f32 tiled kernel != plain at B={batch} tile={tile}: "
+                    f"{float((tiled != want).float().mean()):.4%} differ")
+        err = int((got - want).abs().max())
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(
+                f"f32 grid kernel != plain at B={batch}: "
+                f"{float((got != want).float().mean()):.4%} differ")
+        log(f"[kernel] f32 given-noise B={batch}: the grid kernel by plan"
+            + (f" and the tiled kernel at tiles {list(sw.TILES)}"
+               if on_card and batch <= 128 else "")
+            + " equal to the plain version")
 
     # bf16 (the resident kernel by plan), given noise and Philox, sharpened
     # W_o: mismatch <= 1 %. Not exact: the tensor cores add a column's
@@ -463,7 +503,7 @@ def phase_kernel(params, batches, narrow):
             if not torch.equal(got, again):
                 raise AssertionError(f"two runs differ at B={batch} {mode}")
             results[mode] = float((got != want).float().mean())
-        if on_card and counts() != (before[0] + 4, before[1]):
+        if on_card and counts() != (before[0] + 4,) + before[1:]:
             raise AssertionError(f"bf16 at dim {dim} did not take the "
                                  f"resident kernel")
         log(f"[kernel] bf16 sharpened (fs0 {fs0}, dim {dim}) B={batch}: "
@@ -474,8 +514,8 @@ def phase_kernel(params, batches, narrow):
             philox[f"bfloat16_B{batch}"] = results["Philox"]
         if max(results.values()) > 0.01:
             raise AssertionError(f"bf16 mismatch {results} > 1 %")
-    # Philox mode in float32 (tiled kernel): exact
-    for batch in batches:
+    # Philox mode in float32 (the grid kernel by plan): exact
+    for batch in f32_batches:
         table, wh, bh, wo, bo, slots, buf, g = kernel_inputs(
             params, batch, torch.float32, seed=300 + batch)
         seed = torch.randint(0, 2 ** 62, (1,), generator=g, device=dev,
@@ -483,53 +523,90 @@ def phase_kernel(params, batches, narrow):
         want = sw.sample_window_reference(
             table, wh, bh, wo, bo, slots, buf,
             sw.philox_gumbel_noise(seed, batch, FS0, Q))
+        before = counts()
         got = sw.sample_window(table, wh, bh, wo, bo, slots, buf, seed=seed)
+        if on_card and counts() != (before[0], before[1] + 1, before[2]):
+            raise AssertionError(f"float32 Philox B={batch} did not take "
+                                 f"the grid kernel by plan")
+        # the tiled kernel's Philox mode on the same weights: its fallback
+        for tile in (sw.TILES if on_card and batch <= 128 else ()):
+            tiled = sw.sample_window(table, wh, bh, wo, bo, slots, buf,
+                                     seed=seed, tile=tile, path="tiled")
+            tiled_err = max(tiled_err, int((tiled - want).abs().max()))
+            if not torch.equal(tiled, want):
+                raise AssertionError(
+                    f"f32 Philox tiled kernel != plain at B={batch} "
+                    f"tile={tile}: "
+                    f"{float((tiled != want).float().mean()):.4%} differ")
         max_err = max(max_err, int((got - want).abs().max()))
         philox[f"float32_B{batch}"] = float((got != want).float().mean())
         log(f"[kernel] Philox float32 B={batch}: mismatch vs plain "
-            f"{philox[f'float32_B{batch}']:.4%}")
+            f"{philox[f'float32_B{batch}']:.4%}"
+            + (f"; the tiled kernel at tiles {list(sw.TILES)} equal to it"
+               if on_card and batch <= 128 else ""))
         if philox[f"float32_B{batch}"]:
             raise AssertionError("f32 Philox kernel != plain")
-    RESULTS["max_abs_err"] = max_err
+    RESULTS["max_abs_err"] = tiled_err
+    RESULTS["grid_max_abs_err"] = max_err
     RESULTS["bf16_mismatch"] = worst
     RESULTS["philox_mismatch"] = philox
     if not on_card:
         return
 
-    # many runs on the same inputs, bf16, both modes: every one bit-equal to
-    # the first (a race shows as a rare run that differs; counted on the
-    # card, no synchronize between the launches)
-    for batch in (128, 1024):
-        table, wh, bh, wo, bo, slots, buf, g = kernel_inputs(
-            params, batch, bf16, seed=400 + batch)
-        args = (table, wh, bh, wo, bo, slots, buf)
-        packed = sw.resident_weights(wh, wo, FS0)
-        seed = torch.randint(0, 2 ** 62, (1,), generator=g, device=dev,
-                             dtype=torch.int64)
-        for mode, kw in (("given noise", {"noise": sw.gumbel_noise(
-                (batch, FS0, Q), g, dev)}), ("Philox", {"seed": seed})):
-            first = sw.sample_window(*args, packed=packed, **kw)
-            differ = torch.zeros((), dtype=torch.int64, device=dev)
-            for _ in range(REPEAT_RUNS):
-                differ += (sw.sample_window(*args, packed=packed, **kw)
-                           != first).any()
-            if int(differ):
-                raise AssertionError(f"{int(differ)} of {REPEAT_RUNS} runs "
-                                     f"differ at B={batch} {mode}")
-        log(f"[kernel] bf16 B={batch}: {REPEAT_RUNS} runs in each mode "
-            f"bit-equal to the first")
+    # many runs on the same inputs, bf16 (resident) and float32 (grid),
+    # both modes: every one bit-equal to the first (a race shows as a rare
+    # run that differs; counted on the card, no synchronize between the
+    # launches)
+    for dtype in (bf16, torch.float32):
+        for batch in (128, 1024):
+            table, wh, bh, wo, bo, slots, buf, g = kernel_inputs(
+                params, batch, dtype, seed=400 + batch)
+            args = (table, wh, bh, wo, bo, slots, buf)
+            packed = sw.resident_weights(wh, wo, FS0)
+            seed = torch.randint(0, 2 ** 62, (1,), generator=g, device=dev,
+                                 dtype=torch.int64)
+            before = counts()
+            for mode, kw in (("given noise", {"noise": sw.gumbel_noise(
+                    (batch, FS0, Q), g, dev)}), ("Philox", {"seed": seed})):
+                first = sw.sample_window(*args, packed=packed, **kw)
+                differ = torch.zeros((), dtype=torch.int64, device=dev)
+                for _ in range(REPEAT_RUNS):
+                    differ += (sw.sample_window(*args, packed=packed, **kw)
+                               != first).any()
+                if int(differ):
+                    raise AssertionError(f"{int(differ)} of {REPEAT_RUNS} "
+                                         f"runs differ at B={batch} {mode} "
+                                         f"({dtype})")
+            runs = 2 * (REPEAT_RUNS + 1)
+            want = ((before[0] + runs,) + before[1:] if dtype == bf16
+                    else (before[0], before[1] + runs, before[2]))
+            if counts() != want:
+                raise AssertionError(f"{dtype} B={batch}: counts {counts()}"
+                                     f", expected {want}")
+            log(f"[kernel] {str(dtype)[6:]} B={batch}: {REPEAT_RUNS} runs "
+                f"in each mode bit-equal to the first "
+                f"({'resident' if dtype == bf16 else 'grid'} kernel)")
 
     # what the card grants, and a width that no cluster holds
-    held, smem, sms = sw.device_limits(dev, FS0, Q, DIM)
+    held, smem, sms, _ = sw.device_limits(dev, FS0, Q, DIM, bf16)
     plan = sw.window_plan(128, FS0, Q, DIM, bf16, held, smem, sms)
+    f32_limits = sw.device_limits(dev, FS0, Q, DIM, torch.float32)
+    f32_plan = sw.window_plan(128, FS0, Q, DIM, torch.float32, *f32_limits)
     RESULTS["window_plan"] = {"max_clusters": held, "cluster": plan.cluster,
                               "smem_bytes": plan.smem_bytes,
-                              "smem_limit": smem}
+                              "smem_limit": smem,
+                              "grid_ctas_f32": f32_limits[3],
+                              "grid_groups_f32": f32_plan.cluster,
+                              "grid_replicas_f32_B128": f32_plan.clusters,
+                              "grid_smem_bytes_f32": f32_plan.smem_bytes}
     log(f"[kernel] the card holds {held} clusters of {plan.cluster} CTAs of "
         f"the resident kernel at once, {plan.smem_bytes} of {smem} bytes of "
-        f"shared memory each; B=128: {plan}")
+        f"shared memory each; B=128: {plan}; float32: {f32_limits[3]} CTAs "
+        f"of the grid kernel, B=128: {f32_plan}")
     if plan.path != "resident":
         raise AssertionError("no cluster of the resident kernel is granted")
+    if f32_plan.path != "grid":
+        raise AssertionError("the card grants no grid of the grid kernel")
     wide = random_window_inputs(4, Q, 2 * DIM, 5, bf16, dev, seed=9)
     wo, bo = sharpened(wide[3], wide[4], bf16)
     args = wide[:3] + (wo, bo) + wide[5:7]
@@ -538,13 +615,13 @@ def phase_kernel(params, batches, narrow):
     got = sw.sample_window(*args, noise=noise)
     mismatch = float((got != sw.sample_window_reference(
         *args, noise)).float().mean())
-    if counts() != (before[0], before[1] + 1) or mismatch > 0.01:
+    if counts() != (before[0], before[1] + 1, before[2]) or mismatch > 0.01:
         raise AssertionError(f"dim {2 * DIM} bf16: counts {counts()} after "
                              f"{before}, mismatch {mismatch:.4%}")
     try:
         sw.sample_window(*args, noise=noise, path="resident")
     except ValueError as e:
-        log(f"[kernel] dim {2 * DIM} takes the tiled kernel by plan "
+        log(f"[kernel] dim {2 * DIM} bf16 takes the grid kernel by plan "
             f"(mismatch {mismatch:.4%}); path='resident' raises: {e}")
     else:
         raise AssertionError("a width no cluster holds did not raise")
@@ -574,20 +651,26 @@ def phase_kernel(params, batches, narrow):
         f"(dof {dof}, limit {limit:.1f})")
     if chi2 > limit:
         raise AssertionError(f"Philox draws fail chi-square: {chi2:.1f}")
-    # the same draws whatever the plan: one cluster, the most granted, and
-    # the tiled kernel at every tile, in bf16 and in float32
+    # the same draws whatever the plan: one cluster, the most granted, the
+    # grid kernel (float32) and the tiled kernel at every tile, in bf16 and
+    # in float32
     seed = torch.tensor([99], dtype=torch.int64, device=dev)
     first = sw.sample_window(*zeros.values(), seed=seed, clusters=1)
     zeros32 = {k: (v.float() if v.dtype == bf16 else v)
                for k, v in zeros.items()}
-    others = [sw.sample_window(*zeros.values(), seed=seed)]
+    before = counts()
+    others = [sw.sample_window(*zeros.values(), seed=seed),
+              sw.sample_window(*zeros32.values(), seed=seed)]
+    if counts() != (before[0] + 1, before[1] + 1, before[2]):
+        raise AssertionError(f"the zero-weight windows took {counts()} "
+                             f"after {before}")
     others += [sw.sample_window(*z.values(), seed=seed, tile=tile,
                                 path="tiled")
                for z in (zeros, zeros32) for tile in sw.TILES]
     if any(not torch.equal(d, first) for d in others):
         raise AssertionError("Philox draws depend on the plan")
-    log(f"[kernel] Philox draws identical with 1 and {held} clusters and "
-        f"equal to the tiled kernel's at every tile")
+    log(f"[kernel] Philox draws identical with 1 and {held} clusters, from "
+        f"the grid kernel and from the tiled kernel at every tile")
 
     # times: bf16, Philox mode (what generation and /stream run) and given
     # noise; medians over runs of 10 calls, tiled / resident / resident /
@@ -644,6 +727,71 @@ def phase_kernel(params, batches, narrow):
             raise AssertionError("the resident kernel is not faster than "
                                  "the tiled one")
     RESULTS["shapes"] = shapes
+    RESULTS["f32_shapes"] = f32_window_times(params, run)
+
+
+def f32_window_times(params, run):
+    """Phase 2's float32 rows, Philox mode, in turns: the grid kernel (by
+    plan, weights packed once), the tiled kernel at every tile, the grid
+    kernel again; its empty window (the grid barriers alone), the plain
+    version, the bound (split TF32; the FMA rate's in the log line)."""
+    import torch
+    from msnv_tpu_torch.kernels import sample_window as sw
+    dev = params["mlp"]["embedding"].device
+    rows = []
+    for batch in (1, 128, 1024):
+        table, wh, bh, wo, bo, slots, buf, g = kernel_inputs(
+            params, batch, torch.float32, seed=500 + batch)
+        args = (table, wh, bh, wo, bo, slots, buf)
+        packed = sw.resident_weights(wh, wo, FS0)
+        seed = torch.tensor([5], dtype=torch.int64, device=dev)
+        noise = sw.philox_gumbel_noise(seed, batch, FS0, Q)
+        out = sw.sample_window(*args, seed=seed, packed=packed)
+        grid = lambda: sw.sample_window(                      # noqa: E731
+            *args, seed=seed, packed=packed)
+        ms = cuda_ms(grid, **run)
+        tiled = {tile: cuda_ms(lambda: sw.sample_window(     # noqa: B023
+            *args, seed=seed, path="tiled", tile=tile), **run)
+            for tile in sw.TILES}
+        ms = min(ms, cuda_ms(grid, **run))
+        alone = cuda_ms(grid, 20)
+        empty = cuda_ms(lambda: sw.empty_window(              # noqa: B023
+            batch, FS0, Q, DIM, dev, torch.float32), **run)
+        plain = cuda_ms(lambda: sw.sample_window_reference(   # noqa: B023
+            *args, noise), 5)
+        bound, by = window_bound_ms(*args, out)
+        fma, fma_by = window_bound_ms(*args, out, peak=PEAK_OPS["float32"])
+        best = min(tiled, key=tiled.get)
+        limits = sw.device_limits(dev, FS0, Q, DIM, torch.float32)
+        plan = sw.window_plan(batch, FS0, Q, DIM, torch.float32, *limits)
+        # the tile the tiled kernel's own plan names: what a float32 window
+        # took before the grid kernel
+        planned = sw.window_plan(batch, FS0, Q, DIM, torch.float32, 0,
+                                 limits[1], limits[2], 0).subtile
+        row = {"batch": batch, "dtype": "float32", "mode": "philox",
+               "path": plan.path, "groups": plan.cluster,
+               "replicas": plan.clusters, "tile": plan.subtile, "ms": ms,
+               "alone_ms": alone, "empty_window_ms": empty,
+               "tiled_ms_by_tile": tiled, "tiled_ms": tiled[best],
+               "tiled_best_tile": best, "tiled_planned_tile": planned,
+               "tiled_planned_ms": tiled[planned], "plain_ms": plain,
+               "bound_ms": bound, "bound_by": by}
+        rows.append(row)
+        log(f"[kernel] B={batch} float32: grid {ms:.4f} ms/window "
+            f"({plan.clusters} replicas of {plan.cluster} CTAs, tile "
+            f"{plan.subtile}; {ms / FS0 * 1e3:.1f} us/sample; one call "
+            f"alone {alone:.4f}), empty window {empty:.4f}; tiled kernel "
+            + ", ".join(f"tile {t} {v:.4f}" for t, v in tiled.items())
+            + f" (its plan's tile {planned}); grid / best tile "
+            f"{ms / tiled[best]:.3f}; plain {plain:.4f}, bound {bound:.5f} "
+            f"({by}, split TF32; at the FMA rate {fma:.5f}, {fma_by})")
+    slower = [r["batch"] for r in rows
+              if not r["ms"] < r["tiled_planned_ms"]]
+    if slower:
+        raise AssertionError(f"the grid kernel is not faster than the "
+                             f"float32 tiled kernel at its planned tile at "
+                             f"B {slower}")
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -684,11 +832,18 @@ def phase_generate(params, cfg, batch, frames):
         "w": params["mlp"]["out"]["w"] * 1e4,
         "b": params["mlp"]["out"]["b"] * 1e4}))
     _, seq_g = generate_fn(sharp, cfg, temperature=0.0)(cond, spk)
+    _reset_window_counts()                  # the float32 kernel path
     _, seq_k = generate_fn(sharp, cfg, use_kernel=True)(
         cond, spk, torch.Generator(device=dev).manual_seed(1))
+    sharp_launches = sample_window.launches
+    windows = 2 * cfg.frame_sizes[-1]
+    if dev.type == "cuda" and (sharp_launches, sample_window.grid) != (
+            windows, windows):
+        raise AssertionError("the float32 kernel path's windows did not all "
+                             "take the grid kernel")
     mismatch = float((seq_k != seq_g).float().mean())
-    log(f"[generate] kernel path vs greedy on sharpened logits: mismatch "
-        f"{mismatch:.4%}")
+    log(f"[generate] kernel path (float32, grid kernel) vs greedy on "
+        f"sharpened logits: mismatch {mismatch:.4%}")
     if not mismatch < 0.02:
         raise AssertionError(f"kernel path mismatch {mismatch:.4%}")
 
@@ -725,6 +880,55 @@ def phase_generate(params, cfg, batch, frames):
     log(f"[generate] B={batch} x {frames} frames bf16 kernel path: "
         f"{wall:.3f} s for {n / 16000:.2f} audio-s = {rate:.2f} "
         f"audio-s/s; {launches} kernel launches, {resident} resident")
+
+    # float32 (generate_fn's default type, as the metrics plugin and a
+    # float32 artifact run it): every window through the grid kernel, and
+    # what phase 2's float32 tiled time per window would make of the wall.
+    # A run is tens of ms of host time: one whole run to warm up, then the
+    # median of several
+    gen32 = generate_fn(params, cfg, use_kernel=True, temperature=1.0)
+    gen32(cond, spk, torch.Generator(device=dev).manual_seed(0))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    runs = 5 if dev.type == "cuda" else 1
+    walls = []
+    _reset_window_counts()                  # the float32 generation
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        audio, seq = gen32(cond, spk,
+                           torch.Generator(device=dev).manual_seed(0))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    launches, grid = sample_window.launches, sample_window.grid
+    if not (torch.isfinite(audio).all() and tuple(audio.shape) == (
+            batch, frames * cfg.lookback) and seq.min() >= 0
+            and seq.max() < cfg.q_levels):
+        raise AssertionError("float32 generated audio out of range")
+    if dev.type == "cuda" and not (
+            launches == grid == runs * frames * cfg.frame_sizes[-1]):
+        raise AssertionError(f"float32: {launches} kernel launches, {grid} "
+                             f"of them grid, in {runs} runs")
+    out = {"batch": batch, "frames": frames, "runs": runs, "seconds": wall,
+           "seconds_each": walls, "audio_s_per_s": n / 16000 / wall,
+           "launches": launches, "grid": grid,
+           "sharpened_launches": sharp_launches}
+    row = next((r for r in RESULTS.get("f32_shapes", ())
+                if r["batch"] == batch), None)
+    if row is not None:
+        tiled_wall = wall + launches / runs * (row["tiled_ms"]
+                                               - row["ms"]) / 1e3
+        out["tiled_implied_audio_s_per_s"] = n / 16000 / tiled_wall
+    RESULTS["generate_f32"] = out
+    log(f"[generate] B={batch} x {frames} frames float32 kernel path: "
+        f"median of {runs} runs {wall:.3f} s (each "
+        + ", ".join(f"{w:.4f}" for w in walls)
+        + f") = {out['audio_s_per_s']:.2f} audio-s/s; {launches} "
+        f"kernel launches, {grid} grid"
+        + ("" if row is None else
+           f"; with phase 2's float32 tiled window instead: "
+           f"{out['tiled_implied_audio_s_per_s']:.2f} audio-s/s"))
 
 
 # --------------------------------------------------------------------------
@@ -1660,7 +1864,7 @@ def phase_loop(dev, dim, batch, seq_len, utts, frames):
 def _reset_window_counts():
     from msnv_tpu_torch.kernels.sample_window import sample_window
     sample_window.launches = 0
-    sample_window.resident = sample_window.tiled = 0
+    sample_window.resident = sample_window.grid = sample_window.tiled = 0
 
 
 def _window_counts():
@@ -2217,6 +2421,9 @@ def _gan_phase(exp, dev, batch, seq_len, channels, out):
         raise AssertionError(f"shared dgrad differs: {errs}")
     out["gan_f32_shared_vs_naive"] = errs
     if on_card:
+        out["gan_f32_cudnn_tf32_gap"] = _cudnn_tf32_gap(
+            gan, Recorder, cfg, train, params0, disc0, args)
+    if on_card:
         # what the shared backward saves: the step's gradients (recorded,
         # nothing updated) against the two-backward form, bf16, same inputs
         rec_step = gan.make_gan_train_step(cfg, train, Recorder(),
@@ -2232,6 +2439,43 @@ def _gan_phase(exp, dev, batch, seq_len, channels, out):
             f"two backwards {out['gan_grads_two_backward_ms']:.3f} ms")
     sync()
     return carry[0]
+
+
+def _cudnn_tf32_gap(gan, Recorder, cfg, train, params, disc, args):
+    """One float32 GAN step (gradients recorded, nothing updated) with
+    cuDNN's TF32 on, as PyTorch's default leaves it, and one with it off,
+    on the same inputs: the gaps of the losses and of the gradients, each
+    over the largest value of the TF32-off step. Leaves TF32 off."""
+    import torch
+    from msnv_tpu_torch.tree import tree_leaves
+    runs = {}
+    try:
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            main_rec, disc_rec = Recorder(), Recorder()
+            *_, metrics = gan.make_gan_train_step(cfg, train, main_rec,
+                                                  disc_rec)(
+                params, disc, {}, {}, *args)
+            runs[tf32] = (metrics, main_rec.grads, disc_rec.grads)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    (m_on, g_on, d_on), (m_off, g_off, d_off) = runs[True], runs[False]
+
+    def tree_gap(a, b):
+        scale = max(float(x.abs().max()) for x in tree_leaves(b))
+        return max(float((x - y).abs().max()) for x, y in
+                   zip(tree_leaves(a), tree_leaves(b))) / scale
+
+    gap = {k: abs(float(m_on[k]) - float(m_off[k])) / abs(float(m_off[k]))
+           for k in ("loss", "disc_loss")}
+    gap.update(disc_grad=tree_gap(d_on, d_off),
+               vocoder_grad=tree_gap(g_on, g_off))
+    log(f"[variants] f32 GAN step, cuDNN TF32 on (PyTorch's default) "
+        f"against off: loss {gap['loss']:.2e}, disc loss "
+        f"{gap['disc_loss']:.2e}, discriminator gradient "
+        f"{gap['disc_grad']:.2e}, vocoder gradient {gap['vocoder_grad']:.2e}"
+        f" of the largest value (phase 11d's float32 bar: 1e-4)")
+    return gap
 
 
 def _plain_steps(exp_model, train, dev, batch, seq_len, n, what, out, key,
@@ -2626,6 +2870,42 @@ def _export_http(art, loaded, cfg, dev, K, seed, windows):
             "off_bucket_bytes": len(off_art)}
 
 
+def _export_f32(export_main, load_artifact, generate_fn, ckpt, loaded, cfg,
+                dev, work, cond, spk, seeded):
+    """A float32 artifact (msnv-export-torch --engine pallas, no --bf16),
+    one generation bucket: its generation equal to the live float32
+    generator's for the same seed, every window of its run through the
+    grid kernel (the counts set to 0 just before it, read just after)."""
+    import torch
+    from msnv_tpu_torch.kernels.sample_window import sample_window
+    lanes, frames = cond.shape[:2]
+    path = os.path.join(work, "f32.msnvt")
+    t0 = time.perf_counter()
+    run_cli(export_main, [
+        "--model", ckpt[0], "--out", path, "--lanes", str(lanes),
+        "--frames", str(frames), "--frame_bucket", "1", "--engine", "pallas",
+        "--device", dev.type])
+    export_s = time.perf_counter() - t0
+    art = load_artifact(path)
+    want = frames * cfg.frame_sizes[-1]
+    _reset_window_counts()                  # the float32 artifact's run
+    got = art.call(loaded, cond, spk, seeded())
+    counts = (sample_window.launches, sample_window.grid)
+    if dev.type == "cuda" and counts != (want, want):
+        raise AssertionError(f"float32 artifact: (launches, grid) = "
+                             f"{counts}, expected ({want}, {want})")
+    live = generate_fn(loaded, cfg, use_kernel=True)(cond, spk, seeded())
+    if not (torch.equal(got[1], live[1]) and torch.equal(got[0], live[0])):
+        raise AssertionError("the float32 artifact's generation differs "
+                             "from the live float32 generator's")
+    log(f"[export] float32 artifact (pallas, bucket ({lanes}, {frames})): "
+        f"exported in {export_s:.2f} s; its generation equal to the live "
+        f"float32 generator's sample for sample; {counts[0]} window "
+        f"launches, {counts[1]} grid")
+    return {"lanes": lanes, "frames": frames, "export_s": export_s,
+            "launches": counts[0], "grid": counts[1]}
+
+
 def phase_export(ckpt, cfg, dev, lanes, frames, K, pushes):
     """The artifact path at full width: msnv-export-torch from phase 4's
     .npz, load, generation and stream pushes against the live path
@@ -2775,6 +3055,9 @@ def phase_export(ckpt, cfg, dev, lanes, frames, K, pushes):
         log(f"[export] torch.profiler trace of one push names {kernel}")
 
         out["http"] = _export_http(art, loaded, cfg, dev, K, 3, windows)
+        out["f32"] = _export_f32(export_main, load_artifact, generate_fn,
+                                 ckpt, loaded, cfg, dev, work,
+                                 cond[:, :4], spk, seeded)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if dev.type == "cuda" and windows.total == 0:
@@ -4608,9 +4891,9 @@ def kernel_entries():
                              "serve_mesh": RESULTS["serve_mesh"][
                                  "window_launches"],
                              "orbax": RESULTS["orbax"]["window_launches"]},
-        # float32 (tiled kernel): samples equal to the plain version's;
-        # bf16 (resident kernel): share of samples that differ on
-        # sharpened logits, tolerance 1 %
+        # float32 on the tiled kernel (path="tiled"): samples equal to the
+        # plain version's; bf16 (resident kernel): share of samples that
+        # differ on sharpened logits, tolerance 1 %
         "exact": RESULTS["max_abs_err"] == 0,
         "max_abs_err": RESULTS["max_abs_err"],
         "bf16_mismatch": RESULTS["bf16_mismatch"],
@@ -4687,7 +4970,39 @@ def kernel_entries():
                        else ""))
             kind = "f32" if mxu == "float32" else "bf16"
             gru.append(entry(d, line, mxu, kind, lib, note))
-    return [window] + gru
+    # the grid kernel: float32 windows, at B 128 (phase 3's batch); its
+    # launches are phase 3's float32 generation (the sharpened greedy check
+    # and B 128 x 16 frames) and phase 10's float32 artifact
+    f32 = next(r for r in RESULTS["f32_shapes"] if r["batch"] == 128)
+    by_path = {"generate_f32": RESULTS["generate_f32"]["launches"]
+               + RESULTS["generate_f32"]["sharpened_launches"],
+               "export_f32": RESULTS["export"]["f32"]["launches"]}
+    grid = {
+        "name": "sample_window_grid",
+        "route": "cuda",
+        "source": "msnv_tpu_torch/csrc/sample_window.cu",
+        "replaces": "msnv_tpu/pallas/sample_kernel.py:44",
+        "also_replaces": ["msnv_tpu/pallas/sample_kernel.py:157",
+                          "msnv_tpu/pallas/sample_kernel.py:183"],
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        # float32, given noise and Philox: samples equal to the plain
+        # version's (TF32 off)
+        "exact": RESULTS["grid_max_abs_err"] == 0,
+        "max_abs_err": RESULTS["grid_max_abs_err"],
+        "ms": f32["ms"],
+        "ms_tiled_kernel_f32": f32["tiled_ms"],
+        "ms_tiled_kernel_f32_planned_tile": f32["tiled_planned_ms"],
+        "empty_window_ms": f32["empty_window_ms"],
+        "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"],
+        "bound_by": f32["bound_by"],
+        "library_ms": None,
+        "main_shape": {"batch": 128, "fs0": FS0, "q": Q, "dim": DIM,
+                       "dtype": "float32", "mode": "philox"},
+        "shapes": RESULTS["f32_shapes"],
+    }
+    return [window, grid] + gru
 
 
 def main(argv):
@@ -4719,7 +5034,8 @@ def main(argv):
     else:
         dev = torch.device("cuda")
         log(f"[device] {torch.cuda.get_device_name(0)}; torch "
-            f"{torch.__version__}, CUDA {torch.version.cuda}")
+            f"{torch.__version__}, CUDA {torch.version.cuda}; "
+            f"{card_line()}")
         build_kernels()
     cfg = exp.model
     params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)

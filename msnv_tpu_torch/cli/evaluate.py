@@ -29,7 +29,7 @@ def main(argv=None):
     from msnv_tpu_torch.config import parse_tag, tag_from_checkpoint_path
     from msnv_tpu_torch.data.corpus import CorpusConfig, build_corpus
     from msnv_tpu_torch.data.loader import ChunkLoader
-    from msnv_tpu_torch.device import resolve_device
+    from msnv_tpu_torch.device import float32_convolutions, resolve_device
     from msnv_tpu_torch.models.samplernn import init_params, init_tier_state
     from msnv_tpu_torch.training.checkpoint import load_any
     from msnv_tpu_torch.training.step import eval_device_corpus, make_eval_step
@@ -47,6 +47,7 @@ def main(argv=None):
                         "versions")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
+    float32_convolutions()
 
     tag = tag_from_checkpoint_path(args.model)
     cfg = parse_tag(tag)

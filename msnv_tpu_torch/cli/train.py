@@ -215,6 +215,7 @@ def config_from_args(args, spk_dim: int,
 def main(argv=None):
     import torch
 
+    from msnv_tpu_torch.device import float32_convolutions
     from msnv_tpu_torch.models.samplernn import init_params
     from msnv_tpu_torch.parallel.mesh import (init_distributed, make_mesh,
                                               rank_device)
@@ -230,6 +231,7 @@ def main(argv=None):
 
     args = build_parser().parse_args(argv)
     device = rank_device(args.device)
+    float32_convolutions()       # float32 steps and every validation
     world = init_distributed(args.multihost, device)
     if world % args.n_model_shards:
         raise ValueError(f"--n_model_shards {args.n_model_shards} does not "

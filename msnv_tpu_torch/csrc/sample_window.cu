@@ -82,7 +82,48 @@
 // column are FMA in float32, split over thread groups and reduced in a
 // fixed order: exact float32 products, which the tensor cores do not give.
 // It is bound by the latency of its own weight loads (about 19 GB/s into an
-// SM) and stays for float32 and for widths whose weights no cluster holds.
+// SM) and stays only where the card grants the grid kernel's grid no room
+// (and to be timed beside the others).
+//
+// The grid kernel (float32, and bf16 widths no cluster holds;
+// `window_grid`). Float32 W_h and W_o are 5.24 MB at dim 1024: no cluster
+// holds them (16 x 227 KB = 3.6 MB), the card's shared memory does (132 x
+// 227 KB). So G CTAs, the fewest whose shared memory holds them (32 at dim
+// 1024: 160 KB each), each keep dim / G output columns of W_h, all of its
+// depth, and the same dim / G rows of W_o, for the whole window; the
+// caller packs them once so that a CTA's slice is one block that bulk
+// copies bring in. The card holds R such replicas of the weights (4 at dim
+// 1024), and each replica multiplies its own contiguous share of the lanes.
+// One cooperative launch runs the fs0 samples, two grid barriers apart:
+//  - Every CTA also owns a share of the lanes to draw and gather for (the
+//    lanes spread over all CTAs of the grid): it adds the G partial logits
+//    of each of its lanes in group order, then b_o, draws, and gathers x of
+//    the next step (fs0 table rows and the slot row, f32, in position
+//    order) into a (B, dim) buffer in device memory. Barrier.
+//  - Every CTA reads its replica's rows of x (through L2, up to 16 lanes
+//    at a time), multiplies them by its columns of W_h (h = relu(x W_h +
+//    b_h) for its columns), then those columns of h by its rows of W_o, and
+//    writes the partial logits (B, q) of its group to device memory.
+//    Barrier.
+//   x and the partial logits are what crosses between SMs: at B 128 512 KB
+//   and 4 MB a sample. Gathering x once, by the lane's owner, rather than in
+//   every CTA that needs a part of it keeps the table's fs0 rows a lane
+//   from being read G times (at B 128 that would be 168 MB a sample).
+//  - Products are float32 FMA, as in the tiled kernel: the threads of a
+//    column group of 4 split the depth (blocks of 4 depths for W_h, so a
+//    lane's x comes in one 16-byte load), their partial sums meet by
+//    shuffles in a warp (and past 32 through shared memory, in order). The
+//    order is fixed, there are no atomics on data: two runs give the same
+//    bits, and the draws are the plain version's up to the last bits of a
+//    sum. Split TF32 on the tensor cores is left for a later version: its
+//    products keep 22 of 24 bits, and it would have to be shown to keep
+//    the draws equal.
+// What bounds it on an H100 (chip_smoke phase 2): at B 1 the chain of 2
+// fs0 grid barriers and the owner's dependent loads (the partials, then
+// the table rows), about 10 us a sample, 0.06 ms of barriers a window; at
+// B 128 and 1024 the products and what each chunk of lanes costs around
+// them (its rows of x from L2, the shuffles, three CTA barriers): about 5
+// times the FMA floor at B 1024.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1125,6 +1166,400 @@ cudaError_t allow(const void* kernel, size_t smem, int cluster) {
   return err;
 }
 
+// ---------------------------------------------------------------------------
+// The grid kernel: weights in the shared memory of the whole card
+// ---------------------------------------------------------------------------
+
+constexpr int kGridThreads = 256;
+constexpr int kGridTile = 16;   // the most lanes a CTA multiplies at once
+constexpr int kOwnChunk = 8;    // lanes a CTA draws and gathers at once
+
+__host__ __device__ inline uint32_t align16(uint32_t n) {
+  return (n + 15) / 16 * 16;
+}
+
+// threads that split the depth of a product with n columns: a column group
+// of 4 takes kGridThreads / (n / 4) of them
+__host__ __device__ inline int grid_parts(int n) {
+  return kGridThreads / (n / 4);
+}
+
+// floats of partial sums a product of n columns for `tile` lanes keeps in
+// shared memory: one row per warp of a column group, where a group spans
+// several warps
+__host__ __device__ inline int grid_red_floats(int n, int tile) {
+  const int parts = grid_parts(n);
+  return parts > 32 ? parts / 32 * tile * n : 0;
+}
+
+// Shared memory of a CTA of the grid kernel that multiplies `tile` lanes at
+// once (byte offsets): its slice of the packed weights (dim / G columns of
+// W_h as [column group][j][dd][part][4], depth 4 (j P + part) + dd, then
+// the same rows of W_o as [column group of q][row][4]); then, in the same
+// bytes, since the two never run at once, the products' buffers (the rows
+// of x and its columns of h of `tile` lanes, f32, the partial sums of a
+// product) and the owners' (the logits and the windows of kOwnChunk
+// lanes); an mbarrier (the weights' arrival).
+struct GridLayout {
+  int nh;   // columns of W_h (rows of W_o) a CTA keeps
+  uint32_t w_bytes, x_off, h_off, red_off, logits_off, win_off, bar_off,
+      total;
+  __host__ __device__ GridLayout(int fs0, int q, int dim, int groups,
+                                 int wsize, int tile) {
+    nh = dim / groups;
+    w_bytes = (uint32_t)nh * (dim + q) * wsize;
+    x_off = align16(w_bytes);
+    h_off = x_off + tile * dim * 4;
+    red_off = h_off + tile * nh * 4;
+    const int red_h = grid_red_floats(nh, tile),
+              red_o = grid_red_floats(q, tile);
+    const uint32_t products_end =
+        red_off + (red_h > red_o ? red_h : red_o) * 4;
+    logits_off = x_off;
+    win_off = logits_off + kOwnChunk * q * 4;
+    const uint32_t owners_end = win_off + kOwnChunk * fs0 * 4;
+    bar_off = align16(products_end > owners_end ? products_end : owners_end);
+    total = bar_off + 8;
+  }
+};
+
+__host__ __device__ inline bool pow2(int n) {
+  return n > 0 && (n & (n - 1)) == 0;
+}
+
+// whether G CTAs can split the weights in column groups of 4 that the
+// products' thread layout divides
+__host__ bool grid_shape_ok(int fs0, int q, int dim, int groups) {
+  if (fs0 < 1 || !pow2(groups) || dim % groups != 0) return false;
+  const int nh = dim / groups;
+  return pow2(nh) && nh >= 4 && nh <= 4 * kGridThreads && pow2(q) &&
+         q >= 4 && q <= 4 * kGridThreads && dim % (4 * grid_parts(nh)) == 0;
+}
+
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+}
+
+__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
+}
+
+__device__ __noinline__ void grid_stuck(const char* what, unsigned seen,
+                                        unsigned target) {
+  printf("sample_window: grid barrier (%s) stuck at %u of %u (CTA %d)\n",
+         what, seen, target, blockIdx.x);
+  __trap();
+}
+
+// All CTAs of the (cooperative) grid: the writes of every thread before it
+// are visible, through L2, to the reads of every thread after it.
+// Bounded: traps.
+__device__ __forceinline__ void grid_sync(unsigned* counter, unsigned target,
+                                          const char* what) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1u);
+    unsigned seen, spins = 0;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(seen)
+                   : "l"(counter)
+                   : "memory");
+      if (++spins > kSpinLimit) grid_stuck(what, seen, target);
+    } while (seen < target);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// A product of kGridTile-or-fewer lanes with a slice in shared memory:
+//   out(l, c, v): v = sum over i < k of in[l * k + i] * w[c / 4][i][c % 4]
+// for l < TILE and c < n. Thread t takes column group t / P and, for DB 1,
+// the depths i = t % P + j P (P = grid_parts(n)), in order of j; for DB 4
+// the blocks of depths 4 (t % P + j P) + 0 .. 3, in order; by FMA. The P
+// sums of a group meet by a butterfly of shuffles inside a warp (offsets 1,
+// 2, 4, ...) and, where P > 32, the warps' sums are then added in order
+// through `red`; the group's first thread hands them out. Every thread
+// calls it; it ends in a barrier.
+template <int TILE, int DB, typename W, class Out>
+__device__ __forceinline__ void grid_product(const float* in, int k,
+                                             const W* w, int n, float* red,
+                                             Out out) {
+  constexpr int V = TILE * 4;   // sums a thread holds: [lane][column]
+  const int parts = grid_parts(n);
+  const int cg = threadIdx.x / parts, s = threadIdx.x % parts;
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+  const W* const wc = w + (size_t)cg * k * 4;
+  if constexpr (DB == 1) {
+#pragma unroll 4
+    for (int i = s; i < k; i += parts) {
+      float wv[4];
+      load4(wc + (size_t)i * 4, wv);
+#pragma unroll
+      for (int l = 0; l < TILE; ++l) {
+        const float a = in[l * k + i];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[l * 4 + e] = fmaf(a, wv[e], acc[l * 4 + e]);
+      }
+    }
+  } else {
+    // blocks of 4 depths: block b = j P + s is depths 4 b .. 4 b + 3, its
+    // rows of x one 16-byte load a lane; the slice holds, for each j, the
+    // four depths' rows of the P parts side by side ([j][dd][part][4])
+    for (int j = 0; 4 * (j * parts + s) < k; ++j) {
+      const int b = j * parts + s;
+      float4 xv[TILE];
+#pragma unroll
+      for (int l = 0; l < TILE; ++l)
+        xv[l] = *reinterpret_cast<const float4*>(in + l * k + 4 * b);
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) {
+        float wv[4];
+        load4(wc + ((size_t)(j * 4 + dd) * parts + s) * 4, wv);
+#pragma unroll
+        for (int l = 0; l < TILE; ++l) {
+          const float a = dd == 0   ? xv[l].x
+                          : dd == 1 ? xv[l].y
+                          : dd == 2 ? xv[l].z
+                                    : xv[l].w;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[l * 4 + e] = fmaf(a, wv[e], acc[l * 4 + e]);
+        }
+      }
+    }
+  }
+  const int seg = parts < 32 ? parts : 32;
+  for (int off = 1; off < seg; off <<= 1)
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+  if (parts > 32) {
+    if (s % 32 == 0)
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        red[(s / 32 * TILE + i / 4) * n + cg * 4 + i % 4] = acc[i];
+    __syncthreads();
+    if (s == 0)
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const int at = i / 4 * n + cg * 4 + i % 4;
+        float x = red[at];
+        for (int p = 1; p < parts / 32; ++p) x += red[p * TILE * n + at];
+        out(i / 4, cg * 4 + i % 4, x);
+      }
+  } else if (s == 0) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) out(i / 4, cg * 4 + i % 4, acc[i]);
+  }
+  __syncthreads();
+}
+
+// CTA b of a grid of R replicas x G groups: group b % G, replica b / G.
+// Sample k of a window, in every CTA:
+//   its own lanes (LaneShare over the whole grid), kOwnChunk at a time:
+//     the logits of sample k - 1 from the G groups' partial sums (in group
+//     order, then b_o), the draw; the window of step k; x of step k, to xg
+//   grid barrier
+//   its replica's lanes, TILE at a time: their x from xg; its columns of h
+//     = relu(x W_h + b_h); their product with its rows of W_o, to part
+//   grid barrier
+// and after the last sample only the owners' draw. xg is written before
+// the first barrier of a step and read between the two; part written
+// between them and read before the next first one: no buffer is written
+// while a CTA still reads it.
+template <int TILE, typename W>
+__global__ void __launch_bounds__(kGridThreads, 1)
+    window_grid(const W* __restrict__ table, const W* __restrict__ packed,
+                const float* __restrict__ bh, const float* __restrict__ bo,
+                const W* __restrict__ slots, const int* __restrict__ buf,
+                const float* __restrict__ noise,
+                const int64_t* __restrict__ seed, int* out, float* xg,
+                float* part, unsigned* counter, int batch, int fs0, int q,
+                int dim, int groups, Strides st) {
+  extern __shared__ __align__(128) unsigned char gsm[];
+  const GridLayout lay(fs0, q, dim, groups, (int)sizeof(W), TILE);
+  const int nh = lay.nh;
+  const W* const wh_s = reinterpret_cast<const W*>(gsm);
+  const W* const wo_s = wh_s + (size_t)nh * dim;
+  float* const xs = reinterpret_cast<float*>(gsm + lay.x_off);
+  float* const hs = reinterpret_cast<float*>(gsm + lay.h_off);
+  float* const red = reinterpret_cast<float*>(gsm + lay.red_off);
+  float* const lg = reinterpret_cast<float*>(gsm + lay.logits_off);
+  int* const wn = reinterpret_cast<int*>(gsm + lay.win_off);
+  const uint32_t bar_w = smem_addr(gsm + lay.bar_off);
+  const int tid = threadIdx.x, warp = tid >> 5, lane_id = tid & 31;
+  const unsigned nblocks = gridDim.x;
+  const int g = blockIdx.x % groups;
+  const LaneShare rep(batch, gridDim.x / groups, blockIdx.x / groups);
+  const LaneShare own(batch, gridDim.x, blockIdx.x);
+  const uint2 key = philox_key(noise, seed);
+  const W* wtag = nullptr;
+  const int q4 = q / 4, dim4 = dim / 4;
+
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_w)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    request_weights(smem_addr(gsm),
+                    reinterpret_cast<const unsigned char*>(packed) +
+                        (size_t)g * lay.w_bytes,
+                    lay.w_bytes, bar_w);
+  }
+  __syncthreads();   // the mbarrier is ready before anyone waits on it
+
+  unsigned rounds = 0;
+  for (int k = 0; k <= fs0; ++k) {
+    // ---- the lanes this CTA draws and gathers for
+    for (int o = 0; o < own.count; o += kOwnChunk) {
+      const int L0 = own.begin + o;
+      const int no = min(kOwnChunk, own.count - o);
+      if (k > 0) {
+        for (int i = tid; i < no * q4; i += kGridThreads) {
+          const int l = i / q4, c = i % q4 * 4;
+          const float* const p = part + (size_t)(L0 + l) * q + c;
+          float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+          for (int gg = 1; gg < groups; ++gg) {
+            const float4 u = __ldcg(
+                reinterpret_cast<const float4*>(p + (size_t)gg * batch * q));
+            v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
+          }
+          const float4 b = __ldg(reinterpret_cast<const float4*>(bo + c));
+          v.x += b.x, v.y += b.y, v.z += b.z, v.w += b.w;
+          *reinterpret_cast<float4*>(lg + l * q + c) = v;
+        }
+        __syncthreads();
+        for (int l = warp; l < no; l += kGridThreads / 32) {
+          const int s =
+              warp_draw(lg + l * q, q, noise, key, L0 + l, k - 1, fs0);
+          if (lane_id == 0) out[(size_t)(L0 + l) * fs0 + k - 1] = s;
+        }
+        __syncthreads();
+      }
+      if (k < fs0) {
+        // the window of step k: samples k .. k + fs0 - 1 of the sequence
+        // that the input window starts
+        for (int i = tid; i < no * fs0; i += kGridThreads) {
+          const int l = i / fs0, j = k + i % fs0;
+          wn[i] = j < fs0 ? buf[(size_t)(L0 + l) * st.buf_ld + j]
+                          : __ldcg(out + (size_t)(L0 + l) * fs0 + j - fs0);
+        }
+        __syncthreads();
+        for (int i = tid; i < no * dim4; i += kGridThreads) {
+          const int l = i / dim4, d = i % dim4 * 4;
+          float a[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int p = 0; p < fs0; ++p) {
+            float r[4];
+            load4(table + ((size_t)p * q + wn[l * fs0 + p]) * dim + d, r);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a[e] += r[e];
+          }
+          float sr[4];
+          load4(slots + (size_t)(L0 + l) * st.slot_ld_b +
+                    (size_t)k * st.slot_ld_k + d,
+                sr);
+          float x[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            x[e] = round_to(fmaxf(a[e] + sr[e], 0.f), wtag);
+          __stcg(reinterpret_cast<float4*>(xg + (size_t)(L0 + l) * dim + d),
+                 make_float4(x[0], x[1], x[2], x[3]));
+        }
+        __syncthreads();   // the windows are rewritten for the next chunk
+      }
+    }
+    if (k == fs0) break;
+    grid_sync(counter, ++rounds * nblocks, "x");
+    if (k == 0) wait_for_bytes(bar_w, 0, "the weights");
+
+    // ---- this CTA's columns for its replica's lanes, TILE at a time; the
+    // next chunk's x is copied in while one is multiplied
+    const int chunks = (rep.count + TILE - 1) / TILE;
+    for (int c = 0; c < chunks; ++c) {
+      const int L0 = rep.begin + c * TILE;
+      const int nl = min(TILE, rep.count - c * TILE);
+      // unrolled, so that a thread's loads are under way together
+#pragma unroll 16
+      for (int i = tid; i < TILE * dim4; i += kGridThreads) {
+        const int l = i / dim4, d = i % dim4 * 4;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (l < nl)
+          v = __ldcg(reinterpret_cast<const float4*>(
+              xg + (size_t)(L0 + l) * dim + d));
+        *reinterpret_cast<float4*>(xs + l * dim + d) = v;
+      }
+      __syncthreads();
+      grid_product<TILE, 4, W>(xs, dim, wh_s, nh, red,
+                            [&](int l, int col, float v) {
+                              hs[l * nh + col] = round_to(
+                                  fmaxf(v + __ldg(bh + g * nh + col), 0.f),
+                                  wtag);
+                            });
+      // nobody reads buffer c % 2 after the product's closing barrier
+      grid_product<TILE, 1, W>(hs, nh, wo_s, q, red, [&](int l, int col,
+                                                      float v) {
+        if (l < nl) __stcg(part + ((size_t)g * batch + L0 + l) * q + col, v);
+      });
+    }
+    grid_sync(counter, ++rounds * nblocks, "the partial logits");
+  }
+}
+
+// What a grid window costs before it loads, multiplies or draws: its 2 fs0
+// grid barriers, on the same grid.
+__global__ void __launch_bounds__(kGridThreads, 1)
+    window_grid_empty(unsigned* counter, int rounds) {
+  for (int r = 1; r <= rounds; ++r)
+    grid_sync(counter, (unsigned)r * gridDim.x, "the empty grid window");
+}
+
+// a cooperative launch: the runtime refuses a grid that cannot be resident
+// all at once, so a barrier never waits for a CTA that has not started
+struct GridLaunch {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attrs[1];
+  GridLaunch(int blocks, size_t smem, cudaStream_t stream) {
+    config = cudaLaunchConfig_t{};
+    config.gridDim = dim3(blocks);
+    config.blockDim = dim3(kGridThreads);
+    config.dynamicSmemBytes = smem;
+    config.stream = stream;
+    attrs[0].id = cudaLaunchAttributeCooperative;
+    attrs[0].val.cooperative = 1;
+    config.attrs = attrs;
+    config.numAttrs = 1;
+  }
+};
+
+template <typename W>
+const void* grid_kernel(int tile) {
+  switch (tile) {
+    case 1: return reinterpret_cast<const void*>(window_grid<1, W>);
+    case 2: return reinterpret_cast<const void*>(window_grid<2, W>);
+    case 4: return reinterpret_cast<const void*>(window_grid<4, W>);
+    case 8: return reinterpret_cast<const void*>(window_grid<8, W>);
+    case 16: return reinterpret_cast<const void*>(window_grid<16, W>);
+    default: return nullptr;
+  }
+}
+
+const void* grid_kernel_for(int dtype, int tile) {
+  return dtype == 0 ? grid_kernel<float>(tile)
+         : dtype == 1 ? grid_kernel<bf16>(tile)
+                      : nullptr;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1240,6 +1675,96 @@ int sample_window_max_clusters(int fs0, int q, int dim, int cluster) {
   err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &launch.config);
   if (err != cudaSuccess) return -(int)err;
   return clusters;
+}
+
+// The grid kernel (dtype as for the tiled kernel): `replicas` x `groups`
+// CTAs, one cooperative launch. packed: `groups` slices of dim / groups x
+// (dim + q) elements, slice g holding columns g * dim / groups .. of W_h as
+// [column group of 4][j][dd][part][4] (depth 4 (j P + part) + dd, P the
+// threads of a column group) and then the same rows of W_o as [column
+// group of 4 of q][row][4]. tile: lanes a CTA multiplies at once (1, 2, 4,
+// 8 or 16). xg (batch, dim) and part (groups, batch, q) are float32 scratch,
+// counter one unsigned (zeroed here). The other arguments as for the tiled
+// kernel.
+int sample_window_grid_launch(int dtype, int tile, const void* table,
+                              const void* packed, const void* bh,
+                              const void* bo, const void* slots,
+                              const void* buf, const void* noise,
+                              const void* seed, void* out, void* xg,
+                              void* part, void* counter, int batch, int fs0,
+                              int q, int dim, long long buf_ld,
+                              long long slot_ld_b, long long slot_ld_k,
+                              int groups, int replicas, void* stream) {
+  const void* kernel = grid_kernel_for(dtype, tile);
+  if ((noise == nullptr) == (seed == nullptr) || kernel == nullptr ||
+      batch < 1 || replicas < 1 || !grid_shape_ok(fs0, q, dim, groups))
+    return cudaErrorInvalidValue;
+  const GridLayout lay(fs0, q, dim, groups, dtype == 0 ? 4 : 2, tile);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = allow(kernel, lay.total, 1);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(counter, 0, sizeof(unsigned), s);
+  if (err != cudaSuccess) return err;
+  GridLaunch launch(groups * replicas, lay.total, s);
+  Strides st{buf_ld, slot_ld_b, slot_ld_k};
+  void* args[] = {&table, &packed, &bh,  &bo,    &slots, &buf,
+                  &noise, &seed,   &out, &xg,    &part,  &counter,
+                  &batch, &fs0,    &q,   &dim,   &groups, &st};
+  return cudaLaunchKernelExC(&launch.config, kernel, args);
+}
+
+// the grid kernel's grid and shared memory through the 2 fs0 grid barriers
+// of a window, and no other work
+int sample_window_grid_empty_launch(int dtype, int fs0, int q, int dim,
+                                    int groups, int replicas, int tile,
+                                    void* counter, void* stream) {
+  if (dtype < 0 || dtype > 1 || replicas < 1 || tile < 1 ||
+      !grid_shape_ok(fs0, q, dim, groups))
+    return cudaErrorInvalidValue;
+  const GridLayout lay(fs0, q, dim, groups, dtype == 0 ? 4 : 2, tile);
+  const void* kernel = reinterpret_cast<const void*>(window_grid_empty);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = allow(kernel, lay.total, 1);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(counter, 0, sizeof(unsigned), s);
+  if (err != cudaSuccess) return err;
+  GridLaunch launch(groups * replicas, lay.total, s);
+  int rounds = 2 * fs0;
+  void* args[] = {&counter, &rounds};
+  return cudaLaunchKernelExC(&launch.config, kernel, args);
+}
+
+// shared memory of one CTA of the grid kernel with `groups` CTAs a
+// replica that multiplies `tile` lanes at once; -1 where they cannot split
+// the weights
+long long sample_window_grid_smem(int dtype, int fs0, int q, int dim,
+                                  int groups, int tile) {
+  if (dtype < 0 || dtype > 1 || tile < 1 ||
+      !grid_shape_ok(fs0, q, dim, groups))
+    return -1;
+  return (long long)GridLayout(fs0, q, dim, groups, dtype == 0 ? 4 : 2, tile)
+      .total;
+}
+
+// How many CTAs of the grid kernel (its widest tile's code, with the shared
+// memory of `tile` lanes) the current device holds at once (the occupancy
+// API's answer times the SMs). Negative: minus the cudaError_t.
+int sample_window_grid_ctas(int dtype, int fs0, int q, int dim, int groups,
+                            int tile) {
+  const void* kernel = grid_kernel_for(dtype, kGridTile);
+  if (kernel == nullptr || tile < 1 || !grid_shape_ok(fs0, q, dim, groups))
+    return -(int)cudaErrorInvalidValue;
+  const GridLayout lay(fs0, q, dim, groups, dtype == 0 ? 4 : 2, tile);
+  cudaError_t err = allow(kernel, lay.total, 1);
+  int per_sm = 0, sms = 0, dev = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, kGridThreads, lay.total);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return -(int)err;
+  return per_sm * sms;
 }
 
 // the most dynamic shared memory a CTA of the current device may ask for,

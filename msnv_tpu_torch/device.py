@@ -14,3 +14,14 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return device
+
+
+def float32_convolutions():
+    """Run float32 convolutions in float32. PyTorch's default
+    (`torch.backends.cudnn.allow_tf32` True) sends them to cuDNN in TF32,
+    which keeps 10 bits of each operand: on one float32 GAN step at full
+    width (the discriminator's 5 x 5 convolutions) that moves the gradients
+    by more than the port's float32 tolerance (chip_smoke.py phase 9).
+    Float32 matmuls are full float32 by default already. bf16 convolutions
+    are not affected."""
+    torch.backends.cudnn.allow_tf32 = False

@@ -23,14 +23,26 @@ products are tiny; what a step costs besides them decides. Two kernels:
   to the receiver's mbarrier (three exchanges per sample, no barrier), and
   four warps of every CTA gather table rows a step ahead (see the source's
   header).
-- "tiled" (float32 and bf16), the first version: one CTA per tile of 1-8
-  lanes, weights read from L2 for every sample, float32 FMA sums in a
-  fixed order. It stays for float32 (exact products) and for widths whose
-  weights no cluster holds.
+- "grid" (float32, and bf16 widths no cluster holds): float32 W_h and W_o
+  (5.24 MB at the canonical width) fit no cluster but the card's shared
+  memory: the fewest CTAs that hold them (32 at dim 1024, "groups") keep
+  a slice each (columns of W_h, the same rows of W_o; `pack_grid_weights`,
+  once per sampler), and the card holds a few such replicas, each of
+  which multiplies a share of the lanes. One cooperative launch a window,
+  two grid barriers a sample: every CTA draws and gathers x for its own
+  lanes into device memory; then every CTA multiplies its replica's rows
+  of x by its slice and writes its group's partial logits, which the
+  lanes' owners add in group order at the next sample. Float32 FMA in a
+  fixed order (tests/test_torch_sample_window_grid.py emulates its
+  decomposition in plain tensor code).
+- "tiled", the first version: one CTA per tile of 1-8 lanes, weights read
+  from L2 for every sample, float32 FMA sums in a fixed order. It runs
+  only where the card grants neither of the others (and when asked for,
+  to be timed beside them).
 
 `window_plan` chooses between them by shape, type and what the device
-grants, before anything is launched; a CUDA tensor launches the planned
-kernel or raises.
+grants (the occupancy API's answers, `device_limits`), before anything is
+launched; a CUDA tensor launches the planned kernel or raises.
 
 Layouts (the port's choice, lane-major so one CTA reads contiguous rows):
   table (fs0*q, dim)   fused embed+conv, position-major (fused_embed_conv)
@@ -46,8 +58,8 @@ Returns (B, fs0) int32: the fs0 new samples.
 On a CPU tensor `sample_window` runs `sample_window_reference` (in the
 Philox mode on the noise `philox_gumbel_noise` computes: the numbers both
 kernels draw). `sample_window.launches` counts the calls that launched a
-kernel, `.resident` and `.tiled` by kernel. The library is built with nvcc
-at first use into msnv_tpu_torch/build/.
+kernel, `.resident`, `.grid` and `.tiled` by kernel. The library is built
+with nvcc at first use into msnv_tpu_torch/build/.
 
 The Philox mode is also registered as the operator
 `msnv_torch::sample_window` (`sample_window_op`), with
@@ -71,7 +83,7 @@ from msnv_tpu_torch.kernels.build import CSRC, build_library
 
 SOURCE = CSRC / "sample_window.cu"
 TILES = (1, 2, 4, 8)
-PATHS = ("resident", "tiled")
+PATHS = ("resident", "grid", "tiled")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the resident kernel: lanes per sub-tile, warps per CTA, the cluster sizes
 # it may take, padding of its activation rows (bf16) and partial sums (f32)
@@ -84,6 +96,11 @@ _ACT_PAD, _RED_PAD = 8, 4
 _MAX_OWN_H, _MAX_OWN_O = 64, 256
 # the tiled kernel: threads per CTA, columns per load
 _TILED_THREADS, _TILED_VEC = 256, 8
+# the grid kernel: threads per CTA, the lanes a CTA may multiply at once,
+# lanes a CTA draws and gathers at once, the fewest lanes a replica of the
+# weights takes
+GRID_THREADS, GRID_TILES, _OWN_CHUNK = 256, (1, 2, 4, 8, 16), 8
+GRID_TILE, REPLICA_LANES = GRID_TILES[-1], 8
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -113,6 +130,15 @@ def build() -> ctypes.CDLL:
         lib.sample_window_resident_smem.restype = ll
         lib.sample_window_max_clusters.argtypes = [ci] * 4
         lib.sample_window_max_clusters.restype = ci
+        lib.sample_window_grid_launch.argtypes = (
+            [ci, ci] + [vp] * 12 + [ci] * 4 + [ll] * 3 + [ci, ci, vp])
+        lib.sample_window_grid_launch.restype = ci
+        lib.sample_window_grid_empty_launch.argtypes = [ci] * 7 + [vp, vp]
+        lib.sample_window_grid_empty_launch.restype = ci
+        lib.sample_window_grid_smem.argtypes = [ci] * 6
+        lib.sample_window_grid_smem.restype = ll
+        lib.sample_window_grid_ctas.argtypes = [ci] * 6
+        lib.sample_window_grid_ctas.restype = ci
         lib.sample_window_device.argtypes = [ctypes.POINTER(ci)] * 2
         lib.sample_window_device.restype = ci
         lib.sample_window_error_string.argtypes = [ci]
@@ -270,15 +296,73 @@ def unpack_window_weights(packed, dim: int, q: int, cluster: int):
 
 
 # --------------------------------------------------------------------------
+# the grid kernel's weights: packed once, a CTA's slice contiguous
+# --------------------------------------------------------------------------
+
+def _grid_index(dim: int, q: int, groups: int):
+    """Flat indices into W_h (dim, dim) and W_o (dim, q), row-major, shaped
+    (groups, dim / groups * dim) and (groups, dim / groups * q): for each CTA
+    g of a replica its columns g * nh .. of W_h as [column group of 4][j]
+    [dd][part][4], depth 4 (j P + part) + dd (P = the threads of a column
+    group, each taking blocks of four depths: a warp's loads of one dd are
+    neighbours), and the same rows of W_o as [column group of 4 of q][row]
+    [4] (nh = dim / groups): a thread reads four columns of one depth with
+    one load."""
+    nh = dim // groups
+    parts = GRID_THREADS // (nh // 4)
+    g = torch.arange(groups).view(-1, 1, 1, 1, 1, 1)
+    cg = torch.arange(nh // 4).view(1, -1, 1, 1, 1, 1)
+    j = torch.arange(dim // (4 * parts)).view(1, 1, -1, 1, 1, 1)
+    dd = torch.arange(4).view(1, 1, 1, -1, 1, 1)
+    part = torch.arange(parts).view(1, 1, 1, 1, -1, 1)
+    e = torch.arange(4).view(1, 1, 1, 1, 1, -1)
+    idx_h = (4 * (j * parts + part) + dd) * dim + g * nh + cg * 4 + e
+    e = e.view(1, 1, 1, -1)
+    cq = torch.arange(q // 4).view(1, -1, 1, 1)
+    row = torch.arange(nh).view(1, 1, -1, 1)
+    idx_o = (torch.arange(groups).view(-1, 1, 1, 1) * nh + row) * q \
+        + cq * 4 + e
+    return idx_h.reshape(groups, -1), idx_o.reshape(groups, -1)
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_index_on(dim: int, q: int, groups: int, device):
+    return tuple(t.to(device) for t in _grid_index(dim, q, groups))
+
+
+def _check_grid_packable(wh, wo, groups):
+    dim, q = wo.shape
+    if tuple(wh.shape) != (dim, dim):
+        raise ValueError(f"wh {tuple(wh.shape)} does not match wo "
+                         f"{tuple(wo.shape)}")
+    if not grid_shape_ok(1, q, dim, groups):
+        raise ValueError(f"{groups} CTAs cannot split dim {dim} and q {q} "
+                         f"in column groups of 4 and depth blocks of 4 "
+                         f"a thread")
+    return dim, q
+
+
+def pack_grid_weights(wh, wo, groups: int):
+    """wh (dim, dim) and wo (dim, q) -> (groups, dim / groups * (dim + q)) in
+    the order the grid kernel reads: row g is what CTA g of a replica keeps
+    in its shared memory (`_grid_index`), one block for its bulk copies."""
+    dim, q = _check_grid_packable(wh, wo, groups)
+    idx_h, idx_o = _grid_index_on(dim, q, groups, wh.device)
+    return torch.cat([wh.contiguous().reshape(-1)[idx_h],
+                      wo.contiguous().reshape(-1)[idx_o]], dim=1)
+
+
+# --------------------------------------------------------------------------
 # which kernel a window takes
 # --------------------------------------------------------------------------
 
 class WindowPlan(NamedTuple):
-    path: str               # "resident" or "tiled"
-    cluster: int            # CTAs per cluster (tiled: 1)
-    clusters: int           # clusters (tiled: CTAs)
+    path: str               # "resident", "grid" or "tiled"
+    cluster: int            # CTAs per cluster (grid: CTAs per replica of
+                            # the weights; tiled: 1)
+    clusters: int           # clusters (grid: replicas; tiled: CTAs)
     lanes_per_cluster: int  # the most lanes one cluster walks through
-    subtile: int            # lanes in flight at once in a cluster
+    subtile: int            # lanes in flight at once in a cluster (a CTA)
     smem_bytes: int         # dynamic shared memory of a CTA
 
 
@@ -316,6 +400,73 @@ def tiled_smem_bytes(tile: int, fs0: int, q: int, dim: int) -> int:
     return (2 * tile * dim + tile * q + red) * 4 + (tile * fs0 + tile) * 4
 
 
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
+
+
+def grid_smem_bytes(fs0: int, q: int, dim: int, groups: int, wsize: int,
+                    tile: int = 1) -> int:
+    """Shared memory of one CTA of the grid kernel with `groups` CTAs a
+    replica, weights of `wsize` bytes, multiplying `tile` lanes at once: its
+    slice of W_h and W_o; then, in the same bytes, the larger of the
+    products' buffers (x of `tile` lanes and its columns of h, f32, the
+    partial sums of a product whose depth spans more than a warp) and the
+    owners' (the logits and the windows of the lanes it draws for); an
+    mbarrier."""
+    nh = dim // groups
+
+    def red(n):
+        parts = GRID_THREADS // (n // 4)
+        return parts // 32 * tile * n if parts > 32 else 0
+    products = (tile * dim + tile * nh + max(red(nh), red(q))) * 4
+    owners = _OWN_CHUNK * q * 4 + _OWN_CHUNK * fs0 * 4
+    return _align16(_align16(nh * (dim + q) * wsize)
+                    + max(products, owners)) + 8
+
+
+def grid_shape_ok(fs0: int, q: int, dim: int, groups: int) -> bool:
+    """Whether `groups` CTAs split the weights in column groups of 4, and
+    their depth in blocks of 4 a thread, as the grid kernel's products
+    divide them among their threads."""
+    if fs0 < 1 or not _pow2(groups) or dim % groups:
+        return False
+    nh = dim // groups
+    return (_pow2(nh) and 4 <= nh <= 4 * GRID_THREADS and _pow2(q)
+            and 4 <= q <= 4 * GRID_THREADS
+            and dim % (4 * GRID_THREADS // (nh // 4)) == 0)
+
+
+def grid_groups(fs0: int, q: int, dim: int, dtype,
+                smem_bytes: int) -> int:
+    """The fewest CTAs whose shared memory holds W_h and W_o of `dtype`
+    between them (beside the buffers of one lane), for the grid kernel; 0:
+    none."""
+    wsize = torch.empty((), dtype=dtype).element_size()
+    groups = 1
+    while groups <= dim:
+        if (grid_shape_ok(fs0, q, dim, groups) and grid_smem_bytes(
+                fs0, q, dim, groups, wsize) <= smem_bytes):
+            return groups
+        groups *= 2
+    return 0
+
+
+def grid_tile(fs0: int, q: int, dim: int, groups: int, dtype,
+              smem_bytes: int, want: int = GRID_TILE) -> int:
+    """The most lanes (of GRID_TILES, up to `want`) that a CTA of the grid
+    kernel with `groups` CTAs a replica can multiply at once in
+    `smem_bytes`."""
+    wsize = torch.empty((), dtype=dtype).element_size()
+    for tile in reversed([t for t in GRID_TILES if t <= want]):
+        if grid_smem_bytes(fs0, q, dim, groups, wsize, tile) <= smem_bytes:
+            return tile
+    return 1
+
+
 def resident_cluster(fs0: int, q: int, dim: int, smem_bytes: int) -> int:
     """The smallest cluster whose CTAs can hold W_h and W_o (dim x dim,
     dim x q, bf16) between them in whole 16-column tiles, few enough for
@@ -344,16 +495,21 @@ def _tile_for(batch: int, sms: int) -> int:
 
 
 def window_plan(B, fs0, q, dim, dtype, max_clusters, smem_bytes,
-                sms=132) -> WindowPlan:
+                sms=132, grid_ctas=0) -> WindowPlan:
     """Choose the kernel and its launch for a window of B lanes, on a
     device whose CTAs may use `smem_bytes` of shared memory, which has
-    `sms` SMs and holds `max_clusters` clusters of the resident kernel at
-    once (of the size `resident_cluster` names; on a card: the occupancy
-    API's answer). The resident kernel needs bf16 weights, a cluster that
-    holds them and at least one such cluster granted; its clusters share
-    the lanes evenly and walk through them 8 at a time. Everything else
-    takes the tiled kernel: the smallest tile that keeps the CTAs within
-    four per SM. Raises for what neither takes."""
+    `sms` SMs, holds `max_clusters` clusters of the resident kernel at
+    once (of the size `resident_cluster` names) and `grid_ctas` CTAs of
+    the grid kernel (on a card: the occupancy API's answers). The resident
+    kernel needs bf16 weights, a cluster that holds them and at least one
+    such cluster granted; its clusters share the lanes evenly and walk
+    through them 8 at a time. Everything else takes the grid kernel where
+    the card holds the `grid_groups` CTAs that keep the weights: as many
+    replicas of them as it holds, up to one per 8 lanes, share the lanes
+    evenly, each CTA multiplying as many at a time (up to 16) as its
+    shared memory holds beside the weights. What neither takes
+    goes to the tiled kernel: the smallest tile that keeps the CTAs within
+    four per SM. Raises for what no kernel takes."""
     if dtype not in _DTYPES:
         raise TypeError(f"weights must be float32 or bfloat16, got {dtype}")
     if B < 1 or fs0 < 1:
@@ -366,6 +522,15 @@ def window_plan(B, fs0, q, dim, dtype, max_clusters, smem_bytes,
         clusters = min(max_clusters, -(-B // SUBTILE))
         return WindowPlan("resident", cluster, clusters, -(-B // clusters),
                           SUBTILE, resident_smem_bytes(fs0, q, dim, cluster))
+    groups = grid_groups(fs0, q, dim, dtype, smem_bytes) if grid_ctas else 0
+    if groups and grid_ctas >= groups:
+        replicas = min(grid_ctas // groups, -(-B // REPLICA_LANES))
+        per = -(-B // replicas)
+        tile = grid_tile(fs0, q, dim, groups, dtype, smem_bytes,
+                         1 << (per - 1).bit_length())
+        wsize = torch.empty((), dtype=dtype).element_size()
+        return WindowPlan("grid", groups, replicas, per, tile,
+                          grid_smem_bytes(fs0, q, dim, groups, wsize, tile))
     want = _tile_for(B, sms)
     for tile in reversed([t for t in TILES if t <= want]):
         need = tiled_smem_bytes(tile, fs0, q, dim)
@@ -387,16 +552,20 @@ def plan_lanes(plan: WindowPlan, B: int):
             for c in range(plan.clusters)]
 
 
-_limits = {}   # (device index, fs0, q, dim) -> (max clusters, smem, SMs)
+# (device index, fs0, q, dim, dtype) -> (max clusters, smem, SMs, grid CTAs)
+_limits = {}
 
 
-def device_limits(device, fs0, q, dim):
+def device_limits(device, fs0, q, dim, dtype):
     """(clusters of the resident kernel that a CUDA device holds at once at
-    these shapes, most dynamic shared memory of a CTA, SMs): window_plan's
-    last three arguments. 0 clusters where no cluster holds the weights."""
+    these shapes, most dynamic shared memory of a CTA, SMs, CTAs of the
+    grid kernel for weights of `dtype` that it holds at once):
+    window_plan's last four arguments, from the occupancy API. 0 clusters
+    (CTAs) where no cluster (no grid of the card's CTAs) holds the
+    weights."""
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    key = (index, fs0, q, dim)
+    key = (index, fs0, q, dim, dtype)
     if key not in _limits:
         lib = build()
         smem, sms = ctypes.c_int(), ctypes.c_int()
@@ -413,23 +582,42 @@ def device_limits(device, fs0, q, dim):
                                        "differs from resident_smem_bytes")
                 held = lib.sample_window_max_clusters(fs0, q, dim, cluster)
                 _raise_on(lib, max(-held, 0), "occupancy query")
-        _limits[key] = (held, smem.value, sms.value)
+            ctas = 0
+            groups = grid_groups(fs0, q, dim, dtype, smem.value)
+            if groups:
+                # the occupancy with the shared memory of the widest tile
+                # that fits: no narrower one holds fewer CTAs
+                tile = grid_tile(fs0, q, dim, groups, dtype, smem.value)
+                code, wsize = _DTYPES[dtype], torch.empty(
+                    (), dtype=dtype).element_size()
+                if (lib.sample_window_grid_smem(code, fs0, q, dim, groups,
+                                                tile)
+                        != grid_smem_bytes(fs0, q, dim, groups, wsize, tile)):
+                    raise RuntimeError("the kernel's shared-memory plan "
+                                       "differs from grid_smem_bytes")
+                ctas = lib.sample_window_grid_ctas(code, fs0, q, dim, groups,
+                                                   tile)
+                _raise_on(lib, max(-ctas, 0), "grid occupancy query")
+        _limits[key] = (held, smem.value, sms.value, ctas)
     return _limits[key]
 
 
 def resident_weights(wh, wo, fs0: int):
     """What a sampler makes once and hands to every `sample_window` call as
     `packed=`: the packed weights where windows of these weights take the
-    resident kernel, else None (CPU tensors, float32, widths no cluster
-    holds)."""
+    resident or the grid kernel (whose packing does not depend on the
+    batch), else None (CPU tensors, windows that take the tiled
+    kernel)."""
     if wh.device.type != "cuda" or wh.dtype not in _DTYPES:
         return None
     dim, q = wo.shape
     plan = window_plan(1, fs0, q, dim, wh.dtype,
-                       *device_limits(wh.device, fs0, q, dim))
-    if plan.path != "resident":
-        return None
-    return pack_window_weights(wh, wo, plan.cluster)
+                       *device_limits(wh.device, fs0, q, dim, wh.dtype))
+    if plan.path == "resident":
+        return pack_window_weights(wh, wo, plan.cluster)
+    if plan.path == "grid":
+        return pack_grid_weights(wh, wo, plan.cluster)
+    return None
 
 
 # --------------------------------------------------------------------------
@@ -493,12 +681,12 @@ def _check_cuda(table, wh, bh, wo, bo, slots, buf, noise, seed, packed):
 
 
 def _plan_on(device, batch, fs0, q, dim, dtype, path):
-    limits = device_limits(device, fs0, q, dim)
+    limits = device_limits(device, fs0, q, dim, dtype)
     plan = window_plan(batch, fs0, q, dim, dtype, *limits)
     if path is None or path == plan.path:
         return plan
     if path == "tiled":
-        return window_plan(batch, fs0, q, dim, dtype, 0, *limits[1:])
+        return window_plan(batch, fs0, q, dim, dtype, 0, *limits[1:3], 0)
     raise ValueError(f"a window at dim {dim}, q {q} in {dtype} cannot take "
                      f"the {path!r} kernel")
 
@@ -511,14 +699,15 @@ def sample_window(table, wh, bh, wo, bo, slots, buf, *, noise=None,
     `seed`. CPU tensors take the plain version; CUDA tensors launch the
     kernel that `window_plan` names.
 
-    path: "tiled" asks for the tiled kernel where the resident one would
-      run (to time them side by side); "resident" raises where the plan
-      says tiled. tile: the tiled kernel's lanes per CTA (default: by
-      batch). packed: `resident_weights(wh, wo, fs0)`, made once by a
-      caller that samples many windows (or that flattened, as
-      `pack_window_weights_op` returns it); without it the resident
+    path: "tiled" asks for the tiled kernel where another would run (to
+      time them side by side); "resident" or "grid" raises where the plan
+      names another kernel. tile: the tiled kernel's lanes per CTA
+      (default: by batch). packed: `resident_weights(wh, wo, fs0)`, made
+      once by a caller that samples many windows (or flattened, as
+      `pack_window_weights_op` returns it); without it the resident or grid
       kernel's weights are packed in this call. clusters: fewer clusters
-      than the plan's (the draws do not depend on it)."""
+      of the resident kernel than the plan's (the draws do not depend on
+      it)."""
     if path is not None and path not in PATHS:
         raise ValueError(f"path must be one of {PATHS}, got {path!r}")
     batch, fs0, q, dim = _check(table, wh, bh, wo, bo, slots, buf, noise,
@@ -540,35 +729,49 @@ def sample_window(table, wh, bh, wo, bo, slots, buf, *, noise=None,
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     strides = (buf.stride(0), slots.stride(0), slots.stride(1))
-    if plan.path == "resident":
-        if tile is not None:
-            raise ValueError("tile= belongs to the tiled kernel")
-        if clusters is not None and not 1 <= clusters <= plan.clusters:
-            raise ValueError(f"clusters must be in 1..{plan.clusters}, got "
-                             f"{clusters}")
+    if plan.path != "tiled" and tile is not None:
+        raise ValueError("tile= belongs to the tiled kernel")
+    if plan.path != "resident" and clusters is not None:
+        raise ValueError("clusters= belongs to the resident kernel")
+    if plan.path != "tiled":
+        pack = (pack_window_weights if plan.path == "resident"
+                else pack_grid_weights)
         if packed is None:
-            packed = pack_window_weights(wh, wo, plan.cluster)
+            packed = pack(wh, wo, plan.cluster)
         else:
             if packed.dim() == 1 and packed.numel() == (dim + q) * dim:
                 packed = packed.view(plan.cluster, -1)
             if (packed.dtype != table.dtype or packed.device != dev
                     or tuple(packed.shape) != (plan.cluster, (dim + q)
                                                // plan.cluster * dim)):
-                raise ValueError("packed does not hold these weights for a "
-                                 f"cluster of {plan.cluster}")
+                raise ValueError(f"packed does not hold these weights for "
+                                 f"the {plan.path} kernel's "
+                                 f"{plan.cluster} CTAs")
+    if plan.path == "resident":
+        if clusters is not None and not 1 <= clusters <= plan.clusters:
+            raise ValueError(f"clusters must be in 1..{plan.clusters}, got "
+                             f"{clusters}")
         err = lib.sample_window_resident_launch(
             ptr(table), ptr(packed), ptr(bh), ptr(bo), ptr(slots), ptr(buf),
             ptr(noise), ptr(seed), ptr(out), batch, fs0, q, dim, *strides,
             plan.cluster, clusters or plan.clusters, stream)
+    elif plan.path == "grid":
+        f32 = {"dtype": torch.float32, "device": dev}
+        xg = torch.empty((batch, dim), **f32)
+        part = torch.empty((plan.cluster, batch, q), **f32)
+        counter = torch.empty(1, dtype=torch.int32, device=dev)
+        err = lib.sample_window_grid_launch(
+            _DTYPES[table.dtype], plan.subtile, ptr(table), ptr(packed),
+            ptr(bh), ptr(bo), ptr(slots), ptr(buf), ptr(noise), ptr(seed),
+            ptr(out), ptr(xg), ptr(part), ptr(counter), batch, fs0, q, dim,
+            *strides, plan.cluster, plan.clusters, stream)
     else:
-        if clusters is not None:
-            raise ValueError("clusters= belongs to the resident kernel")
         if tile is None:
             tile = plan.subtile
         elif tile not in TILES:
             raise ValueError(f"tile must be one of {TILES}, got {tile}")
         smem = lib.sample_window_smem_bytes(tile, fs0, q, dim)
-        limit = device_limits(dev, fs0, q, dim)[1]
+        limit = device_limits(dev, fs0, q, dim, table.dtype)[1]
         if smem > limit:
             raise ValueError(f"tile {tile} at dim {dim} needs {smem} B of "
                              f"shared memory; the card allows {limit}")
@@ -584,6 +787,7 @@ def sample_window(table, wh, bh, wo, bo, slots, buf, *, noise=None,
 
 sample_window.launches = 0
 sample_window.resident = 0
+sample_window.grid = 0
 sample_window.tiled = 0
 
 
@@ -613,10 +817,10 @@ def _(table, wh, bh, wo, bo, slots, buf, seed, packed):
     schema="(Tensor wh, Tensor wo, int fs0) -> Tensor")
 def pack_window_weights_op(wh, wo, fs0):
     """W_h and W_o for `sample_window_op`'s `packed`, flat ((dim + q) *
-    dim,): `pack_window_weights` for the cluster of the plan that windows
-    of these weights take on this device, decided when the operator runs;
-    where they take no resident kernel, W_h and W_o flattened and joined
-    (which the tiled kernel and the plain version do not read)."""
+    dim,): `resident_weights` for the plan that windows of these weights
+    take on this device, decided when the operator runs; where they take
+    the tiled kernel, W_h and W_o flattened and joined (which the tiled
+    kernel and the plain version do not read)."""
     packed = resident_weights(wh, wo, fs0)
     if packed is None:
         return torch.cat([wh.reshape(-1), wo.reshape(-1)])
@@ -629,16 +833,26 @@ def _(wh, wo, fs0):
     return wh.new_empty(((dim + q) * dim,))
 
 
-def empty_window(batch, fs0, q, dim, device):
-    """Launch the resident kernel's grid for a window of `batch` lanes
-    through its exchanges (three per sample and sub-tile: every CTA sends
-    8 bytes to every CTA of its cluster and waits for everyone's) and no
-    other work: the cost of a window's step-to-step dependence alone, for
-    timing beside the real kernel. Returns the plan."""
-    plan = _plan_on(device, batch, fs0, q, dim, torch.bfloat16, "resident")
+def empty_window(batch, fs0, q, dim, device, dtype=torch.bfloat16):
+    """Launch the grid of the kernel that a window of `batch` lanes with
+    weights of `dtype` takes (resident or grid) through its exchanges and
+    no other work: the cost of a window's step-to-step dependence alone,
+    for timing beside the real kernel. Resident: three rounds per sample
+    and sub-tile in which every CTA sends 8 bytes to every CTA of its
+    cluster and waits for everyone's; grid: its 2 fs0 grid barriers.
+    Returns the plan."""
+    plan = _plan_on(device, batch, fs0, q, dim, dtype, None)
     lib = build()
-    err = lib.sample_window_empty_launch(
-        batch, fs0, q, dim, plan.cluster, plan.clusters,
-        torch.cuda.current_stream(device).cuda_stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if plan.path == "resident":
+        err = lib.sample_window_empty_launch(
+            batch, fs0, q, dim, plan.cluster, plan.clusters, stream)
+    elif plan.path == "grid":
+        counter = torch.empty(1, dtype=torch.int32, device=device)
+        err = lib.sample_window_grid_empty_launch(
+            _DTYPES[dtype], fs0, q, dim, plan.cluster, plan.clusters,
+            plan.subtile, counter.data_ptr(), stream)
+    else:
+        raise ValueError("the tiled kernel has no exchanges")
     _raise_on(lib, err, "empty window launch")
     return plan
