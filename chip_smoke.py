@@ -2754,16 +2754,16 @@ def _synced_wall(dev, fn):
 
 def _push_walls(dev, init_state, push, conds):
     """Host wall of one push per block of `conds` (K, C) from a fresh
-    carry, the push's device work included: -> StepTimer summary (the
+    carry, the push's device work included: -> the median in seconds (the
     first push is the warmup)."""
     import torch
-    from msnv_tpu_torch.utils.profiling import StepTimer
-    timer = StepTimer(warmup=1, sync=dev.type == "cuda")
     carry = init_state(torch.Generator(device=dev).manual_seed(5))
+    walls = []
     for block in conds:
-        with timer:
-            carry, _, _ = push(carry, block[None])
-    return timer.summary()
+        (carry, _, _), wall = _synced_wall(
+            dev, lambda: push(carry, block[None]))
+        walls.append(wall)
+    return float(np.median(walls[1:]))
 
 
 def _export_http(art, loaded, cfg, dev, K, seed, windows):
@@ -3019,8 +3019,7 @@ def phase_export(ckpt, cfg, dev, lanes, frames, K, pushes):
             lambda c, x: a_push(loaded, c, x), pconds)
         live_walls = _push_walls(dev, lambda gen: l_init(1, sspk, gen),
                                  l_push, pconds)
-        out.update(push_ms=walls["p50_s"] * 1e3,
-                   live_push_ms=live_walls["p50_s"] * 1e3)
+        out.update(push_ms=walls * 1e3, live_push_ms=live_walls * 1e3)
         log(f"[export] B=1 K={K} push then a 1-frame tail equal to the live "
             f"pushes; host wall, median of {pushes}: artifact "
             f"{out['push_ms']:.3f} ms, live {out['live_push_ms']:.3f} ms "

@@ -1,0 +1,16 @@
+"""mux_attach_ms_per_tick.stream: the `mux.attach` spans of serving/mux.py
+(the attach splices) summed over the count of `mux.push` spans (ticks), in
+ms, from the program's spans (msnv_tpu_torch/utils/profiling.py) recorded
+in the traced window."""
+
+from msnv_tpu_torch.utils import profiling
+
+
+def read(ctx, win):
+    totals = getattr(profiling, "totals", None)   # a port without spans
+    if totals is None:
+        return None
+    spans = totals()
+    count, _ = spans.get("mux.push", (0, 0.0))
+    _, secs = spans.get("mux.attach", (0, 0.0))
+    return 1e3 * secs / count if count else None

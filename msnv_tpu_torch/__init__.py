@@ -43,8 +43,9 @@ layout mirrors the JAX package so each counterpart is easy to find:
   serving/     — the HTTP vocoder service: the lane-batched /stream
                  multiplexer, the asyncio and the threaded front-ends,
                  the artifact lanes
-  utils/       — logging; profiling (torch.profiler traces, a step
-                 timer, roofline numbers)
+  utils/       — logging; profiling (torch.profiler traces and the
+                 program's spans: the multiplexer's tick, the train
+                 steps' discriminator and optimizer)
 
 Ported so far: serving (forward, generation, streaming, the stream
 multiplexer, the asyncio and threaded HTTP front-ends), the train step,

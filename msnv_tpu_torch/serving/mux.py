@@ -8,6 +8,7 @@ from __future__ import annotations
 import contextlib
 import queue
 import threading
+import time
 
 import numpy as np
 import torch
@@ -19,6 +20,7 @@ from msnv_tpu_torch.parallel.mesh import (batch_sharding, check_mesh,
                                           gather_lanes)
 from msnv_tpu_torch.parallel.serve import TICK
 from msnv_tpu_torch.serving.common import Overloaded, _Fetch
+from msnv_tpu_torch.utils import profiling
 
 
 class StreamMultiplexer:
@@ -62,6 +64,15 @@ class StreamMultiplexer:
     `channel` (parallel/serve.py); the other ranks tick in follow(). The
     audio is all-gathered, and only rank 0 converts and delivers it. The
     ranks' params must be equal; VocoderService(mesh=) sees to that.
+
+    While a torch.profiler records, the pump records spans
+    (utils/profiling.py): `mux.attach` (the splice), `mux.push` (the
+    tick's host-to-device copies, the masked push and the audio fetch's
+    start; over a mesh the whole led tick, its splice nested in it),
+    `mux.wait` and `mux.deliver` (a drained tick's fetch, then its PCM
+    conversion and delivery), and two intervals: `mux.queue` a stream
+    (acquire to the push that first carries its block; request id
+    (lane, gen)) and `mux.inflight` a tick (push end to deliver end).
     """
 
     FETCH_DEPTH = 4
@@ -107,7 +118,10 @@ class StreamMultiplexer:
         #                                reach the lane's NEXT occupant
         self._stop = False
         self._thread = None
-        self._inflight = []    # [(_Fetch of audio, [(lane, gen) served])]
+        self._inflight = []    # [(_Fetch of audio, [(lane, gen) served],
+        #                           its mux.push record or None)]
+        self._queued = {}      # lane -> acquire's time.time_ns(), while
+        #                        a profiler records (mux.queue)
         self.ticks = 0         # masked pushes run by the pump
         # deferred attaches: acquire() only records the lane's speaker row;
         # the pump splices ALL pending lanes in one _attach_many call at the
@@ -187,6 +201,8 @@ class StreamMultiplexer:
                 raise Overloaded(f"all {self.lanes} multiplexer lanes busy")
             lane = self._free.pop()
             self._gen[lane] += 1
+            if profiling.enabled():
+                self._queued[lane] = time.time_ns()
             self._pending[lane] = []
             self._out[lane] = queue.Queue()
             self._spk_rows[lane] = row
@@ -198,11 +214,12 @@ class StreamMultiplexer:
         MUST be called under _carry_lock + _device_lock."""
         if not attach_lanes:
             return
-        mask = np.zeros((self.lanes,), bool)
-        mask[list(attach_lanes)] = True
-        self._carry = self._attach_many(
-            self._carry, torch.from_numpy(mask).to(self.device),
-            torch.from_numpy(self._spk_rows.copy()).to(self.device))
+        with profiling.span("mux.attach"):
+            mask = np.zeros((self.lanes,), bool)
+            mask[list(attach_lanes)] = True
+            self._carry = self._attach_many(
+                self._carry, torch.from_numpy(mask).to(self.device),
+                torch.from_numpy(self._spk_rows.copy()).to(self.device))
 
     # -- over a mesh --------------------------------------------------------
 
@@ -240,8 +257,10 @@ class StreamMultiplexer:
             if attach:
                 mask, rows, rest = rest.split([L, L * S, rest.numel()
                                                - L - L * S])
-                self._carry = self._attach_many(
-                    self._carry, local(mask > 0.5), local(rows.view(L, S)))
+                with profiling.span("mux.attach"):
+                    self._carry = self._attach_many(
+                        self._carry, local(mask > 0.5),
+                        local(rows.view(L, S)))
             if not push:
                 return None
             active, cond = rest.split([L, rest.numel() - L])
@@ -263,6 +282,7 @@ class StreamMultiplexer:
     def release(self, lane: int) -> None:
         with self._cv:
             self._pending.pop(lane, None)
+            self._queued.pop(lane, None)
             self._out.pop(lane, None)
             self._sinks.pop(lane, None)
             self._pending_attach.discard(lane)
@@ -300,24 +320,29 @@ class StreamMultiplexer:
             self._thread.join(timeout=10)
 
     def _drain_one(self):
-        fetch, served = self._inflight.pop(0)
-        audio = fetch.result()
-        # one vectorized float -> PCM16 convert per tick instead of one per
-        # lane per handler: out_queue consumers receive int16 rows
-        pcm = (np.clip(audio, -1.0, 1.0 - 1.0 / 32768)
-               * 32768.0).astype("<i2")
-        for lane, gen in served:
-            # drop audio of released streams; the gen check stops a
-            # recycled lane's new occupant from receiving it
-            if self._gen[lane] != gen:
-                continue
-            sink = self._sinks.get(lane)
-            if sink is not None:
-                sink(pcm[lane].tobytes())
-                continue
-            q = self._out.get(lane)
-            if q is not None:
-                q.put(pcm[lane])
+        fetch, served, pushed = self._inflight.pop(0)
+        with profiling.span("mux.wait"):
+            audio = fetch.result()
+        with profiling.span("mux.deliver") as delivered:
+            # one vectorized float -> PCM16 convert per tick instead of one
+            # per lane per handler: out_queue consumers receive int16 rows
+            pcm = (np.clip(audio, -1.0, 1.0 - 1.0 / 32768)
+                   * 32768.0).astype("<i2")
+            for lane, gen in served:
+                # drop audio of released streams; the gen check stops a
+                # recycled lane's new occupant from receiving it
+                if self._gen[lane] != gen:
+                    continue
+                sink = self._sinks.get(lane)
+                if sink is not None:
+                    sink(pcm[lane].tobytes())
+                    continue
+                q = self._out.get(lane)
+                if q is not None:
+                    q.put(pcm[lane])
+        if pushed is not None and delivered is not None:
+            profiling.interval("mux.inflight", pushed.end_ns,
+                               delivered.end_ns)
 
     def _revalidate_served(self, served, active):
         """Drop lanes recycled between their block pop and the push.
@@ -353,13 +378,18 @@ class StreamMultiplexer:
                 if self._stop:
                     break
                 served, cond = [], None
-                attach_lanes = ()
+                attach_lanes, queued = (), {}
                 if any(self._pending.values()):
                     cond = self._zeros_cond.copy()
                     for lane, blocks in self._pending.items():
                         if blocks:
                             cond[lane] = blocks.pop(0)
                             served.append((lane, self._gen[lane]))
+                    # streams whose first block this is (mux.queue)
+                    if self._queued:
+                        queued = {(lane, gen): self._queued.pop(lane)
+                                  for lane, gen in served
+                                  if lane in self._queued}
                     # pop deferred attaches under the SAME _cv hold as the
                     # block pop: every acquire whose feed produced a popped
                     # block is in this snapshot (or an earlier tick's)
@@ -374,20 +404,30 @@ class StreamMultiplexer:
             with self._carry_lock, self._device_lock:
                 if self.mesh is not None:
                     self._revalidate_served(served, active)
-                    audio = self._lead_tick(attach_lanes,
-                                            cond if served else None, active)
                     if not served:
+                        self._lead_tick(attach_lanes, None, active)
                         continue
+                    with profiling.span("mux.push") as pushed:
+                        fetch = _Fetch(self._lead_tick(attach_lanes, cond,
+                                                       active))
                 else:
                     self._flush_attaches(attach_lanes)
                     self._revalidate_served(served, active)
                     if not served:
                         continue
-                    self._carry, audio = self._masked_push(
-                        self._carry, torch.from_numpy(cond).to(self.device),
-                        torch.from_numpy(active).to(self.device))
-                    self.ticks += 1
-            self._inflight.append((_Fetch(audio), served))
+                    with profiling.span("mux.push") as pushed:
+                        self._carry, audio = self._masked_push(
+                            self._carry,
+                            torch.from_numpy(cond).to(self.device),
+                            torch.from_numpy(active).to(self.device))
+                        self.ticks += 1
+                        fetch = _Fetch(audio)
+            if pushed is not None:
+                for req in served:
+                    if req in queued:
+                        profiling.interval("mux.queue", queued[req],
+                                           pushed.start_ns, request=req)
+            self._inflight.append((fetch, served, pushed))
             while len(self._inflight) > self.FETCH_DEPTH:
                 self._drain_one()
         while self._inflight:

@@ -39,6 +39,10 @@ the adaptive multiplier reads L2, and both gradient trees are reduced
 gradient dL1_r - lambda dL2_r averages to the global batch's, since both
 losses are means over equal shards. The replicas of both trees must be
 equal when the first step runs (`broadcast_tree`; Trainer sees to it).
+
+While a torch.profiler records, the step times two sections of its stream
+on the device (utils/profiling.py): `train.disc`, the discriminator's
+forward and its one backward, and `train.optim`, both optimizers' updates.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from msnv_tpu_torch.training.step import (_forward, check_mesh_specs,
                                           grad_leaves, grads_like,
                                           state_stop_gradient)
 from msnv_tpu_torch.tree import tree_leaves
+from msnv_tpu_torch.utils import profiling
 
 METRICS = ("loss", "disc_loss", "lambda")
 
@@ -128,10 +133,13 @@ def _make_gan_core(model_cfg: ModelConfig, train_cfg: TrainConfig,
             latent = latent.to(torch.float32)
             l1 = nll_bits_from_logits(logits, target)
             lat = latent.detach().requires_grad_(True)
-            l2 = _disc_loss(d_leaves, lat, spk, compute_dtype)
-        # the one discriminator backward: its weight gradients and g_latent
-        *d_grads, g_latent = torch.autograd.grad(
-            l2, tree_leaves(d_leaves) + [lat], allow_unused=True)
+        with profiling.section("train.disc", data.device):
+            with torch.enable_grad():
+                l2 = _disc_loss(d_leaves, lat, spk, compute_dtype)
+            # the one discriminator backward: its weight gradients and
+            # g_latent
+            *d_grads, g_latent = torch.autograd.grad(
+                l2, tree_leaves(d_leaves) + [lat], allow_unused=True)
         l1_all, l2_all = l1.detach(), l2.detach()
         if mesh is not None:
             l1_all, l2_all = data_mean(mesh, [l1_all, l2_all])
@@ -147,10 +155,11 @@ def _make_gan_core(model_cfg: ModelConfig, train_cfg: TrainConfig,
                 mesh, {"vocoder": grads, "disc": d_grads}, None)
             grads = shard_params(mesh, both["vocoder"], specs)
             d_grads = both["disc"]
-        params, main_opt_state = main_opt.update(grads, main_opt_state,
-                                                 params)
-        disc_params, disc_opt_state = disc_opt.update(
-            d_grads, disc_opt_state, disc_params)
+        with profiling.section("train.optim", data.device):
+            params, main_opt_state = main_opt.update(grads, main_opt_state,
+                                                     params)
+            disc_params, disc_opt_state = disc_opt.update(
+                d_grads, disc_opt_state, disc_params)
         metrics = {"loss": l1_all, "disc_loss": l2_all, "lambda": lam}
         return (params, disc_params, main_opt_state, disc_opt_state,
                 state_stop_gradient(new_state), metrics)

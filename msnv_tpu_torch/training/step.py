@@ -38,6 +38,9 @@ start equal stay bit-identical: the replicas must be equal when the first
 step runs (`broadcast_tree`; Trainer sees to it). Exposure-bias draws are
 made at the global batch's shape from the step's generator and sliced, so
 a sharded run draws what the single-device run draws.
+
+While a torch.profiler records, the train step times its optimizer update
+on the device as the section `train.optim` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from msnv_tpu_torch.parallel.mesh import (batch_sharding, check_mesh,
                                           corpus_sharding, data_mean,
                                           gather_params, reduce_gradients)
 from msnv_tpu_torch.tree import tree_leaves, tree_map
+from msnv_tpu_torch.utils import profiling
 
 
 def exposure_tuple(train_cfg) -> Optional[tuple]:
@@ -179,7 +183,8 @@ def _train_core(cfg, optimizer, compute_dtype, exposure, mesh, specs):
             full, cfg, state, data, reset, target, cond, spk, compute_dtype)
         if mesh is not None:
             grads, loss = reduce_gradients(mesh, grads, specs, loss)
-        params, opt_state = optimizer.update(grads, opt_state, params)
+        with profiling.section("train.optim", data.device):
+            params, opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, new_state, loss
 
     return step
