@@ -1925,10 +1925,10 @@ def _stream_stats(starts, firsts, ends, frames, lookback):
 
 def push_host_times(mux):
     """Record the host wall of each masked push the pump dispatches (no
-    synchronize: the launches, and what the host waits for between
-    them)."""
+    synchronize: the inputs' copies and the launches, on a card one graph
+    replay, and what the host waits for between them)."""
     times = []
-    push = mux._masked_push
+    push = mux._tick
 
     def timed(*args):
         t0 = time.perf_counter()
@@ -1936,7 +1936,7 @@ def push_host_times(mux):
         times.append(time.perf_counter() - t0)
         return out
 
-    mux._masked_push = timed
+    mux._tick = timed
     return times
 
 

@@ -57,9 +57,12 @@ Returns (B, fs0) int32: the fs0 new samples.
 
 On a CPU tensor `sample_window` runs `sample_window_reference` (in the
 Philox mode on the noise `philox_gumbel_noise` computes: the numbers both
-kernels draw). `sample_window.launches` counts the calls that launched a
-kernel, `.resident`, `.grid` and `.tiled` by kernel. The library is built
-with nvcc at first use into msnv_tpu_torch/build/.
+kernels draw). `sample_window.launches` counts the windows launched: the
+calls that launched a kernel, and a captured CUDA graph's windows each
+time it is replayed (serving/mux.py adds them; its capture, and the
+scratch push before it, count none); `.resident`, `.grid` and `.tiled` by
+kernel. The library is built with nvcc at first use into
+msnv_tpu_torch/build/.
 
 The Philox mode is also registered as the operator
 `msnv_torch::sample_window` (`sample_window_op`), with

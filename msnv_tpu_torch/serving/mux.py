@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from msnv_tpu_torch.config import ModelConfig
+from msnv_tpu_torch.kernels.sample_window import PATHS, sample_window
 from msnv_tpu_torch.models.generate import streaming_fn
 from msnv_tpu_torch.parallel.generate import shard_generator
 from msnv_tpu_torch.parallel.mesh import (batch_sharding, check_mesh,
@@ -21,6 +22,26 @@ from msnv_tpu_torch.parallel.mesh import (batch_sharding, check_mesh,
 from msnv_tpu_torch.parallel.serve import TICK
 from msnv_tpu_torch.serving.common import Overloaded, _Fetch
 from msnv_tpu_torch.utils import profiling
+
+
+def _tensors(carry):
+    spk_vec, buf, hs, _ = carry
+    return [spk_vec, buf, *hs]
+
+
+def _own(carry):
+    """The carry with each tensor a contiguous copy of its own (`fresh()`
+    gives the hidden state as expand views of the learned h0)."""
+    spk_vec, buf, hs, generator = carry
+    own = lambda t: t.clone(memory_format=torch.contiguous_format)  # noqa
+    return (own(spk_vec), own(buf), [own(h) for h in hs], generator)
+
+
+def _write(carry, new):
+    """Copy `new`'s tensors into `carry`'s, in place."""
+    for dst, src in zip(_tensors(carry), _tensors(new)):
+        if dst is not src:
+            dst.copy_(src)
 
 
 class StreamMultiplexer:
@@ -32,7 +53,11 @@ class StreamMultiplexer:
     per-stream RTF ~ 1/N. Here every pump tick advances ALL lanes with
     pending conditioner frames in a single masked K-frame push, and the
     sample-window kernel takes the lanes as its batch, so the launches are
-    paid once per tick for all lanes.
+    paid once per tick for all lanes. On a card without a mesh they are
+    paid once in all: the pump captures the masked push as a CUDA graph at
+    its first tick and replays it every tick (`_PushGraph`; `replays`
+    counts the ticks that ran so), its conditioners and mask copied in
+    from pinned host buffers without blocking the host.
 
     Mechanics:
     - lanes attach/detach dynamically: acquire() records the lane's speaker
@@ -42,6 +67,10 @@ class StreamMultiplexer:
       the start of its tick — N concurrent connects cost one splice, not N.
       `_masked_push` advances the batch and keeps inactive lanes' state
       frozen with torch.where.
+    - the carry's tensors keep their addresses for the multiplexer's life:
+      `_masked_push` and `_attach_many` return a new carry, and the pump
+      copies it into those tensors in place (`_write`, `_advance`), which
+      is what lets a captured graph read and write them on every replay.
     - the pump fetch-pipelines like the per-connection path: each tick's
       audio copy starts at dispatch (pinned memory + an event) and drains
       FETCH_DEPTH ticks behind.
@@ -69,6 +98,7 @@ class StreamMultiplexer:
     (utils/profiling.py): `mux.attach` (the splice), `mux.push` (the
     tick's host-to-device copies, the masked push and the audio fetch's
     start; over a mesh the whole led tick, its splice nested in it),
+    `mux.replay` (the graph's replay, nested in `mux.push`),
     `mux.wait` and `mux.deliver` (a drained tick's fetch, then its PCM
     conversion and delivery), and two intervals: `mux.queue` a stream
     (acquire to the push that first carries its block; request id
@@ -101,10 +131,19 @@ class StreamMultiplexer:
         self._generator = (
             shard_generator(mesh, int(seed)) if mesh is not None else
             torch.Generator(device=self.device).manual_seed(int(seed)))
-        self._carry = self._init_state(
+        self._carry = _own(self._init_state(
             self._local_lanes,
             torch.zeros((self._local_lanes,), dtype=torch.int64,
-                        device=self.device), self._generator)
+                        device=self.device), self._generator))
+        # on a card without a mesh the pump's push is a CUDA graph (made at
+        # its first tick) fed through pinned buffers, and so is the splice's
+        # input; over a mesh the collectives sit inside the tick
+        self._graphed = self.device.type == "cuda" and mesh is None
+        self._graph = None
+        self._attach_in = (_Staging(
+            [torch.zeros((self.lanes,), dtype=torch.bool, device=self.device),
+             torch.zeros((self.lanes, cfg.spk_dim), device=self.device)],
+            self.FETCH_DEPTH + 1) if self._graphed else None)
         self._zeros_cond = np.zeros(
             (self.lanes, self.K, cfg.effective_cond_dim), np.float32)
         self._cv = threading.Condition()
@@ -123,6 +162,7 @@ class StreamMultiplexer:
         self._queued = {}      # lane -> acquire's time.time_ns(), while
         #                        a profiler records (mux.queue)
         self.ticks = 0         # masked pushes run by the pump
+        self.replays = 0       # of them, those run as a graph replay
         # deferred attaches: acquire() only records the lane's speaker row;
         # the pump splices ALL pending lanes in one _attach_many call at the
         # start of its next tick (before any block of theirs is pushed —
@@ -153,6 +193,28 @@ class StreamMultiplexer:
         hs3 = [torch.where(active[None, :, None], h2, h)
                for h2, h in zip(hs2, hs)]
         return (spk_vec, buf3, hs3, generator), audio
+
+    @torch.no_grad()
+    def _advance(self, carry, cond, active):
+        """The pump's masked push: the new buffer and hidden state copied
+        into `carry`'s own tensors -> audio."""
+        new, audio = self._masked_push(carry, cond, active)
+        _write(carry, new)
+        return audio
+
+    def _tick(self, cond, active):
+        """One masked push of the carry from host `cond` (lanes, K, C) and
+        `active` (lanes,) -> the audio on the device. MUST be called under
+        _carry_lock + _device_lock."""
+        self.ticks += 1
+        if not self._graphed:
+            return self._advance(self._carry,
+                                 torch.from_numpy(cond).to(self.device),
+                                 torch.from_numpy(active).to(self.device))
+        if self._graph is None:
+            self._graph = _PushGraph(self)
+        self.replays += 1
+        return self._graph.replay(cond, active)
 
     @torch.no_grad()
     def _attach_many(self, carry, mask, spk_rows):
@@ -217,9 +279,12 @@ class StreamMultiplexer:
         with profiling.span("mux.attach"):
             mask = np.zeros((self.lanes,), bool)
             mask[list(attach_lanes)] = True
-            self._carry = self._attach_many(
-                self._carry, torch.from_numpy(mask).to(self.device),
-                torch.from_numpy(self._spk_rows.copy()).to(self.device))
+            if self._attach_in is not None:
+                mask, rows = self._attach_in.put(mask, self._spk_rows)
+            else:
+                mask = torch.from_numpy(mask).to(self.device)
+                rows = torch.from_numpy(self._spk_rows.copy()).to(self.device)
+            _write(self._carry, self._attach_many(self._carry, mask, rows))
 
     # -- over a mesh --------------------------------------------------------
 
@@ -258,13 +323,13 @@ class StreamMultiplexer:
                 mask, rows, rest = rest.split([L, L * S, rest.numel()
                                                - L - L * S])
                 with profiling.span("mux.attach"):
-                    self._carry = self._attach_many(
+                    _write(self._carry, self._attach_many(
                         self._carry, local(mask > 0.5),
-                        local(rows.view(L, S)))
+                        local(rows.view(L, S))))
             if not push:
                 return None
             active, cond = rest.split([L, rest.numel() - L])
-            self._carry, audio = self._masked_push(
+            audio = self._advance(
                 self._carry, local(cond.view(L, self.K, -1)),
                 local(active > 0.5))
             self.ticks += 1
@@ -416,12 +481,7 @@ class StreamMultiplexer:
                     if not served:
                         continue
                     with profiling.span("mux.push") as pushed:
-                        self._carry, audio = self._masked_push(
-                            self._carry,
-                            torch.from_numpy(cond).to(self.device),
-                            torch.from_numpy(active).to(self.device))
-                        self.ticks += 1
-                        fetch = _Fetch(audio)
+                        fetch = _Fetch(self._tick(cond, active))
             if pushed is not None:
                 for req in served:
                     if req in queued:
@@ -433,3 +493,108 @@ class StreamMultiplexer:
         while self._inflight:
             self._drain_one()
 
+
+# the sample-window kernel's launch counters
+_COUNTERS = ("launches",) + PATHS
+
+
+def _window_counts():
+    return {k: getattr(sample_window, k) for k in _COUNTERS}
+
+
+def _add_window_counts(counts):
+    for k, n in counts.items():
+        setattr(sample_window, k, getattr(sample_window, k) + n)
+
+
+class _Staging:
+    """Host arrays into fixed device tensors without blocking the host:
+    `put` writes them into a slot of pinned host buffers and copies the
+    slot into the tensors with non_blocking=True on the current stream.
+
+    A slot is written again only after an event recorded behind its
+    copies has completed. With FETCH_DEPTH + 1 slots and one put a tick
+    that wait never blocks: before tick n is pushed the pump has drained
+    every tick up to n - FETCH_DEPTH - 1, and each drained tick's fetch
+    event was recorded after its inputs' copies. Should a slot come round
+    sooner (a splice in a tick whose lanes were all recycled), the wait
+    holds the host until that slot's copies have run."""
+
+    def __init__(self, targets, slots):
+        self.targets = targets
+        self._host = [[torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                       for t in targets] for _ in range(slots)]
+        self._copied = [torch.cuda.Event() for _ in range(slots)]
+        self._next = 0
+
+    def put(self, *arrays):
+        """-> the target tensors, their copies from `arrays` enqueued."""
+        i = self._next
+        self._next = (i + 1) % len(self._host)
+        self._copied[i].synchronize()
+        for host, array, target in zip(self._host[i], arrays, self.targets):
+            host.numpy()[...] = array
+            target.copy_(host, non_blocking=True)
+        self._copied[i].record()
+        return self.targets
+
+
+class _PushGraph:
+    """The pump's masked push (`StreamMultiplexer._advance` on the carry),
+    captured once as a CUDA graph and replayed every tick: its ~1,100
+    launches (K frames of the tiers, K x lookback / fs0 sample windows)
+    reach the card as one graph launch.
+
+    The graph reads the conditioners and the mask from fixed device
+    tensors, which `replay` fills from pinned host buffers (`_Staging`),
+    and writes the carry's own tensors and a fixed audio tensor. It
+    replays on the pump's current stream, where the tick's `_Fetch`
+    records its copy of the audio, so the next replay overwrites the audio
+    only after that copy.
+
+    Making it draws nothing from the carry's generator and leaves the
+    carry as it is: one push on copies of both, on the capture's stream,
+    meets every lazy initialisation of the push (cuBLAS's workspace, the
+    window kernel's plan) outside the capture, and the capture runs
+    nothing. The generator is registered with the graph, so each replay
+    draws what the eager push would have drawn and advances the generator
+    as far.
+
+    `sample_window`'s counters count the windows of the pump's ticks: the
+    scratch push and the capture leave them as they were, and each replay
+    adds the windows of the captured push.
+    """
+
+    def __init__(self, mux):
+        dev = mux.device
+        self.cond = torch.zeros(
+            (mux.lanes, mux.K, mux.cfg.effective_cond_dim), device=dev)
+        self.active = torch.zeros((mux.lanes,), dtype=torch.bool, device=dev)
+        self._inputs = _Staging([self.cond, self.active],
+                                mux.FETCH_DEPTH + 1)
+        generator = mux._carry[3]
+        scratch = torch.Generator(device=dev)
+        scratch.set_state(generator.get_state())
+        before = _window_counts()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            mux._advance(_own(mux._carry[:3] + (scratch,)), self.cond,
+                         self.active)
+        self.windows = {k: n - before[k]
+                        for k, n in _window_counts().items()}
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(generator)
+        with torch.cuda.graph(self.graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            self.audio = mux._advance(mux._carry, self.cond, self.active)
+        _add_window_counts({k: before[k] - n
+                            for k, n in _window_counts().items()})
+
+    def replay(self, cond, active):
+        """One tick from host `cond` and `active` -> the audio tensor."""
+        self._inputs.put(cond, active)
+        with profiling.span("mux.replay"):
+            self.graph.replay()
+        _add_window_counts(self.windows)
+        return self.audio

@@ -29,6 +29,8 @@ from msnv_tpu.serving import VocoderService as JaxService
 from msnv_tpu_torch.ops.quantize import q_zero
 from msnv_tpu_torch.serving import (Overloaded, StreamMultiplexer,
                                     VocoderService, make_server)
+from msnv_tpu_torch.serving.mux import _tensors
+import torch_mux_graph
 import torch_parallel
 from torch_parity import both_params, torch_cfg
 
@@ -71,12 +73,16 @@ def test_attach_splices_fresh_state(params):
     """acquire() defers the splice; the pump's _flush_attaches applies
     every pending lane in one call. After the flush the lane holds fresh
     state (q_zero buffer, learned h0) while other lanes' dirty state is
-    untouched."""
+    untouched; the push and the splice write into the carry's own
+    tensors."""
     mux = StreamMultiplexer(params[1], TCFG, lanes=3, frames_per_push=1)
+    ptrs = [t.data_ptr() for t in _tensors(mux._carry)]
     cond = torch.ones((3, C))
-    mux._carry, _ = mux._masked_push(mux._carry, cond,
-                                     torch.tensor([True] * 3))
-    _, dirty_buf, dirty_hs, _ = mux._carry
+    mux._advance(mux._carry, cond, torch.tensor([True] * 3))
+    _, dirty_buf, dirty_hs, _ = (t.clone() if torch.is_tensor(t) else
+                                 [h.clone() for h in t] if
+                                 isinstance(t, list) else t
+                                 for t in mux._carry)
     lane = mux.acquire(np.asarray([2], np.int32))
     assert lane in mux._pending_attach          # deferred, not applied
     with mux._cv:
@@ -84,6 +90,7 @@ def test_attach_splices_fresh_state(params):
         mux._pending_attach = set()
     with mux._carry_lock, mux._device_lock:
         mux._flush_attaches(attach)             # what a pump tick does
+    assert [t.data_ptr() for t in _tensors(mux._carry)] == ptrs
     spk_vec, buf, hs, _ = mux._carry
     assert (buf[lane] == q_zero(CFG.q_levels)).all()
     for t, h in enumerate(hs):
@@ -98,6 +105,43 @@ def test_attach_splices_fresh_state(params):
     for h_d, h in zip(dirty_hs, hs):
         assert torch.equal(h[:, other], h_d[:, other])
     mux.release(lane)
+
+
+@pytest.mark.parametrize("temperature", [1.0, 0.0])
+def test_in_place_carry_matches_rebinding(params, temperature):
+    """The pump's splices and pushes write into a carry at fixed addresses
+    (the form a CUDA graph replays); over acquires, an attach while other
+    lanes run, a release and the same lane taken again, with a frozen lane
+    every third tick, they give the audio and the state of the same
+    splices and pushes applied by rebinding a carry, exactly."""
+    run = torch_mux_graph.sequence(params[1], TCFG, temperature=temperature)
+    torch_mux_graph.same_as_rebinding(run)
+    assert run["ticks"] == torch_mux_graph.TICKS and run["replays"] == 0
+
+
+@pytest.fixture(scope="module")
+def card_params():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (there: python3 "
+                    "tests/torch_mux_graph.py)")
+    return torch_mux_graph.card_model()
+
+
+@pytest.mark.parametrize("temperature", [1.0, 0.0])
+def test_graphed_mux_matches_eager_pushes(card_params, temperature):
+    """On a card the pump replays one captured graph a tick: over 12 ticks
+    with a mid-run attach and a recycled lane, its samples and carry equal
+    eager pushes' from the same seed, the generator's state too; every
+    tick is a replay and adds one push's windows (K x lookback / fs0) to
+    the launch counter."""
+    torch_mux_graph.graphed_same_as_eager(*card_params, temperature)
+
+
+def test_graph_capture_leaves_generator_and_carry(card_params):
+    """Capture draws nothing from the live generator and leaves the carry
+    and the window counters alone; a replay advances the generator as an
+    eager push does."""
+    torch_mux_graph.capture_leaves_state(*card_params)
 
 
 def test_lane_exhaustion_and_reuse(params):
