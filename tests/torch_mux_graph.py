@@ -6,7 +6,8 @@ their input as it is), from a generator seeded alike.
 Torch and the port only (no JAX), so that the card's checks run where JAX
 is absent: tests/test_torch_serving_mux.py calls these on the CPU and,
 where a card is present, on it; on the card `PYTHONPATH=. python3
-tests/torch_mux_graph.py` runs the card's checks alone.
+tests/torch_mux_graph.py [preset ...]` runs the card's checks alone, at
+the widths of each preset named (default: samplernn).
 """
 
 from __future__ import annotations
@@ -22,18 +23,19 @@ from msnv_tpu_torch.models.samplernn import init_params
 from msnv_tpu_torch.serving import StreamMultiplexer
 from msnv_tpu_torch.serving.mux import _PushGraph, _tensors
 
-# the ticks where streams arrive (acquire; a speaker id, or "mix": a row
-# of mix weights) or leave (release): two attach at tick 0, a third while
-# they run, one leaves and its lane is taken again by the next arrival
+# the ticks where streams arrive (acquire; a speaker id, modulo the
+# model's speakers, or "mix": a row of mix weights) or leave (release): two
+# attach at tick 0, a third while they run, one leaves and its lane is
+# taken again by the next arrival
 ARRIVE = {0: [0, "mix"], 3: [2], 7: ["mix"]}
 LEAVE = {6: 1}            # tick -> index of the stream (in arrival order)
 TICKS = 12
 
 
-def card_model():
-    """The benchmark's widths (`preset("samplernn")`), its weights drawn on
-    the CPU and moved to the card."""
-    cfg = preset("samplernn").model
+def card_model(name="samplernn"):
+    """A benchmark configuration's widths (`preset(name)`), its weights
+    drawn on the CPU and moved to the card."""
+    cfg = preset(name).model
     return init_params(cfg, torch.Generator().manual_seed(0),
                        device="cuda"), cfg
 
@@ -68,8 +70,9 @@ def sequence(params, cfg, lanes=4, K=2, temperature=1.0, seed=3):
             held[LEAVE[tick]] = None
         for spk in ARRIVE.get(tick, []):
             mix = rng.dirichlet(np.ones(cfg.spk_dim))[None].astype(np.float32)
-            held.append(mux.acquire(mix if spk == "mix"
-                                    else np.asarray([spk], np.int32)))
+            held.append(mux.acquire(
+                mix if spk == "mix"
+                else np.asarray([spk % cfg.spk_dim], np.int32)))
         with mux._cv:
             attach, mux._pending_attach = mux._pending_attach, set()
         active = np.zeros((lanes,), bool)
@@ -121,7 +124,7 @@ def capture_leaves_state(params, cfg, lanes=8, K=4):
     generator as one eager push does."""
     mux = StreamMultiplexer(params, cfg, lanes=lanes, frames_per_push=K,
                             seed=5)
-    lane = mux.acquire(np.asarray([1], np.int32))
+    lane = mux.acquire(np.asarray([1 % cfg.spk_dim], np.int32))
     with mux._carry_lock, mux._device_lock:
         mux._flush_attaches({lane})
     tensors, state = _snapshot(mux._carry)
@@ -156,17 +159,19 @@ def graphed_same_as_eager(params, cfg, temperature):
     assert run["windows"] == [windows] * TICKS
 
 
-def main():
-    params, cfg = card_model()
-    for temperature in (1.0, 0.0):
-        graphed_same_as_eager(params, cfg, temperature)
-        print(f"graphed mux == eager pushes at T {temperature}", flush=True)
-    capture_leaves_state(params, cfg)
-    print("capture leaves the generator, the carry and the counters",
-          flush=True)
+def main(names):
+    for name in names or ["samplernn"]:
+        params, cfg = card_model(name)
+        for temperature in (1.0, 0.0):
+            graphed_same_as_eager(params, cfg, temperature)
+            print(f"{name}: graphed mux == eager pushes at T {temperature}",
+                  flush=True)
+        capture_leaves_state(params, cfg)
+        print(f"{name}: capture leaves the generator, the carry and the "
+              f"counters", flush=True)
     print("ok")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
