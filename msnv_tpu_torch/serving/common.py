@@ -67,6 +67,10 @@ class _Fetch:
         else:
             self.host = audio
 
+    def done(self) -> bool:
+        """Whether the copy has completed (an event query, no wait)."""
+        return self.event is None or self.event.query()
+
     def result(self) -> np.ndarray:
         if self.event is not None:
             self.event.synchronize()

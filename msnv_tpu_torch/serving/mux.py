@@ -23,6 +23,9 @@ from msnv_tpu_torch.parallel.serve import TICK
 from msnv_tpu_torch.serving.common import Overloaded, _Fetch
 from msnv_tpu_torch.utils import profiling
 
+# ticks the card holds: the one running and one queued behind it
+_ON_CARD = 2
+
 
 def _tensors(carry):
     spk_vec, buf, hs, _ = carry
@@ -71,9 +74,14 @@ class StreamMultiplexer:
       `_masked_push` and `_attach_many` return a new carry, and the pump
       copies it into those tensors in place (`_write`, `_advance`), which
       is what lets a captured graph read and write them on every replay.
-    - the pump fetch-pipelines like the per-connection path: each tick's
-      audio copy starts at dispatch (pinned memory + an event) and drains
-      FETCH_DEPTH ticks behind.
+    - the pump fetch-pipelines: each tick's audio copy starts at dispatch
+      (pinned memory + an event), and the pump delivers a tick as soon as
+      its fetch has completed. The card holds at most two ticks, the one
+      running and one queued behind it: the pump pops tick n's blocks only
+      once tick n - 2's fetch has completed, so a stream acquired while
+      tick n - 1 runs rides tick n. One queued tick keeps the card fed
+      while the host's share of a tick is the smaller; `starved` counts
+      the ticks pushed after the card had finished every earlier one.
     - randomness: ONE torch.Generator on the params' device lives in the
       carry and advances per tick for the whole batch (like batched
       generation) — a multiplexed stream gets the same distribution but a
@@ -99,13 +107,17 @@ class StreamMultiplexer:
     tick's host-to-device copies, the masked push and the audio fetch's
     start; over a mesh the whole led tick, its splice nested in it),
     `mux.replay` (the graph's replay, nested in `mux.push`),
-    `mux.wait` and `mux.deliver` (a drained tick's fetch, then its PCM
-    conversion and delivery), and two intervals: `mux.queue` a stream
-    (acquire to the push that first carries its block; request id
-    (lane, gen)) and `mux.inflight` a tick (push end to deliver end).
+    `mux.starved` (zero-length, nested in the `mux.push` of a tick that
+    `starved` counts), `mux.wait` and `mux.deliver` (a tick's fetch,
+    then its PCM conversion and delivery), and two intervals: `mux.queue`
+    a stream (acquire to the push that first carries its block; request
+    id (lane, gen)) and `mux.inflight` a tick (push end to deliver end).
     """
 
-    FETCH_DEPTH = 4
+    # ticks pushed when the card had already finished every earlier tick
+    # (it waited on the host); declared on the class, so a reader can tell
+    # a pump that counts them from one that does not
+    starved = 0
 
     def __init__(self, params, cfg: ModelConfig, lanes: int = 32,
                  frames_per_push: int = 4, temperature: float = 1.0,
@@ -143,7 +155,7 @@ class StreamMultiplexer:
         self._attach_in = (_Staging(
             [torch.zeros((self.lanes,), dtype=torch.bool, device=self.device),
              torch.zeros((self.lanes, cfg.spk_dim), device=self.device)],
-            self.FETCH_DEPTH + 1) if self._graphed else None)
+            _ON_CARD) if self._graphed else None)
         self._zeros_cond = np.zeros(
             (self.lanes, self.K, cfg.effective_cond_dim), np.float32)
         self._cv = threading.Condition()
@@ -385,6 +397,7 @@ class StreamMultiplexer:
             self._thread.join(timeout=10)
 
     def _drain_one(self):
+        """Wait for the oldest tick's fetch, then deliver its audio."""
         fetch, served, pushed = self._inflight.pop(0)
         with profiling.span("mux.wait"):
             audio = fetch.result()
@@ -432,8 +445,24 @@ class StreamMultiplexer:
         with torch.no_grad(), on_device:
             self._pump_loop()
 
+    def _count_starved(self):
+        """Before a push: count it in `starved`, with a zero-length
+        `mux.starved` span, if every earlier tick's fetch has completed
+        (the card has nothing left to run and waits on the host)."""
+        if all(fetch.done() for fetch, _, _ in self._inflight):
+            self.starved += 1
+            with profiling.span("mux.starved"):
+                pass
+
     def _pump_loop(self):
         while True:
+            # deliver every tick that has finished, in order; then, with
+            # ticks n - 2 and n - 1 still on the card, wait for n - 2
+            # before popping tick n, so the card holds at most _ON_CARD
+            while self._inflight and self._inflight[0][0].done():
+                self._drain_one()
+            while len(self._inflight) >= _ON_CARD:
+                self._drain_one()
             with self._cv:
                 while not self._stop and not any(self._pending.values()):
                     # nothing to push: finish draining, then sleep
@@ -473,6 +502,7 @@ class StreamMultiplexer:
                         self._lead_tick(attach_lanes, None, active)
                         continue
                     with profiling.span("mux.push") as pushed:
+                        self._count_starved()
                         fetch = _Fetch(self._lead_tick(attach_lanes, cond,
                                                        active))
                 else:
@@ -481,6 +511,7 @@ class StreamMultiplexer:
                     if not served:
                         continue
                     with profiling.span("mux.push") as pushed:
+                        self._count_starved()
                         fetch = _Fetch(self._tick(cond, active))
             if pushed is not None:
                 for req in served:
@@ -488,8 +519,6 @@ class StreamMultiplexer:
                         profiling.interval("mux.queue", queued[req],
                                            pushed.start_ns, request=req)
             self._inflight.append((fetch, served, pushed))
-            while len(self._inflight) > self.FETCH_DEPTH:
-                self._drain_one()
         while self._inflight:
             self._drain_one()
 
@@ -513,10 +542,11 @@ class _Staging:
     slot into the tensors with non_blocking=True on the current stream.
 
     A slot is written again only after an event recorded behind its
-    copies has completed. With FETCH_DEPTH + 1 slots and one put a tick
-    that wait never blocks: before tick n is pushed the pump has drained
-    every tick up to n - FETCH_DEPTH - 1, and each drained tick's fetch
-    event was recorded after its inputs' copies. Should a slot come round
+    copies has completed. With one slot for each tick the card holds
+    (_ON_CARD) and one put a tick that wait never blocks: tick n's put
+    takes the slot of tick n - _ON_CARD's, and the pump pops tick n only
+    once every tick up to n - _ON_CARD has finished, whose fetch event
+    was recorded after its inputs' copies. Should a slot come round
     sooner (a splice in a tick whose lanes were all recycled), the wait
     holds the host until that slot's copies have run."""
 
@@ -570,8 +600,7 @@ class _PushGraph:
         self.cond = torch.zeros(
             (mux.lanes, mux.K, mux.cfg.effective_cond_dim), device=dev)
         self.active = torch.zeros((mux.lanes,), dtype=torch.bool, device=dev)
-        self._inputs = _Staging([self.cond, self.active],
-                                mux.FETCH_DEPTH + 1)
+        self._inputs = _Staging([self.cond, self.active], _ON_CARD)
         generator = mux._carry[3]
         scratch = torch.Generator(device=dev)
         scratch.set_state(generator.get_state())

@@ -16,6 +16,7 @@ import dataclasses
 import gc
 import http.client
 import json
+import queue
 import threading
 
 import jax.numpy as jnp
@@ -26,6 +27,7 @@ import torch
 from msnv_tpu.config import ModelConfig
 from msnv_tpu.serving import StreamMultiplexer as JaxMultiplexer
 from msnv_tpu.serving import VocoderService as JaxService
+import msnv_tpu_torch.serving.mux as mux_mod
 from msnv_tpu_torch.ops.quantize import q_zero
 from msnv_tpu_torch.serving import (Overloaded, StreamMultiplexer,
                                     VocoderService, make_server)
@@ -247,6 +249,75 @@ def test_pump_revalidates_recycled_lane_before_push(params):
         mux._revalidate_served(served, active)
     assert served == [(lane2, mux._gen[lane2])] and active[lane2]
     mux.release(lane2)
+
+
+def test_pump_holds_one_tick_behind_the_running_one(params, monkeypatch):
+    """The card holds at most two ticks. With fetches that complete when
+    the test says: the pump has at most two unfinished ticks; it pops tick
+    n only once tick n - 2's fetch has completed, so a stream acquired
+    while tick n - 1 is unfinished rides tick n; it delivers each tick
+    once its fetch completes, in order; and `starved` counts exactly the
+    ticks pushed with no earlier tick unfinished."""
+    made, waits = [], queue.Queue()
+
+    class Held:
+        def __init__(self, audio):
+            self.audio = audio.numpy()
+            self.finished = threading.Event()
+            self.behind = sum(not f.done() for f in made)
+            made.append(self)
+
+        def done(self):
+            return self.finished.is_set()
+
+        def result(self):
+            if not self.done():
+                waits.put(made.index(self))
+            assert self.finished.wait(60)
+            return self.audio
+
+    monkeypatch.setattr(mux_mod, "_Fetch", Held)
+    mux = StreamMultiplexer(params[1], TCFG, lanes=4, frames_per_push=1)
+    served, tick = [], mux._tick
+
+    def logged(cond, active):
+        served.append(set(np.flatnonzero(active).tolist()))
+        return tick(cond, active)
+
+    monkeypatch.setattr(mux, "_tick", logged)
+    rng = np.random.RandomState(0)
+    blocks = lambda n: [rng.rand(1, C).astype(np.float32)  # noqa: E731
+                        for _ in range(n)]
+    a = mux.acquire(np.asarray([0], np.int32))
+    mux.feed(a, blocks(4))
+    mux.start()
+    try:
+        # tick 0 pushed starved, tick 1 behind it; tick 2 waits for tick 0
+        assert waits.get(timeout=60) == 0
+        assert len(made) == 2 and mux.starved == 1
+        b = mux.acquire(np.asarray([1], np.int32))   # tick 1 unfinished
+        mux.feed(b, blocks(1))
+        for i, pushed in ((0, 3), (1, 4), (2, 4)):
+            assert mux.out_queue(a).empty() and mux.out_queue(b).empty()
+            made[i].finished.set()
+            mux.out_queue(a).get(timeout=60)         # tick i, once done
+            assert waits.get(timeout=60) == i + 1    # then tick i + 1
+            assert len(made) == pushed
+        mux.out_queue(b).get(timeout=60)             # tick 2
+        made[3].finished.set()
+        mux.out_queue(a).get(timeout=60)
+        mux.feed(b, blocks(1))                       # nothing unfinished
+        assert waits.get(timeout=60) == 4
+        made[4].finished.set()
+        mux.out_queue(b).get(timeout=60)
+    finally:
+        for f in made:
+            f.finished.set()
+        mux.stop()
+    assert not mux._thread.is_alive()
+    assert served == [{a}, {a}, {a, b}, {a}, {b}]
+    assert max(f.behind for f in made) == 1
+    assert mux.starved == sum(f.behind == 0 for f in made) == 2
 
 
 def test_unstarted_stream_generator_releases_lane(params):
