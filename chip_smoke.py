@@ -10,9 +10,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 canonical shape (fs0 20, q 256, dim 1024): float32 (the
                 grid kernel by plan: weights in the shared memory of 32
                 CTAs, replicated over the card; its counter moves, the
-                tiled one does not), given noise and Philox, B 1/2/32/128/
-                1024, and the tiled kernel at every tile (path="tiled") up
-                to B 128: samples equal exactly (TF32 off); bf16 (the
+                resident one does not), given noise and Philox, B 1/2/32/
+                128/1024: samples equal exactly (TF32 off); bf16 (the
                 resident kernel by plan: weights in a cluster's shared
                 memory), given noise and Philox, B 1/2/32/128/1024 and the
                 ragged 3/17/130, and at the narrow (fs0 4, dim 128): on a
@@ -21,27 +20,25 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 near-tie), two runs bit-equal, and at B 128 and 1024 200
                 runs in each mode bit-equal to the first (a race shows as
                 a rare run that differs), and the same for float32 on the
-                grid kernel; a bf16 width no cluster holds (dim 2048) takes
-                the grid kernel by plan; the Philox draws pass a chi-square
-                test against the softmax and are the same with 1 cluster,
-                with the most the card grants, from the grid kernel and from
-                the tiled kernel at every tile; times as medians over runs
-                of 10 calls: bf16 resident / tiled kernel / empty window /
-                plain / bound, and float32 at B 1, 128 and 1024 grid / the
-                tiled kernel at every tile / the grid's empty window (its
-                barriers alone) / plain / bound (FMA rate, split TF32 beside
-                it), the grid faster than the tiled kernel at the tile its
-                own plan names (what float32 windows took before) at every
-                batch, its ratio to the best tile logged
+                grid kernel; a bf16 width that no kernel takes (dim 640)
+                is refused on the card in both modes, with no launch
+                counted; a bf16 width no cluster holds (dim 2048) takes
+                the grid kernel by plan; the Philox
+                draws pass a chi-square test against the softmax and are
+                the same from the resident kernel, the grid kernel and the
+                plain version; times as medians over runs of 10 calls:
+                bf16 resident / empty window / plain / bound, and float32
+                at B 1, 128 and 1024 grid / the grid's empty window (its
+                barriers alone) / plain / bound (split TF32, the FMA floor
+                beside it); the bounds are the benchmark's
+                (h100_bench/flops.py)
   3. generate — full-width `samplernn` from a seeded init: the model stack
                 on the card agrees with its teacher-forced predictor and with
                 greedy decoding on a small input (float32 windows: the grid
                 kernel), then generate_fn with the kernel (bf16, B 128, 16
                 frames, T 1), every window through the resident kernel, and
                 the same in float32 (generate_fn's default), every window
-                through the grid kernel — audio-seconds/second, the float32
-                one beside what phase 2's float32 tiled window would make
-                of it
+                through the grid kernel — audio-seconds/second
   4. serve    — VocoderService + make_server on 127.0.0.1 from a JAX-format
                 .npz written here: /healthz, two /synthesize, two /stream
                 (every window through the resident kernel), bad bodies (400)
@@ -58,7 +55,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 the FMA per-step ones; tolerance 1e-4 of the largest
                 reference value: another summation order over K = 1024 /
                 3072, compounded over T steps) and with bfloat16 products
-                on the persistent and on the per-step kernels (3e-2: a sum
+                on the kernels the plan names (3e-2: a sum
                 that differs in its last bits can round h to the
                 neighbouring bf16 value, and the next steps carry that on);
                 two runs bit-equal, and 200 runs of each persistent sweep
@@ -67,13 +64,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 the autograd.Function (dx_proj, dw, db,
                 dh0) in float32 and bfloat16 against autograd through the
                 plain forward; a shape the kernels cannot take raises;
-                at B 128 in each type, persistent / per-step / plain /
-                nn.GRU in the same type times, each the median over runs
-                of 10 calls in a row, the persistent kernels faster than
-                the per-step ones at T 52 (nn.GRU's weights in one cuDNN
-                buffer, any warning in its timed calls an error; bf16: the
-                empty sweep, and the module as flatten_parameters() leaves
-                it timed beside; float32: TF32 off, the FMA floor)
+                at B 128 in each type, persistent / plain / nn.GRU in the
+                same type times, each the median over runs of 10 calls in a
+                row (nn.GRU's weights in one cuDNN buffer, any warning in
+                its timed calls an error; bf16: the empty sweep, and the
+                module as flatten_parameters() leaves it timed beside;
+                float32: TF32 off, the FMA floor); the bounds are the
+                benchmark's (h100_bench/flops.py)
   6. train    — the train step at full width (B 128, seq_len 1040, bf16
                 mixed precision, gru_impl="pallas"): one step with reset,
                 six without, on one fixed batch; losses finite and falling,
@@ -309,15 +306,16 @@ import warnings
 
 import numpy as np
 
+from h100_bench import peaks
+from h100_bench.flops import gru_sweep_bound_s, window_bound_s
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 FS0, Q, DIM = 20, 256, 1024
-HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
-# dense peaks: bf16 tensor cores; float32 on the CUDA cores (FMA); float32
-# products in split TF32 on the tensor cores, three TF32 products (495
-# TFLOP/s) for each float32 one. A float32 bound (K1 and K2) takes the
-# split-TF32 rate, the fastest the card computes float32 products at; the
-# FMA rate is printed beside it as a floor of the CUDA cores alone.
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "float32_tf32x3": 165e12}
+# The bounds (K1 and K2) are the benchmark's (h100_bench/flops.py): a
+# float32 one at the split-TF32 rate, the fastest the card computes float32
+# products at. The CUDA cores' FMA rate (H100 SXM data sheet) is printed
+# beside it as a floor of the CUDA cores alone.
+FMA_FLOPS = 67e12
 RESULTS = {}
 REPEAT_RUNS = 200           # phase 2: runs of a window on the same inputs
 
@@ -351,33 +349,10 @@ def cuda_ms(fn, iters, warmup=3, batch=1):
 # phase 2: the kernel against its plain version
 # --------------------------------------------------------------------------
 
-def window_bound_ms(table, wh, bh, wo, bo, slots, buf, out, noise=None,
-                    peak=None):
-    """Least time for one window call: the larger of (bytes it must move,
-    each input read once — only the table rows this run's windows touch —
-    over HBM bandwidth) and (its multiply-adds over the peak rate for the
-    weight type, float32 in split TF32, or over `peak`)."""
-    import torch
-    batch, fs0 = buf.shape
-    q = wo.shape[1]
-    dim = table.shape[1]
-    seq = torch.cat([buf, out], dim=1).long()
-    pos = torch.arange(fs0, device=buf.device)
-    rows = torch.stack([pos * q + seq[:, k:k + fs0] for k in range(fs0)])
-    distinct = int(torch.unique(rows).numel())
-    nbytes = (distinct * dim * table.element_size()
-              + wh.numel() * wh.element_size() + wo.numel() * wo.element_size()
-              + 4 * (bh.numel() + bo.numel())
-              + slots.numel() * slots.element_size() + 4 * buf.numel()
-              + 4 * out.numel()
-              + (0 if noise is None else 4 * noise.numel()))
-    ops = batch * fs0 * (2 * (dim * dim + dim * q) + fs0 * dim)
-    if peak is None:
-        peak = PEAK_OPS["bfloat16" if table.dtype == torch.bfloat16
-                        else "float32_tf32x3"]
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def window_fma_floor_ms(batch, fs0=FS0, q=Q, dim=DIM):
+    """A float32 window's products at the CUDA cores' FMA peak."""
+    return batch * fs0 * (2 * (dim * dim + dim * q) + fs0 * dim) \
+        / FMA_FLOPS * 1e3
 
 
 def kernel_inputs(params, batch, dtype, seed):
@@ -420,6 +395,9 @@ def sharpened(wo, bo, dtype):
 
 
 RAGGED = (3, 17, 130)
+# a width no kernel takes (no cluster splits dim 640 in tiles of 16
+# columns, no power-of-two CTA slice holds it): the card refuses it
+ODD_DIM = 640
 
 
 def phase_kernel(params, batches, narrow):
@@ -429,13 +407,11 @@ def phase_kernel(params, batches, narrow):
     on_card = dev.type == "cuda"
     bf16 = torch.bfloat16
     max_err = 0
-    counts = lambda: (sw.sample_window.resident,              # noqa: E731
-                      sw.sample_window.grid, sw.sample_window.tiled)
-    # given noise, f32: exact equality with the plain version, the grid
-    # kernel (which the plan names for float32), then the tiled kernel at
-    # every tile (path="tiled")
+    counts = lambda: (sw.sample_window.launches,              # noqa: E731
+                      sw.sample_window.resident, sw.sample_window.grid)
+    # given noise, f32: exact equality with the plain version, on the grid
+    # kernel (which the plan names for float32)
     f32_batches = tuple(batches) + ((1024,) if on_card else ())
-    tiled_err = 0
     for batch in f32_batches:
         table, wh, bh, wo, bo, slots, buf, g = kernel_inputs(
             params, batch, torch.float32, seed=batch)
@@ -445,28 +421,19 @@ def phase_kernel(params, batches, narrow):
         before = counts()
         got = sw.sample_window(table, wh, bh, wo, bo, slots, buf,
                                noise=noise)
-        if on_card and counts() != (before[0], before[1] + 1, before[2]):
+        if on_card and counts() != (before[0] + 1, before[1],
+                                    before[2] + 1):
             raise AssertionError(f"float32 B={batch} did not take the grid "
                                  f"kernel by plan: {counts()} after "
                                  f"{before}")
-        for tile in (sw.TILES if on_card and batch <= 128 else ()):
-            tiled = sw.sample_window(table, wh, bh, wo, bo, slots, buf,
-                                     noise=noise, tile=tile, path="tiled")
-            tiled_err = max(tiled_err, int((tiled - want).abs().max()))
-            if not torch.equal(tiled, want):
-                raise AssertionError(
-                    f"f32 tiled kernel != plain at B={batch} tile={tile}: "
-                    f"{float((tiled != want).float().mean()):.4%} differ")
         err = int((got - want).abs().max())
         max_err = max(max_err, err)
         if err:
             raise AssertionError(
                 f"f32 grid kernel != plain at B={batch}: "
                 f"{float((got != want).float().mean()):.4%} differ")
-        log(f"[kernel] f32 given-noise B={batch}: the grid kernel by plan"
-            + (f" and the tiled kernel at tiles {list(sw.TILES)}"
-               if on_card and batch <= 128 else "")
-            + " equal to the plain version")
+        log(f"[kernel] f32 given-noise B={batch}: the grid kernel by plan "
+            f"equal to the plain version")
 
     # bf16 (the resident kernel by plan), given noise and Philox, sharpened
     # W_o: mismatch <= 1 %. Not exact: the tensor cores add a column's
@@ -503,7 +470,7 @@ def phase_kernel(params, batches, narrow):
             if not torch.equal(got, again):
                 raise AssertionError(f"two runs differ at B={batch} {mode}")
             results[mode] = float((got != want).float().mean())
-        if on_card and counts() != (before[0] + 4,) + before[1:]:
+        if on_card and counts() != (before[0] + 4, before[1] + 4, before[2]):
             raise AssertionError(f"bf16 at dim {dim} did not take the "
                                  f"resident kernel")
         log(f"[kernel] bf16 sharpened (fs0 {fs0}, dim {dim}) B={batch}: "
@@ -525,28 +492,16 @@ def phase_kernel(params, batches, narrow):
             sw.philox_gumbel_noise(seed, batch, FS0, Q))
         before = counts()
         got = sw.sample_window(table, wh, bh, wo, bo, slots, buf, seed=seed)
-        if on_card and counts() != (before[0], before[1] + 1, before[2]):
+        if on_card and counts() != (before[0] + 1, before[1],
+                                    before[2] + 1):
             raise AssertionError(f"float32 Philox B={batch} did not take "
                                  f"the grid kernel by plan")
-        # the tiled kernel's Philox mode on the same weights: its fallback
-        for tile in (sw.TILES if on_card and batch <= 128 else ()):
-            tiled = sw.sample_window(table, wh, bh, wo, bo, slots, buf,
-                                     seed=seed, tile=tile, path="tiled")
-            tiled_err = max(tiled_err, int((tiled - want).abs().max()))
-            if not torch.equal(tiled, want):
-                raise AssertionError(
-                    f"f32 Philox tiled kernel != plain at B={batch} "
-                    f"tile={tile}: "
-                    f"{float((tiled != want).float().mean()):.4%} differ")
         max_err = max(max_err, int((got - want).abs().max()))
         philox[f"float32_B{batch}"] = float((got != want).float().mean())
         log(f"[kernel] Philox float32 B={batch}: mismatch vs plain "
-            f"{philox[f'float32_B{batch}']:.4%}"
-            + (f"; the tiled kernel at tiles {list(sw.TILES)} equal to it"
-               if on_card and batch <= 128 else ""))
+            f"{philox[f'float32_B{batch}']:.4%}")
         if philox[f"float32_B{batch}"]:
             raise AssertionError("f32 Philox kernel != plain")
-    RESULTS["max_abs_err"] = tiled_err
     RESULTS["grid_max_abs_err"] = max_err
     RESULTS["bf16_mismatch"] = worst
     RESULTS["philox_mismatch"] = philox
@@ -578,8 +533,9 @@ def phase_kernel(params, batches, narrow):
                                          f"runs differ at B={batch} {mode} "
                                          f"({dtype})")
             runs = 2 * (REPEAT_RUNS + 1)
-            want = ((before[0] + runs,) + before[1:] if dtype == bf16
-                    else (before[0], before[1] + runs, before[2]))
+            want = ((before[0] + runs, before[1] + runs, before[2])
+                    if dtype == bf16
+                    else (before[0] + runs, before[1], before[2] + runs))
             if counts() != want:
                 raise AssertionError(f"{dtype} B={batch}: counts {counts()}"
                                      f", expected {want}")
@@ -588,25 +544,25 @@ def phase_kernel(params, batches, narrow):
                 f"({'resident' if dtype == bf16 else 'grid'} kernel)")
 
     # what the card grants, and a width that no cluster holds
-    held, smem, sms, _ = sw.device_limits(dev, FS0, Q, DIM, bf16)
-    plan = sw.window_plan(128, FS0, Q, DIM, bf16, held, smem, sms)
+    held, smem, _ = sw.device_limits(dev, FS0, Q, DIM, bf16)
+    plan = sw.window_plan(128, FS0, Q, DIM, bf16, held, smem)
     f32_limits = sw.device_limits(dev, FS0, Q, DIM, torch.float32)
     f32_plan = sw.window_plan(128, FS0, Q, DIM, torch.float32, *f32_limits)
+    if plan.path != "resident":
+        raise AssertionError("no cluster of the resident kernel is granted")
+    if f32_plan.path != "grid":
+        raise AssertionError("the card grants no grid of the grid kernel")
     RESULTS["window_plan"] = {"max_clusters": held, "cluster": plan.cluster,
                               "smem_bytes": plan.smem_bytes,
                               "smem_limit": smem,
-                              "grid_ctas_f32": f32_limits[3],
+                              "grid_ctas_f32": f32_limits[2],
                               "grid_groups_f32": f32_plan.cluster,
                               "grid_replicas_f32_B128": f32_plan.clusters,
                               "grid_smem_bytes_f32": f32_plan.smem_bytes}
     log(f"[kernel] the card holds {held} clusters of {plan.cluster} CTAs of "
         f"the resident kernel at once, {plan.smem_bytes} of {smem} bytes of "
-        f"shared memory each; B=128: {plan}; float32: {f32_limits[3]} CTAs "
+        f"shared memory each; B=128: {plan}; float32: {f32_limits[2]} CTAs "
         f"of the grid kernel, B=128: {f32_plan}")
-    if plan.path != "resident":
-        raise AssertionError("no cluster of the resident kernel is granted")
-    if f32_plan.path != "grid":
-        raise AssertionError("the card grants no grid of the grid kernel")
     wide = random_window_inputs(4, Q, 2 * DIM, 5, bf16, dev, seed=9)
     wo, bo = sharpened(wide[3], wide[4], bf16)
     args = wide[:3] + (wo, bo) + wide[5:7]
@@ -615,16 +571,28 @@ def phase_kernel(params, batches, narrow):
     got = sw.sample_window(*args, noise=noise)
     mismatch = float((got != sw.sample_window_reference(
         *args, noise)).float().mean())
-    if counts() != (before[0], before[1] + 1, before[2]) or mismatch > 0.01:
+    if counts() != (before[0] + 1, before[1], before[2] + 1) \
+            or mismatch > 0.01:
         raise AssertionError(f"dim {2 * DIM} bf16: counts {counts()} after "
                              f"{before}, mismatch {mismatch:.4%}")
-    try:
-        sw.sample_window(*args, noise=noise, path="resident")
-    except ValueError as e:
-        log(f"[kernel] dim {2 * DIM} bf16 takes the grid kernel by plan "
-            f"(mismatch {mismatch:.4%}); path='resident' raises: {e}")
-    else:
-        raise AssertionError("a width no cluster holds did not raise")
+    log(f"[kernel] dim {2 * DIM} bf16 takes the grid kernel by plan "
+        f"(mismatch {mismatch:.4%})")
+    # a width no kernel takes is refused, in both modes, and launches
+    # nothing
+    odd = random_window_inputs(4, Q, ODD_DIM, 5, bf16, dev, seed=11)
+    before = counts()
+    for kw in ({"noise": sw.gumbel_noise((5, 4, Q), odd[7], dev)},
+               {"seed": torch.tensor([13], dtype=torch.int64, device=dev)}):
+        try:
+            sw.sample_window(*odd[:7], **kw)
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError(f"dim {ODD_DIM} bf16 was not refused")
+    if counts() != before:
+        raise AssertionError(f"dim {ODD_DIM} bf16: counts {counts()} after "
+                             f"{before}")
+    log(f"[kernel] dim {ODD_DIM} bf16, both modes: {refused}")
 
     # Philox: chi-square of ~1e5 draws from a fixed logits row, resident
     g = torch.Generator(device=dev).manual_seed(7)
@@ -651,30 +619,27 @@ def phase_kernel(params, batches, narrow):
         f"(dof {dof}, limit {limit:.1f})")
     if chi2 > limit:
         raise AssertionError(f"Philox draws fail chi-square: {chi2:.1f}")
-    # the same draws whatever the plan: one cluster, the most granted, the
-    # grid kernel (float32) and the tiled kernel at every tile, in bf16 and
-    # in float32
+    # the same draws whatever the kernel: the resident kernel (bf16), the
+    # grid kernel (float32) and the plain version (zero weights: the
+    # logits are b_o in both types)
     seed = torch.tensor([99], dtype=torch.int64, device=dev)
-    first = sw.sample_window(*zeros.values(), seed=seed, clusters=1)
     zeros32 = {k: (v.float() if v.dtype == bf16 else v)
                for k, v in zeros.items()}
     before = counts()
-    others = [sw.sample_window(*zeros.values(), seed=seed),
-              sw.sample_window(*zeros32.values(), seed=seed)]
-    if counts() != (before[0] + 1, before[1] + 1, before[2]):
+    draws = [sw.sample_window(*zeros.values(), seed=seed),
+             sw.sample_window(*zeros32.values(), seed=seed)]
+    if counts() != (before[0] + 2, before[1] + 1, before[2] + 1):
         raise AssertionError(f"the zero-weight windows took {counts()} "
                              f"after {before}")
-    others += [sw.sample_window(*z.values(), seed=seed, tile=tile,
-                                path="tiled")
-               for z in (zeros, zeros32) for tile in sw.TILES]
-    if any(not torch.equal(d, first) for d in others):
-        raise AssertionError("Philox draws depend on the plan")
-    log(f"[kernel] Philox draws identical with 1 and {held} clusters, from "
-        f"the grid kernel and from the tiled kernel at every tile")
+    plain = sw.sample_window_reference(
+        *zeros32.values(), sw.philox_gumbel_noise(seed, lanes, FS0, Q))
+    if any(not torch.equal(d, plain) for d in draws):
+        raise AssertionError("Philox draws depend on the kernel")
+    log(f"[kernel] Philox draws identical from the resident kernel ({held} "
+        f"clusters granted), the grid kernel and the plain version")
 
     # times: bf16, Philox mode (what generation and /stream run) and given
-    # noise; medians over runs of 10 calls, tiled / resident / resident /
-    # tiled
+    # noise; medians over runs of 10 calls, the better of two
     run = {"iters": 5, "batch": 10}
     shapes = []
     for batch in sorted(set(batches) | {1024}):
@@ -684,57 +649,40 @@ def phase_kernel(params, batches, narrow):
         packed = sw.resident_weights(wh, wo, FS0)
         seed = torch.tensor([5], dtype=torch.int64, device=dev)
         noise = sw.gumbel_noise((batch, FS0, Q), g, dev)
-        out = sw.sample_window(*args, seed=seed, packed=packed)
         resident = lambda **kw: sw.sample_window(        # noqa: E731
             *args, packed=packed, **kw)
-        tiled = lambda **kw: sw.sample_window(           # noqa: E731
-            *args, path="tiled", **kw)
-        first_ms = cuda_ms(lambda: tiled(seed=seed), **run)
-        ms = cuda_ms(lambda: resident(seed=seed), **run)
-        ms = min(ms, cuda_ms(lambda: resident(seed=seed), **run))
-        first_ms = min(first_ms, cuda_ms(lambda: tiled(seed=seed), **run))
+        ms = min(cuda_ms(lambda: resident(seed=seed), **run)
+                 for _ in range(2))
         alone = cuda_ms(lambda: resident(seed=seed), 20)
         empty = cuda_ms(lambda: sw.empty_window(batch, FS0, Q, DIM, dev),
                         **run)
         plain = cuda_ms(lambda: sw.sample_window_reference(*args, noise), 5)
-        bound, by = window_bound_ms(*args, out)
+        bound = window_bound_s(batch, FS0, Q, DIM, "bfloat16") * 1e3
         # the given-noise mode (the TPU's v1 kernel): noise read from memory
-        noise_out = resident(noise=noise)
         noise_ms = cuda_ms(lambda: resident(noise=noise), **run)
-        noise_first = cuda_ms(lambda: tiled(noise=noise), **run)
-        noise_bound, noise_by = window_bound_ms(*args, noise_out, noise)
-        plan = sw.window_plan(batch, FS0, Q, DIM, bf16, held, smem, sms)
+        plan = sw.window_plan(batch, FS0, Q, DIM, bf16, held, smem)
         row = {"batch": batch, "dtype": "bfloat16", "mode": "philox",
                "path": plan.path, "cluster": plan.cluster,
                "clusters": plan.clusters,
                "lanes_per_cluster": plan.lanes_per_cluster, "ms": ms,
-               "ms_first_kernel": first_ms, "alone_ms": alone,
-               "empty_window_ms": empty, "plain_ms": plain,
-               "bound_ms": bound, "bound_by": by,
-               "given_noise_ms": noise_ms,
-               "given_noise_ms_first_kernel": noise_first,
-               "given_noise_bound_ms": noise_bound,
-               "given_noise_bound_by": noise_by}
+               "alone_ms": alone, "empty_window_ms": empty,
+               "plain_ms": plain, "bound_ms": bound,
+               "given_noise_ms": noise_ms}
         shapes.append(row)
         log(f"[kernel] B={batch} bf16: resident {ms:.4f} ms/window "
             f"({plan.clusters} clusters of {plan.cluster}, "
             f"{ms / FS0 * 1e3:.1f} us/sample; one call alone {alone:.4f}), "
-            f"tiled kernel {first_ms:.4f}, empty window {empty:.4f}, plain "
-            f"{plain:.4f}, bound {bound:.5f} ({by}); given noise "
-            f"{noise_ms:.4f} (tiled {noise_first:.4f}), bound "
-            f"{noise_bound:.5f} ({noise_by})")
-        if not ms < first_ms:
-            raise AssertionError("the resident kernel is not faster than "
-                                 "the tiled one")
+            f"empty window {empty:.4f}, plain {plain:.4f}, bound "
+            f"{bound:.5f}; given noise {noise_ms:.4f}")
     RESULTS["shapes"] = shapes
     RESULTS["f32_shapes"] = f32_window_times(params, run)
 
 
 def f32_window_times(params, run):
-    """Phase 2's float32 rows, Philox mode, in turns: the grid kernel (by
-    plan, weights packed once), the tiled kernel at every tile, the grid
-    kernel again; its empty window (the grid barriers alone), the plain
-    version, the bound (split TF32; the FMA rate's in the log line)."""
+    """Phase 2's float32 rows, Philox mode: the grid kernel (by plan,
+    weights packed once), the better of two runs; its empty window (the
+    grid barriers alone), the plain version, the bound (split TF32; the
+    FMA rate's in the log line)."""
     import torch
     from msnv_tpu_torch.kernels import sample_window as sw
     dev = params["mlp"]["embedding"].device
@@ -746,51 +694,31 @@ def f32_window_times(params, run):
         packed = sw.resident_weights(wh, wo, FS0)
         seed = torch.tensor([5], dtype=torch.int64, device=dev)
         noise = sw.philox_gumbel_noise(seed, batch, FS0, Q)
-        out = sw.sample_window(*args, seed=seed, packed=packed)
         grid = lambda: sw.sample_window(                      # noqa: E731
             *args, seed=seed, packed=packed)
-        ms = cuda_ms(grid, **run)
-        tiled = {tile: cuda_ms(lambda: sw.sample_window(     # noqa: B023
-            *args, seed=seed, path="tiled", tile=tile), **run)
-            for tile in sw.TILES}
-        ms = min(ms, cuda_ms(grid, **run))
+        ms = min(cuda_ms(grid, **run) for _ in range(2))
         alone = cuda_ms(grid, 20)
         empty = cuda_ms(lambda: sw.empty_window(              # noqa: B023
             batch, FS0, Q, DIM, dev, torch.float32), **run)
         plain = cuda_ms(lambda: sw.sample_window_reference(   # noqa: B023
             *args, noise), 5)
-        bound, by = window_bound_ms(*args, out)
-        fma, fma_by = window_bound_ms(*args, out, peak=PEAK_OPS["float32"])
-        best = min(tiled, key=tiled.get)
+        bound = window_bound_s(batch, FS0, Q, DIM, "float32") * 1e3
+        fma = window_fma_floor_ms(batch)
         limits = sw.device_limits(dev, FS0, Q, DIM, torch.float32)
         plan = sw.window_plan(batch, FS0, Q, DIM, torch.float32, *limits)
-        # the tile the tiled kernel's own plan names: what a float32 window
-        # took before the grid kernel
-        planned = sw.window_plan(batch, FS0, Q, DIM, torch.float32, 0,
-                                 limits[1], limits[2], 0).subtile
         row = {"batch": batch, "dtype": "float32", "mode": "philox",
                "path": plan.path, "groups": plan.cluster,
                "replicas": plan.clusters, "tile": plan.subtile, "ms": ms,
                "alone_ms": alone, "empty_window_ms": empty,
-               "tiled_ms_by_tile": tiled, "tiled_ms": tiled[best],
-               "tiled_best_tile": best, "tiled_planned_tile": planned,
-               "tiled_planned_ms": tiled[planned], "plain_ms": plain,
-               "bound_ms": bound, "bound_by": by}
+               "plain_ms": plain, "bound_ms": bound,
+               "fma_floor_ms": fma}
         rows.append(row)
         log(f"[kernel] B={batch} float32: grid {ms:.4f} ms/window "
             f"({plan.clusters} replicas of {plan.cluster} CTAs, tile "
             f"{plan.subtile}; {ms / FS0 * 1e3:.1f} us/sample; one call "
-            f"alone {alone:.4f}), empty window {empty:.4f}; tiled kernel "
-            + ", ".join(f"tile {t} {v:.4f}" for t, v in tiled.items())
-            + f" (its plan's tile {planned}); grid / best tile "
-            f"{ms / tiled[best]:.3f}; plain {plain:.4f}, bound {bound:.5f} "
-            f"({by}, split TF32; at the FMA rate {fma:.5f}, {fma_by})")
-    slower = [r["batch"] for r in rows
-              if not r["ms"] < r["tiled_planned_ms"]]
-    if slower:
-        raise AssertionError(f"the grid kernel is not faster than the "
-                             f"float32 tiled kernel at its planned tile at "
-                             f"B {slower}")
+            f"alone {alone:.4f}), empty window {empty:.4f}; plain "
+            f"{plain:.4f}, bound {bound:.5f} (split TF32; the FMA floor "
+            f"{fma:.5f})")
     return rows
 
 
@@ -882,9 +810,8 @@ def phase_generate(params, cfg, batch, frames):
         f"audio-s/s; {launches} kernel launches, {resident} resident")
 
     # float32 (generate_fn's default type, as the metrics plugin and a
-    # float32 artifact run it): every window through the grid kernel, and
-    # what phase 2's float32 tiled time per window would make of the wall.
-    # A run is tens of ms of host time: one whole run to warm up, then the
+    # float32 artifact run it): every window through the grid kernel. A
+    # run is tens of ms of host time: one whole run to warm up, then the
     # median of several
     gen32 = generate_fn(params, cfg, use_kernel=True, temperature=1.0)
     gen32(cond, spk, torch.Generator(device=dev).manual_seed(0))
@@ -914,21 +841,12 @@ def phase_generate(params, cfg, batch, frames):
            "seconds_each": walls, "audio_s_per_s": n / 16000 / wall,
            "launches": launches, "grid": grid,
            "sharpened_launches": sharp_launches}
-    row = next((r for r in RESULTS.get("f32_shapes", ())
-                if r["batch"] == batch), None)
-    if row is not None:
-        tiled_wall = wall + launches / runs * (row["tiled_ms"]
-                                               - row["ms"]) / 1e3
-        out["tiled_implied_audio_s_per_s"] = n / 16000 / tiled_wall
     RESULTS["generate_f32"] = out
     log(f"[generate] B={batch} x {frames} frames float32 kernel path: "
         f"median of {runs} runs {wall:.3f} s (each "
         + ", ".join(f"{w:.4f}" for w in walls)
         + f") = {out['audio_s_per_s']:.2f} audio-s/s; {launches} "
-        f"kernel launches, {grid} grid"
-        + ("" if row is None else
-           f"; with phase 2's float32 tiled window instead: "
-           f"{out['tiled_implied_audio_s_per_s']:.2f} audio-s/s"))
+        f"kernel launches, {grid} grid")
 
 
 # --------------------------------------------------------------------------
@@ -982,7 +900,7 @@ def phase_serve(params, ckpt, cfg, frames_syn, frames_stream):
     C = cfg.effective_cond_dim
     try:
         sample_window.launches = 0          # the main path starts here
-        sample_window.resident = sample_window.tiled = 0
+        sample_window.resident = sample_window.grid = 0
         c = http.client.HTTPConnection(*addr, timeout=60)
         c.request("GET", "/healthz")
         r = c.getresponse()
@@ -1037,11 +955,15 @@ def phase_serve(params, ckpt, cfg, frames_syn, frames_stream):
         log("[serve] bad bodies answered 400")
         RESULTS["launches"] = sample_window.launches   # main path count
         RESULTS["resident_launches"] = sample_window.resident
-        if dev.type == "cuda" and (sample_window.tiled
-                                   or sample_window.resident
-                                   != sample_window.launches):
-            raise AssertionError("a window of the serving path did not take "
-                                 "the resident kernel")
+        # /synthesize runs the per-sample path: the streams' windows alone
+        windows = 2 * frames_stream * cfg.frame_sizes[-1]
+        if dev.type == "cuda" and (sample_window.grid, sample_window.resident,
+                                   sample_window.launches) != (0, windows,
+                                                               windows):
+            raise AssertionError(
+                f"the serving path launched {sample_window.launches} windows"
+                f" ({sample_window.resident} resident, {sample_window.grid} "
+                f"grid), expected {windows}, all resident")
         RESULTS["streams"] = streams
     finally:
         server.shutdown()
@@ -1057,31 +979,9 @@ def phase_serve(params, ckpt, cfg, frames_syn, frames_stream):
 GRU_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
-def gru_bound_ms(T, B, H, mxu_dtype, backward):
-    """Least time for one layer sweep: the larger of the bytes it must move
-    (each input read once, each output written once) over HBM bandwidth and
-    its multiply-adds over the peak rate for the products' type on the
-    tensor cores (float32: split TF32, a third of the TF32 rate; its FMA
-    floor on the CUDA cores is gru_fma_floor_ms)."""
-    import torch
-    wbytes = 3 * H * H * (2 if mxu_dtype == torch.bfloat16 else 4)
-    bh = 4 * B * H
-    if backward:   # in x_proj, hproj, ys (h_prev), dy, h0; out dxp, dhproj
-        nbytes = T * bh * (3 + 3 + 1 + 1) + bh + wbytes \
-            + T * bh * (3 + 3) + bh
-    else:          # in x_proj, h0, b_hh; out ys, hproj
-        nbytes = T * bh * 3 + bh + 12 * H + wbytes + T * bh * (1 + 3)
-    ops = 2 * T * B * H * 3 * H
-    peak = PEAK_OPS["bfloat16" if mxu_dtype == torch.bfloat16
-                    else "float32_tf32x3"]
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def gru_fma_floor_ms(T, B, H):
     """A sweep's float32 products at the CUDA cores' FMA peak."""
-    return 2 * T * B * H * 3 * H / PEAK_OPS["float32"] * 1e3
+    return 2 * T * B * H * 3 * H / FMA_FLOPS * 1e3
 
 
 def gru_inputs(T, B, H, dev, seed):
@@ -1125,42 +1025,36 @@ def phase_gru(dev, shapes):
         x = gru_inputs(T, B, H, dev, seed=T * 1000 + B)
         w_hh = x["w_hh_t"].t().contiguous()
         # float32 products (split TF32 persistent, or FMA per step), then
-        # bfloat16 ones, on the kernels the shape's plan names and, where
-        # that is the persistent kernels, on the per-step ones as well
-        runs = [(torch.float32, None), (torch.bfloat16, None)]
-        if on_card:
-            for mxu in (torch.float32, torch.bfloat16):
+        # bfloat16 ones, on the kernels the shape's plan names
+        for mxu in (torch.float32, torch.bfloat16):
+            name = str(mxu).replace("torch.", "")
+            if on_card:
                 paths[(T, B, H, mxu)] = gl.sweep_plan(
                     T, B, H, mxu, *gl.device_limits(dev, H, mxu)).path
-                if paths[(T, B, H, mxu)] == "persistent":
-                    runs.append((mxu, "per_step"))
-        for mxu, path in runs:
-            name = str(mxu).replace("torch.", "")
-            kw = {"path": path} if on_card else {}
             ys, hproj = gl.gru_layer_forward(
-                x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], mxu, **kw)
+                x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], mxu)
             ys_p, hproj_p = gl.gru_layer_reference(
                 x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], mxu)
             ys_eval, none = gl.gru_layer_forward(
                 x["x_proj"], x["w_hh_t"], x["b_hh"], x["h0"], mxu,
-                with_residual=False, **kw)
+                with_residual=False)
             if none is not None or not torch.equal(ys_eval, ys):
                 raise AssertionError("forward without residual differs")
             # the reverse sweep on the same saved tensors
             h_prev = torch.cat([x["h0"][None], ys[:-1]], dim=0)
             got = gl.gru_layer_backward(x["x_proj"], hproj, x["h0"], ys,
-                                        x["dy"], w_hh, mxu, **kw)
+                                        x["dy"], w_hh, mxu)
             want = gl.gru_layer_backward_reference(
                 x["x_proj"], hproj, h_prev, x["dy"], w_hh, mxu)
             # two runs on the same inputs give the same bits, also with the
             # final state's cotangent handed over beside dy
             again = gl.gru_layer_backward(x["x_proj"], hproj, x["h0"], ys,
-                                          x["dy"], w_hh, mxu, **kw)
+                                          x["dy"], w_hh, mxu)
             folded = x["dy"].clone()
             folded[-1] += x["dhT"]
             with_dhT = gl.gru_layer_backward(
                 x["x_proj"], hproj, x["h0"], ys, x["dy"], w_hh, mxu,
-                dhT=x["dhT"], **kw)
+                dhT=x["dhT"])
             want_dhT = gl.gru_layer_backward_reference(
                 x["x_proj"], hproj, h_prev, folded, w_hh, mxu)
             if on_card:
@@ -1171,8 +1065,7 @@ def phase_gru(dev, shapes):
             e_f = max(_rel_err(ys, ys_p), _rel_err(hproj, hproj_p))
             e_b = max(_rel_err(a, b) for a, b in
                       list(zip(got, want)) + list(zip(with_dhT, want_dhT)))
-            which = ("plain" if not on_card
-                     else path or paths[(T, B, H, mxu)])
+            which = paths[(T, B, H, mxu)] if on_card else "plain"
             log(f"[gru] T={T} B={B} H={H} {name} {which}: forward err "
                 f"{e_f:.2e}, backward err {e_b:.2e} (tolerance "
                 f"{GRU_TOL[name]:.0e}); two runs bit-equal")
@@ -1267,8 +1160,8 @@ def phase_gru(dev, shapes):
 
 def _gru_times(gl, dev, T, B, H, mxu):
     """One row of phase 5's times for (T, B, H) with products in `mxu`:
-    persistent and per-step kernels, plain version, bound and nn.GRU in the
-    same type (float32: TF32 off, as main() sets it)."""
+    the persistent kernels, plain version, bound and nn.GRU in the same
+    type (float32: TF32 off, as main() sets it)."""
     import torch
     name = str(mxu).replace("torch.", "")
     x = gru_inputs(T, B, H, dev, seed=T)
@@ -1278,27 +1171,21 @@ def _gru_times(gl, dev, T, B, H, mxu):
                                      x["h0"], mxu)
     h_prev = torch.cat([x["h0"][None], ys[:-1]], dim=0)
 
-    def fwd_on(path):
-        return lambda: gl.gru_layer_forward(
-            x["x_proj"], w_hh_t, x["b_hh"], x["h0"], mxu, path=path)
+    def fwd_run():
+        return gl.gru_layer_forward(x["x_proj"], w_hh_t, x["b_hh"], x["h0"],
+                                    mxu)
 
-    def bwd_on(path):
-        return lambda: gl.gru_layer_backward(
-            x["x_proj"], hproj, x["h0"], ys, x["dy"], w_hh, mxu, path=path)
+    def bwd_run():
+        return gl.gru_layer_backward(x["x_proj"], hproj, x["h0"], ys,
+                                     x["dy"], w_hh, mxu)
 
-    # runs of 10 calls, per-step / persistent / persistent / per-step
+    # runs of 10 calls, the better of two
     run = {"iters": 5, "batch": 10}
-    fwd_step = cuda_ms(fwd_on("per_step"), **run)
-    fwd = cuda_ms(fwd_on("persistent"), **run)
-    fwd = min(fwd, cuda_ms(fwd_on("persistent"), **run))
-    fwd_step = min(fwd_step, cuda_ms(fwd_on("per_step"), **run))
-    bwd_step = cuda_ms(bwd_on("per_step"), **run)
-    bwd = cuda_ms(bwd_on("persistent"), **run)
-    bwd = min(bwd, cuda_ms(bwd_on("persistent"), **run))
-    bwd_step = min(bwd_step, cuda_ms(bwd_on("per_step"), **run))
+    fwd = min(cuda_ms(fwd_run, **run) for _ in range(2))
+    bwd = min(cuda_ms(bwd_run, **run) for _ in range(2))
     # one call at a time: with the launch on an idle card
-    fwd_alone = cuda_ms(fwd_on("persistent"), 20)
-    bwd_alone = cuda_ms(bwd_on("persistent"), 20)
+    fwd_alone = cuda_ms(fwd_run, 20)
+    bwd_alone = cuda_ms(bwd_run, 20)
     fwd_plain = cuda_ms(lambda: gl.gru_layer_reference(
         x["x_proj"], w_hh_t, x["b_hh"], x["h0"], mxu), 5)
     bwd_plain = cuda_ms(lambda: gl.gru_layer_backward_reference(
@@ -1322,15 +1209,13 @@ def _gru_times(gl, dev, T, B, H, mxu):
                 fwd_ms = cuda_ms(lambda: rnn(inp, h0), **run)
             return fwd_ms, cuda_ms(both, **run)
 
-    b_f, by_f = gru_bound_ms(T, B, H, mxu, backward=False)
-    b_b, by_b = gru_bound_ms(T, B, H, mxu, backward=True)
+    b_f = gru_sweep_bound_s(T, B, H, name, backward=False) * 1e3
+    b_b = gru_sweep_bound_s(T, B, H, name, backward=True) * 1e3
     row = {"T": T, "B": B, "H": H, "dtype": name,
            "fwd_ms": fwd, "bwd_ms": bwd,
-           "fwd_per_step_ms": fwd_step, "bwd_per_step_ms": bwd_step,
            "fwd_alone_ms": fwd_alone, "bwd_alone_ms": bwd_alone,
            "fwd_plain_ms": fwd_plain, "bwd_plain_ms": bwd_plain,
-           "fwd_bound_ms": b_f, "fwd_bound_by": by_f, "bwd_bound_ms": b_b,
-           "bwd_bound_by": by_b}
+           "fwd_bound_ms": b_f, "bwd_bound_ms": b_b}
     if mxu == torch.bfloat16:
         row["empty_sweep_ms"] = cuda_ms(
             lambda: gl.empty_sweep(T, B, H, dev), **run)
@@ -1359,18 +1244,13 @@ def _gru_times(gl, dev, T, B, H, mxu):
              if mxu == torch.bfloat16 else
              f"FMA floor {gru_fma_floor_ms(T, B, H):.4f} ms")
     log(f"[gru] T={T} B={B} {name}: forward {fwd:.4f} ms "
-        f"({fwd / T * 1e3:.1f} us/step; one call alone {fwd_alone:.4f}; "
-        f"per-step kernels {fwd_step:.4f}), plain {fwd_plain:.4f}, "
-        f"bound {b_f:.4f} ({by_f}); backward {bwd:.4f} ms "
+        f"({fwd / T * 1e3:.1f} us/step; one call alone {fwd_alone:.4f}), "
+        f"plain {fwd_plain:.4f}, bound {b_f:.4f}; backward {bwd:.4f} ms "
         f"({bwd / (T + 1) * 1e3:.1f} us/step; one call alone "
-        f"{bwd_alone:.4f}; per-step kernels {bwd_step:.4f}), plain "
-        f"{bwd_plain:.4f}, bound {b_b:.4f} ({by_b}); {extra}; nn.GRU "
-        f"{name} (with the input projection) forward "
+        f"{bwd_alone:.4f}), plain {bwd_plain:.4f}, bound {b_b:.4f}; "
+        f"{extra}; nn.GRU {name} (with the input projection) forward "
         f"{row['nn_gru_fwd_ms']:.4f}, forward+backward "
         f"{row['nn_gru_fwd_bwd_ms']:.4f}")
-    if T == 52 and not (fwd < fwd_step and bwd < bwd_step):
-        raise AssertionError(f"the {name} persistent kernels are not faster "
-                             f"than the per-step ones")
     return row
 
 
@@ -1864,19 +1744,19 @@ def phase_loop(dev, dim, batch, seq_len, utts, frames):
 def _reset_window_counts():
     from msnv_tpu_torch.kernels.sample_window import sample_window
     sample_window.launches = 0
-    sample_window.resident = sample_window.grid = sample_window.tiled = 0
+    sample_window.resident = sample_window.grid = 0
 
 
 def _window_counts():
     from msnv_tpu_torch.kernels.sample_window import sample_window
     return (sample_window.launches, sample_window.resident,
-            sample_window.tiled)
+            sample_window.grid)
 
 
 def _check_windows(dev, counts, want, what):
     """Every window of a mux path through the resident kernel."""
     if dev.type == "cuda" and counts != (want, want, 0):
-        raise AssertionError(f"{what}: (launches, resident, tiled) = "
+        raise AssertionError(f"{what}: (launches, resident, grid) = "
                              f"{counts}, expected ({want}, {want}, 0)")
 
 
@@ -2382,7 +2262,7 @@ def _gan_phase(exp, dev, batch, seq_len, channels, out):
         out["disc_fwd_bwd_ms"] = cuda_ms(fwd_bwd, 10)
         out["disc_fwd_tflops"] = flops / out["disc_fwd_ms"] / 1e9
         out["disc_fwd_bwd_tflops"] = 3 * flops / out["disc_fwd_bwd_ms"] / 1e9
-        out["disc_fwd_bound_ms"] = flops / PEAK_OPS["bfloat16"] * 1e3
+        out["disc_fwd_bound_ms"] = flops / peaks.BF16_FLOPS * 1e3
         log(f"[variants] discriminator bf16 ({batch}, {frames}, {width}): "
             f"forward {out['disc_fwd_ms']:.3f} ms ({flops / 1e12:.2f} TFLOP,"
             f" {out['disc_fwd_tflops']:.0f} TFLOP/s), forward + both "
@@ -2547,7 +2427,7 @@ def _generate_check(params, cfg, dev, batch, frames, what, stream_frames=0):
     rate = batch * frames * cfg.lookback / 16000 / wall
     windows = counts[0]
     log(f"[variants] {what} generate_fn B={batch} x {frames} frames: "
-        f"{rate:.2f} audio-s/s, windows (launches, resident, tiled) "
+        f"{rate:.2f} audio-s/s, windows (launches, resident, grid) "
         f"{counts}")
     if stream_frames:
         init_state, push = streaming_fn(params, cfg,
@@ -3794,7 +3674,7 @@ def _check_ranks(dev, ranks, spec):
     g = r0["generation"]
     log(f"[mesh] 11c sharded generation {g['seq_shape']} and 8 streaming "
         f"pushes at B 2 equal per shard to local runs with the folded "
-        f"generator; windows per rank (launches, resident, tiled): "
+        f"generator; windows per rank (launches, resident, grid): "
         f"generation {g['generate_windows']}, streaming "
         f"{g['stream_windows']}")
     _check_gan_mesh(r0["gan"], spec)
@@ -4206,7 +4086,7 @@ def _serve_mesh_ranks(loaded, ckpt, cfg, dev, work, lanes, frames,
             or launches % per_tick
             or launches < -(-frames // K) * per_tick):
         raise AssertionError(f"mesh mux windows per rank (launches, "
-                             f"resident, tiled): {windows}")
+                             f"resident, grid): {windows}")
     log(f"[serve-mesh] 12b {lanes} concurrent /stream x {frames} frames "
         f"through the mux over 2 ranks ({lanes // 2} lanes a rank): all 200 "
         f"and complete; {streams['audio_s_per_s']:.2f} audio-s/s over "
@@ -4214,7 +4094,7 @@ def _serve_mesh_ranks(loaded, ckpt, cfg, dev, work, lanes, frames,
         f"x{streams['rtf_min']:.3f} (min) / x{streams['rtf_median']:.3f} "
         f"(median); first audio {streams['first_audio_ms_median']:.1f} / "
         f"{streams['first_audio_ms_max']:.1f} ms (median / max); windows "
-        f"per rank (launches, resident, tiled) {windows} (two ranks on one "
+        f"per rank (launches, resident, grid) {windows} (two ranks on one "
         f"card measure no scaling)")
     log(f"[serve-mesh] 12c SIGINT to rank 0: both ranks returned "
         f"{stop_s:.3f} s later and exited 0")
@@ -4890,20 +4770,15 @@ def kernel_entries():
                              "serve_mesh": RESULTS["serve_mesh"][
                                  "window_launches"],
                              "orbax": RESULTS["orbax"]["window_launches"]},
-        # float32 on the tiled kernel (path="tiled"): samples equal to the
-        # plain version's; bf16 (resident kernel): share of samples that
-        # differ on sharpened logits, tolerance 1 %
-        "exact": RESULTS["max_abs_err"] == 0,
-        "max_abs_err": RESULTS["max_abs_err"],
+        # bf16 (resident kernel): share of samples that differ from the
+        # plain version's on sharpened logits, tolerance 1 %
         "bf16_mismatch": RESULTS["bf16_mismatch"],
         "philox_mismatch": RESULTS["philox_mismatch"],
         "window_plan": RESULTS["window_plan"],
         "ms": main_shape["ms"],
-        "ms_first_kernel": main_shape["ms_first_kernel"],
         "empty_window_ms": main_shape["empty_window_ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
         "library_ms": None,
         "main_shape": {"batch": 1, "fs0": FS0, "q": Q, "dim": DIM,
                        "dtype": "bfloat16", "mode": "philox"},
@@ -4941,10 +4816,8 @@ def kernel_entries():
             # |kernel - plain| over max(1, |plain|)
             "max_abs_err": RESULTS["gru_err"][d + suffix],
             "ms": row[f"{d}_ms"],
-            "ms_per_step_kernels": row[f"{d}_per_step_ms"],
             "plain_ms": row[f"{d}_plain_ms"],
             "bound_ms": row[f"{d}_bound_ms"],
-            "bound_by": row[f"{d}_bound_by"],
             "library_ms": lib(row),
             "library_note": note,
             "main_shape": {k: row[k] for k in ("T", "B", "H", "dtype")},
@@ -4990,12 +4863,9 @@ def kernel_entries():
         "exact": RESULTS["grid_max_abs_err"] == 0,
         "max_abs_err": RESULTS["grid_max_abs_err"],
         "ms": f32["ms"],
-        "ms_tiled_kernel_f32": f32["tiled_ms"],
-        "ms_tiled_kernel_f32_planned_tile": f32["tiled_planned_ms"],
         "empty_window_ms": f32["empty_window_ms"],
         "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"],
-        "bound_by": f32["bound_by"],
         "library_ms": None,
         "main_shape": {"batch": 128, "fs0": FS0, "q": Q, "dim": DIM,
                        "dtype": "float32", "mode": "philox"},

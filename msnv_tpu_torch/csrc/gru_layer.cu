@@ -46,7 +46,7 @@
 //    order; the gate math follows in registers.
 //  - A grid barrier per step (an atomic counter and a bounded spin), not a
 //    launch. What crosses it is a bf16 copy of h (resp. dhproj), written by
-//    every CTA for its own columns straight in the tiled order of the
+//    every CTA for its own columns straight in the tile-major order of the
 //    readers' shared memory, one slab per step, so no slab is read and
 //    written in the same step and a reader's whole K-slice is one
 //    contiguous block: the thread that sees the barrier complete asks the
@@ -113,7 +113,7 @@
 // dh; dh_total * z passes between launches in a (B, H) scratch each element
 // of which is read and rewritten by the same thread. The product inside a
 // launch, by the weight's type, both with sums in a fixed order:
-//  - float32: FMA, a register-tiled loop (4 x 4 outputs per thread) over
+//  - float32: FMA, a register-blocked loop (4 x 4 outputs per thread) over
 //    32-deep chunks staged in shared memory, the chunk split over thread
 //    groups whose partial sums are added in order. Exact float32 products.
 //  - bfloat16: tensor cores, warp-level mma (the wmma API, m16n16k16,
@@ -635,7 +635,7 @@ bool bad_shape(int T, int B, int H, int dtype) {
 // The left operand crosses the grid barrier in device memory ALREADY IN
 // THAT LAYOUT: beside the row-major bf16 copy of h (resp. dhproj) that the
 // weight-gradient product reads afterwards, every CTA writes its columns
-// into a tiled copy in which each (row tile, K-slice) is one contiguous
+// into a tile-major copy in which each (row tile, K-slice) is one contiguous
 // block, cut into chunks along K. The reader then needs no per-thread
 // copies (cp.async through the load/store unit was several times slower
 // than the TMA on an H100): one thread asks the TMA for a bulk copy per
@@ -680,7 +680,7 @@ struct ClusterPlan {
 using FwdPlan = ClusterPlan<3 * TN, 2, 64>;
 using BwdPlan = ClusterPlan<TN, 8, 128>;
 
-// The tiled copy of a (steps, B, K) left operand for clusters of C: per
+// The tile-major copy of a (steps, B, K) left operand for clusters of C: per
 // step and row tile rows * K elements, [K-slice][chunk][8-row group]
 // [8-column group of the chunk][row of 8][column of 8]: a chunk of a slice
 // is the shared-memory image of that part of the operand.
@@ -923,7 +923,7 @@ __device__ __forceinline__ void grid_wait(unsigned* counter, unsigned target,
 }
 
 // Thread 0 asks the TMA for this CTA's K-slice of the left operand (rows
-// x kslice, tiled, at `src` in device memory), a bulk copy per chunk. The
+// x kslice, tile-major, at `src` in device memory), a bulk copy per chunk. The
 // full proxy fence orders the copies after the other SMs' (generic) writes
 // of `src` as this thread came to know them at the grid barrier, and after
 // this CTA's reads of the partial sums that lay at `asm_`.
@@ -1052,10 +1052,10 @@ __device__ __forceinline__ void store_partials(float* partial,
 
 // The forward sweep of one layer. w is W_hh as stored, (3H, H) bf16: column
 // j of gate g is its row g * H + j, contiguous along K. hb (T + 1, B, H)
-// bf16 receives h0 and every ys[t] rounded to bf16, and hbt the same tiled
-// (T + 1 steps x row tiles x ROWS * H): step t reads hbt[t] (all columns,
-// written by all CTAs before the last barrier) and writes hbt[t + 1] (its
-// own columns). Of the cluster's product the CTA of rank q
+// bf16 receives h0 and every ys[t] rounded to bf16, and hbt the same
+// tile-major (T + 1 steps x row tiles x ROWS * H): step t reads hbt[t]
+// (all columns, written by all CTAs before the last barrier) and writes
+// hbt[t + 1] (its own columns). Of the cluster's product the CTA of rank q
 // computes the K-slice q for all C slices' columns (operand row
 // q' * 3 TN + g * TN + cc is column cc of gate g of slice q'), then adds
 // the C partial sums of its own columns in rank order and does their gate
@@ -1234,8 +1234,8 @@ __device__ __forceinline__ uint32_t bf16_bits(const uint4& v, int n) {
 // per-step version: step t adds the product of step t + 1 (dhb[t + 1] times
 // the columns of W_hh) to the carried dh_total * z, which stays in
 // registers, then does the elementwise part of step t. dhb (T, B, 3H) bf16
-// receives every dhproj[t] rounded to bf16, dhbt the same tiled (T steps x
-// row tiles x ROWS * 3H). The product is split over the
+// receives every dhproj[t] rounded to bf16, dhbt the same tile-major (T
+// steps x row tiles x ROWS * 3H). The product is split over the
 // cluster as in the forward; the operand is the cluster's C * TN columns
 // of the CTA's K-slice of W_hh's rows, transposed on the way into shared
 // memory (K contiguous), once. dhT, if given, is the final state's
@@ -2057,7 +2057,7 @@ int gru_layer_bwd_launch(int dtype, const void* x_proj, const void* hproj,
 // each. w_hh is (3H, H) bf16 as stored, for both directions. hb (T + 1, B,
 // H) and dhb (T, B, 3H) are bf16 outputs: h0 and ys, resp. dhproj, rounded
 // to bf16 (the left operands of the weight-gradient product outside). hbt
-// and dhbt are scratch for the same values in the kernels' own tiled
+// and dhbt are scratch for the same values in the kernels' own tile-major
 // order: (T + 1) steps x ceil(B / 64) row tiles x 64 x H resp. T steps x
 // ceil(B / 128) row tiles x 128 x 3H bf16. counter is one 32-bit word of
 // scratch. hproj may be null (no residual),

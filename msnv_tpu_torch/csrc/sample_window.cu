@@ -74,17 +74,6 @@
 // Which C, how many clusters and lanes each: chosen by the caller from the
 // shapes and the occupancy API's answer, before the launch.
 //
-// The tiled kernel (float32 and bf16; `sample_window_kernel`), the first
-// version: one CTA of 256 threads per tile of TILE lanes (1..8). The
-// window, x, h and logits rows stay in shared memory for all fs0 steps;
-// the weights are read from global memory (L2-resident) with 16-byte loads
-// for every sample, each weight reused across the TILE lanes. Sums over a
-// column are FMA in float32, split over thread groups and reduced in a
-// fixed order: exact float32 products, which the tensor cores do not give.
-// It is bound by the latency of its own weight loads (about 19 GB/s into an
-// SM) and stays only where the card grants the grid kernel's grid no room
-// (and to be timed beside the others).
-//
 // The grid kernel (float32, and bf16 widths no cluster holds;
 // `window_grid`). Float32 W_h and W_o are 5.24 MB at dim 1024: no cluster
 // holds them (16 x 227 KB = 3.6 MB), the card's shared memory does (132 x
@@ -109,9 +98,10 @@
 //   and 4 MB a sample. Gathering x once, by the lane's owner, rather than in
 //   every CTA that needs a part of it keeps the table's fs0 rows a lane
 //   from being read G times (at B 128 that would be 168 MB a sample).
-//  - Products are float32 FMA, as in the tiled kernel: the threads of a
-//    column group of 4 split the depth (blocks of 4 depths for W_h, so a
-//    lane's x comes in one 16-byte load), their partial sums meet by
+//  - Products are float32 FMA (exact float32 products, which the tensor
+//    cores do not give): the threads of a column group of 4 split the
+//    depth (blocks of 4 depths for W_h, so a lane's x comes in one 16-byte
+//    load), their partial sums meet by
 //    shuffles in a warp (and past 32 through shared memory, in order). The
 //    order is fixed, there are no atomics on data: two runs give the same
 //    bits, and the draws are the plain version's up to the last bits of a
@@ -131,91 +121,13 @@
 #include <stdint.h>
 #include <stdio.h>
 
-#include <algorithm>
-
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kVec = 8;  // columns per 16-byte (bf16) / 32-byte (f32) load
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // round an activation to the weight type and back (the reference casts x
 // and h to the weight dtype before each product)
 __device__ __forceinline__ float round_to(float x, const float*) { return x; }
 __device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[kVec]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p,
-                                      float (&v)[kVec]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-// thread groups that split the reduction dimension of a product with n
-// output columns (one group covers n / kVec column chunks)
-__host__ __device__ __forceinline__ int reduce_groups(int n) {
-  const int chunks = n / kVec;
-  return chunks >= kThreads ? 1 : kThreads / chunks;
-}
-
-// out[l*n + j] = bias[j] + sum_i in[l*k + i] * w[i*n + j], l < TILE.
-// in/out/red in shared memory, w (k, n) row-major in global memory.
-template <int TILE, typename W>
-__device__ void matvec(const float* in, int k, const W* __restrict__ w,
-                       const float* __restrict__ bias, int n, float* red,
-                       float* out) {
-  const int chunks = n / kVec;
-  const int groups = reduce_groups(n);
-  for (int task = threadIdx.x; task < chunks * groups; task += blockDim.x) {
-    const int c = task % chunks;
-    const int g = task / chunks;
-    float acc[TILE][kVec];
-#pragma unroll
-    for (int l = 0; l < TILE; ++l)
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) acc[l][e] = 0.f;
-#pragma unroll 4
-    for (int i = g; i < k; i += groups) {
-      float wv[kVec];
-      load8(w + (size_t)i * n + c * kVec, wv);
-#pragma unroll
-      for (int l = 0; l < TILE; ++l) {
-        const float a = in[l * k + i];
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) acc[l][e] = fmaf(a, wv[e], acc[l][e]);
-      }
-    }
-#pragma unroll
-    for (int l = 0; l < TILE; ++l)
-#pragma unroll
-      for (int e = 0; e < kVec; ++e)
-        red[(g * TILE + l) * n + c * kVec + e] = acc[l][e];
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < TILE * n; idx += blockDim.x) {
-    float s = 0.f;
-    for (int g = 0; g < groups; ++g) s += red[g * TILE * n + idx];
-    out[idx] = s + bias[idx % n];
-  }
-  __syncthreads();
 }
 
 // Philox-4x32-10 (Salmon et al., SC'11)
@@ -298,141 +210,6 @@ __device__ __forceinline__ int warp_draw(const float* logits, int q,
 struct Strides {
   long long buf_ld, slot_ld_b, slot_ld_k;
 };
-
-// ---------------------------------------------------------------------------
-// The tiled kernel: one CTA per tile of lanes, weights streamed from L2
-// ---------------------------------------------------------------------------
-
-template <int TILE, typename W>
-__global__ void __launch_bounds__(kThreads)
-    sample_window_kernel(const W* __restrict__ table,
-                         const W* __restrict__ wh,
-                         const float* __restrict__ bh,
-                         const W* __restrict__ wo,
-                         const float* __restrict__ bo,
-                         const W* __restrict__ slots,
-                         const int* __restrict__ buf,
-                         const float* __restrict__ noise,
-                         const int64_t* __restrict__ seed,
-                         int* __restrict__ out, int batch, int fs0, int q,
-                         int dim, Strides st) {
-  extern __shared__ float smem[];
-  const int red_size = max(reduce_groups(dim) * TILE * dim,
-                           reduce_groups(q) * TILE * q);
-  float* xs = smem;                      // TILE x dim
-  float* hs = xs + TILE * dim;           // TILE x dim
-  float* logits = hs + TILE * dim;       // TILE x q
-  float* red = logits + TILE * q;        // red_size
-  int* win = reinterpret_cast<int*>(red + red_size);  // TILE x fs0
-  int* drawn = win + TILE * fs0;                      // TILE
-
-  const int tid = threadIdx.x;
-  const int lane0 = blockIdx.x * TILE;
-  const int nl = min(TILE, batch - lane0);
-  const W* wtag = nullptr;
-
-  for (int i = tid; i < TILE * fs0; i += blockDim.x) {
-    const int l = i / fs0;
-    win[i] = l < nl ? buf[(size_t)(lane0 + l) * st.buf_ld + i % fs0] : 0;
-  }
-  const uint2 key = philox_key(noise, seed);
-  __syncthreads();
-
-  for (int k = 0; k < fs0; ++k) {
-    // x = relu(sum of fs0 gathered table rows + slot row)
-    for (int idx = tid; idx < TILE * dim; idx += blockDim.x) {
-      const int l = idx / dim;
-      const int d = idx % dim;
-      float x = 0.f;
-      if (l < nl) {
-        float acc = 0.f;
-        for (int p = 0; p < fs0; ++p)
-          acc += to_f32(table[((size_t)p * q + win[l * fs0 + p]) * dim + d]);
-        x = acc + to_f32(slots[(size_t)(lane0 + l) * st.slot_ld_b +
-                               (size_t)k * st.slot_ld_k + d]);
-      }
-      xs[idx] = round_to(fmaxf(x, 0.f), wtag);
-    }
-    __syncthreads();
-    matvec<TILE, W>(xs, dim, wh, bh, dim, red, hs);
-    for (int idx = tid; idx < TILE * dim; idx += blockDim.x)
-      hs[idx] = round_to(fmaxf(hs[idx], 0.f), wtag);
-    __syncthreads();
-    matvec<TILE, W>(hs, dim, wo, bo, q, red, logits);
-
-    // Gumbel-max draw: one warp per lane
-    for (int l = tid / 32; l < nl; l += blockDim.x / 32) {
-      const int s = warp_draw(logits + l * q, q, noise, key, lane0 + l, k,
-                              fs0);
-      if (tid % 32 == 0) drawn[l] = s;
-    }
-    __syncthreads();
-    if (tid < nl) {
-      int* row = win + tid * fs0;
-      for (int p = 0; p + 1 < fs0; ++p) row[p] = row[p + 1];
-      row[fs0 - 1] = drawn[tid];
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < nl * fs0; i += blockDim.x)
-    out[(size_t)(lane0 + i / fs0) * fs0 + i % fs0] = win[i];
-}
-
-template <int TILE>
-size_t smem_bytes(int fs0, int q, int dim) {
-  const size_t red = (size_t)std::max(reduce_groups(dim) * TILE * dim,
-                                      reduce_groups(q) * TILE * q);
-  return (2 * (size_t)TILE * dim + (size_t)TILE * q + red) * sizeof(float) +
-         ((size_t)TILE * fs0 + TILE) * sizeof(int);
-}
-
-template <int TILE, typename W>
-cudaError_t launch(const void* table, const void* wh, const void* bh,
-                   const void* wo, const void* bo, const void* slots,
-                   const void* buf, const void* noise, const void* seed,
-                   void* out, int batch, int fs0, int q, int dim, Strides st,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes<TILE>(fs0, q, dim);
-  cudaError_t err = cudaFuncSetAttribute(
-      sample_window_kernel<TILE, W>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int grid = (batch + TILE - 1) / TILE;
-  sample_window_kernel<TILE, W><<<grid, kThreads, smem, stream>>>(
-      static_cast<const W*>(table), static_cast<const W*>(wh),
-      static_cast<const float*>(bh), static_cast<const W*>(wo),
-      static_cast<const float*>(bo), static_cast<const W*>(slots),
-      static_cast<const int*>(buf), static_cast<const float*>(noise),
-      static_cast<const int64_t*>(seed), static_cast<int*>(out), batch, fs0,
-      q, dim, st);
-  return cudaGetLastError();
-}
-
-template <typename W>
-cudaError_t launch_tile(int tile, const void* table, const void* wh,
-                        const void* bh, const void* wo, const void* bo,
-                        const void* slots, const void* buf,
-                        const void* noise, const void* seed, void* out,
-                        int batch, int fs0, int q, int dim, Strides st,
-                        cudaStream_t stream) {
-  switch (tile) {
-    case 1:
-      return launch<1, W>(table, wh, bh, wo, bo, slots, buf, noise, seed,
-                          out, batch, fs0, q, dim, st, stream);
-    case 2:
-      return launch<2, W>(table, wh, bh, wo, bo, slots, buf, noise, seed,
-                          out, batch, fs0, q, dim, st, stream);
-    case 4:
-      return launch<4, W>(table, wh, bh, wo, bo, slots, buf, noise, seed,
-                          out, batch, fs0, q, dim, st, stream);
-    case 8:
-      return launch<8, W>(table, wh, bh, wo, bo, slots, buf, noise, seed,
-                          out, batch, fs0, q, dim, st, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The resident kernel (bf16): weights in a cluster's shared memory
@@ -1564,48 +1341,14 @@ const void* grid_kernel_for(int dtype, int tile) {
 
 extern "C" {
 
-// The tiled kernel. dtype: 0 = float32 weights/table/slots, 1 = bfloat16.
-// tile: lanes per CTA (1, 2, 4 or 8). Exactly one of noise / seed is
-// non-null. Strides in elements: lane b's window at buf + b * buf_ld, its
-// slot row of step k at slots + b * slot_ld_b + k * slot_ld_k. Returns the
-// cudaError_t of the launch (0 on success).
-int sample_window_launch(int dtype, int tile, const void* table,
-                         const void* wh, const void* bh, const void* wo,
-                         const void* bo, const void* slots, const void* buf,
-                         const void* noise, const void* seed, void* out,
-                         int batch, int fs0, int q, int dim,
-                         long long buf_ld, long long slot_ld_b,
-                         long long slot_ld_k, void* stream) {
-  if ((noise == nullptr) == (seed == nullptr)) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides st{buf_ld, slot_ld_b, slot_ld_k};
-  if (dtype == 0)
-    return launch_tile<float>(tile, table, wh, bh, wo, bo, slots, buf, noise,
-                              seed, out, batch, fs0, q, dim, st, s);
-  if (dtype == 1)
-    return launch_tile<__nv_bfloat16>(tile, table, wh, bh, wo, bo, slots,
-                                      buf, noise, seed, out, batch, fs0, q,
-                                      dim, st, s);
-  return cudaErrorInvalidValue;
-}
-
-// dynamic shared memory one launch of the tiled kernel takes
-long long sample_window_smem_bytes(int tile, int fs0, int q, int dim) {
-  switch (tile) {
-    case 1: return (long long)smem_bytes<1>(fs0, q, dim);
-    case 2: return (long long)smem_bytes<2>(fs0, q, dim);
-    case 4: return (long long)smem_bytes<4>(fs0, q, dim);
-    case 8: return (long long)smem_bytes<8>(fs0, q, dim);
-    default: return -1;
-  }
-}
-
 // The resident kernel (bfloat16 only): `clusters` clusters of `cluster`
 // CTAs. packed: `cluster` slices of (dim / cluster + q / cluster) * dim
 // bf16, slice r holding columns r * dim / cluster .. of W_h and then
 // r * q / cluster .. of W_o as [16-column tile][16-deep step][32 lanes]
-// [8 values] in the register order of mma m16n8k16's A operand. The
-// other arguments as for the tiled kernel.
+// [8 values] in the register order of mma m16n8k16's A operand. Exactly
+// one of noise / seed is non-null. Strides in elements: lane b's window at
+// buf + b * buf_ld, its slot row of step k at slots + b * slot_ld_b + k *
+// slot_ld_k. Returns the cudaError_t of the launch (0 on success).
 int sample_window_resident_launch(const void* table, const void* packed,
                                   const void* bh, const void* bo,
                                   const void* slots, const void* buf,
@@ -1677,15 +1420,15 @@ int sample_window_max_clusters(int fs0, int q, int dim, int cluster) {
   return clusters;
 }
 
-// The grid kernel (dtype as for the tiled kernel): `replicas` x `groups`
-// CTAs, one cooperative launch. packed: `groups` slices of dim / groups x
-// (dim + q) elements, slice g holding columns g * dim / groups .. of W_h as
-// [column group of 4][j][dd][part][4] (depth 4 (j P + part) + dd, P the
-// threads of a column group) and then the same rows of W_o as [column
-// group of 4 of q][row][4]. tile: lanes a CTA multiplies at once (1, 2, 4,
-// 8 or 16). xg (batch, dim) and part (groups, batch, q) are float32 scratch,
-// counter one unsigned (zeroed here). The other arguments as for the tiled
-// kernel.
+// The grid kernel (dtype: 0 = float32 weights/table/slots, 1 = bfloat16):
+// `replicas` x `groups` CTAs, one cooperative launch. packed: `groups`
+// slices of dim / groups x (dim + q) elements, slice g holding columns
+// g * dim / groups .. of W_h as [column group of 4][j][dd][part][4] (depth
+// 4 (j P + part) + dd, P the threads of a column group) and then the same
+// rows of W_o as [column group of 4 of q][row][4]. tile: lanes a CTA
+// multiplies at once (1, 2, 4, 8 or 16). xg (batch, dim) and part (groups,
+// batch, q) are float32 scratch, counter one unsigned (zeroed here). The
+// other arguments as for the resident kernel.
 int sample_window_grid_launch(int dtype, int tile, const void* table,
                               const void* packed, const void* bh,
                               const void* bo, const void* slots,
@@ -1767,16 +1510,13 @@ int sample_window_grid_ctas(int dtype, int fs0, int q, int dim, int groups,
   return per_sm * sms;
 }
 
-// the most dynamic shared memory a CTA of the current device may ask for,
-// and its number of SMs
-int sample_window_device(int* smem_optin, int* sms) {
+// the most dynamic shared memory a CTA of the current device may ask for
+int sample_window_device(int* smem_optin) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(smem_optin,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   return err;
 }
 

@@ -21,7 +21,7 @@ kernel, launched cooperatively. Clusters of CTAs split the depth of one
 product between them and keep their slices of W_hh in shared memory for the
 whole sweep (read from the weight as stored, (3H, H)); the steps are
 separated by a grid barrier instead of a launch; the bf16 copy of h (resp.
-dhproj) crosses the barrier in the tiled order of the readers' shared
+dhproj) crosses the barrier in the tile-major order of the readers' shared
 memory, so that one TMA bulk copy per chunk brings it in; the product runs
 on wgmma, the partial sums meet through distributed shared memory, and only
 what the next step needs is written before the barrier (see the source's
@@ -302,15 +302,9 @@ def device_limits(device, H, dtype):
     return _limits[key]
 
 
-def _plan_on(device, T, B, H, mxu_dtype, path):
-    plan = sweep_plan(T, B, H, mxu_dtype,
+def _plan_on(device, T, B, H, mxu_dtype):
+    return sweep_plan(T, B, H, mxu_dtype,
                       *device_limits(device, H, mxu_dtype))
-    if path is None or path == plan.path:
-        return plan
-    if path == "per_step":
-        return sweep_plan(T, B, H, mxu_dtype, dict.fromkeys(DIRECTIONS, 0), 0)
-    raise ValueError(f"a ({T}, {B}, {H}) sweep in {mxu_dtype} cannot take "
-                     f"the {path!r} kernels")
 
 
 # --------------------------------------------------------------------------
@@ -358,9 +352,9 @@ def _raise_on(lib, err, what):
                            + lib.gru_layer_error_string(err).decode())
 
 
-def _tiled_scratch(steps, plan, direction, K, device):
-    """Room for a persistent kernel's own tiled bf16 copy of its (steps, B,
-    K) left operand: whole row tiles."""
+def _tile_major_scratch(steps, plan, direction, K, device):
+    """Room for a persistent kernel's own tile-major bf16 copy of its
+    (steps, B, K) left operand: whole row tiles."""
     return torch.empty((steps, plan.grids[direction][1], TILE_ROWS[direction],
                         K), dtype=torch.bfloat16, device=device)
 
@@ -382,7 +376,7 @@ def _count(wrapper, plan, mxu_dtype):
         setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
-def _forward(x_proj, w_hh_t, b_hh, h0, mxu_dtype, with_residual, path=None):
+def _forward(x_proj, w_hh_t, b_hh, h0, mxu_dtype, with_residual):
     """gru_layer_forward, and what the persistent kernels leave for the
     backward: -> (ys, hproj or None, kept), kept = (w_hh (3H, H) bf16,
     hb (T + 1, B, H) bf16 holding h0 and ys) with bfloat16 products,
@@ -396,7 +390,7 @@ def _forward(x_proj, w_hh_t, b_hh, h0, mxu_dtype, with_residual, path=None):
         raise ValueError(f"unsupported device {x_proj.device}")
     _check_cuda(x_proj, b_hh, h0)
     dev = x_proj.device
-    plan = _plan_on(dev, T, B, H, mxu_dtype, path)
+    plan = _plan_on(dev, T, B, H, mxu_dtype)
     lib = build()
     ys = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     hproj = (torch.empty((T, B, 3 * H), dtype=torch.float32, device=dev)
@@ -417,11 +411,11 @@ def _forward(x_proj, w_hh_t, b_hh, h0, mxu_dtype, with_residual, path=None):
         # of a bf16 (3H, H) parameter
         w = w_hh_t.t().to(torch.bfloat16).contiguous()
         hb = torch.empty((T + 1, B, H), dtype=torch.bfloat16, device=dev)
-        tiled = _tiled_scratch(T + 1, plan, "forward", H, dev)
+        blocks = _tile_major_scratch(T + 1, plan, "forward", H, dev)
         counter = torch.empty((1,), dtype=torch.int32, device=dev)
         err = lib.gru_layer_fwd_persistent_launch(
             x_proj.data_ptr(), w.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
-            ys.data_ptr(), hproj_ptr, hb.data_ptr(), tiled.data_ptr(),
+            ys.data_ptr(), hproj_ptr, hb.data_ptr(), blocks.data_ptr(),
             counter.data_ptr(), T, B, H, stream)
         kept = (w, hb)
     else:
@@ -440,21 +434,18 @@ def _forward(x_proj, w_hh_t, b_hh, h0, mxu_dtype, with_residual, path=None):
 
 
 def gru_layer_forward(x_proj, w_hh_t, b_hh, h0, mxu_dtype=torch.bfloat16,
-                      with_residual=True, path=None):
+                      with_residual=True):
     """The forward sweep -> (ys (T, B, H), hproj (T, B, 3H) or None).
 
     CPU tensors take the plain version; CUDA tensors launch the kernels
-    that `sweep_plan` names. `path="per_step"` asks for the per-step kernels
-    where the persistent one would run (to time them side by side)."""
+    that `sweep_plan` names."""
     ys, hproj, _ = _forward(x_proj, w_hh_t, b_hh, h0, mxu_dtype,
-                            with_residual, path)
+                            with_residual)
     return ys, hproj
 
 
-
-
 def _backward(x_proj, hproj, h0, ys, dy, w_hh, mxu_dtype, dhT=None,
-              path=None, w_kept=None):
+              w_kept=None):
     """gru_layer_backward -> (dxp, dhproj, dh0, dhb), dhb (T, B, 3H) bf16 =
     dhproj rounded, from the bf16 persistent kernel, else None. `w_kept` is
     the weight as the forward's persistent kernel took it, if it kept it:
@@ -467,7 +458,7 @@ def _backward(x_proj, hproj, h0, ys, dy, w_hh, mxu_dtype, dhT=None,
         _check_cuda(x_proj, hproj, h0, ys, dy, *(() if dhT is None
                                                  else (dhT,)))
         dev = x_proj.device
-        plan = _plan_on(dev, T, B, H, mxu_dtype, path)
+        plan = _plan_on(dev, T, B, H, mxu_dtype)
     if (on_cpu or plan.path != "persistent") and dhT is not None:
         # fold the final state's cotangent into the last step's output's
         dy = dy.clone()
@@ -495,13 +486,13 @@ def _backward(x_proj, hproj, h0, ys, dy, w_hh, mxu_dtype, dhT=None,
         w = (w_hh.to(torch.bfloat16).contiguous() if w_kept is None
              else w_kept)
         dhb = torch.empty((T, B, 3 * H), dtype=torch.bfloat16, device=dev)
-        tiled = _tiled_scratch(T, plan, "backward", 3 * H, dev)
+        blocks = _tile_major_scratch(T, plan, "backward", 3 * H, dev)
         counter = torch.empty((1,), dtype=torch.int32, device=dev)
         err = lib.gru_layer_bwd_persistent_launch(
             x_proj.data_ptr(), hproj.data_ptr(), h0.data_ptr(), ys.data_ptr(),
             dy.data_ptr(), None if dhT is None else dhT.data_ptr(),
             w.data_ptr(), dxp.data_ptr(), dhproj.data_ptr(), dhb.data_ptr(),
-            tiled.data_ptr(), dh0.data_ptr(), counter.data_ptr(), T, B, H,
+            blocks.data_ptr(), dh0.data_ptr(), counter.data_ptr(), T, B, H,
             stream)
     else:
         w = w_hh.to(mxu_dtype).contiguous()
@@ -521,16 +512,14 @@ def _backward(x_proj, hproj, h0, ys, dy, w_hh, mxu_dtype, dhT=None,
 
 
 def gru_layer_backward(x_proj, hproj, h0, ys, dy, w_hh,
-                       mxu_dtype=torch.bfloat16, dhT=None, path=None):
+                       mxu_dtype=torch.bfloat16, dhT=None):
     """The reverse sweep -> (dxp, dhproj (T, B, 3H), dh0 (B, H)).
 
     h_prev[t] is h0 for t = 0 and ys[t-1] after; dy (T, B, H) holds the
     output cotangents and dhT (B, H), if given, the final state's, which
     counts as added to dy[-1]; w_hh is (3H, H). CPU tensors take the plain
-    version; CUDA tensors launch the kernels that `sweep_plan` names (or
-    the per-step ones with `path="per_step"`)."""
-    return _backward(x_proj, hproj, h0, ys, dy, w_hh, mxu_dtype, dhT,
-                     path)[:3]
+    version; CUDA tensors launch the kernels that `sweep_plan` names."""
+    return _backward(x_proj, hproj, h0, ys, dy, w_hh, mxu_dtype, dhT)[:3]
 
 
 for _wrapper in (gru_layer_forward, gru_layer_backward):
@@ -541,8 +530,12 @@ for _wrapper in (gru_layer_forward, gru_layer_backward):
 def empty_sweep(steps, B, H, device):
     """Launch the persistent sweeps' grid for (B, H) through `steps` grid
     barriers and no other work: the cost of a sweep's step-to-step
-    dependence alone, for timing beside the real sweeps."""
-    plan = _plan_on(device, steps, B, H, torch.bfloat16, "persistent")
+    dependence alone, for timing beside the real sweeps. Raises where the
+    plan for that shape is not persistent."""
+    plan = _plan_on(device, steps, B, H, torch.bfloat16)
+    if plan.path != "persistent":
+        raise ValueError(f"a ({steps}, {B}, {H}) sweep takes the "
+                         f"{plan.path} kernels, which have no grid barrier")
     lib = build()
     counter = torch.empty((1,), dtype=torch.int32, device=device)
     err = lib.gru_layer_empty_sweep_launch(

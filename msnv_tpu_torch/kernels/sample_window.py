@@ -35,14 +35,12 @@ products are tiny; what a step costs besides them decides. Two kernels:
   lanes' owners add in group order at the next sample. Float32 FMA in a
   fixed order (tests/test_torch_sample_window_grid.py emulates its
   decomposition in plain tensor code).
-- "tiled", the first version: one CTA per tile of 1-8 lanes, weights read
-  from L2 for every sample, float32 FMA sums in a fixed order. It runs
-  only where the card grants neither of the others (and when asked for,
-  to be timed beside them).
 
 `window_plan` chooses between them by shape, type and what the device
 grants (the occupancy API's answers, `device_limits`), before anything is
-launched; a CUDA tensor launches the planned kernel or raises.
+launched. A window that neither takes (widths no preset has, such as bf16
+dim 640, or a card that grants too few CTAs) is refused with an error
+that names its widths and the device's limits.
 
 Layouts (the port's choice, lane-major so one CTA reads contiguous rows):
   table (fs0*q, dim)   fused embed+conv, position-major (fused_embed_conv)
@@ -57,12 +55,12 @@ Returns (B, fs0) int32: the fs0 new samples.
 
 On a CPU tensor `sample_window` runs `sample_window_reference` (in the
 Philox mode on the noise `philox_gumbel_noise` computes: the numbers both
-kernels draw). `sample_window.launches` counts the windows launched: the
-calls that launched a kernel, and a captured CUDA graph's windows each
-time it is replayed (serving/mux.py adds them; its capture, and the
-scratch push before it, count none); `.resident`, `.grid` and `.tiled` by
-kernel. The library is built with nvcc at first use into
-msnv_tpu_torch/build/.
+kernels draw).
+`sample_window.launches` counts the windows launched: the calls that
+launched a kernel, and a captured CUDA graph's windows each time it is
+replayed (serving/mux.py adds them; its capture, and the scratch push
+before it, count none); `.resident` and `.grid` by kernel. The library
+is built with nvcc at first use into msnv_tpu_torch/build/.
 
 The Philox mode is also registered as the operator
 `msnv_torch::sample_window` (`sample_window_op`), with
@@ -85,8 +83,6 @@ import torch
 from msnv_tpu_torch.kernels.build import CSRC, build_library
 
 SOURCE = CSRC / "sample_window.cu"
-TILES = (1, 2, 4, 8)
-PATHS = ("resident", "grid", "tiled")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the resident kernel: lanes per sub-tile, warps per CTA, the cluster sizes
 # it may take, padding of its activation rows (bf16) and partial sums (f32)
@@ -97,8 +93,6 @@ _ACT_PAD, _RED_PAD = 8, 4
 # the most columns of W_h and of W_o that one of its CTAs owns (four columns
 # of a lane a gather thread; a 16-column tile a warp)
 _MAX_OWN_H, _MAX_OWN_O = 64, 256
-# the tiled kernel: threads per CTA, columns per load
-_TILED_THREADS, _TILED_VEC = 256, 8
 # the grid kernel: threads per CTA, the lanes a CTA may multiply at once,
 # lanes a CTA draws and gathers at once, the fewest lanes a replica of the
 # weights takes
@@ -119,11 +113,6 @@ def build() -> ctypes.CDLL:
             return _lib
         lib, build_log = build_library(SOURCE)
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.sample_window_launch.argtypes = (
-            [ci, ci] + [vp] * 10 + [ci] * 4 + [ll] * 3 + [vp])
-        lib.sample_window_launch.restype = ci
-        lib.sample_window_smem_bytes.argtypes = [ci] * 4
-        lib.sample_window_smem_bytes.restype = ll
         lib.sample_window_resident_launch.argtypes = (
             [vp] * 9 + [ci] * 4 + [ll] * 3 + [ci, ci, vp])
         lib.sample_window_resident_launch.restype = ci
@@ -142,7 +131,7 @@ def build() -> ctypes.CDLL:
         lib.sample_window_grid_smem.restype = ll
         lib.sample_window_grid_ctas.argtypes = [ci] * 6
         lib.sample_window_grid_ctas.restype = ci
-        lib.sample_window_device.argtypes = [ctypes.POINTER(ci)] * 2
+        lib.sample_window_device.argtypes = [ctypes.POINTER(ci)]
         lib.sample_window_device.restype = ci
         lib.sample_window_error_string.argtypes = [ci]
         lib.sample_window_error_string.restype = ctypes.c_char_p
@@ -360,10 +349,10 @@ def pack_grid_weights(wh, wo, groups: int):
 # --------------------------------------------------------------------------
 
 class WindowPlan(NamedTuple):
-    path: str               # "resident", "grid" or "tiled"
+    path: str               # "resident" or "grid"
     cluster: int            # CTAs per cluster (grid: CTAs per replica of
-                            # the weights; tiled: 1)
-    clusters: int           # clusters (grid: replicas; tiled: CTAs)
+                            # the weights)
+    clusters: int           # clusters (grid: replicas)
     lanes_per_cluster: int  # the most lanes one cluster walks through
     subtile: int            # lanes in flight at once in a cluster (a CTA)
     smem_bytes: int         # dynamic shared memory of a CTA
@@ -391,16 +380,6 @@ def resident_smem_bytes(fs0: int, q: int, dim: int, cluster: int) -> int:
         _depth_split(mo // 16, ksteps) * (mo + _RED_PAD))
     seq = SUBTILE * 2 * fs0 * 4
     return -(-(weights + acts + red + seq) // 16) * 16 + 4 * 8
-
-
-def tiled_smem_bytes(tile: int, fs0: int, q: int, dim: int) -> int:
-    """Shared memory of one CTA of the tiled kernel: x, h, logits and the
-    partial sums of `tile` lanes (f32), their windows."""
-    def groups(n):
-        chunks = n // _TILED_VEC
-        return 1 if chunks >= _TILED_THREADS else _TILED_THREADS // chunks
-    red = max(groups(dim) * tile * dim, groups(q) * tile * q)
-    return (2 * tile * dim + tile * q + red) * 4 + (tile * fs0 + tile) * 4
 
 
 def _align16(n: int) -> int:
@@ -485,34 +464,21 @@ def resident_cluster(fs0: int, q: int, dim: int, smem_bytes: int) -> int:
     return 0
 
 
-def _tile_for(batch: int, sms: int) -> int:
-    """The tiled kernel's tile: the smallest that keeps the CTA count
-    within four per SM. A CTA is bound by how many weight loads it keeps in
-    flight, not by its arithmetic, so more CTAs beat wider tiles until the
-    SMs are several deep: on an H100 at dim 1024 one lane per CTA is fastest
-    up to B = 128 and two lanes per CTA at B = 1024."""
-    for tile in TILES:
-        if -(-batch // tile) <= 4 * sms:
-            return tile
-    return TILES[-1]
-
-
 def window_plan(B, fs0, q, dim, dtype, max_clusters, smem_bytes,
-                sms=132, grid_ctas=0) -> WindowPlan:
+                grid_ctas=0) -> WindowPlan:
     """Choose the kernel and its launch for a window of B lanes, on a
-    device whose CTAs may use `smem_bytes` of shared memory, which has
-    `sms` SMs, holds `max_clusters` clusters of the resident kernel at
-    once (of the size `resident_cluster` names) and `grid_ctas` CTAs of
-    the grid kernel (on a card: the occupancy API's answers). The resident
+    device whose CTAs may use `smem_bytes` of shared memory, which holds
+    `max_clusters` clusters of the resident kernel at once (of the size
+    `resident_cluster` names) and `grid_ctas` CTAs of the grid kernel (on
+    a card: the occupancy API's answers). The resident
     kernel needs bf16 weights, a cluster that holds them and at least one
     such cluster granted; its clusters share the lanes evenly and walk
     through them 8 at a time. Everything else takes the grid kernel where
     the card holds the `grid_groups` CTAs that keep the weights: as many
     replicas of them as it holds, up to one per 8 lanes, share the lanes
     evenly, each CTA multiplying as many at a time (up to 16) as its
-    shared memory holds beside the weights. What neither takes
-    goes to the tiled kernel: the smallest tile that keeps the CTAs within
-    four per SM. Raises for what no kernel takes."""
+    shared memory holds beside the weights. Raises for a type, an empty
+    window, or a window that neither kernel takes on this device."""
     if dtype not in _DTYPES:
         raise TypeError(f"weights must be float32 or bfloat16, got {dtype}")
     if B < 1 or fs0 < 1:
@@ -534,36 +500,30 @@ def window_plan(B, fs0, q, dim, dtype, max_clusters, smem_bytes,
         wsize = torch.empty((), dtype=dtype).element_size()
         return WindowPlan("grid", groups, replicas, per, tile,
                           grid_smem_bytes(fs0, q, dim, groups, wsize, tile))
-    want = _tile_for(B, sms)
-    for tile in reversed([t for t in TILES if t <= want]):
-        need = tiled_smem_bytes(tile, fs0, q, dim)
-        if need <= smem_bytes:
-            return WindowPlan("tiled", 1, -(-B // tile), tile, tile, need)
-    raise ValueError(f"a window at dim {dim}, q {q} needs "
-                     f"{tiled_smem_bytes(1, fs0, q, dim)} B of shared "
-                     f"memory; the device allows {smem_bytes}")
+    raise ValueError(
+        f"no kernel takes a window of {dtype} weights at dim {dim}, q {q}, "
+        f"fs0 {fs0} on a device that grants {max_clusters} resident "
+        f"clusters, {grid_ctas} grid CTAs and {smem_bytes} B of shared "
+        f"memory a CTA")
 
 
 def plan_lanes(plan: WindowPlan, B: int):
-    """[(first lane, lanes)] of each cluster (tiled: each CTA), as the
+    """[(first lane, lanes)] of each cluster (grid: each replica), as the
     kernels compute it: contiguous shares that differ by at most one."""
-    if plan.path == "tiled":
-        return [(c * plan.subtile, min(plan.subtile, B - c * plan.subtile))
-                for c in range(plan.clusters)]
     base, rem = divmod(B, plan.clusters)
     return [(c * base + min(c, rem), base + (c < rem))
             for c in range(plan.clusters)]
 
 
-# (device index, fs0, q, dim, dtype) -> (max clusters, smem, SMs, grid CTAs)
+# (device index, fs0, q, dim, dtype) -> (max clusters, smem, grid CTAs)
 _limits = {}
 
 
 def device_limits(device, fs0, q, dim, dtype):
     """(clusters of the resident kernel that a CUDA device holds at once at
-    these shapes, most dynamic shared memory of a CTA, SMs, CTAs of the
-    grid kernel for weights of `dtype` that it holds at once):
-    window_plan's last four arguments, from the occupancy API. 0 clusters
+    these shapes, most dynamic shared memory of a CTA, CTAs of the grid
+    kernel for weights of `dtype` that it holds at once): window_plan's
+    last three arguments, from the occupancy API. 0 clusters
     (CTAs) where no cluster (no grid of the card's CTAs) holds the
     weights."""
     index = (device.index if device.index is not None
@@ -571,11 +531,10 @@ def device_limits(device, fs0, q, dim, dtype):
     key = (index, fs0, q, dim, dtype)
     if key not in _limits:
         lib = build()
-        smem, sms = ctypes.c_int(), ctypes.c_int()
+        smem = ctypes.c_int()
         held = 0
         with torch.cuda.device(index):
-            _raise_on(lib, lib.sample_window_device(ctypes.byref(smem),
-                                                    ctypes.byref(sms)),
+            _raise_on(lib, lib.sample_window_device(ctypes.byref(smem)),
                       "device query")
             cluster = resident_cluster(fs0, q, dim, smem.value)
             if cluster:
@@ -601,7 +560,7 @@ def device_limits(device, fs0, q, dim, dtype):
                 ctas = lib.sample_window_grid_ctas(code, fs0, q, dim, groups,
                                                    tile)
                 _raise_on(lib, max(-ctas, 0), "grid occupancy query")
-        _limits[key] = (held, smem.value, sms.value, ctas)
+        _limits[key] = (held, smem.value, ctas)
     return _limits[key]
 
 
@@ -609,18 +568,15 @@ def resident_weights(wh, wo, fs0: int):
     """What a sampler makes once and hands to every `sample_window` call as
     `packed=`: the packed weights where windows of these weights take the
     resident or the grid kernel (whose packing does not depend on the
-    batch), else None (CPU tensors, windows that take the tiled
-    kernel)."""
+    batch), else None (CPU tensors). Raises where no kernel takes
+    them."""
     if wh.device.type != "cuda" or wh.dtype not in _DTYPES:
         return None
     dim, q = wo.shape
-    plan = window_plan(1, fs0, q, dim, wh.dtype,
-                       *device_limits(wh.device, fs0, q, dim, wh.dtype))
-    if plan.path == "resident":
-        return pack_window_weights(wh, wo, plan.cluster)
-    if plan.path == "grid":
-        return pack_grid_weights(wh, wo, plan.cluster)
-    return None
+    plan = _plan_on(wh.device, 1, fs0, q, dim, wh.dtype)
+    pack = (pack_window_weights if plan.path == "resident"
+            else pack_grid_weights)
+    return pack(wh, wo, plan.cluster)
 
 
 # --------------------------------------------------------------------------
@@ -683,36 +639,22 @@ def _check_cuda(table, wh, bh, wo, bo, slots, buf, noise, seed, packed):
                              "aligned")
 
 
-def _plan_on(device, batch, fs0, q, dim, dtype, path):
-    limits = device_limits(device, fs0, q, dim, dtype)
-    plan = window_plan(batch, fs0, q, dim, dtype, *limits)
-    if path is None or path == plan.path:
-        return plan
-    if path == "tiled":
-        return window_plan(batch, fs0, q, dim, dtype, 0, *limits[1:3], 0)
-    raise ValueError(f"a window at dim {dim}, q {q} in {dtype} cannot take "
-                     f"the {path!r} kernel")
+def _plan_on(device, batch, fs0, q, dim, dtype):
+    return window_plan(batch, fs0, q, dim, dtype,
+                       *device_limits(device, fs0, q, dim, dtype))
 
 
 def sample_window(table, wh, bh, wo, bo, slots, buf, *, noise=None,
-                  seed=None, tile=None, path=None, packed=None,
-                  clusters=None):
+                  seed=None, packed=None):
     """fs0 samples per lane -> (B, fs0) int32 (layouts in the module
     docstring), with Gumbel `noise` given or drawn from Philox keyed on
-    `seed`. CPU tensors take the plain version; CUDA tensors launch the
-    kernel that `window_plan` names.
+    `seed`. CUDA tensors launch the kernel that `window_plan` names, and
+    raise where it names none; CPU tensors run the plain version.
 
-    path: "tiled" asks for the tiled kernel where another would run (to
-      time them side by side); "resident" or "grid" raises where the plan
-      names another kernel. tile: the tiled kernel's lanes per CTA
-      (default: by batch). packed: `resident_weights(wh, wo, fs0)`, made
-      once by a caller that samples many windows (or flattened, as
-      `pack_window_weights_op` returns it); without it the resident or grid
-      kernel's weights are packed in this call. clusters: fewer clusters
-      of the resident kernel than the plan's (the draws do not depend on
-      it)."""
-    if path is not None and path not in PATHS:
-        raise ValueError(f"path must be one of {PATHS}, got {path!r}")
+    packed: `resident_weights(wh, wo, fs0)`, made once by a caller that
+    samples many windows (or flattened, as `pack_window_weights_op`
+    returns it); without it the resident or grid kernel's weights are
+    packed in this call; the plain version does not read it."""
     batch, fs0, q, dim = _check(table, wh, bh, wo, bo, slots, buf, noise,
                                 seed)
     if table.device.type == "cpu":
@@ -726,39 +668,31 @@ def sample_window(table, wh, bh, wo, bo, slots, buf, *, noise=None,
     out = torch.empty((batch, fs0), dtype=torch.int32, device=dev)
     if batch == 0:
         return out
-    plan = _plan_on(dev, batch, fs0, q, dim, table.dtype, path)
+    plan = _plan_on(dev, batch, fs0, q, dim, table.dtype)
     _check_cuda(table, wh, bh, wo, bo, slots, buf, noise, seed, packed)
     lib = build()
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     strides = (buf.stride(0), slots.stride(0), slots.stride(1))
-    if plan.path != "tiled" and tile is not None:
-        raise ValueError("tile= belongs to the tiled kernel")
-    if plan.path != "resident" and clusters is not None:
-        raise ValueError("clusters= belongs to the resident kernel")
-    if plan.path != "tiled":
+    if packed is None:
         pack = (pack_window_weights if plan.path == "resident"
                 else pack_grid_weights)
-        if packed is None:
-            packed = pack(wh, wo, plan.cluster)
-        else:
-            if packed.dim() == 1 and packed.numel() == (dim + q) * dim:
-                packed = packed.view(plan.cluster, -1)
-            if (packed.dtype != table.dtype or packed.device != dev
-                    or tuple(packed.shape) != (plan.cluster, (dim + q)
-                                               // plan.cluster * dim)):
-                raise ValueError(f"packed does not hold these weights for "
-                                 f"the {plan.path} kernel's "
-                                 f"{plan.cluster} CTAs")
+        packed = pack(wh, wo, plan.cluster)
+    else:
+        if packed.dim() == 1 and packed.numel() == (dim + q) * dim:
+            packed = packed.view(plan.cluster, -1)
+        if (packed.dtype != table.dtype or packed.device != dev
+                or tuple(packed.shape) != (plan.cluster, (dim + q)
+                                           // plan.cluster * dim)):
+            raise ValueError(f"packed does not hold these weights for "
+                             f"the {plan.path} kernel's "
+                             f"{plan.cluster} CTAs")
     if plan.path == "resident":
-        if clusters is not None and not 1 <= clusters <= plan.clusters:
-            raise ValueError(f"clusters must be in 1..{plan.clusters}, got "
-                             f"{clusters}")
         err = lib.sample_window_resident_launch(
             ptr(table), ptr(packed), ptr(bh), ptr(bo), ptr(slots), ptr(buf),
             ptr(noise), ptr(seed), ptr(out), batch, fs0, q, dim, *strides,
-            plan.cluster, clusters or plan.clusters, stream)
-    elif plan.path == "grid":
+            plan.cluster, plan.clusters, stream)
+    else:
         f32 = {"dtype": torch.float32, "device": dev}
         xg = torch.empty((batch, dim), **f32)
         part = torch.empty((plan.cluster, batch, q), **f32)
@@ -768,20 +702,6 @@ def sample_window(table, wh, bh, wo, bo, slots, buf, *, noise=None,
             ptr(bh), ptr(bo), ptr(slots), ptr(buf), ptr(noise), ptr(seed),
             ptr(out), ptr(xg), ptr(part), ptr(counter), batch, fs0, q, dim,
             *strides, plan.cluster, plan.clusters, stream)
-    else:
-        if tile is None:
-            tile = plan.subtile
-        elif tile not in TILES:
-            raise ValueError(f"tile must be one of {TILES}, got {tile}")
-        smem = lib.sample_window_smem_bytes(tile, fs0, q, dim)
-        limit = device_limits(dev, fs0, q, dim, table.dtype)[1]
-        if smem > limit:
-            raise ValueError(f"tile {tile} at dim {dim} needs {smem} B of "
-                             f"shared memory; the card allows {limit}")
-        err = lib.sample_window_launch(
-            _DTYPES[table.dtype], tile, ptr(table), ptr(wh), ptr(bh),
-            ptr(wo), ptr(bo), ptr(slots), ptr(buf), ptr(noise), ptr(seed),
-            ptr(out), batch, fs0, q, dim, *strides, stream)
     _raise_on(lib, err, f"{plan.path} launch")
     sample_window.launches += 1
     setattr(sample_window, plan.path, getattr(sample_window, plan.path) + 1)
@@ -791,7 +711,6 @@ def sample_window(table, wh, bh, wo, bo, slots, buf, *, noise=None,
 sample_window.launches = 0
 sample_window.resident = 0
 sample_window.grid = 0
-sample_window.tiled = 0
 
 
 # --------------------------------------------------------------------------
@@ -805,7 +724,7 @@ sample_window.tiled = 0
 def sample_window_op(table, wh, bh, wo, bo, slots, buf, seed, packed):
     """`sample_window(..., seed=seed, packed=packed)` as an operator: the
     kernel its plan names on CUDA tensors (planned on these tensors, on
-    every call), the plain version on CPU tensors. -> (B, fs0) int32."""
+    every call), else the plain version. -> (B, fs0) int32."""
     return sample_window(table, wh, bh, wo, bo, slots, buf, seed=seed,
                          packed=packed)
 
@@ -821,9 +740,9 @@ def _(table, wh, bh, wo, bo, slots, buf, seed, packed):
 def pack_window_weights_op(wh, wo, fs0):
     """W_h and W_o for `sample_window_op`'s `packed`, flat ((dim + q) *
     dim,): `resident_weights` for the plan that windows of these weights
-    take on this device, decided when the operator runs; where they take
-    the tiled kernel, W_h and W_o flattened and joined (which the tiled
-    kernel and the plain version do not read)."""
+    take on this device, decided when the operator runs; on the CPU, W_h
+    and W_o flattened and joined (which the plain version does not
+    read)."""
     packed = resident_weights(wh, wo, fs0)
     if packed is None:
         return torch.cat([wh.reshape(-1), wo.reshape(-1)])
@@ -843,19 +762,17 @@ def empty_window(batch, fs0, q, dim, device, dtype=torch.bfloat16):
     for timing beside the real kernel. Resident: three rounds per sample
     and sub-tile in which every CTA sends 8 bytes to every CTA of its
     cluster and waits for everyone's; grid: its 2 fs0 grid barriers.
-    Returns the plan."""
-    plan = _plan_on(device, batch, fs0, q, dim, dtype, None)
+    Returns the plan; raises where no kernel takes the window."""
+    plan = _plan_on(device, batch, fs0, q, dim, dtype)
     lib = build()
     stream = torch.cuda.current_stream(device).cuda_stream
     if plan.path == "resident":
         err = lib.sample_window_empty_launch(
             batch, fs0, q, dim, plan.cluster, plan.clusters, stream)
-    elif plan.path == "grid":
+    else:
         counter = torch.empty(1, dtype=torch.int32, device=device)
         err = lib.sample_window_grid_empty_launch(
             _DTYPES[dtype], fs0, q, dim, plan.cluster, plan.clusters,
             plan.subtile, counter.data_ptr(), stream)
-    else:
-        raise ValueError("the tiled kernel has no exchanges")
     _raise_on(lib, err, "empty window launch")
     return plan

@@ -26,10 +26,11 @@ path's calls, so both forms give the same samples.
 
 With `use_kernel=True` the bottom tier's fs0 samples per slot window run in
 the CUDA sample-window kernel (msnv_tpu_torch/kernels/sample_window.py:
-bf16 weights resident in a cluster's shared memory, float32 through the
-tiled kernel) with its Philox draw keyed on a seed drawn from the
-generator. On CPU tensors the same call runs the kernel's plain version on
-the same Philox noise (the counterpart of the JAX interpret mode).
+bf16 weights resident in a cluster's shared memory, float32 across the
+shared memory of the grid kernel's CTAs) with its Philox draw keyed on a
+seed drawn from the generator. On CPU tensors the same call runs the
+kernel's plain version on the same Philox noise (the counterpart of the
+JAX interpret mode).
 
 The JAX package also has `generate_fn_dynamic` / `streaming_fn_dynamic`,
 which exist only because jit folds closed-over weights into the
@@ -182,9 +183,8 @@ def _kernel_window_sampler(params, cfg: ModelConfig, fused_table,
         bo = bo * (1.0 / temperature)
     wo = wo.to(table.dtype).contiguous()
     bo = bo.contiguous()
-    # once per sampler: the weights in the order the resident kernel keeps
-    # them in shared memory (None where windows take the tiled kernel or
-    # the plain version)
+    # once per sampler: the weights in the order the resident or grid
+    # kernel keeps them in shared memory (None on the CPU)
     if not traced:
         packed = resident_weights(wh, wo, fs0)
     elif table.device.type == "cuda":

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from msnv_tpu_torch.config import ModelConfig
-from msnv_tpu_torch.kernels.sample_window import PATHS, sample_window
+from msnv_tpu_torch.kernels.sample_window import sample_window
 from msnv_tpu_torch.models.generate import streaming_fn
 from msnv_tpu_torch.parallel.generate import shard_generator
 from msnv_tpu_torch.parallel.mesh import (batch_sharding, check_mesh,
@@ -524,7 +524,7 @@ class StreamMultiplexer:
 
 
 # the sample-window kernel's launch counters
-_COUNTERS = ("launches",) + PATHS
+_COUNTERS = ("launches", "resident", "grid")
 
 
 def _window_counts():

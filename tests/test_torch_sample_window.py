@@ -196,36 +196,34 @@ def _covered_once(plan, batch):
 @pytest.mark.parametrize("max_clusters", [0, 1, 8])
 @pytest.mark.parametrize("batch", [1, 3, 128, 130, 1024])
 def test_window_plan_canonical(batch, max_clusters):
+    if max_clusters == 0:       # no cluster granted, no grid CTAs given
+        with pytest.raises(ValueError, match="no kernel takes"):
+            sw.window_plan(batch, 20, 256, 1024, BF16, max_clusters, SMEM)
+        return
     plan = sw.window_plan(batch, 20, 256, 1024, BF16, max_clusters, SMEM)
     assert _covered_once(plan, batch)
     assert plan.smem_bytes <= SMEM
     shares = [n for _, n in sw.plan_lanes(plan, batch)]
     assert max(shares) == plan.lanes_per_cluster and min(shares) >= 1
-    if max_clusters == 0:
-        assert plan.path == "tiled" and plan.cluster == 1
-        assert plan.subtile in sw.TILES
-        assert plan.clusters == -(-batch // plan.subtile)
-    else:
-        assert plan.path == "resident"
-        assert plan.cluster == 16 and plan.subtile == sw.SUBTILE
-        assert plan.clusters == min(max_clusters, -(-batch // sw.SUBTILE))
-        assert max(shares) - min(shares) <= 1
-        assert plan.smem_bytes == sw.resident_smem_bytes(20, 256, 1024, 16)
+    assert plan.path == "resident"
+    assert plan.cluster == 16 and plan.subtile == sw.SUBTILE
+    assert plan.clusters == min(max_clusters, -(-batch // sw.SUBTILE))
+    assert max(shares) - min(shares) <= 1
+    assert plan.smem_bytes == sw.resident_smem_bytes(20, 256, 1024, 16)
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("dim", [32, 1024, 2048])
 def test_window_plan_by_width_and_type(dim, dtype):
+    if dtype != BF16 or dim == 2048:    # no grid CTAs given
+        with pytest.raises(ValueError, match="no kernel takes"):
+            sw.window_plan(130, 20, 256, dim, dtype, 8, SMEM)
+        return
     plan = sw.window_plan(130, 20, 256, dim, dtype, 8, SMEM)
-    resident = dtype == BF16 and dim != 2048
-    assert plan.path == ("resident" if resident else "tiled")
+    assert plan.path == "resident"
     assert _covered_once(plan, 130) and plan.smem_bytes <= SMEM
-    if resident:
-        assert plan.cluster == sw.resident_cluster(20, 256, dim, SMEM)
-        assert dim // plan.cluster <= 64 and dim % (16 * plan.cluster) == 0
-    else:
-        assert plan.smem_bytes == sw.tiled_smem_bytes(plan.subtile, 20, 256,
-                                                      dim)
+    assert plan.cluster == sw.resident_cluster(20, 256, dim, SMEM)
+    assert dim // plan.cluster <= 64 and dim % (16 * plan.cluster) == 0
 
 
 def test_window_plan_rejects_what_no_kernel_takes():
@@ -236,7 +234,7 @@ def test_window_plan_rejects_what_no_kernel_takes():
     with pytest.raises(ValueError):
         sw.window_plan(4, 20, 256, 1020, BF16, 8, SMEM)
     with pytest.raises(ValueError):        # not even one lane fits
-        sw.window_plan(4, 20, 256, 1024, F32, 0, 1000)
+        sw.window_plan(4, 20, 256, 1024, F32, 0, 1000, grid_ctas=132)
 
 
 @pytest.mark.parametrize("dim,want", [(64, 1), (128, 2), (512, 8),
@@ -332,21 +330,3 @@ def test_wrapper_reads_a_strided_window_and_strided_slots(mode):
     assert torch.equal(got, want)
     assert window.data_ptr() == wide[:, -fs0:].data_ptr()
 
-
-@pytest.mark.parametrize("path", ["cluster", "", "per_step"])
-def test_wrapper_rejects_an_unknown_path(path):
-    a = _small_args()
-    with pytest.raises(ValueError):
-        sw.sample_window(*a.values(), noise=torch.zeros(2, 4, 16), path=path)
-
-
-@pytest.mark.parametrize("path", [None, "resident", "tiled"])
-def test_cpu_tensors_take_the_plain_version_whatever_the_path(path):
-    a = _small_args()
-    noise = torch.zeros(2, 4, 16)
-    before = (sw.sample_window.launches, sw.sample_window.resident,
-              sw.sample_window.tiled)
-    got = sw.sample_window(*a.values(), noise=noise, path=path)
-    assert torch.equal(got, sw.sample_window_reference(*a.values(), noise))
-    assert before == (sw.sample_window.launches, sw.sample_window.resident,
-                      sw.sample_window.tiled)

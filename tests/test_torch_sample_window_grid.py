@@ -14,7 +14,7 @@ from msnv_tpu.pallas.sample_kernel import make_sample_window
 from msnv_tpu_torch.kernels import sample_window as sw
 
 SMEM = 232448        # the most shared memory a CTA of an H100 may ask for
-SMS = 132
+SMS = 132            # an H100's SMs: one CTA of the grid kernel each
 BF16, F32 = torch.bfloat16, torch.float32
 
 
@@ -109,32 +109,44 @@ def _covered_once(plan, batch):
     return lanes == list(range(batch))
 
 
-# (dtype, dim, CTAs of the grid kernel the card holds, path, CTAs a replica)
+# (dtype, dim, q, CTAs of the grid kernel the card holds, path, CTAs a
+# replica); path None: no kernel takes the window
 PLANS = [
-    (F32, 128, SMS, "grid", 1),
-    (F32, 1024, SMS, "grid", 32),
-    (F32, 2048, SMS, "grid", 128),
-    (BF16, 2048, SMS, "grid", 64),
-    (BF16, 1024, SMS, "resident", 16),
-    (F32, 1024, 0, "tiled", 1),
-    (F32, 128, 0, "tiled", 1),
-    (BF16, 2048, 0, "tiled", 1),
-    (F32, 1024, 31, "tiled", 1),       # fewer CTAs than one replica needs
+    (F32, 128, 256, SMS, "grid", 1),
+    (F32, 1024, 256, SMS, "grid", 32),
+    (F32, 2048, 256, SMS, "grid", 128),
+    (BF16, 2048, 256, SMS, "grid", 64),
+    (BF16, 1024, 256, SMS, "resident", 16),
+    (F32, 1024, 256, 0, None, None),
+    (F32, 128, 256, 0, None, None),
+    (BF16, 2048, 256, 0, None, None),
+    (F32, 1024, 256, 31, None, None),  # fewer CTAs than one replica needs
+    (F32, 1024, 256, 16, None, None),
+    (BF16, 640, 256, SMS, None, None),  # no cluster splits it, no pow2 slice
+    (BF16, 1536, 256, SMS, None, None),
+    (BF16, 1088, 256, SMS, None, None),
+    (F32, 768, 256, SMS, None, None),
+    (F32, 1024, 200, SMS, None, None),  # q not a power of two
+    (F32, 1024, 384, SMS, None, None),
 ]
 
 
 @pytest.mark.parametrize("batch", [1, 3, 128, 1024])
-@pytest.mark.parametrize("dtype,dim,ctas,path,cluster", PLANS)
-def test_window_plan_names_the_grid_path(dtype, dim, ctas, path, cluster,
+@pytest.mark.parametrize("dtype,dim,q,ctas,path,cluster", PLANS)
+def test_window_plan_names_the_grid_path(dtype, dim, q, ctas, path, cluster,
                                          batch):
-    plan = sw.window_plan(batch, 20, 256, dim, dtype, 8, SMEM, SMS, ctas)
+    if path is None:
+        with pytest.raises(ValueError, match="no kernel takes"):
+            sw.window_plan(batch, 20, q, dim, dtype, 8, SMEM, ctas)
+        return
+    plan = sw.window_plan(batch, 20, q, dim, dtype, 8, SMEM, ctas)
     assert plan.path == path and plan.cluster == cluster
     assert _covered_once(plan, batch) and plan.smem_bytes <= SMEM
     if path != "grid":
         return
     wsize = 4 if dtype == F32 else 2
-    assert plan.cluster == sw.grid_groups(20, 256, dim, dtype, SMEM)
-    assert plan.smem_bytes == sw.grid_smem_bytes(20, 256, dim, cluster,
+    assert plan.cluster == sw.grid_groups(20, q, dim, dtype, SMEM)
+    assert plan.smem_bytes == sw.grid_smem_bytes(20, q, dim, cluster,
                                                  wsize, plan.subtile)
     # replicas of the weights: as many as the card holds, one per 8 lanes
     assert plan.clusters == min(ctas // cluster,
@@ -146,10 +158,10 @@ def test_window_plan_names_the_grid_path(dtype, dim, ctas, path, cluster,
     # the widest tile that fits, up to the lanes of a replica
     assert plan.subtile in sw.GRID_TILES
     assert plan.subtile == sw.grid_tile(
-        20, 256, dim, cluster, dtype, SMEM,
+        20, q, dim, cluster, dtype, SMEM,
         1 << (max(shares) - 1).bit_length())
     if plan.subtile < min(sw.GRID_TILE, max(shares)):
-        assert sw.grid_smem_bytes(20, 256, dim, cluster, wsize,
+        assert sw.grid_smem_bytes(20, q, dim, cluster, wsize,
                                   2 * plan.subtile) > SMEM
 
 
