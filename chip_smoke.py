@@ -13,8 +13,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 resident one does not), given noise and Philox, B 1/2/32/
                 128/1024: samples equal exactly (TF32 off); bf16 (the
                 resident kernel by plan: weights in a cluster's shared
-                memory), given noise and Philox, B 1/2/32/128/1024 and the
-                ragged 3/17/130, and at the narrow (fs0 4, dim 128): on a
+                memory), given noise and Philox, B 1/2/32/128/1024, the
+                ragged 3/17/130 and one batch a width of a pass (the
+                clusters granted times the width: every width the plan
+                may pick, asserted), at the three-tier preset's shape (fs0
+                4, dim 512, B 128) and at the narrow (fs0 4, dim 128): on a
                 sharpened W_o mismatch <= 1 % (the tensor cores add in
                 another order than the plain matmul, which can move a
                 near-tie), two runs bit-equal, and at B 128 and 1024 200
@@ -27,7 +30,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 draws pass a chi-square test against the softmax and are
                 the same from the resident kernel, the grid kernel and the
                 plain version; times as medians over runs of 10 calls:
-                bf16 resident / empty window / plain / bound, and float32
+                bf16 resident (its passes' width and count) / empty window
+                (the exchanges alone, with their bytes) / plain / bound,
+                one cluster through one pass at each width (8, 16, 24, 32
+                lanes: the cost of a sample step by width) and its empty
+                window, and float32
                 at B 1, 128 and 1024 grid / the grid's empty window (its
                 barriers alone) / plain / bound (split TF32, the FMA floor
                 beside it); the bounds are the benchmark's
@@ -439,11 +446,24 @@ def phase_kernel(params, batches, narrow):
     # W_o: mismatch <= 1 %. Not exact: the tensor cores add a column's
     # products in another order than the plain version's matmul, which can
     # move a near-tie, and a lane that differs once differs from there on.
-    # At the canonical shape and at a narrow one, whole and ragged batches.
+    # At the canonical shape (whole and ragged batches, and on a card one
+    # whose clusters each take a pass of each width the plan may pick: the
+    # clusters granted times the width), at the three-tier preset's (fs0 4,
+    # dim 512, B 128) and at a narrow one.
+    if on_card:
+        limits = sw.device_limits(dev, FS0, Q, DIM, bf16)
+        widths = sw.resident_widths(FS0, Q, DIM, sw.resident_cluster(
+            FS0, Q, DIM, limits[1]), limits[1])
+        per_width = tuple(limits[0] * w for w in widths)
+
     def bf16_cases():
-        for batch in tuple(batches) + ((1024,) + RAGGED if on_card else ()):
+        for batch in tuple(batches) + ((1024,) + RAGGED + per_width
+                                       if on_card else ()):
             yield (FS0, Q, DIM, batch) + kernel_inputs(
                 params, batch, bf16, seed=100 + batch)
+        if on_card:
+            yield (4, Q, 512, 128) + random_window_inputs(
+                4, Q, 512, 128, bf16, dev, seed=140)
         fs0, q, dim = narrow
         for batch in (1, 32) + RAGGED[:2] if on_card else (3,):
             yield (fs0, q, dim, batch) + random_window_inputs(
@@ -451,6 +471,7 @@ def phase_kernel(params, batches, narrow):
 
     philox = {}
     worst = 0.0
+    covered = set()       # widths of the passes at the canonical shape
     for fs0, q, dim, batch, table, wh, bh, wo, bo, slots, buf, g in \
             bf16_cases():
         wo, bo = sharpened(wo, bo, bf16)
@@ -473,14 +494,25 @@ def phase_kernel(params, batches, narrow):
         if on_card and counts() != (before[0] + 4, before[1] + 4, before[2]):
             raise AssertionError(f"bf16 at dim {dim} did not take the "
                                  f"resident kernel")
-        log(f"[kernel] bf16 sharpened (fs0 {fs0}, dim {dim}) B={batch}: "
-            f"mismatch vs plain, given noise {results['given noise']:.4%}, "
-            f"Philox {results['Philox']:.4%}; two runs bit-equal")
+        width = ""
+        if on_card:
+            plan = sw._plan_on(dev, batch, fs0, q, dim, bf16)
+            width = (f" (passes of {plan.subtile} on {plan.clusters} "
+                     f"clusters)")
+            if (fs0, q, dim) == (FS0, Q, DIM):
+                covered.add(plan.subtile)
+        log(f"[kernel] bf16 sharpened (fs0 {fs0}, dim {dim}) B={batch}"
+            f"{width}: mismatch vs plain, given noise "
+            f"{results['given noise']:.4%}, Philox {results['Philox']:.4%}; "
+            f"two runs bit-equal")
         worst = max(worst, *results.values())
         if dim == DIM:
             philox[f"bfloat16_B{batch}"] = results["Philox"]
         if max(results.values()) > 0.01:
             raise AssertionError(f"bf16 mismatch {results} > 1 %")
+    if on_card and covered != set(widths):
+        raise AssertionError(f"the bf16 windows ran passes of {covered}, "
+                             f"the plan may pick {widths}")
     # Philox mode in float32 (the grid kernel by plan): exact
     for batch in f32_batches:
         table, wh, bh, wo, bo, slots, buf, g = kernel_inputs(
@@ -664,18 +696,69 @@ def phase_kernel(params, batches, narrow):
         row = {"batch": batch, "dtype": "bfloat16", "mode": "philox",
                "path": plan.path, "cluster": plan.cluster,
                "clusters": plan.clusters,
-               "lanes_per_cluster": plan.lanes_per_cluster, "ms": ms,
+               "lanes_per_cluster": plan.lanes_per_cluster,
+               "width": plan.subtile, "passes": sw.plan_passes(plan),
+               "ms": ms,
                "alone_ms": alone, "empty_window_ms": empty,
                "plain_ms": plain, "bound_ms": bound,
                "given_noise_ms": noise_ms}
         shapes.append(row)
         log(f"[kernel] B={batch} bf16: resident {ms:.4f} ms/window "
-            f"({plan.clusters} clusters of {plan.cluster}, "
+            f"({plan.clusters} clusters of {plan.cluster}, passes of "
+            f"{plan.subtile} lanes, {sw.plan_passes(plan)} a cluster; "
             f"{ms / FS0 * 1e3:.1f} us/sample; one call alone {alone:.4f}), "
             f"empty window {empty:.4f}, plain {plain:.4f}, bound "
             f"{bound:.5f}; given noise {noise_ms:.4f}")
     RESULTS["shapes"] = shapes
+    RESULTS["widths"] = width_times(params, held, smem, run)
     RESULTS["f32_shapes"] = f32_window_times(params, run)
+
+
+def width_times(params, held, smem, run):
+    """One cluster through a window of as many lanes as a pass holds, at
+    each width: the resident kernel (launched with that width, past the
+    plan) and its empty window (the exchanges alone, with their bytes),
+    per window and per sample step."""
+    import torch
+    from msnv_tpu_torch.kernels import sample_window as sw
+    dev = params["mlp"]["embedding"].device
+    lib = sw.build()
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa
+    cluster = sw.resident_cluster(FS0, Q, DIM, smem)
+    rows = []
+    for width in sw.resident_widths(FS0, Q, DIM, cluster, smem):
+        table, wh, bh, wo, bo, slots, buf, g = kernel_inputs(
+            params, width, torch.bfloat16, seed=700 + width)
+        packed = sw.resident_weights(wh, wo, FS0)
+        seed = torch.tensor([5], dtype=torch.int64, device=dev)
+        out = torch.empty((width, FS0), dtype=torch.int32, device=dev)
+
+        def resident():
+            err = lib.sample_window_resident_launch(
+                table.data_ptr(), packed.data_ptr(), bh.data_ptr(),
+                bo.data_ptr(), slots.data_ptr(), buf.data_ptr(), None,
+                seed.data_ptr(), out.data_ptr(), width, FS0, Q, DIM,
+                buf.stride(0), slots.stride(0), slots.stride(1), cluster, 1,
+                width, stream())
+            sw._raise_on(lib, err, f"width {width} launch")
+
+        def empty():
+            err = lib.sample_window_empty_launch(width, FS0, Q, DIM, cluster,
+                                                 1, width, stream())
+            sw._raise_on(lib, err, f"width {width} empty window")
+        ms = min(cuda_ms(resident, **run) for _ in range(2))
+        empty_ms = cuda_ms(empty, **run)
+        rows.append({"width": width, "lanes": width, "clusters": 1,
+                     "ms": ms, "step_us": ms / FS0 * 1e3,
+                     "empty_window_ms": empty_ms,
+                     "empty_step_us": empty_ms / FS0 * 1e3,
+                     "smem_bytes": sw.resident_smem_bytes(FS0, Q, DIM,
+                                                          cluster, width)})
+        log(f"[kernel] one cluster of {cluster}, {width} lanes in one pass "
+            f"of {width}: {ms:.4f} ms/window, {ms / FS0 * 1e3:.2f} us a "
+            f"sample step; empty window {empty_ms:.4f} ms "
+            f"({empty_ms / FS0 * 1e3:.2f} us a step)")
+    return rows
 
 
 def f32_window_times(params, run):
@@ -4727,7 +4810,8 @@ def build_kernels():
         for line in mod.build_log.splitlines():
             if "Compiling entry function" in line:
                 kernel = line.split("'")[1]
-            elif "registers" in line or "spill" in line:
+            elif ("registers" in line or "spill" in line
+                  or "warning" in line.lower()):
                 log(f"[build] {mod.SOURCE.name} {kernel}: {line.strip()}")
 
 

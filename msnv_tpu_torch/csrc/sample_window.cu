@@ -34,45 +34,66 @@
 // The resident kernel (bf16; `window_resident`). On the TPU the weights sit
 // in VMEM for the whole window; here no SM holds them, but a thread-block
 // cluster does. A cluster of C CTAs (16 at dim 1024: 16 x 160 KB) keeps W_h
-// and W_o in its shared memory for all fs0 steps and for every lane it
-// walks through:
+// and W_o for all fs0 steps and for every lane it walks through, in its
+// shared memory and its registers:
 //  - Each CTA owns dim / C output columns of W_h and q / C of W_o, all of
 //    the depth, so no partial sum crosses the SM-to-SM network. The caller
 //    packs the weights once (not per window) so that a CTA's slice is one
 //    contiguous block, already in the register order of the tensor cores'
-//    `mma`: one thread asks the TMA for it in bulk copies reported to
-//    an mbarrier, and a product's thread fetches its whole A operand with
-//    one conflict-free 16-byte shared-memory load.
+//    `mma`: one thread asks the TMA for what shared memory keeps in bulk
+//    copies reported to an mbarrier, and a product's thread fetches its
+//    whole A operand with one conflict-free 16-byte load.
 //  - A cluster takes a contiguous share of the lanes and walks through it
-//    in sub-tiles of 8 lanes: the lanes are the narrow side (n = 8) of
-//    `mma.sync` m16n8k16 (bf16 in, f32 sums), the weights' columns its 16
-//    rows. A sub-tile this narrow is not worth a warpgroup's `wgmma`, and 16
-//    lanes of activations do not fit beside 160 KB of weights. 16 warps
-//    split a product by 16-column tile and by depth; the partial sums over
-//    depth are added in a fixed order, so two runs give the same bits.
+//    in passes of 8, 16, 24 or 32 lanes: up to four n-tiles of `mma.sync`
+//    m16n8k16 (bf16 in, f32 sums) that share one A operand, the lanes the
+//    narrow side (n = 8) of each, the weights' columns its 16 rows. A
+//    step's chain of exchanges and barriers is paid once for all its lanes,
+//    so a share walks through in as few passes as the width allows. 16
+//    warps split a product by 16-column
+//    tile and by depth; the partial sums over depth are added in a fixed
+//    order, the same at every width, so two runs, and two widths, give the
+//    same bits.
+//  - Shared memory holds a pass's activations beside the weights: a lane
+//    needs its x and h rows (2 x 2 KB at dim 1024), the partial sums, its
+//    noise and its samples, about 5.8 KB at dim 1024, C 16. 8 lanes of
+//    that fit beside all of W_h and W_o (160 KB), 32 beside W_o's 32 KB
+//    alone: in a wider pass the warps hold W_h's operand in registers
+//    instead. A warp's 16-column tile of W_h over its part of the depth is
+//    16 steps of 16 B a thread at dim 1024 (64 registers); it never
+//    changes within a launch. A pass of 8 NT lanes (NT > 1) holds 4 NT
+//    steps of it (all 16 at 32 lanes), and the rest stay in shared memory;
+//    its CTA has 16 warps and no other, so each thread has 128 registers.
+//    A pass of 8 lanes holds none, and its CTA has four more warps of 96
+//    registers that fetch the table rows and send x off the others' path
+//    (an 8-lane step is a chain of latencies, a wider one is not).
 //  - What crosses the network per sample is small and is pushed, not
 //    fetched (remote loads stall on the network's latency): every CTA
-//    computes its columns of x, of h and of the logits for the live lanes
-//    and writes each into the shared memory of all C CTAs with `st.async`,
-//    a store that reports its bytes to an mbarrier of the receiving CTA. A
-//    CTA goes on when the bytes it expects of a row have arrived (bounded
-//    wait, traps): three such exchanges per sample take the place of
-//    `__syncthreads`, at about a third of what a hardware cluster barrier
-//    costs in a cluster of 16. Each value is sent by several threads, each
-//    to a few of the CTAs, so no thread has many stores in a row. Every
-//    CTA adds the Gumbel noise of its own columns to its logits before it
-//    sends them, and every CTA repeats the argmax on its own copy, so the
-//    new sample needs no fourth exchange. A cluster barrier at the start (every CTA
+//    computes its columns of x and of h for the live lanes and writes each
+//    into the shared memory of all C CTAs with `st.async` (eight columns
+//    of a lane, 16 bytes, a store), a store that
+//    reports its bytes to an mbarrier of the receiving CTA. A CTA goes on
+//    when the bytes it expects of a row have arrived (bounded wait, traps):
+//    three such exchanges per sample take the place of `__syncthreads`, at
+//    about a third of what a hardware cluster barrier costs in a cluster
+//    of 16. Each value is sent by several threads, each to a few of the
+//    CTAs, so no thread has many stores in a row. The third exchange is
+//    not the logits: every CTA adds the Gumbel noise of its own columns to
+//    its logits and sends each lane's best of them (value and class, first
+//    index on ties), 8 bytes a lane; every CTA then takes the best of the C
+//    bests (lowest class on ties), which is the argmax over all q columns
+//    since a CTA's columns are one block in rank order, so the new sample
+//    needs no fourth exchange. A cluster barrier at the start (every CTA
 //    runs, its mbarriers ready) and one at the end (nobody writes into the
 //    shared memory of a CTA that is gone) are all that is left of them.
 //  - A step is a chain of short dependent pieces, so what counts is how
-//    few operations lie on it. Four extra warps only gather: x is the sum
-//    of fs0 table rows from L2 (in position order, f32) plus the slot row,
-//    and all but the last row are known a step ahead, so the gather warps
-//    add those while the others multiply; when a sample is drawn, one
-//    table row and the slot row are all that is left to fetch.
-// Which C, how many clusters and lanes each: chosen by the caller from the
-// shapes and the occupancy API's answer, before the launch.
+//    few operations lie on it. x is the sum of fs0 table rows from L2 (in
+//    position order, f32) plus the slot row, and all but the last row are
+//    known a step ahead, so a thread fetches and adds those while it waits
+//    for the exchanges of x and h; when a sample is drawn, one table row
+//    and the slot row are all that is left to fetch.
+// Which C, how many clusters and lanes each, and the width of a pass:
+// chosen by the caller from the shapes and the occupancy API's answer,
+// before the launch.
 //
 // The grid kernel (float32, and bf16 widths no cluster holds;
 // `window_grid`). Float32 W_h and W_o are 5.24 MB at dim 1024: no cluster
@@ -217,21 +238,50 @@ struct Strides {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kLanes = 8;            // lanes per sub-tile: the mma's n
+constexpr int kLanes = 8;            // lanes of an n-tile: the mma's n
+constexpr int kMaxTiles = 4;         // n-tiles a pass carries at most
+constexpr int kRegSteps = 4;         // 16-deep steps of W_h that a compute
+                                     // thread holds in registers, per n-tile
+                                     // of a pass wider than 8 lanes
 constexpr int kResWarps = 16;        // warps that multiply, reduce and draw
-constexpr int kComputeThreads = kResWarps * 32;
-constexpr int kGatherThreads = 128;  // warps that fetch table rows
-constexpr int kResThreads = kComputeThreads + kGatherThreads;
-constexpr int kMaxOwnH = 64;         // columns of W_h a CTA may own: four
-                                     // a gather thread, 8 lanes
+                                     // (and, in passes wider than 8 lanes,
+                                     // gather): 128 registers a thread
+constexpr int kResThreads = kResWarps * 32;
+constexpr int kPushThreads = kResThreads / 2;  // send x and h while the
+                                               // others fetch table rows
+constexpr int kGatherThreads = 128;  // in passes of 8 lanes: four warps of
+                                     // their own that fetch table rows and
+                                     // send x (96 registers a thread)
+constexpr int kMaxOwnH = 64;         // columns of W_h a CTA may own: a
+                                     // pass of 32 lanes has at most one
+                                     // task of x and of h a thread
 constexpr int kMaxOwnO = 256;        // columns of W_o: a tile a warp
 constexpr int kActPad = 8;           // bf16 per activation row: rows of a
                                      // B fragment's 8 lanes fall in 8 banks
 constexpr int kRedPad = 4;           // floats per row of partial sums
+constexpr int kPartPad = 4;          // floats between two parts' sums, so
+                                     // that the threads adding one lane's
+                                     // parts read other banks
 constexpr uint32_t kBulkBytes = 32768;    // of one bulk copy
 constexpr unsigned kSpinLimit = 1u << 24;  // polls before a trap
 constexpr int kMaxCluster = 16;
-constexpr int kGatherRows = 10;      // table rows a thread fetches at once
+// table rows a thread fetches at once: fewer where W_h's operand takes
+// more of its registers
+__host__ __device__ constexpr int gather_rows(int tiles) {
+  return tiles <= 2 ? 10 : 4;
+}
+
+// 16-deep steps of W_h that a compute thread holds in registers in a pass
+// of `width` lanes: none in a pass of 8, whose threads are fewer registers
+// each (the gather warps') and whose shared memory holds all of W_h
+__host__ __device__ constexpr int reg_steps(int width) {
+  return width > kLanes ? kRegSteps * (width / kLanes) : 0;
+}
+
+// threads of a CTA in a pass of `tiles` n-tiles
+__host__ __device__ constexpr int resident_threads(int tiles) {
+  return kResThreads + (tiles == 1 ? kGatherThreads : 0);
+}
 
 // over how many warps the depth of a product with `mtiles` 16-column tiles
 // and `ksteps` 16-deep steps is split
@@ -241,54 +291,122 @@ __host__ __device__ inline int depth_split(int mtiles, int ksteps) {
   return s;
 }
 
-// the mbarriers of a CTA: the weights' arrival, then one for each of the
-// three rows of activations that the cluster's CTAs write into each other
-enum Bar { kBarWeights = 0, kBarX, kBarH, kBarLogits, kBars };
-// the named barriers of a CTA: 0 is __syncthreads
-enum Named { kNamedDrawn = 1, kNamedCompute = 2, kNamedGather = 3 };
+// The tree in which the partial sums of the logits are added: `split`
+// parts (in order within each of its leaves, the bias first), then a
+// balanced tree over the leaves in index order. Its width is the one a
+// pass of 8 lanes gives, whatever the pass's width, so that every width
+// adds the parts alike.
+__host__ __device__ inline int sum_tree(int mo, int split, int C) {
+  const int tasks = kLanes * (mo / 4);
+  const int want = C > split ? C : split;
+  int tree = 1;
+  while (tasks * tree * 2 <= kResThreads && tree * 2 <= want &&
+         tree < 16)
+    tree *= 2;
+  return tree;
+}
 
-// Shared memory of one CTA of a cluster of C (byte offsets): its slice of
-// the packed weights (W_h's tiles, then W_o's), the sub-tile's x and h rows
-// (bf16, all of dim, padded), its logits (f32, all of q), the Gumbel noise
-// of its own columns of the logits (f32), the partial sums of a product
-// over the depth split, the sub-tile's samples (the window, then the fs0
-// new ones), the mbarriers.
+// floats between the partial sums of one part of the depth and the next,
+// for `width` lanes of n columns
+__host__ __device__ inline int part_floats(int width, int n) {
+  return width * (n + kRedPad) + kPartPad;
+}
+
+// the mbarriers of a CTA: the weights' arrival, then one for each of the
+// three rows of values that the cluster's CTAs write into each other
+enum Bar { kBarWeights = 0, kBarX, kBarH, kBarBest, kBars };
+
+// Shared memory of one CTA of a cluster of C in a pass of `width` lanes
+// (byte offsets): what is left of W_h's operand beside the threads'
+// registers (each warp's steps from `kreg` on, a block per warp), its
+// slice of W_o (packed), the pass's x and h rows (bf16, all of dim,
+// padded), the Gumbel noise of its own columns of the logits (f32), the
+// partial sums of a product over the depth split (those of the product
+// with W_o over the x rows where they fit there: x is not read again
+// before the next step's x, which the cluster's CTAs send only after every
+// CTA has read them), two buffers of the sums of a step's table rows but
+// the last (f32, a lane's columns of this CTA: the next step's are made
+// while this step's are read), the CTA's biases, each task's best of its
+// four columns, each CTA's best of its columns for each lane, the pass's
+// samples (the window, then the fs0 new ones), the mbarriers. Made on the
+// host and handed to the kernel as a parameter.
 struct ResidentLayout {
   int mh, mo;              // columns of W_h and of W_o that this CTA owns
   int ksteps;              // dim / 16
   int split_h, split_o;    // depth splits of the two products
+  int ksub;                // steps of W_h a warp multiplies
+  int kreg;                // of them, held in registers
   int act_ld;              // elements per row of x and h
-  uint32_t w_bytes, wo_off, x_off, h_off, logits_off, noise_off, red_off,
-      seq_off, bar_off, total;
-  __host__ __device__ ResidentLayout(int fs0, int q, int dim, int C) {
+  int tree;                // width of the logits' tree (sum_tree)
+  uint32_t slice_bytes;    // of this CTA's slice of the packed weights
+  uint32_t wo_off, w_bytes, x_off, h_off, noise_off, red_off, redo_off,
+      ahead_off, bias_off, cand_off, best_off, seq_off, bar_off, total;
+  __host__ __device__ ResidentLayout(int fs0, int q, int dim, int C,
+                                     int width) {
     mh = dim / C;
     mo = q / C;
     ksteps = dim / 16;
     split_h = depth_split(mh / 16, ksteps);
     split_o = depth_split(mo / 16, ksteps);
+    ksub = ksteps / split_h;
+    const int held = reg_steps(width);
+    kreg = ksub < held ? ksub : held;
     act_ld = dim + kActPad;
-    wo_off = (uint32_t)mh * dim * sizeof(bf16);
-    w_bytes = (uint32_t)(mh + mo) * dim * sizeof(bf16);
+    tree = sum_tree(mo, split_o, C);
+    slice_bytes = (uint32_t)(mh + mo) * dim * sizeof(bf16);
+    wo_off = (uint32_t)(mh / 16) * (ksteps - split_h * kreg) * 512;
+    w_bytes = wo_off + (uint32_t)mo * dim * sizeof(bf16);
     x_off = w_bytes;
-    h_off = x_off + kLanes * act_ld * sizeof(bf16);
-    logits_off = h_off + kLanes * act_ld * sizeof(bf16);
-    noise_off = logits_off + kLanes * q * sizeof(float);
-    red_off = noise_off + kLanes * mo * sizeof(float);
-    const int red_h = split_h * kLanes * (mh + kRedPad);
-    const int red_o = split_o * kLanes * (mo + kRedPad);
-    seq_off = red_off + (red_h > red_o ? red_h : red_o) * sizeof(float);
-    bar_off = (seq_off + kLanes * 2 * fs0 * sizeof(int) + 15) / 16 * 16;
+    h_off = x_off + width * act_ld * sizeof(bf16);
+    noise_off = h_off + width * act_ld * sizeof(bf16);
+    red_off = noise_off + width * mo * sizeof(float);
+    const uint32_t red_h =
+        split_h * part_floats(width, mh) * (uint32_t)sizeof(float);
+    const uint32_t red_o =
+        split_o * part_floats(width, mo) * (uint32_t)sizeof(float);
+    const bool over_x = red_o <= width * act_ld * sizeof(bf16);
+    redo_off = over_x ? x_off : red_off;
+    ahead_off = red_off + (over_x || red_h > red_o ? red_h : red_o);
+    bias_off = ahead_off + 2 * width * mh * sizeof(float);
+    cand_off = bias_off + (mh + mo) * sizeof(float);
+    best_off = cand_off + width * (mo / 4) * sizeof(uint2);
+    seq_off = best_off + width * C * sizeof(uint2);
+    bar_off = (seq_off + width * 2 * fs0 * sizeof(int) + 15) / 16 * 16;
     total = bar_off + 8 * kBars;
   }
 };
 
 // whether a cluster of C CTAs can split both weights in whole 16-column
-// tiles, few enough of them for a CTA's threads
-__host__ bool resident_shape_ok(int fs0, int q, int dim, int C) {
+// tiles, few enough of them for a CTA's threads, and carry passes of
+// `width` lanes (a multiple of 8 up to 32, at most one task of four
+// logits' columns a compute thread)
+__host__ bool resident_shape_ok(int fs0, int q, int dim, int C, int width) {
   if (fs0 < 1 || q < 16 || dim < 16 || dim % 16 != 0) return false;
   if (C < 1 || C > kMaxCluster || (C & (C - 1)) != 0) return false;
+  if (width < kLanes || width > kMaxTiles * kLanes || width % kLanes != 0)
+    return false;
   return dim % (16 * C) == 0 && q % (16 * C) == 0 && dim / C <= kMaxOwnH &&
-         q / C <= kMaxOwnO;
+         q / C <= kMaxOwnO && q / C / 4 * width <= kResThreads;
+}
+
+// the thread's index, read anew wherever it is asked for: what is made of
+// it is not kept in registers from one use to the next
+__device__ __forceinline__ int thread_index() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
+  return t;
+}
+
+// The thread's index in a phase of a pass of NT n-tiles: read anew where
+// W_h's operand fills half of the registers; in a pass of 8 lanes, which
+// holds none, what is made of it may stay in registers from one step to
+// the next (a step of 8 lanes is a chain of latencies).
+template <int NT>
+__device__ __forceinline__ int phase_thread() {
+  if constexpr (NT == 1)
+    return threadIdx.x;
+  else
+    return thread_index();
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -314,16 +432,6 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// a barrier of `threads` threads of this CTA: all of them wait ...
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// ... or some only announce that they have come
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 // the address of this CTA's shared-memory address `addr` in the cluster's
 // CTA `rank` (this CTA's own rank included)
 __device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, unsigned rank) {
@@ -346,18 +454,17 @@ __device__ __forceinline__ void st_async(uint32_t remote, uint2 v,
       : "memory");
 }
 
-__device__ __forceinline__ void st_async(uint32_t remote, float4 v,
+__device__ __forceinline__ void st_async(uint32_t remote, uint4 v,
                                          uint32_t remote_bar) {
   asm volatile(
       "st.async.weak.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
       "[%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(remote),
-      "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
-      "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(remote_bar)
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(remote_bar)
       : "memory");
 }
 
 // How a row of values goes to every CTA of the cluster: each of `tasks`
-// values (four columns of a lane) is held by `groups` threads, each of
+// values (eight columns of a lane) is held by `groups` threads, each of
 // which sends it to its own C / groups of the CTAs, so that no thread has
 // many stores to make one after the other.
 struct Spread {
@@ -375,55 +482,54 @@ struct Spread {
   }
 };
 
-// The same where the value is a sum that its threads also share: `group`
-// neighbouring threads (a power of two, at most 16) hold a task, split the
-// parts of the sum between them (reduce4_shared) and then the CTAs to
-// write to. Threads past the last task repeat it and send nothing.
-struct SharedSpread {
+// How the sums of the logits' tasks (four columns of a lane) are shared
+// out: `per` neighbouring threads a task (a power of two, at most the
+// tree's width), each adding `leaves` leaves of the tree (sum_tree).
+// Threads past the last task repeat it and write nothing.
+struct TreeTasks {
   bool active;
-  int task, group, g;
-  unsigned first, count;
-  __device__ SharedSpread(int thread, int threads, int tasks, int split,
-                          unsigned C) {
-    const int want = (int)C > split ? (int)C : split;
-    group = 1;
-    while (tasks * group * 2 <= threads && group * 2 <= want && group < 16)
-      group *= 2;
-    g = thread % group;
-    const int t = thread / group;
+  int task, per, j, leaves;
+  __device__ TreeTasks(int thread, int threads, int tasks, int tree) {
+    per = 1;
+    while (tasks * per * 2 <= threads && per * 2 <= tree) per *= 2;
+    j = thread % per;
+    const int t = thread / per;
     task = t < tasks ? t : tasks - 1;
-    const unsigned senders = (unsigned)group < C ? (unsigned)group : C;
-    count = C / senders;
-    first = g * count;
-    active = t < tasks && (unsigned)g < senders;
+    active = t < tasks;
+    leaves = tree / per;
   }
 };
 
 // v into this thread's CTAs of the cluster, at this CTA's address `addr`,
 // reported to each CTA's mbarrier at this CTA's address `bar`
-template <class To, class V>
-__device__ __forceinline__ void push(const To& to, uint32_t addr,
-                                     uint32_t bar, V v) {
+__device__ __forceinline__ void push(const Spread& to, uint32_t addr,
+                                     uint32_t bar, uint4 v) {
   for (unsigned r = to.first; r < to.first + to.count; ++r)
     st_async(map_to_rank(addr, r), v, map_to_rank(bar, r));
 }
 
-__device__ __forceinline__ uint2 pack_bf16x4(const float (&v)[4]) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                    *reinterpret_cast<const uint32_t*>(&hi));
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void add_bf16x4(float (&acc)[4], uint2 v) {
-  const float2 lo =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 hi =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  acc[0] += lo.x;
-  acc[1] += lo.y;
-  acc[2] += hi.x;
-  acc[3] += hi.y;
+__device__ __forceinline__ uint4 pack_bf16x8(const float (&v)[8]) {
+  return make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                    pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+}
+
+__device__ __forceinline__ void add_bf16x2(float& a, float& b, uint32_t v) {
+  const float2 f =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  a += f.x;
+  b += f.y;
+}
+
+__device__ __forceinline__ void add_bf16x8(float (&acc)[8], uint4 v) {
+  add_bf16x2(acc[0], acc[1], v.x);
+  add_bf16x2(acc[2], acc[3], v.y);
+  add_bf16x2(acc[4], acc[5], v.z);
+  add_bf16x2(acc[6], acc[7], v.w);
 }
 
 __device__ __forceinline__ uint4 lds128(uint32_t addr) {
@@ -482,11 +588,10 @@ __device__ __forceinline__ void wait_for_bytes(uint32_t bar, uint32_t parity,
   }
 }
 
-// Thread 0: ask the TMA for this CTA's `bytes` of packed weights at `src`,
-// in bulk copies that report to the mbarrier at `bar`.
-__device__ __forceinline__ void request_weights(uint32_t dst, const void* src,
-                                                uint32_t bytes, uint32_t bar) {
-  expect_bytes(bar, bytes);
+// Thread 0: ask the TMA for `bytes` at `src` into this CTA's shared memory
+// at `dst`, in bulk copies that report to the mbarrier at `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
   for (uint32_t at = 0; at < bytes; at += kBulkBytes) {
     const uint32_t n = bytes - at < kBulkBytes ? bytes - at : kBulkBytes;
     asm volatile(
@@ -497,124 +602,271 @@ __device__ __forceinline__ void request_weights(uint32_t dst, const void* src,
   }
 }
 
+// Thread 0: ask the TMA for this CTA's `bytes` of packed weights at `src`,
+// in bulk copies that report to the mbarrier at `bar`.
+__device__ __forceinline__ void request_weights(uint32_t dst, const void* src,
+                                                uint32_t bytes, uint32_t bar) {
+  expect_bytes(bar, bytes);
+  bulk_copy(dst, src, bytes, bar);
+}
+
+// Thread 0: what shared memory keeps of a resident CTA's packed slice (W_h's
+// 16-column tiles, each as its ksteps 512-byte steps, then W_o's): of each
+// warp's ksub steps of W_h those from kreg on, one block a warp, then all
+// of W_o.
+__device__ __forceinline__ void request_resident_weights(
+    uint32_t dst, const unsigned char* slice, const ResidentLayout& lay,
+    uint32_t bar) {
+  expect_bytes(bar, lay.w_bytes);
+  const uint32_t rest = (uint32_t)(lay.ksub - lay.kreg) * 512;
+  if (rest > 0)
+    for (int mt = 0; mt < lay.mh / 16; ++mt)
+      for (int s = 0; s < lay.split_h; ++s)
+        bulk_copy(dst + (uint32_t)(mt * lay.split_h + s) * rest,
+                  slice + (size_t)(mt * lay.ksteps + s * lay.ksub + lay.kreg)
+                              * 512,
+                  rest, bar);
+  bulk_copy(dst + lay.wo_off,
+            slice + (size_t)(lay.mh / 16) * lay.ksteps * 512,
+            lay.w_bytes - lay.wo_off, bar);
+}
+
 // One warp's share of a product: a 16-column tile of this CTA's columns
-// times a part of the depth, for the sub-tile's 8 lanes.
+// times a part of the depth, for the pass's NT n-tiles of 8 lanes.
 //   red[part][n][m] = sum over the part's k of act[n][k] * w[k][column m]
-// The tile's operand lies at `a` as 512-byte blocks, one per 16-deep step,
-// in the mma's register order (a thread's 16 bytes at + 16 * thread); the
-// lanes' rows at `b`. Four steps' operands are fetched before their
-// products start; two chains of dependent products.
+// The tile's operand for the part's first `kreg` 16-deep steps is in the
+// thread's registers; the others lie at `a` as 512-byte blocks, one per
+// step, in the mma's register order (a thread's 16 bytes at + 16 *
+// thread). The lanes' rows at `b`, an n-tile's 8 rows `tile` bytes after
+// the one before. Each n-tile's products go into two chains, the even
+// steps and the odd ones (the steps past the last multiple of four into
+// the first), added at the end: the same sums, in the same order, at every
+// width. G n-tiles (1 or 2) at a time, so few sums are live beside W_h's
+// operand; each step's operand is fetched once for the G of them.
+template <int NT, int G>
 struct ProductTask {
   bool active;
-  uint32_t a, b;     // shared-memory addresses of this thread's operands
-  float* out;        // where its four sums go
-  int ksub, ld;
+  uint32_t a, b, tile;  // shared-memory addresses of this thread's operands
+  float* out;           // where its four sums of n-tile 0 go
+  int ksub, kreg, ld, main;
   __device__ ProductTask(uint32_t frags, int mtiles, int ksteps, int split,
-                         uint32_t act, int act_ld, float* red, int ld_) {
+                         int kreg_, uint32_t act, int act_ld, float* red,
+                         int ld_, int width) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, tig = lane & 3;
     active = warp < mtiles * split;
     const int mt = warp % mtiles, s = warp / mtiles;
     ksub = ksteps / split;
+    kreg = kreg_;
+    main = ksub & ~3;
     ld = ld_;
-    a = frags + ((mt * ksteps + s * ksub) * 32 + lane) * 16;
+    a = frags + ((mt * split + s) * (ksub - kreg) * 32 + lane) * 16;
     b = act + (g * act_ld + s * ksub * 16 + tig * 2) * (int)sizeof(bf16);
+    tile = kLanes * act_ld * (int)sizeof(bf16);
     // the thread holds columns mt * 16 + g (+ 8) of lanes 2 tig (+ 1)
-    out = red + ((size_t)s * kLanes + 2 * tig) * ld + mt * 16 + g;
+    out = red + (size_t)s * part_floats(width, ld - kRedPad) + 2 * tig * ld +
+          mt * 16 + g;
   }
-  __device__ __forceinline__ void run() const {
-    if (!active) return;
-    float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
-    int kk = 0;
-    for (; kk + 4 <= ksub; kk += 4) {
-      uint4 av[4];
-      uint32_t b0[4], b1[4];
+  // step j of the part for n-tiles t0 .. t0 + G - 1 (where NT has them),
+  // into the odd steps' chain or the other
+  __device__ __forceinline__ void step(float (&c)[G][2][4], const uint4& av,
+                                       int j, int t0, bool odd) const {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        av[j] = lds128(a + (kk + j) * 512);
-        b0[j] = lds32(b + (kk + j) * 32);
-        b1[j] = lds32(b + (kk + j) * 32 + 16);
-      }
-      mma_bf16(c0, av[0], b0[0], b1[0]);
-      mma_bf16(c1, av[1], b0[1], b1[1]);
-      mma_bf16(c0, av[2], b0[2], b1[2]);
-      mma_bf16(c1, av[3], b0[3], b1[3]);
+    for (int u = 0; u < G; ++u) {
+      if (t0 + u >= NT) continue;
+      const uint32_t bt = b + (t0 + u) * tile + j * 32;
+      const uint32_t b0 = lds32(bt), b1 = lds32(bt + 16);
+      if (odd)
+        mma_bf16(c[u][1], av, b0, b1);
+      else
+        mma_bf16(c[u][0], av, b0, b1);
     }
-    for (; kk < ksub; ++kk)
-      mma_bf16(c0, lds128(a + kk * 512), lds32(b + kk * 32),
-               lds32(b + kk * 32 + 16));
-    out[0] = c0[0] + c1[0];
-    out[ld] = c0[1] + c1[1];
-    out[8] = c0[2] + c1[2];
-    out[ld + 8] = c0[3] + c1[3];
+  }
+  // KR steps from registers, the rest from shared memory in pairs; kAny:
+  // any kreg and ksub, the chain of each step decided as it runs
+  template <int KR, bool kAny, int R>
+  __device__ __forceinline__ void sweep(const uint4 (&areg)[R]) const {
+#pragma unroll
+    for (int t0 = 0; t0 < NT; t0 += G) {
+      float c[G][2][4] = {};
+      if constexpr (kAny) {
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          if (j < kreg) step(c, areg[j], j, t0, (j & 1) && j < main);
+        for (int j = kreg; j < ksub; ++j)
+          step(c, lds128(a + (j - kreg) * 512), j, t0, (j & 1) && j < main);
+      } else if constexpr (NT == 1) {
+        // one n-tile waits on each load: four steps' operands are fetched
+        // before their products
+#pragma unroll
+        for (int j = 0; j < KR; ++j) step(c, areg[j], j, t0, j & 1);
+        int j = KR;
+        for (; j + 4 <= ksub; j += 4) {
+          uint4 av[4];
+          uint32_t b0[4], b1[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            av[i] = lds128(a + (j + i - KR) * 512);
+            b0[i] = lds32(b + (j + i) * 32);
+            b1[i] = lds32(b + (j + i) * 32 + 16);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if ((j + i) & 1)
+              mma_bf16(c[0][1], av[i], b0[i], b1[i]);
+            else
+              mma_bf16(c[0][0], av[i], b0[i], b1[i]);
+        }
+        for (; j < ksub; ++j)
+          step(c, lds128(a + (j - KR) * 512), j, t0, j & 1);
+      } else {
+#pragma unroll
+        for (int j = 0; j < KR; ++j) step(c, areg[j], j, t0, j & 1);
+#pragma unroll 2
+        for (int j = KR; j < ksub; j += 2) {
+          step(c, lds128(a + (j - KR) * 512), j, t0, false);
+          step(c, lds128(a + (j + 1 - KR) * 512), j + 1, t0, true);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        if (t0 + u >= NT) continue;
+        float* const o = out + (size_t)(t0 + u) * kLanes * ld;
+        o[0] = c[u][0][0] + c[u][1][0];
+        o[ld] = c[u][0][1] + c[u][1][1];
+        o[8] = c[u][0][2] + c[u][1][2];
+        o[ld + 8] = c[u][0][3] + c[u][1][3];
+      }
+    }
+  }
+  // The presets' shapes take one of the first two: ksub a multiple of
+  // four (no steps past the last one), and all of the register array or
+  // none of it used (a multiple of four steps left for shared memory).
+  // (An array of one holds no steps: its sweep is not compiled.)
+  template <int R>
+  __device__ __forceinline__ void run(const uint4 (&areg)[R]) const {
+    if (!active) return;
+    if (R > 1 && main == ksub && kreg == R)
+      sweep<R, false>(areg);
+    else if (main == ksub && kreg == 0)
+      sweep<0, false>(areg);
+    else
+      sweep<0, true>(areg);
   }
 };
 
-// bias + the partial sums of four neighbouring columns of one lane, added
-// in the order of the depth's parts
-__device__ __forceinline__ void reduce4(const float* red, int split, int ld,
-                                        const float4& bias, float (&v)[4]) {
-  v[0] = bias.x, v[1] = bias.y, v[2] = bias.z, v[3] = bias.w;
+// bias + the partial sums of eight neighbouring columns of one lane,
+// added in the order of the depth's parts (`stride` floats apart)
+__device__ __forceinline__ void reduce8(const float* red, int split,
+                                        size_t stride, const float* bias,
+                                        float (&v)[8]) {
+  const float4 b0 = *reinterpret_cast<const float4*>(bias);
+  const float4 b1 = *reinterpret_cast<const float4*>(bias + 4);
+  v[0] = b0.x, v[1] = b0.y, v[2] = b0.z, v[3] = b0.w;
+  v[4] = b1.x, v[5] = b1.y, v[6] = b1.z, v[7] = b1.w;
   for (int s = 0; s < split; ++s) {
-    const float4 p =
-        *reinterpret_cast<const float4*>(red + (size_t)s * kLanes * ld);
+    const float4 p = *reinterpret_cast<const float4*>(red + s * stride);
+    const float4 o = *reinterpret_cast<const float4*>(red + s * stride + 4);
     v[0] += p.x, v[1] += p.y, v[2] += p.z, v[3] += p.w;
+    v[4] += o.x, v[5] += o.y, v[6] += o.z, v[7] += o.w;
   }
 }
 
-// The same for a product whose depth has many parts: `group` neighbouring
-// threads (a power of two, at most 16, aligned) share the parts, each adds
-// its own in order, thread 0 of the group also the bias, and a butterfly
-// of shuffles leaves the whole sum in all of them. Every thread of the
-// warp must call it.
-__device__ __forceinline__ void reduce4_shared(const float* red, int split,
-                                               int ld, const float4& bias,
-                                               int group, int g,
-                                               float (&v)[4]) {
-  v[0] = v[1] = v[2] = v[3] = 0.f;
-  if (g == 0) v[0] = bias.x, v[1] = bias.y, v[2] = bias.z, v[3] = bias.w;
-  const int parts = group < split ? group : split;
-  if (g < parts)
-    for (int s = g * (split / parts); s < (g + 1) * (split / parts); ++s) {
-      const float4 p =
-          *reinterpret_cast<const float4*>(red + (size_t)s * kLanes * ld);
-      v[0] += p.x, v[1] += p.y, v[2] += p.z, v[3] += p.w;
-    }
-  for (int off = 1; off < group; off <<= 1)
+// The same in the logits' tree (sum_tree): leaf g of `tree` holds parts g
+// * split / parts .. in order (parts = min(tree, split); leaf 0 starts
+// from the bias, the others from 0), and the leaves meet in a balanced
+// tree in index order. The task's `per` threads (TreeTasks) each build the
+// tree over their `leaves` leaves, then a butterfly of shuffles across
+// them builds the rest and leaves the whole sum in all of them. Every
+// thread of the warp must call it.
+__device__ __forceinline__ void reduce4_tree(const float* red, int split,
+                                             size_t stride, int tree,
+                                             const float4& bias,
+                                             const TreeTasks& tt,
+                                             float (&v)[4]) {
+  const int parts = tree < split ? tree : split, chunk = split / parts;
+  float leaf[kMaxTiles][4];
+#pragma unroll
+  for (int i = 0; i < kMaxTiles; ++i) {
+    leaf[i][0] = leaf[i][1] = leaf[i][2] = leaf[i][3] = 0.f;
+    if (i >= tt.leaves) continue;
+    const int g = tt.j * tt.leaves + i;
+    if (g == 0)
+      leaf[i][0] = bias.x, leaf[i][1] = bias.y, leaf[i][2] = bias.z,
+      leaf[i][3] = bias.w;
+    if (g < parts)
+      for (int s = g * chunk; s < (g + 1) * chunk; ++s) {
+        const float4 p = *reinterpret_cast<const float4*>(red + s * stride);
+        leaf[i][0] += p.x, leaf[i][1] += p.y, leaf[i][2] += p.z,
+            leaf[i][3] += p.w;
+      }
+  }
+#pragma unroll
+  for (int w = 1; w < kMaxTiles; w *= 2)
+#pragma unroll
+    for (int i = 0; i + w < kMaxTiles; i += 2 * w)
+      if (i + 2 * w <= tt.leaves)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) leaf[i][e] += leaf[i + w][e];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = leaf[0][e];
+  for (int off = 1; off < tt.per; off <<= 1)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       v[e] += __shfl_xor_sync(0xffffffffu, v[e], off);
 }
 
-__device__ __forceinline__ uint2 table_row(const bf16* __restrict__ table,
+// eight columns from `col` of row `sample` of position p of the fused table
+__device__ __forceinline__ uint4 table_row(const bf16* __restrict__ table,
                                            int p, int sample, int q, int dim,
                                            int col) {
-  return __ldg(reinterpret_cast<const uint2*>(
+  return __ldg(reinterpret_cast<const uint4*>(
       table + ((size_t)p * q + sample) * dim + col));
 }
 
-// acc += rows 0 .. last - 1 of the fused table for the window w, in
-// position order, up to kGatherRows loads under way at once
-__device__ __forceinline__ void add_table_rows(float (&acc)[4],
+// acc += rows first .. last - 1 of the fused table for the window w, in
+// position order, up to G loads under way at once
+template <int G>
+__device__ __forceinline__ void add_table_rows(float (&acc)[8],
                                                const bf16* __restrict__ table,
-                                               const int* w, int last, int q,
-                                               int dim, int col) {
-  for (int p0 = 0; p0 < last; p0 += kGatherRows) {
-    uint2 rows[kGatherRows];
+                                               const int* w, int first,
+                                               int last, int q, int dim,
+                                               int col) {
+  for (int p0 = first; p0 < last; p0 += G) {
+    uint4 rows[G];
 #pragma unroll
-    for (int j = 0; j < kGatherRows; ++j)
+    for (int j = 0; j < G; ++j)
       if (p0 + j < last)
         rows[j] = table_row(table, p0 + j, w[p0 + j], q, dim, col);
 #pragma unroll
-    for (int j = 0; j < kGatherRows; ++j)
-      if (p0 + j < last) add_bf16x4(acc, rows[j]);
+    for (int j = 0; j < G; ++j)
+      if (p0 + j < last) add_bf16x8(acc, rows[j]);
   }
 }
 
-// order-preserving map of a float's bits to an unsigned integer
-__device__ __forceinline__ uint32_t ordered(float v) {
-  const uint32_t u = __float_as_uint(v);
-  return u ^ ((u >> 31) ? 0xFFFFFFFFu : 0x80000000u);
+// the eight sums at p into acc, or acc into p
+__device__ __forceinline__ void load8(float (&acc)[8], const float* p) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  acc[0] = a.x, acc[1] = a.y, acc[2] = a.z, acc[3] = a.w;
+  acc[4] = b.x, acc[5] = b.y, acc[6] = b.z, acc[7] = b.w;
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&acc)[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  *reinterpret_cast<float4*>(p + 4) =
+      make_float4(acc[4], acc[5], acc[6], acc[7]);
+}
+
+// a value and its class, as one lane's best of some columns
+__device__ __forceinline__ uint2 as_best(float v, int i) {
+  return make_uint2(__float_as_uint(v), (uint32_t)i);
+}
+
+// whether (v, i) beats (best, best_i): larger, or as large and first
+__device__ __forceinline__ bool beats(float v, int i, float best,
+                                      int best_i) {
+  return v > best || (v == best && i < best_i);
 }
 
 // how the lanes are spread over the clusters: contiguous shares that differ
@@ -628,24 +880,116 @@ struct LaneShare {
   }
 };
 
-// A CTA has 16 warps that multiply, reduce and draw and 4 that gather. One
-// sample k of a sub-tile, in every CTA:
-//   gather warps: wait until sample k - 1 is drawn; add its table row (the
-//     window's last) and the slot row to the sum of the other rows, which
-//     they fetched a step ahead; x to all CTAs; then fetch and add the
-//     rows of the next step, off the others' path
-//   the others: the Gumbel noise of this CTA's own columns of the logits
-//     while x is on its way; wait for all of x; product with W_h; h to all
-//     CTAs; wait for all of h; product with W_o; logits + noise to all
-//     CTAs; wait for all of them; draw (an argmax).
-// Only the live lanes of a sub-tile are sent. A buffer is never written
-// while a CTA still reads it: x of the next step is sent by CTAs that have
-// drawn, so they had everyone's logits, which a CTA sends after its
+// the named barriers of a CTA (0 is __syncthreads): the 16 warps that
+// multiply; in a pass of 8 lanes also all warps once a sample is drawn, and
+// the gather warps alone
+enum Named { kNamedCompute = 1, kNamedDrawn = 2, kNamedGather = 3 };
+
+// a barrier of `threads` threads of this CTA: all of them wait ...
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ... or some only announce that they have come
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void compute_sync() {
+  named_sync(kNamedCompute, kResThreads);
+}
+
+// threads t, t + threads, ...: the pass's windows into seq (the fs0 new
+// samples of a lane follow its window)
+__device__ __forceinline__ void load_windows(int* seq, const int* buf,
+                                             long long buf_ld, int lane0,
+                                             int nl, int fs0, int t,
+                                             int threads) {
+  for (int i = t; i < nl * fs0; i += threads)
+    seq[i / fs0 * 2 * fs0 + i % fs0] =
+        buf[(size_t)(lane0 + i / fs0) * buf_ld + i % fs0];
+}
+
+// Task u of x (lane u / (mh / 8), this CTA's eight columns from u % (mh /
+// 8) * 8): rows first .. last - 1 of the window of step k added, in
+// position order, to its sums at `sums` (to 0 where first is 0).
+template <int G>
+__device__ __forceinline__ void add_rows(float* sums,
+                                         const bf16* __restrict__ table,
+                                         const int* seq, int u, int k,
+                                         int first, int last, int fs0, int q,
+                                         int dim, int mh, unsigned rank) {
+  const int l = u / (mh / 8), m = u % (mh / 8) * 8;
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (first > 0) load8(acc, sums + l * mh + m);
+  add_table_rows<G>(acc, table, seq + l * 2 * fs0 + k, first, last, q, dim,
+                    (int)rank * mh + m);
+  store8(sums + l * mh + m, acc);
+}
+
+// x of step k for the task `to` sends (sample k - 1 is drawn): the sum of
+// the window's other rows at `cur`, its last row and the slot row, relu,
+// into the x rows of this thread's CTAs
+__device__ __forceinline__ void send_x(const Spread& to, const float* cur,
+                                       const bf16* __restrict__ table,
+                                       const bf16* __restrict__ slots,
+                                       const int* seq, bf16* xs,
+                                       uint32_t bar_x, int lane0, int k,
+                                       int fs0, int q, int dim, int mh,
+                                       int act_ld, const Strides& st,
+                                       unsigned rank) {
+  const int l = to.task / (mh / 8), m = to.task % (mh / 8) * 8;
+  const int col = (int)rank * mh + m;
+  const uint4 last =
+      table_row(table, fs0 - 1, seq[l * 2 * fs0 + k + fs0 - 1], q, dim, col);
+  const uint4 srow = __ldg(reinterpret_cast<const uint4*>(
+      slots + (size_t)(lane0 + l) * st.slot_ld_b + (size_t)k * st.slot_ld_k +
+      col));
+  float x[8];
+  load8(x, cur + l * mh + m);
+  add_bf16x8(x, last);
+  add_bf16x8(x, srow);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) x[e] = fmaxf(x[e], 0.f);
+  push(to, smem_addr(xs + l * act_ld + col), bar_x, pack_bf16x8(x));
+}
+
+// A CTA has 16 warps that multiply, reduce and draw. A cluster walks
+// through its share of the lanes in passes of NT n-tiles (8 NT lanes). One
+// sample k of a pass, in every CTA:
+//   x: sample k - 1 is drawn; add its table row (the window's last) and
+//     the slot row to the sum of the other rows, made during the step
+//     before; this CTA's columns of x to all CTAs; fetch the rows of the
+//     next step's sum into the other of two buffers. Meanwhile the Gumbel
+//     noise of this CTA's own columns of the logits; wait for all of x
+//   product with W_h; h to all CTAs; wait for all of h; product with W_o;
+//     each lane's best of this CTA's columns (logit + noise, first index
+//     on ties) to all CTAs; wait for all of them; draw: the best of the C
+//     bests, which is the argmax over all q columns, since a CTA's columns
+//     are one block in rank order.
+// Who gathers: in a pass of 8 lanes, four more warps (kGatherThreads), off
+// the others' path: they wait at a barrier until a sample is drawn, send x
+// and fetch all of the next step's rows while the others multiply. In a
+// wider pass the 16 warps' registers hold W_h's operand, and no others fit
+// beside them: while the first half of the threads send x, the second half
+// fetch the first rows of the next step's sum, and while the first half
+// send h, the others fetch the rest.
+// Only the live lanes of a pass are sent. A buffer is never written while
+// a CTA still reads it: x of the next step is sent by CTAs that have
+// drawn, so they had everyone's bests, which a CTA sends after its
 // products; h of the next step by CTAs that have all of the next x, sent
-// after the draw; the logits likewise after the next h. Within a CTA the
-// two products' partial sums share one buffer, and a barrier of the
-// compute warps stands between the reads of one and the writes of the next.
-__global__ void __launch_bounds__(kResThreads, 1)
+// after the draw; the bests likewise after the next h. Within a CTA a
+// barrier stands between the reads of the x rows (product with W_h) and
+// the product with W_o, whose partial sums may lie over them, and between
+// the reads of h's partial sums and that product.
+// Registers: in a pass wider than 8 lanes every thread holds W_h's operand
+// (kreg steps, 16 B a step) for the whole launch, 64 of its 128 registers
+// at 32 lanes; the layout is a parameter, read where it is used, and what
+// lives from one step to the next lives in shared memory, so the rest fits
+// beside it.
+template <int NT>
+__global__ void __launch_bounds__(kResThreads + (NT == 1 ? kGatherThreads
+                                                         : 0), 1)
     window_resident(const bf16* __restrict__ table,
                     const unsigned char* __restrict__ packed,
                     const float* __restrict__ bh,
@@ -654,152 +998,173 @@ __global__ void __launch_bounds__(kResThreads, 1)
                     const int* __restrict__ buf,
                     const float* __restrict__ noise,
                     const int64_t* __restrict__ seed, int* __restrict__ out,
-                    int batch, int fs0, int q, int dim, Strides st) {
+                    int batch, int fs0, int q, int dim, Strides st,
+                    const ResidentLayout lay) {
+  constexpr int W = NT * kLanes;        // lanes of a pass
+  constexpr int R = NT > 1 ? reg_steps(W) : 1;  // W_h's steps a register
+                                                // array holds
+  constexpr int G = gather_rows(NT);
+  constexpr bool kGather = NT == 1;     // gather warps of their own
+  constexpr int kThreads = resident_threads(NT);
   extern __shared__ __align__(128) unsigned char rsm[];
   const unsigned C = cluster_size(), rank = cluster_rank();
-  const ResidentLayout lay(fs0, q, dim, (int)C);
   bf16* const xs = reinterpret_cast<bf16*>(rsm + lay.x_off);
   bf16* const hs = reinterpret_cast<bf16*>(rsm + lay.h_off);
-  float* const logits = reinterpret_cast<float*>(rsm + lay.logits_off);
   float* const gum = reinterpret_cast<float*>(rsm + lay.noise_off);
   float* const red = reinterpret_cast<float*>(rsm + lay.red_off);
+  float* const red_o = reinterpret_cast<float*>(rsm + lay.redo_off);
+  float* const sums = reinterpret_cast<float*>(rsm + lay.ahead_off);
+  float* const bias = reinterpret_cast<float*>(rsm + lay.bias_off);
+  uint2* const cand = reinterpret_cast<uint2*>(rsm + lay.cand_off);
+  uint2* const bests = reinterpret_cast<uint2*>(rsm + lay.best_off);
   int* const seq = reinterpret_cast<int*>(rsm + lay.seq_off);
   const uint32_t bars = smem_addr(rsm + lay.bar_off);
   const uint32_t bar_w = bars + 8 * kBarWeights, bar_x = bars + 8 * kBarX,
-                 bar_h = bars + 8 * kBarH, bar_l = bars + 8 * kBarLogits;
+                 bar_h = bars + 8 * kBarH, bar_b = bars + 8 * kBarBest;
   const int tid = threadIdx.x;
   const int mh = lay.mh, mo = lay.mo;
-  const int ld_h = mh + kRedPad, ld_o = mo + kRedPad;
   const LaneShare share(batch, gridDim.x / C, blockIdx.x / C);
-  const bool gatherer = tid >= kComputeThreads;
+  const unsigned char* const slice = packed + (size_t)rank * lay.slice_bytes;
 
-  // rows of dead lanes are multiplied too: keep them finite
-  for (uint32_t i = tid; i < (lay.logits_off - lay.x_off) / 4;
-       i += kResThreads)
+  // rows of dead lanes are multiplied too: start them finite
+  for (uint32_t i = tid; i < (lay.noise_off - lay.x_off) / 4; i += kThreads)
     reinterpret_cast<uint32_t*>(rsm + lay.x_off)[i] = 0u;
+  for (int i = tid; i < mh + mo; i += kThreads)
+    bias[i] = i < mh ? bh[rank * mh + i] : bo[rank * mo + i - mh];
   if (tid == 0) {
-    const int nl = min(kLanes, share.count);
+    const int nl = min(W, share.count);
     for (int b = 0; b < kBars; ++b)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bars +
                                                                     8 * b)
                    : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    request_weights(smem_addr(rsm), packed + (size_t)rank * lay.w_bytes,
-                    lay.w_bytes, bar_w);
+    request_resident_weights(smem_addr(rsm), slice, lay, bar_w);
     expect_bytes(bar_x, nl * dim * sizeof(bf16));
     expect_bytes(bar_h, nl * dim * sizeof(bf16));
-    expect_bytes(bar_l, nl * q * sizeof(float));
+    expect_bytes(bar_b, nl * C * sizeof(uint2));
   }
   // every CTA of the cluster runs, its mbarriers ready, before any writes
   // into another's memory
   cluster_sync();
 
-  if (gatherer) {
+  if (kGather && tid >= kResThreads) {
     // ------------------------------------------------------------------
-    // the gather warps: this CTA's columns of x, four of a lane a thread
+    // the gather warps of a pass of 8 lanes: x, and the next step's rows
     // ------------------------------------------------------------------
-    const int gt = tid - kComputeThreads;
-    for (int sub = 0; sub < share.count; sub += kLanes) {
+    const int g = tid - kResThreads;
+    for (int sub = 0; sub < share.count; sub += W) {
       const int lane0 = share.begin + sub;
-      const int nl = min(kLanes, share.count - sub);
-      const Spread to(gt, kGatherThreads, nl * (mh / 4), C);
-      const int l = to.task / (mh / 4);
-      const int col = (int)rank * mh + to.task % (mh / 4) * 4;
-      int* const window = seq + l * 2 * fs0;
-      const bf16* const slot =
-          slots + (size_t)(lane0 + l) * st.slot_ld_b + col;
-      const uint32_t dst = smem_addr(xs + l * lay.act_ld + col);
-      // the lanes' windows; the fs0 new samples follow them
-      for (int i = gt; i < nl * fs0; i += kGatherThreads)
-        seq[i / fs0 * 2 * fs0 + i % fs0] =
-            buf[(size_t)(lane0 + i / fs0) * st.buf_ld + i % fs0];
+      const int nl = min(W, share.count - sub);
+      const int tasks = nl * (mh / 8);
+      const Spread to(g, kGatherThreads, tasks, C);
+      load_windows(seq, buf, st.buf_ld, lane0, nl, fs0, g, kGatherThreads);
       named_sync(kNamedGather, kGatherThreads);
-      float ahead[4] = {0.f, 0.f, 0.f, 0.f};
-      if (to.active)
-        add_table_rows(ahead, table, window, fs0 - 1, q, dim, col);
+      if (g < tasks)
+        add_rows<G>(sums, table, seq, g, 0, 0, fs0 - 1, fs0, q, dim, mh,
+                    rank);
+      named_sync(kNamedGather, kGatherThreads);
       for (int k = 0; k < fs0; ++k) {
-        // sample k - 1 is drawn (the others only announce it)
-        if (k > 0) named_sync(kNamedDrawn, kResThreads);
-        if (!to.active) continue;
-        const uint2 last = table_row(table, fs0 - 1, window[k + fs0 - 1], q,
-                                     dim, col);
-        const uint2 srow = __ldg(reinterpret_cast<const uint2*>(
-            slot + (size_t)k * st.slot_ld_k));
-        float x[4] = {ahead[0], ahead[1], ahead[2], ahead[3]};
-        add_bf16x4(x, last);
-        add_bf16x4(x, srow);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) x[e] = fmaxf(x[e], 0.f);
-        push(to, dst, bar_x, pack_bf16x4(x));
-        if (k + 1 < fs0) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) ahead[e] = 0.f;
-          add_table_rows(ahead, table, window + k + 1, fs0 - 1, q, dim, col);
-        }
+        // sample k - 1 is drawn (the others only announce it); the sums
+        // of every task are made
+        if (k > 0) named_sync(kNamedDrawn, kThreads);
+        if (to.active)
+          send_x(to, sums + (k & 1) * W * mh, table, slots, seq, xs, bar_x,
+                 lane0, k, fs0, q, dim, mh, lay.act_ld, st, rank);
+        if (g < tasks && k + 1 < fs0)
+          add_rows<G>(sums + ((k + 1) & 1) * W * mh, table, seq, g, k + 1,
+                      0, fs0 - 1, fs0, q, dim, mh, rank);
       }
-      // the others have drawn the last sample of the sub-tile, so every
-      // CTA had this CTA's last x: the windows may be overwritten
-      named_sync(kNamedDrawn, kResThreads);
+      // the others have drawn the pass's last sample, so every CTA had
+      // this CTA's last x: the windows may be overwritten
+      named_sync(kNamedDrawn, kThreads);
     }
   } else {
     // ------------------------------------------------------------------
-    // the other warps: products, reductions, the draw
+    // the 16 warps: products, reductions, the draw (and, in a pass wider
+    // than 8 lanes, x and the next step's rows)
     // ------------------------------------------------------------------
     const uint2 key = philox_key(noise, seed);
-    const ProductTask product_h(smem_addr(rsm), mh / 16, lay.ksteps,
-                                lay.split_h, smem_addr(xs), lay.act_ld, red,
-                                ld_h);
-    const ProductTask product_o(smem_addr(rsm + lay.wo_off), mo / 16,
-                                lay.ksteps, lay.split_o, smem_addr(hs),
-                                lay.act_ld, red, ld_o);
+    // W_h's operand of this warp's first kreg steps, for the whole launch
+    uint4 areg[R];
+    {
+      const int warp = tid >> 5, mt = warp % (mh / 16), s = warp / (mh / 16);
+      const bool active = warp < (mh / 16) * lay.split_h;
+      const uint4* const src = reinterpret_cast<const uint4*>(slice) +
+                               (mt * lay.ksteps + s * lay.ksub) * 32 +
+                               (tid & 31);
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        areg[j] = active && j < lay.kreg ? __ldg(src + j * 32)
+                                         : make_uint4(0, 0, 0, 0);
+    }
+    const uint4 none[1] = {make_uint4(0, 0, 0, 0)};
     uint32_t parity = 0;
     bool weights_here = false;
-    const int warp = tid >> 5, lane_id = tid & 31;
-    // the class of this CTA's columns whose noise the thread makes, for
-    // lanes noise_l0, noise_l0 + noise_step, ...
-    const int noise_class = (int)rank * mo + tid % mo;
-    const int noise_step = kComputeThreads / mo, noise_l0 = tid / mo;
+    // the next step's table rows: the first `half` while x is on its way,
+    // the others while h is
+    const int half = fs0 / 2;
 
-    for (int sub = 0; sub < share.count; sub += kLanes) {
+    // Each phase below takes the thread's index afresh (phase_thread) and
+    // makes what it needs of it there: in a pass wider than 8 lanes nothing
+    // but W_h's operand stays in registers from one phase to the next.
+    for (int sub = 0; sub < share.count; sub += W) {
       const int lane0 = share.begin + sub;
-      const int nl = min(kLanes, share.count - sub);
-      const int next_nl = min(kLanes, share.count - sub - kLanes);
-      const Spread to_h(tid, kComputeThreads, nl * (mh / 4), C);
-      const SharedSpread to_o(tid, kComputeThreads, nl * (mo / 4),
-                              lay.split_o, C);
-      const int l_h = to_h.task / (mh / 4), m_h = to_h.task % (mh / 4) * 4;
-      const int l_o = to_o.task / (mo / 4), m_o = to_o.task % (mo / 4) * 4;
-      const float* const red_h = red + l_h * ld_h + m_h;
-      const float* const red_o = red + l_o * ld_o + m_o;
-      const float4 bias_h =
-          *reinterpret_cast<const float4*>(bh + rank * mh + m_h);
-      const float4 bias_o =
-          *reinterpret_cast<const float4*>(bo + rank * mo + m_o);
-      const uint32_t dst_h =
-          smem_addr(hs + l_h * lay.act_ld + (int)rank * mh + m_h);
-      const uint32_t dst_o = smem_addr(logits + l_o * q + (int)rank * mo + m_o);
+      const int nl = min(W, share.count - sub);
+      const int next_nl = min(W, share.count - sub - W);
+      // x and h: task t is lane t / (mh / 8), columns rank * mh + t % (mh /
+      // 8) * 8 .. + 7
+      const int tasks = nl * (mh / 8);
+      if constexpr (!kGather) {
+        load_windows(seq, buf, st.buf_ld, lane0, nl, fs0, tid, kResThreads);
+        compute_sync();
+        {
+          const int t = phase_thread<NT>();
+          if (t < tasks)
+            add_rows<G>(sums, table, seq, t, 0, 0, fs0 - 1, fs0, q, dim, mh,
+                        rank);
+        }
+        compute_sync();
+      }
 
       for (int k = 0; k < fs0; ++k, parity ^= 1) {
         // the live lanes of the next phase (none after the last sample)
         const int after = k + 1 < fs0 ? nl : next_nl;
-        // the Gumbel noise of this CTA's columns of the logits, a class
-        // of a lane a thread, while x is on its way
-        if (noise_l0 < noise_step)
-          for (int l = noise_l0; l < nl; l += noise_step) {
+        if constexpr (!kGather) {
+          const int t = phase_thread<NT>();
+          if (t < kPushThreads) {
+            // this CTA's columns of x, to every CTA
+            const Spread to(t, kPushThreads, tasks, C);
+            if (to.active)
+              send_x(to, sums + (k & 1) * W * mh, table, slots, seq, xs,
+                     bar_x, lane0, k, fs0, q, dim, mh, lay.act_ld, st, rank);
+          } else if (t - kPushThreads < tasks && k + 1 < fs0) {
+            // the first rows of the next step's sum
+            add_rows<G>(sums + ((k + 1) & 1) * W * mh, table, seq,
+                        t - kPushThreads, k + 1, 0, half, fs0, q, dim, mh,
+                        rank);
+          }
+        }
+        {
+          // the Gumbel noise of this CTA's columns of the logits, a class
+          // of a lane a thread, while x is on its way
+          const int t = phase_thread<NT>();
+          const int cls = (int)rank * mo + t % mo, step = kResThreads / mo;
+          for (int l = t / mo; l < nl && t / mo < step; l += step) {
             float g;
             if (noise != nullptr) {
-              g = noise[((size_t)(lane0 + l) * fs0 + k) * q + noise_class];
+              g = noise[((size_t)(lane0 + l) * fs0 + k) * q + cls];
             } else {
-              const uint4 r = philox(
-                  make_uint4((uint32_t)(noise_class / 4), (uint32_t)k,
-                             (uint32_t)(lane0 + l), 0u),
-                  key);
-              const int j = noise_class % 4;
+              const uint4 r = philox(make_uint4((uint32_t)(cls / 4),
+                                                (uint32_t)k,
+                                                (uint32_t)(lane0 + l), 0u),
+                                     key);
+              const int j = cls % 4;
               g = gumbel(j == 0 ? r.x : j == 1 ? r.y : j == 2 ? r.z : r.w);
             }
-            gum[l * mo + tid % mo] = g;
+            gum[l * mo + t % mo] = g;
           }
+        }
         wait_for_bytes(bar_x, parity, "x");
         if (tid == 0 && after > 0)
           expect_bytes(bar_x, after * dim * sizeof(bf16));
@@ -809,14 +1174,36 @@ __global__ void __launch_bounds__(kResThreads, 1)
         }
 
         // this CTA's columns of h = relu(x @ W_h + b_h), to every CTA
-        product_h.run();
-        named_sync(kNamedCompute, kComputeThreads);
-        if (to_h.active) {
-          float h[4];
-          reduce4(red_h, lay.split_h, ld_h, bias_h, h);
+        ProductTask<NT, (NT <= 2 ? 2 : 1)>(smem_addr(rsm), mh / 16,
+                                           lay.ksteps, lay.split_h, lay.kreg,
+                                           smem_addr(xs), lay.act_ld, red,
+                                           mh + kRedPad, W)
+            .run(areg);
+        compute_sync();
+        {
+          // the senders of h: every thread where warps of their own
+          // gather, else the first half
+          constexpr int kSenders = kGather ? kResThreads : kPushThreads;
+          const int t = phase_thread<NT>();
+          if (t < kSenders) {
+            const Spread to(t, kSenders, tasks, C);
+            if (to.active) {
+              const int l = to.task / (mh / 8), m = to.task % (mh / 8) * 8;
+              const int col = (int)rank * mh + m;
+              float h[8];
+              reduce8(red + l * (mh + kRedPad) + m, lay.split_h,
+                      part_floats(W, mh), bias + m, h);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) h[e] = fmaxf(h[e], 0.f);
-          push(to_h, dst_h, bar_h, pack_bf16x4(h));
+              for (int e = 0; e < 8; ++e) h[e] = fmaxf(h[e], 0.f);
+              push(to, smem_addr(hs + l * lay.act_ld + col), bar_h,
+                   pack_bf16x8(h));
+            }
+          } else if (!kGather && t - kPushThreads < tasks && k + 1 < fs0) {
+            // the other rows of the next step's sum
+            add_rows<G>(sums + ((k + 1) & 1) * W * mh, table, seq,
+                        t - kPushThreads, k + 1, half, fs0 - 1, fs0, q, dim,
+                        mh, rank);
+          }
         }
         wait_for_bytes(bar_h, parity, "h");
         if (tid == 0 && after > 0)
@@ -824,59 +1211,94 @@ __global__ void __launch_bounds__(kResThreads, 1)
         // the product with W_o overwrites the partial sums of h: every
         // thread has read its own first (all of h having arrived here says
         // only that the threads which send to this CTA have)
-        named_sync(kNamedCompute, kComputeThreads);
+        compute_sync();
 
-        // this CTA's columns of the logits, with their noise, to every CTA
-        product_o.run();
-        named_sync(kNamedCompute, kComputeThreads);
+        // this CTA's columns of the logits with their noise: each task's
+        // best of its four columns ...
+        ProductTask<NT, (NT >= 2 ? 2 : 1)>(smem_addr(rsm + lay.wo_off),
+                                           mo / 16, lay.ksteps, lay.split_o,
+                                           0, smem_addr(hs), lay.act_ld,
+                                           red_o, mo + kRedPad, W)
+            .run(none);
+        compute_sync();
         {
+          const int t = phase_thread<NT>();
+          const TreeTasks to(t, kResThreads, nl * (mo / 4), lay.tree);
+          const int l = to.task / (mo / 4), m = to.task % (mo / 4) * 4;
           float v[4];
-          reduce4_shared(red_o, lay.split_o, ld_o, bias_o, to_o.group,
-                         to_o.g, v);
-          if (to_o.active) {
+          reduce4_tree(red_o + l * (mo + kRedPad) + m, lay.split_o,
+                       part_floats(W, mo), lay.tree,
+                       *reinterpret_cast<const float4*>(bias + mh + m), to,
+                       v);
+          if (to.active && to.j == 0) {
             const float4 g =
-                *reinterpret_cast<const float4*>(gum + l_o * mo + m_o);
-            push(to_o, dst_o, bar_l,
-                 make_float4(v[0] + g.x, v[1] + g.y, v[2] + g.z,
-                             v[3] + g.w));
-          }
-        }
-        wait_for_bytes(bar_l, parity, "the logits");
-        if (tid == 0 && after > 0)
-          expect_bytes(bar_l, after * q * sizeof(float));
-
-        // every CTA draws every lane's sample: a warp per lane, argmax of
-        // the logits with their noise, first index on ties
-        if (warp < nl) {
-          float best = -INFINITY;
-          int best_i = 0;
-          for (int c0 = lane_id * 4; c0 < q; c0 += 128) {
-            const float4 a =
-                *reinterpret_cast<const float4*>(logits + warp * q + c0);
-            const float v[4] = {a.x, a.y, a.z, a.w};
+                *reinterpret_cast<const float4*>(gum + l * mo + m);
+            const float sc[4] = {v[0] + g.x, v[1] + g.y, v[2] + g.z,
+                                 v[3] + g.w};
+            float best = -INFINITY;
+            int best_i = 0;
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-              if (v[e] > best) {
-                best = v[e];
-                best_i = c0 + e;
+              if (sc[e] > best) {
+                best = sc[e];
+                best_i = (int)rank * mo + m + e;
               }
+            cand[to.task] = as_best(best, best_i);
           }
-          const uint32_t mine = ordered(best);
-          const uint32_t top = __reduce_max_sync(0xffffffffu, mine);
-          const uint32_t first = __reduce_min_sync(
-              0xffffffffu, mine == top ? (uint32_t)best_i : 0xFFFFFFFFu);
-          if (lane_id == 0) seq[warp * 2 * fs0 + fs0 + k] = (int)first;
         }
-        __threadfence_block();
-        named_arrive(kNamedDrawn, kResThreads);   // the gather warps wait
-        named_sync(kNamedCompute, kComputeThreads);
+        compute_sync();
+        {
+          // ... each lane's best of this CTA's columns, to every CTA
+          const int t = phase_thread<NT>();
+          if (t < nl * (int)C) {
+            const int l = t / (int)C, r = t % (int)C;
+            float best = -INFINITY;
+            int best_i = 0;
+            for (int c = 0; c < mo / 4; ++c) {
+              const uint2 b = cand[l * (mo / 4) + c];
+              if (__uint_as_float(b.x) > best) {
+                best = __uint_as_float(b.x);
+                best_i = (int)b.y;
+              }
+            }
+            st_async(map_to_rank(smem_addr(bests + l * C + rank), r),
+                     as_best(best, best_i), map_to_rank(bar_b, r));
+          }
+        }
+        wait_for_bytes(bar_b, parity, "the bests");
+        if (tid == 0 && after > 0)
+          expect_bytes(bar_b, after * C * sizeof(uint2));
+        {
+          // every CTA draws every lane's sample: the best of the C bests, C
+          // threads a lane
+          const int t = phase_thread<NT>();
+          const int l = t / (int)C, r = t % (int)C;
+          const bool live = l < nl;
+          const uint2 b = live ? bests[l * C + r] : as_best(-INFINITY, 0);
+          float best = __uint_as_float(b.x);
+          int best_i = (int)b.y;
+          for (unsigned off = 1; off < C; off <<= 1) {
+            const float ov = __shfl_xor_sync(0xffffffffu, best, off);
+            const int oi = __shfl_xor_sync(0xffffffffu, best_i, off);
+            if (beats(ov, oi, best, best_i)) {
+              best = ov;
+              best_i = oi;
+            }
+          }
+          if (live && r == 0) seq[l * 2 * fs0 + fs0 + k] = best_i;
+        }
+        if constexpr (kGather) {
+          __threadfence_block();
+          named_arrive(kNamedDrawn, kThreads);   // the gather warps wait
+        }
+        compute_sync();
       }
 
       if (rank == 0)
-        for (int i = tid; i < nl * fs0; i += kComputeThreads)
+        for (int i = tid; i < nl * fs0; i += kResThreads)
           out[(size_t)(lane0 + i / fs0) * fs0 + i % fs0] =
               seq[(i / fs0) * 2 * fs0 + fs0 + i % fs0];
-      named_sync(kNamedCompute, kComputeThreads);   // seq has been read
+      compute_sync();   // seq has been read
     }
     if (!weights_here) wait_for_bytes(bar_w, 0, "the weights");
   }
@@ -884,44 +1306,73 @@ __global__ void __launch_bounds__(kResThreads, 1)
 }
 
 // What a resident window costs before it loads, multiplies or draws: per
-// sample and sub-tile three rounds in which every CTA sends 8 bytes to
-// every CTA of its cluster and waits for everyone's, on the same grid.
+// sample and pass the three exchanges of the real kernel with their bytes
+// (x and h, 2 dim bytes a lane each, in 16-byte stores; each CTA's best,
+// 8 bytes a lane), every CTA waiting for all of each, on the same grid and
+// shared memory.
+template <int NT>
 __global__ void __launch_bounds__(kResThreads, 1)
-    window_empty(int batch, int fs0) {
-  __shared__ __align__(8) unsigned long long bar_mem;
-  __shared__ uint2 inbox[kMaxCluster];
-  const unsigned C = cluster_size();
+    window_empty(int batch, int fs0, int dim, const ResidentLayout lay) {
+  constexpr int W = NT * kLanes;
+  extern __shared__ __align__(128) unsigned char rsm[];
+  const unsigned C = cluster_size(), rank = cluster_rank();
+  bf16* const xs = reinterpret_cast<bf16*>(rsm + lay.x_off);
+  bf16* const hs = reinterpret_cast<bf16*>(rsm + lay.h_off);
+  uint2* const bests = reinterpret_cast<uint2*>(rsm + lay.best_off);
+  const uint32_t bars = smem_addr(rsm + lay.bar_off);
+  const uint32_t bar_x = bars + 8 * kBarX, bar_h = bars + 8 * kBarH,
+                 bar_b = bars + 8 * kBarBest;
+  const int tid = threadIdx.x, mh = lay.mh;
   const LaneShare share(batch, gridDim.x / C, blockIdx.x / C);
-  const uint32_t bar = smem_addr(&bar_mem);
-  const uint32_t bytes = 8 * C;
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-                 : "memory");
+  if (tid == 0) {
+    const int nl = min(W, share.count);
+    for (int b = kBarX; b < kBars; ++b)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bars +
+                                                                    8 * b)
+                   : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    expect_bytes(bar, bytes);
+    expect_bytes(bar_x, nl * dim * sizeof(bf16));
+    expect_bytes(bar_h, nl * dim * sizeof(bf16));
+    expect_bytes(bar_b, nl * C * sizeof(uint2));
   }
   cluster_sync();
   uint32_t parity = 0;
-  for (int sub = 0; sub < share.count; sub += kLanes)
-    for (int k = 0; k < 3 * fs0; ++k, parity ^= 1) {
-      if (threadIdx.x < C)
-        st_async(map_to_rank(smem_addr(inbox + cluster_rank()), threadIdx.x),
-                 make_uint2(k, sub), map_to_rank(bar, threadIdx.x));
-      wait_for_bytes(bar, parity, "a round of the empty window");
-      if (threadIdx.x == 0) expect_bytes(bar, bytes);
-      __syncthreads();
+  for (int sub = 0; sub < share.count; sub += W) {
+    const int nl = min(W, share.count - sub);
+    const int next_nl = min(W, share.count - sub - W);
+    const Spread to(tid, kResThreads, nl * (mh / 8), C);
+    const int at = to.task / (mh / 8) * lay.act_ld + (int)rank * mh +
+                   to.task % (mh / 8) * 8;
+    const uint4 v = make_uint4(sub, 0, 0, 0);
+    for (int k = 0; k < fs0; ++k, parity ^= 1) {
+      const int after = k + 1 < fs0 ? nl : next_nl;
+      if (to.active) push(to, smem_addr(xs + at), bar_x, v);
+      wait_for_bytes(bar_x, parity, "x of the empty window");
+      if (tid == 0 && after > 0)
+        expect_bytes(bar_x, after * dim * sizeof(bf16));
+      if (to.active) push(to, smem_addr(hs + at), bar_h, v);
+      wait_for_bytes(bar_h, parity, "h of the empty window");
+      if (tid == 0 && after > 0)
+        expect_bytes(bar_h, after * dim * sizeof(bf16));
+      if (tid < nl * (int)C)
+        st_async(map_to_rank(smem_addr(bests + tid / C * C + rank), tid % C),
+                 make_uint2(k, sub), map_to_rank(bar_b, tid % C));
+      wait_for_bytes(bar_b, parity, "the bests of the empty window");
+      if (tid == 0 && after > 0)
+        expect_bytes(bar_b, after * C * sizeof(uint2));
     }
+  }
   cluster_sync();
 }
 
 struct ResidentLaunch {
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attrs[1];
-  ResidentLaunch(int cluster, int clusters, size_t smem,
+  ResidentLaunch(int cluster, int clusters, size_t smem, int threads,
                  cudaStream_t stream) {
     config = cudaLaunchConfig_t{};
     config.gridDim = dim3(cluster * clusters);
-    config.blockDim = dim3(kResThreads);
+    config.blockDim = dim3(threads);
     config.dynamicSmemBytes = smem;
     config.stream = stream;
     attrs[0].id = cudaLaunchAttributeClusterDimension;
@@ -941,6 +1392,27 @@ cudaError_t allow(const void* kernel, size_t smem, int cluster) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return err;
+}
+
+// the resident kernel and its empty window for passes of `width` lanes
+const void* resident_kernel(int width) {
+  switch (width / kLanes) {
+    case 1: return reinterpret_cast<const void*>(window_resident<1>);
+    case 2: return reinterpret_cast<const void*>(window_resident<2>);
+    case 3: return reinterpret_cast<const void*>(window_resident<3>);
+    case 4: return reinterpret_cast<const void*>(window_resident<4>);
+    default: return nullptr;
+  }
+}
+
+const void* empty_kernel(int width) {
+  switch (width / kLanes) {
+    case 1: return reinterpret_cast<const void*>(window_empty<1>);
+    case 2: return reinterpret_cast<const void*>(window_empty<2>);
+    case 3: return reinterpret_cast<const void*>(window_empty<3>);
+    case 4: return reinterpret_cast<const void*>(window_empty<4>);
+    default: return nullptr;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1342,13 +1814,15 @@ const void* grid_kernel_for(int dtype, int tile) {
 extern "C" {
 
 // The resident kernel (bfloat16 only): `clusters` clusters of `cluster`
-// CTAs. packed: `cluster` slices of (dim / cluster + q / cluster) * dim
-// bf16, slice r holding columns r * dim / cluster .. of W_h and then
-// r * q / cluster .. of W_o as [16-column tile][16-deep step][32 lanes]
-// [8 values] in the register order of mma m16n8k16's A operand. Exactly
-// one of noise / seed is non-null. Strides in elements: lane b's window at
-// buf + b * buf_ld, its slot row of step k at slots + b * slot_ld_b + k *
-// slot_ld_k. Returns the cudaError_t of the launch (0 on success).
+// CTAs, each walking through its share of the lanes in passes of `width`
+// (8, 16, 24 or 32). packed: `cluster` slices of (dim / cluster + q /
+// cluster) * dim bf16, slice r holding columns r * dim / cluster .. of W_h
+// and then r * q / cluster .. of W_o as [16-column tile][16-deep step][32
+// lanes][8 values] in the register order of mma m16n8k16's A operand.
+// Exactly one of noise / seed is non-null. Strides in elements: lane b's
+// window at buf + b * buf_ld, its slot row of step k at slots + b *
+// slot_ld_b + k * slot_ld_k. Returns the cudaError_t of the launch (0 on
+// success).
 int sample_window_resident_launch(const void* table, const void* packed,
                                   const void* bh, const void* bo,
                                   const void* slots, const void* buf,
@@ -1356,54 +1830,62 @@ int sample_window_resident_launch(const void* table, const void* packed,
                                   void* out, int batch, int fs0, int q,
                                   int dim, long long buf_ld,
                                   long long slot_ld_b, long long slot_ld_k,
-                                  int cluster, int clusters, void* stream) {
+                                  int cluster, int clusters, int width,
+                                  void* stream) {
   if ((noise == nullptr) == (seed == nullptr) || batch < 1 || clusters < 1 ||
-      clusters > batch || !resident_shape_ok(fs0, q, dim, cluster))
+      clusters > batch || !resident_shape_ok(fs0, q, dim, cluster, width))
     return cudaErrorInvalidValue;
-  const ResidentLayout lay(fs0, q, dim, cluster);
-  const void* kernel = reinterpret_cast<const void*>(window_resident);
+  const ResidentLayout lay(fs0, q, dim, cluster, width);
+  const void* kernel = resident_kernel(width);
   cudaError_t err = allow(kernel, lay.total, cluster);
   if (err != cudaSuccess) return err;
   ResidentLaunch launch(cluster, clusters, lay.total,
+                        resident_threads(width / kLanes),
                         static_cast<cudaStream_t>(stream));
   Strides st{buf_ld, slot_ld_b, slot_ld_k};
-  void* args[] = {&table, &packed, &bh,    &bo,  &slots, &buf, &noise,
-                  &seed,  &out,    &batch, &fs0, &q,     &dim, &st};
+  void* args[] = {&table, &packed, &bh,  &bo,  &slots, &buf, &noise, &seed,
+                  &out,   &batch,  &fs0, &q,   &dim,   &st,  (void*)&lay};
   return cudaLaunchKernelExC(&launch.config, kernel, args);
 }
 
 // the resident kernel's grid, clusters and shared memory through the
-// exchanges of a window of `batch` lanes, and no other work
+// exchanges of a window of `batch` lanes in passes of `width`, with their
+// bytes, and no other work
 int sample_window_empty_launch(int batch, int fs0, int q, int dim,
-                               int cluster, int clusters, void* stream) {
+                               int cluster, int clusters, int width,
+                               void* stream) {
   if (batch < 1 || clusters < 1 || clusters > batch ||
-      !resident_shape_ok(fs0, q, dim, cluster))
+      !resident_shape_ok(fs0, q, dim, cluster, width))
     return cudaErrorInvalidValue;
-  const ResidentLayout lay(fs0, q, dim, cluster);
-  const void* kernel = reinterpret_cast<const void*>(window_empty);
+  const ResidentLayout lay(fs0, q, dim, cluster, width);
+  const void* kernel = empty_kernel(width);
   cudaError_t err = allow(kernel, lay.total, cluster);
   if (err != cudaSuccess) return err;
-  ResidentLaunch launch(cluster, clusters, lay.total,
+  ResidentLaunch launch(cluster, clusters, lay.total, kResThreads,
                         static_cast<cudaStream_t>(stream));
-  void* args[] = {&batch, &fs0};
+  void* args[] = {&batch, &fs0, &dim, (void*)&lay};
   return cudaLaunchKernelExC(&launch.config, kernel, args);
 }
 
 // shared memory of one CTA of the resident kernel in a cluster of
-// `cluster`; -1 where that cluster cannot split the weights
-long long sample_window_resident_smem(int fs0, int q, int dim, int cluster) {
-  if (!resident_shape_ok(fs0, q, dim, cluster)) return -1;
-  return (long long)ResidentLayout(fs0, q, dim, cluster).total;
+// `cluster` in passes of `width` lanes; -1 where that cluster cannot split
+// the weights or carry such passes
+long long sample_window_resident_smem(int fs0, int q, int dim, int cluster,
+                                      int width) {
+  if (!resident_shape_ok(fs0, q, dim, cluster, width)) return -1;
+  return (long long)ResidentLayout(fs0, q, dim, cluster, width).total;
 }
 
-// How many clusters of `cluster` CTAs of the resident kernel the current
-// device holds at once (the occupancy API's answer; 0: such a cluster is
-// not granted). Negative: minus the cudaError_t.
-int sample_window_max_clusters(int fs0, int q, int dim, int cluster) {
-  if (!resident_shape_ok(fs0, q, dim, cluster))
+// How many clusters of `cluster` CTAs of the resident kernel for passes of
+// `width` lanes the current device holds at once (the occupancy API's
+// answer; 0: such a cluster is not granted). Negative: minus the
+// cudaError_t.
+int sample_window_max_clusters(int fs0, int q, int dim, int cluster,
+                               int width) {
+  if (!resident_shape_ok(fs0, q, dim, cluster, width))
     return -(int)cudaErrorInvalidValue;
-  const ResidentLayout lay(fs0, q, dim, cluster);
-  const void* kernel = reinterpret_cast<const void*>(window_resident);
+  const ResidentLayout lay(fs0, q, dim, cluster, width);
+  const void* kernel = resident_kernel(width);
   cudaError_t err = allow(kernel, lay.total, cluster);
   if (err != cudaSuccess) return -(int)err;
   int sms = 0, dev = 0;
@@ -1413,7 +1895,8 @@ int sample_window_max_clusters(int fs0, int q, int dim, int cluster) {
   if (err != cudaSuccess) return -(int)err;
   // the answer does not depend on the grid as long as it is large enough
   ResidentLaunch launch(cluster, sms / cluster > 0 ? sms / cluster : 1,
-                        lay.total, nullptr);
+                        lay.total, resident_threads(width / kLanes),
+                        nullptr);
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &launch.config);
   if (err != cudaSuccess) return -(int)err;

@@ -13,16 +13,20 @@ sample needs the whole W_h and W_o (2.5 MB in bf16 at the canonical width)
 and depends on the sample before, so a window is a chain of fs0 steps whose
 products are tiny; what a step costs besides them decides. Two kernels:
 
-- "resident" (bf16): a thread-block cluster keeps W_h and W_o in its shared
-  memory for the whole window (16 CTAs x 160 KB at dim 1024), each CTA
-  owning a slice of the output columns of both layers, brought in once by
-  bulk copies from weights packed once per sampler (`pack_window_weights`).
-  A cluster walks through its share of the lanes in sub-tiles of 8 (the
-  narrow side of the tensor cores' m16n8k16); x, h and the logits are
-  pushed into every CTA's shared memory by asynchronous stores that report
-  to the receiver's mbarrier (three exchanges per sample, no barrier), and
-  four warps of every CTA gather table rows a step ahead (see the source's
-  header).
+- "resident" (bf16): a thread-block cluster keeps W_h and W_o for the
+  whole window (16 CTAs x 160 KB at dim 1024), each CTA owning a slice of
+  the output columns of both layers, brought in once from weights packed
+  once per sampler (`pack_window_weights`): W_o and what is left of W_h in
+  shared memory, the rest of W_h in the threads' registers. A cluster
+  walks through its share of the lanes in passes of 8, 16, 24 or 32 (one
+  to four n-tiles of the tensor cores' m16n8k16 that share the weights'
+  operand): a step's chain of exchanges and barriers is paid once for all
+  of its lanes, so the plan takes the fewest passes that shared memory
+  allows. x, h and each CTA's best class are pushed into every CTA's
+  shared memory by asynchronous stores that report to the receiver's
+  mbarrier (three exchanges per sample, no barrier); half of a CTA's
+  threads fetch the next step's table rows while the other half send
+  (see the source's header).
 - "grid" (float32, and bf16 widths no cluster holds): float32 W_h and W_o
   (5.24 MB at the canonical width) fit no cluster but the card's shared
   memory: the fewest CTAs that hold them (32 at dim 1024, "groups") keep
@@ -59,8 +63,11 @@ kernels draw).
 `sample_window.launches` counts the windows launched: the calls that
 launched a kernel, and a captured CUDA graph's windows each time it is
 replayed (serving/mux.py adds them; its capture, and the scratch push
-before it, count none); `.resident` and `.grid` by kernel. The library
-is built with nvcc at first use into msnv_tpu_torch/build/.
+before it, count none); `.resident` and `.grid` by kernel; `.lanes` the
+lanes of the resident launches and `.passes` their passes (clusters times
+the most passes a cluster makes), so that lanes / passes is how wide a
+pass ran. The library is built with nvcc at first use into
+msnv_tpu_torch/build/.
 
 The Philox mode is also registered as the operator
 `msnv_torch::sample_window` (`sample_window_op`), with
@@ -84,12 +91,17 @@ from msnv_tpu_torch.kernels.build import CSRC, build_library
 
 SOURCE = CSRC / "sample_window.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the resident kernel: lanes per sub-tile, warps per CTA, the cluster sizes
-# it may take, padding of its activation rows (bf16) and partial sums (f32)
+# the resident kernel: lanes of an n-tile (the fewest lanes a cluster
+# takes), the widths of its passes, warps per CTA that multiply, the cluster
+# sizes it may take, steps of W_h a compute thread holds in registers per
+# n-tile, padding of its activation rows (bf16), of its rows of partial sums
+# and between two parts' sums (f32)
 SUBTILE = 8
+RESIDENT_WIDTHS = (8, 16, 24, 32)
 RESIDENT_WARPS = 16
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
-_ACT_PAD, _RED_PAD = 8, 4
+_REG_STEPS = 4
+_ACT_PAD, _RED_PAD, _PART_PAD = 8, 4, 4
 # the most columns of W_h and of W_o that one of its CTAs owns (four columns
 # of a lane a gather thread; a 16-column tile a warp)
 _MAX_OWN_H, _MAX_OWN_O = 64, 256
@@ -114,13 +126,13 @@ def build() -> ctypes.CDLL:
         lib, build_log = build_library(SOURCE)
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.sample_window_resident_launch.argtypes = (
-            [vp] * 9 + [ci] * 4 + [ll] * 3 + [ci, ci, vp])
+            [vp] * 9 + [ci] * 4 + [ll] * 3 + [ci, ci, ci, vp])
         lib.sample_window_resident_launch.restype = ci
-        lib.sample_window_empty_launch.argtypes = [ci] * 6 + [vp]
+        lib.sample_window_empty_launch.argtypes = [ci] * 7 + [vp]
         lib.sample_window_empty_launch.restype = ci
-        lib.sample_window_resident_smem.argtypes = [ci] * 4
+        lib.sample_window_resident_smem.argtypes = [ci] * 5
         lib.sample_window_resident_smem.restype = ll
-        lib.sample_window_max_clusters.argtypes = [ci] * 4
+        lib.sample_window_max_clusters.argtypes = [ci] * 5
         lib.sample_window_max_clusters.restype = ci
         lib.sample_window_grid_launch.argtypes = (
             [ci, ci] + [vp] * 12 + [ci] * 4 + [ll] * 3 + [ci, ci, vp])
@@ -354,7 +366,8 @@ class WindowPlan(NamedTuple):
                             # the weights)
     clusters: int           # clusters (grid: replicas)
     lanes_per_cluster: int  # the most lanes one cluster walks through
-    subtile: int            # lanes in flight at once in a cluster (a CTA)
+    subtile: int            # lanes in flight at once in a cluster (a CTA):
+                            # resident, the width of a pass
     smem_bytes: int         # dynamic shared memory of a CTA
 
 
@@ -366,20 +379,62 @@ def _depth_split(mtiles: int, ksteps: int) -> int:
     return s
 
 
-def resident_smem_bytes(fs0: int, q: int, dim: int, cluster: int) -> int:
-    """Shared memory of one CTA of the resident kernel: its slice of both
-    weights, 8 lanes' x and h rows (bf16, padded), their logits and the
-    Gumbel noise of its own columns of them (f32), the partial sums of the
-    larger product, the window and the new samples, four mbarriers."""
+def resident_smem_bytes(fs0: int, q: int, dim: int, cluster: int,
+                        width: int) -> int:
+    """Shared memory of one CTA of the resident kernel in passes of `width`
+    lanes: what its threads do not hold in registers of its slice of W_h
+    (each warp's steps past the first 4 width / 8 in a pass wider than 8,
+    all of them in a pass of 8) and all of W_o, the
+    pass's x and h rows (bf16, padded), the Gumbel noise of its own columns
+    of the logits (f32), the partial sums of the products (those of W_o's
+    over the x rows where they fit there), two buffers of table-row sums
+    (f32, the CTA's columns of x), its biases, each task's and each CTA's
+    best class of a lane (8 bytes each), the window and the new samples,
+    four mbarriers."""
     mh, mo, ksteps = dim // cluster, q // cluster, dim // 16
-    weights = (mh + mo) * dim * 2
-    acts = (2 * SUBTILE * (dim + _ACT_PAD) * 2 + SUBTILE * q * 4
-            + SUBTILE * mo * 4)
-    red = 4 * SUBTILE * max(
-        _depth_split(mh // 16, ksteps) * (mh + _RED_PAD),
-        _depth_split(mo // 16, ksteps) * (mo + _RED_PAD))
-    seq = SUBTILE * 2 * fs0 * 4
-    return -(-(weights + acts + red + seq) // 16) * 16 + 4 * 8
+    split_h = _depth_split(mh // 16, ksteps)
+    held = _REG_STEPS * width // SUBTILE if width > SUBTILE else 0
+    kreg = min(ksteps // split_h, held)
+    weights = (mh // 16) * (ksteps - split_h * kreg) * 512 + mo * dim * 2
+    row = (dim + _ACT_PAD) * 2
+    acts = 2 * width * row + width * mo * 4
+    red_h = 4 * split_h * (width * (mh + _RED_PAD) + _PART_PAD)
+    red_o = 4 * _depth_split(mo // 16, ksteps) * (
+        width * (mo + _RED_PAD) + _PART_PAD)
+    red = red_h if red_o <= width * row else max(red_h, red_o)
+    sums = 2 * width * mh * 4 + (mh + mo) * 4
+    bests = width * (mo // 4) * 8 + width * cluster * 8
+    seq = width * 2 * fs0 * 4
+    return _align16(weights + acts + red + sums + bests + seq) + 4 * 8
+
+
+def _width_ok(q: int, cluster: int, width: int) -> bool:
+    """Whether a pass of `width` lanes has at most one task (four columns
+    of a lane's logits) a compute thread."""
+    return q // cluster // 4 * width <= RESIDENT_WARPS * 32
+
+
+def resident_widths(fs0: int, q: int, dim: int, cluster: int,
+                    smem_bytes: int) -> list:
+    """The widths of a pass (RESIDENT_WIDTHS) that a cluster of `cluster`
+    CTAs of the resident kernel can carry in `smem_bytes` a CTA."""
+    return [w for w in RESIDENT_WIDTHS if _width_ok(q, cluster, w)
+            and resident_smem_bytes(fs0, q, dim, cluster, w) <= smem_bytes]
+
+
+def resident_width(fs0: int, q: int, dim: int, cluster: int,
+                   smem_bytes: int, lanes: int) -> int:
+    """The width of the passes in which a cluster walks through `lanes`:
+    the narrowest that takes the fewest passes any width that fits takes
+    (a share of 8 lanes or fewer stays at 8)."""
+    widths = resident_widths(fs0, q, dim, cluster, smem_bytes)
+    passes = -(-lanes // widths[-1])
+    return min(w for w in widths if -(-lanes // w) == passes)
+
+
+def plan_passes(plan: WindowPlan) -> int:
+    """The most passes a cluster of a resident plan makes."""
+    return -(-plan.lanes_per_cluster // plan.subtile)
 
 
 def _align16(n: int) -> int:
@@ -452,14 +507,14 @@ def grid_tile(fs0: int, q: int, dim: int, groups: int, dtype,
 def resident_cluster(fs0: int, q: int, dim: int, smem_bytes: int) -> int:
     """The smallest cluster whose CTAs can hold W_h and W_o (dim x dim,
     dim x q, bf16) between them in whole 16-column tiles, few enough for
-    a CTA's threads; 0: none. Small, because what the CTAs exchange grows
-    with their number."""
+    a CTA's threads, beside the lanes of a pass of some width; 0: none.
+    Small, because what the CTAs exchange grows with their number."""
     if fs0 < 1 or dim < 16 or dim % 16:
         return 0
     for c in CLUSTER_SIZES:
         if (dim % (16 * c) == 0 and q % (16 * c) == 0
                 and dim // c <= _MAX_OWN_H and q // c <= _MAX_OWN_O
-                and resident_smem_bytes(fs0, q, dim, c) <= smem_bytes):
+                and resident_widths(fs0, q, dim, c, smem_bytes)):
             return c
     return 0
 
@@ -472,8 +527,10 @@ def window_plan(B, fs0, q, dim, dtype, max_clusters, smem_bytes,
     `resident_cluster` names) and `grid_ctas` CTAs of the grid kernel (on
     a card: the occupancy API's answers). The resident
     kernel needs bf16 weights, a cluster that holds them and at least one
-    such cluster granted; its clusters share the lanes evenly and walk
-    through them 8 at a time. Everything else takes the grid kernel where
+    such cluster granted; as many clusters as granted, at least 8 lanes
+    each, share the lanes evenly, and each walks through its share in the
+    fewest passes that a width which fits allows, at the narrowest width
+    that takes that many (`resident_width`). Everything else takes the grid kernel where
     the card holds the `grid_groups` CTAs that keep the weights: as many
     replicas of them as it holds, up to one per 8 lanes, share the lanes
     evenly, each CTA multiplying as many at a time (up to 16) as its
@@ -489,8 +546,10 @@ def window_plan(B, fs0, q, dim, dtype, max_clusters, smem_bytes,
                if dtype == torch.bfloat16 and max_clusters >= 1 else 0)
     if cluster:
         clusters = min(max_clusters, -(-B // SUBTILE))
-        return WindowPlan("resident", cluster, clusters, -(-B // clusters),
-                          SUBTILE, resident_smem_bytes(fs0, q, dim, cluster))
+        lanes = -(-B // clusters)
+        width = resident_width(fs0, q, dim, cluster, smem_bytes, lanes)
+        return WindowPlan("resident", cluster, clusters, lanes, width,
+                          resident_smem_bytes(fs0, q, dim, cluster, width))
     groups = grid_groups(fs0, q, dim, dtype, smem_bytes) if grid_ctas else 0
     if groups and grid_ctas >= groups:
         replicas = min(grid_ctas // groups, -(-B // REPLICA_LANES))
@@ -538,11 +597,15 @@ def device_limits(device, fs0, q, dim, dtype):
                       "device query")
             cluster = resident_cluster(fs0, q, dim, smem.value)
             if cluster:
-                if (lib.sample_window_resident_smem(fs0, q, dim, cluster)
-                        != resident_smem_bytes(fs0, q, dim, cluster)):
-                    raise RuntimeError("the kernel's shared-memory plan "
-                                       "differs from resident_smem_bytes")
-                held = lib.sample_window_max_clusters(fs0, q, dim, cluster)
+                _check_resident(lib, fs0, q, dim, cluster)
+                # the occupancy with the most shared memory a width that
+                # fits asks for: no other holds fewer clusters
+                widest = max(
+                    resident_widths(fs0, q, dim, cluster, smem.value),
+                    key=lambda w: resident_smem_bytes(fs0, q, dim, cluster,
+                                                      w))
+                held = lib.sample_window_max_clusters(fs0, q, dim, cluster,
+                                                      widest)
                 _raise_on(lib, max(-held, 0), "occupancy query")
             ctas = 0
             groups = grid_groups(fs0, q, dim, dtype, smem.value)
@@ -562,6 +625,17 @@ def device_limits(device, fs0, q, dim, dtype):
                 _raise_on(lib, max(-ctas, 0), "grid occupancy query")
         _limits[key] = (held, smem.value, ctas)
     return _limits[key]
+
+
+def _check_resident(lib, fs0, q, dim, cluster):
+    """Raise where the kernel's shared memory differs from
+    resident_smem_bytes at some width."""
+    for w in RESIDENT_WIDTHS:
+        want = (resident_smem_bytes(fs0, q, dim, cluster, w)
+                if _width_ok(q, cluster, w) else -1)
+        if lib.sample_window_resident_smem(fs0, q, dim, cluster, w) != want:
+            raise RuntimeError(f"the kernel's shared-memory plan at width "
+                               f"{w} differs from resident_smem_bytes")
 
 
 def resident_weights(wh, wo, fs0: int):
@@ -691,7 +765,7 @@ def sample_window(table, wh, bh, wo, bo, slots, buf, *, noise=None,
         err = lib.sample_window_resident_launch(
             ptr(table), ptr(packed), ptr(bh), ptr(bo), ptr(slots), ptr(buf),
             ptr(noise), ptr(seed), ptr(out), batch, fs0, q, dim, *strides,
-            plan.cluster, plan.clusters, stream)
+            plan.cluster, plan.clusters, plan.subtile, stream)
     else:
         f32 = {"dtype": torch.float32, "device": dev}
         xg = torch.empty((batch, dim), **f32)
@@ -705,12 +779,17 @@ def sample_window(table, wh, bh, wo, bo, slots, buf, *, noise=None,
     _raise_on(lib, err, f"{plan.path} launch")
     sample_window.launches += 1
     setattr(sample_window, plan.path, getattr(sample_window, plan.path) + 1)
+    if plan.path == "resident":
+        sample_window.lanes += batch
+        sample_window.passes += plan.clusters * plan_passes(plan)
     return out
 
 
 sample_window.launches = 0
 sample_window.resident = 0
 sample_window.grid = 0
+sample_window.lanes = 0
+sample_window.passes = 0
 
 
 # --------------------------------------------------------------------------
@@ -759,16 +838,18 @@ def empty_window(batch, fs0, q, dim, device, dtype=torch.bfloat16):
     """Launch the grid of the kernel that a window of `batch` lanes with
     weights of `dtype` takes (resident or grid) through its exchanges and
     no other work: the cost of a window's step-to-step dependence alone,
-    for timing beside the real kernel. Resident: three rounds per sample
-    and sub-tile in which every CTA sends 8 bytes to every CTA of its
-    cluster and waits for everyone's; grid: its 2 fs0 grid barriers.
-    Returns the plan; raises where no kernel takes the window."""
+    for timing beside the real kernel. Resident: per sample and pass the
+    three exchanges with their bytes (x and h, 2 dim bytes a lane each,
+    each CTA's best, 8), every CTA waiting for everyone's; grid: its 2 fs0
+    grid barriers. Returns the plan; raises where no kernel takes the
+    window."""
     plan = _plan_on(device, batch, fs0, q, dim, dtype)
     lib = build()
     stream = torch.cuda.current_stream(device).cuda_stream
     if plan.path == "resident":
         err = lib.sample_window_empty_launch(
-            batch, fs0, q, dim, plan.cluster, plan.clusters, stream)
+            batch, fs0, q, dim, plan.cluster, plan.clusters, plan.subtile,
+            stream)
     else:
         counter = torch.empty(1, dtype=torch.int32, device=device)
         err = lib.sample_window_grid_empty_launch(

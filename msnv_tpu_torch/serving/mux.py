@@ -524,7 +524,7 @@ class StreamMultiplexer:
 
 
 # the sample-window kernel's launch counters
-_COUNTERS = ("launches", "resident", "grid")
+_COUNTERS = ("launches", "resident", "grid", "lanes", "passes")
 
 
 def _window_counts():

@@ -193,8 +193,8 @@ def _covered_once(plan, batch):
     return lanes == list(range(batch))
 
 
-@pytest.mark.parametrize("max_clusters", [0, 1, 8])
-@pytest.mark.parametrize("batch", [1, 3, 128, 130, 1024])
+@pytest.mark.parametrize("max_clusters", [0, 1, 7, 8, 16])
+@pytest.mark.parametrize("batch", [1, 3, 8, 19, 128, 130, 147, 1024])
 def test_window_plan_canonical(batch, max_clusters):
     if max_clusters == 0:       # no cluster granted, no grid CTAs given
         with pytest.raises(ValueError, match="no kernel takes"):
@@ -206,10 +206,44 @@ def test_window_plan_canonical(batch, max_clusters):
     shares = [n for _, n in sw.plan_lanes(plan, batch)]
     assert max(shares) == plan.lanes_per_cluster and min(shares) >= 1
     assert plan.path == "resident"
-    assert plan.cluster == 16 and plan.subtile == sw.SUBTILE
+    assert plan.cluster == 16
     assert plan.clusters == min(max_clusters, -(-batch // sw.SUBTILE))
     assert max(shares) - min(shares) <= 1
-    assert plan.smem_bytes == sw.resident_smem_bytes(20, 256, 1024, 16)
+    assert plan.smem_bytes == sw.resident_smem_bytes(20, 256, 1024, 16,
+                                                     plan.subtile)
+    # every width fits at this shape: the fewest passes 32 lanes allow, at
+    # the narrowest width that takes that many
+    share = plan.lanes_per_cluster
+    assert plan.subtile in sw.RESIDENT_WIDTHS
+    assert sw.plan_passes(plan) == -(-share // 32)
+    assert plan.subtile == 8 or \
+        -(-share // (plan.subtile - 8)) > sw.plan_passes(plan)
+
+
+# (B, clusters granted) -> (width of a pass, passes a cluster) at the
+# canonical shape: as many clusters as granted, at least 8 lanes each
+WIDTHS = {(1, 7): (8, 1), (8, 7): (8, 1), (19, 7): (8, 1),
+          (128, 7): (24, 1), (147, 7): (24, 1), (1024, 7): (32, 5),
+          (1, 16): (8, 1), (8, 16): (8, 1), (19, 16): (8, 1),
+          (128, 16): (8, 1), (147, 16): (16, 1), (1024, 16): (32, 2)}
+
+
+@pytest.mark.parametrize("batch,max_clusters", sorted(WIDTHS))
+def test_window_plan_width_and_passes(batch, max_clusters):
+    plan = sw.window_plan(batch, 20, 256, 1024, BF16, max_clusters, SMEM)
+    assert (plan.subtile, sw.plan_passes(plan)) == \
+        WIDTHS[batch, max_clusters]
+
+
+def test_three_tier_windows_stay_8_wide():
+    """128 lanes of the three-tier model (fs0 4, dim 512) over 16 clusters
+    of 8 CTAs: 8 lanes a cluster, one pass of 8; over fewer clusters one
+    wider pass."""
+    plan = sw.window_plan(128, 4, 256, 512, BF16, 16, SMEM)
+    assert (plan.cluster, plan.clusters, plan.subtile) == (8, 16, 8)
+    assert sw.plan_passes(plan) == 1
+    plan = sw.window_plan(128, 4, 256, 512, BF16, 8, SMEM)
+    assert (plan.subtile, sw.plan_passes(plan)) == (16, 1)
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
@@ -242,17 +276,74 @@ def test_window_plan_rejects_what_no_kernel_takes():
 def test_resident_cluster_is_the_smallest_that_fits(dim, want):
     assert sw.resident_cluster(20, 256, dim, SMEM) == want
     if want:
-        assert sw.resident_smem_bytes(20, 256, dim, want) <= SMEM
+        assert sw.resident_widths(20, 256, dim, want, SMEM)
     # with too little shared memory no cluster holds the weights
     assert sw.resident_cluster(20, 256, dim, 1 << 14) == 0
 
 
 def test_resident_smem_formula_at_the_canonical_shape():
-    # 160 KB of weights, x and h (8 x 1032 bf16 each), logits (8 x 256
-    # f32), the CTA's own noise (8 x 16 f32), partial sums (16 x 8 x 20
-    # f32), 8 x 40 samples, four mbarriers
-    want = (163840 + 2 * 16512 + 8192 + 512 + 10240 + 1280 + 32)
-    assert sw.resident_smem_bytes(20, 256, 1024, 16) == want <= SMEM
+    # per width w: W_h's 16 steps a warp less the 4 w / 8 held in registers
+    # in a pass wider than 8 (8 KB a step over the 16 warps; a pass of 8
+    # holds none), W_o (32 KB), x and h (w x 1032 bf16
+    # each), the CTA's own noise (w x 16 f32), W_h's partial sums (4 parts
+    # of w x 68 + 4 f32; W_o's, 16 of w x 20 + 4, lie over the x rows), two
+    # buffers of row sums (w x 64 f32 each), the biases (80 f32), each
+    # task's best (w x 4 x 8 B) and each CTA's (w x 16 x 8 B), w x 40
+    # samples, four mbarriers
+    for w in sw.RESIDENT_WIDTHS:
+        held = w // 2 if w > 8 else 0
+        want = ((16 - held) * 8192 + 32768 + 2 * w * 2064 + w * 64
+                + 4 * (w * 272 + 16) + 2 * w * 256 + 320 + w * 32 + w * 128
+                + w * 160 + 32)
+        assert sw.resident_smem_bytes(20, 256, 1024, 16, w) == want <= SMEM
+
+
+# (fs0, q, dim, cluster): the two presets' windows (samplernn; three tiers)
+PRESET_SHAPES = [(20, 256, 1024, 16), (4, 256, 512, 8)]
+
+
+@pytest.mark.parametrize("fs0,q,dim,cluster", PRESET_SHAPES)
+def test_every_width_fits_an_h100_at_the_presets(fs0, q, dim, cluster):
+    assert sw.resident_cluster(fs0, q, dim, SMEM) == cluster
+    assert sw.resident_widths(fs0, q, dim, cluster, SMEM) == \
+        list(sw.RESIDENT_WIDTHS)
+    for w in sw.RESIDENT_WIDTHS:
+        assert sw.resident_smem_bytes(fs0, q, dim, cluster, w) <= SMEM
+
+
+def _older_cluster(fs0, q, dim):
+    """The cluster the resident kernel took when it walked in passes of 8
+    lanes with both weights and 8 lanes' logits in shared memory; 0:
+    none."""
+    for c in sw.CLUSTER_SIZES:
+        mh, mo, ks = dim // c, q // c, dim // 16
+        if (dim % (16 * c) or q % (16 * c) or mh > 64 or mo > 256):
+            continue
+        red = 4 * 8 * max(sw._depth_split(mh // 16, ks) * (mh + 4),
+                          sw._depth_split(mo // 16, ks) * (mo + 4))
+        smem = ((mh + mo) * dim * 2 + 2 * 8 * (dim + 8) * 2 + 8 * q * 4
+                + 8 * mo * 4 + red + 8 * 2 * fs0 * 4)
+        if -(-smem // 16) * 16 + 32 <= SMEM:
+            return c
+    return 0
+
+
+@pytest.mark.parametrize("fs0", [1, 4, 20, 64])
+@pytest.mark.parametrize("q", [16, 64, 256, 512, 1024])
+def test_shapes_that_took_the_resident_kernel_still_do(fs0, q):
+    """Every width that took the resident kernel with passes of 8 lanes
+    still takes it; up to q 512 (every preset) with the same cluster, so
+    the same split of both products and the same bits."""
+    assert _older_cluster(20, 256, 1024) == 16
+    for dim in range(16, 1025, 16):
+        older = _older_cluster(fs0, q, dim)
+        if not older:
+            continue
+        cluster = sw.resident_cluster(fs0, q, dim, SMEM)
+        assert cluster and (cluster == older or q > 512), (dim, older)
+        for batch in (1, 128, 1024):
+            plan = sw.window_plan(batch, fs0, q, dim, BF16, 7, SMEM)
+            assert plan.path == "resident" and plan.cluster == cluster
 
 
 def test_fragment_index_is_the_mma_operand_order():

@@ -21,7 +21,7 @@ from msnv_tpu_torch.config import preset
 from msnv_tpu_torch.kernels.sample_window import sample_window
 from msnv_tpu_torch.models.samplernn import init_params
 from msnv_tpu_torch.serving import StreamMultiplexer
-from msnv_tpu_torch.serving.mux import _PushGraph, _tensors
+from msnv_tpu_torch.serving.mux import _PushGraph, _tensors, _window_counts
 
 # the ticks where streams arrive (acquire; a speaker id, modulo the
 # model's speakers, or "mix": a row of mix weights) or leave (release): two
@@ -120,32 +120,39 @@ def same_as_rebinding(run):
 def capture_leaves_state(params, cfg, lanes=8, K=4):
     """Making the graph draws nothing from the carry's generator, leaves
     the carry and the window counters as they were; one replay then adds
-    the windows of one push (K x lookback / fs0) and advances the
-    generator as one eager push does."""
+    the windows of one push (K x lookback / fs0), and to every counter
+    (resident launches, their lanes and passes) what one eager push adds,
+    and advances the generator as one eager push does."""
     mux = StreamMultiplexer(params, cfg, lanes=lanes, frames_per_push=K,
                             seed=5)
     lane = mux.acquire(np.asarray([1 % cfg.spk_dim], np.int32))
     with mux._carry_lock, mux._device_lock:
         mux._flush_attaches({lane})
     tensors, state = _snapshot(mux._carry)
+    counts = _window_counts()
     launches = sample_window.launches
     graph = _PushGraph(mux)
     torch.cuda.synchronize()
     after, after_state = _snapshot(mux._carry)
     assert all(torch.equal(a, b) for a, b in zip(after, tensors))
     assert torch.equal(after_state, state)
-    assert sample_window.launches == launches
+    assert _window_counts() == counts
     eager = torch.Generator(device=mux.device)
     eager.set_state(state)
     mux._masked_push(mux._carry[:3] + (eager,), graph.cond, graph.active)
     windows = K * cfg.lookback // cfg.frame_sizes[0]
     assert sample_window.launches == launches + windows
+    pushed = {k: n - counts[k] for k, n in _window_counts().items()}
+    assert pushed["resident"] == windows and pushed["grid"] == 0
+    assert pushed["lanes"] == windows * lanes and pushed["passes"] > 0
     cond = np.zeros((lanes, K, cfg.effective_cond_dim), np.float32)
     active = np.zeros((lanes,), bool)
     active[lane] = True
     graph.replay(cond, active)
     torch.cuda.synchronize()
     assert sample_window.launches == launches + 2 * windows
+    assert _window_counts() == {k: n + 2 * pushed[k]
+                                for k, n in counts.items()}
     assert torch.equal(mux._generator.get_state(), eager.get_state())
 
 
