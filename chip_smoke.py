@@ -4,8 +4,9 @@
     python3 chip_smoke.py                 # on a machine with an H100
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
-  1. build    — nvcc builds the sample-window kernels and the GRU-layer
-                kernels from csrc/ (sm_90a), one nvcc process each, together
+  1. build    — nvcc builds the sample-window kernels, the GRU-layer
+                kernels and the fo-pool kernels from csrc/ (sm_90a), one
+                nvcc process each, together
   2. kernel   — the sample-window kernels against the plain version at the
                 canonical shape (fs0 20, q 256, dim 1024): float32 (the
                 grid kernel by plan: weights in the shared memory of 32
@@ -77,7 +78,16 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 its timed calls an error; bf16: the empty sweep, and the
                 module as flatten_parameters() leaves it timed beside;
                 float32: TF32 off, the FMA floor); the bounds are the
-                benchmark's (h100_bench/flops.py)
+                benchmark's (h100_bench/flops.py). Then the fo-pool kernels
+                (QRNN tiers) against their plain versions at B 128, T 52
+                and 13, H 1024, in bfloat16 and float32: h, every c_t and
+                c_T forward, dg and dc0 backward with and without dc_T
+                (bfloat16 outputs to one bf16 ulp, 2^-7 relative; float32
+                ones and every float32 cell to 1e-5, absolute and
+                relative), two runs bit-equal; times at each shape, kernel
+                and plain version, each the better of two medians over
+                runs of 10 calls, beside the benchmark's bound
+                (h100_bench/flops_qrnn.py)
   6. train    — the train step at full width (B 128, seq_len 1040, bf16
                 mixed precision, gru_impl="pallas"): one step with reset,
                 six without, on one fixed batch; losses finite and falling,
@@ -101,7 +111,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 "resumed from", every GRU sweep persistent (the train
                 steps' in bf16, the validation's in float32), run B's
                 epoch-3 losses equal to run A's (bit for bit, else within
-                2e-3 bits); cli.evaluate on A's last checkpoint equal to the
+                2e-3 bits); run Q, cli.train --qrnn true to 1 epoch,
+                resumed to 2 (the tag names qrnn, losses finite, every
+                pool in the fo-pool kernel: 4 launches a step each way,
+                4 forward a validation chunk); cli.evaluate on A's last
+                checkpoint equal to the
                 trainer's last validation loss (1e-4 bits); cli.generate
                 --engine auto for 2 utterances: WAV names and lengths, every
                 window resident. Corpus build, epoch wall and trainer
@@ -142,7 +156,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 The `bottleneck` preset at B 128 (two
                 steps, the same sweep counts) and `samplernn` with
                 qrnn=True at B 128 (two steps, falling loss, no GRU kernel
-                launched). generate_fn from the GAN and the QRNN model (B
+                launched, one fo-pool launch a layer of a tier each way).
+                generate_fn from the GAN and the QRNN model (B
                 128, 16 frames) and a B 1 stream of 8 pushes from the GAN
                 model, every window resident. cli.train --variant gan (B
                 16) to one epoch, resumed to two: disc_loss and lambda in
@@ -315,6 +330,7 @@ import numpy as np
 
 from h100_bench import peaks
 from h100_bench.flops import gru_sweep_bound_s, window_bound_s
+from h100_bench.flops_qrnn import pool_bound_s
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FS0, Q, DIM = 20, 256, 1024
@@ -1337,6 +1353,79 @@ def _gru_times(gl, dev, T, B, H, mxu):
     return row
 
 
+POOL_F32 = {"rtol": 1e-5, "atol": 1e-5}
+POOL_TOL = {"float32": POOL_F32, "bfloat16": {"rtol": 2 ** -7, "atol": 1e-5}}
+
+
+def phase_pool(dev, shapes):
+    """The fo-pool kernels (phase 5, after the GRU layers) against their
+    plain versions, both ways, in both types; on the card, their times."""
+    import torch
+    from msnv_tpu_torch.kernels import fo_pool as fp
+    on_card = dev.type == "cuda"
+    worst, rows = {"fwd": 0.0, "bwd": 0.0, "fwd_bf16": 0.0,
+                   "bwd_bf16": 0.0}, []
+    for T, B, H in shapes:
+        g = torch.Generator(device=dev).manual_seed(T * 1000 + B)
+        rn = lambda *shape: torch.randn(*shape, generator=g,  # noqa: E731
+                                        device=dev)
+        x, c0, dy, dcT = rn(B, T, 3 * H), rn(B, H), rn(B, T, H), rn(B, H)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            tol = POOL_TOL[name]
+            gx, dh = x.to(dtype), dy.to(dtype)
+            h, cs, cT = fp.fo_pool_forward(gx, c0)
+            rh, rcs, rcT = fp.fo_pool_reference(gx, c0)
+            torch.testing.assert_close(h, rh, **tol)
+            torch.testing.assert_close(cs, rcs, **POOL_F32)
+            torch.testing.assert_close(cT, rcT, **POOL_F32)
+            e_f = max(_rel_err(h.float(), rh.float()), _rel_err(cs, rcs),
+                      _rel_err(cT, rcT))
+            e_b, again = 0.0, fp.fo_pool_forward(gx, c0)
+            for d in (None, dcT):
+                dg, dc0 = fp.fo_pool_backward(gx, c0, cs, dh, d)
+                rdg, rdc0 = fp.fo_pool_backward_reference(gx, c0, rcs, dh, d)
+                torch.testing.assert_close(dg, rdg, **tol)
+                torch.testing.assert_close(dc0, rdc0, **POOL_F32)
+                e_b = max(e_b, _rel_err(dg.float(), rdg.float()),
+                          _rel_err(dc0, rdc0))
+                if not all(torch.equal(a, b) for a, b in zip(
+                        fp.fo_pool_backward(gx, c0, cs, dh, d), (dg, dc0))):
+                    raise AssertionError(f"two backward sweeps differ at "
+                                         f"T={T} B={B} {name}")
+            if not all(torch.equal(a, b) for a, b in zip(again, (h, cs, cT))):
+                raise AssertionError(f"two forward sweeps differ at T={T} "
+                                     f"B={B} {name}")
+            suffix = "_bf16" if dtype == torch.bfloat16 else ""
+            worst["fwd" + suffix] = max(worst["fwd" + suffix], e_f)
+            worst["bwd" + suffix] = max(worst["bwd" + suffix], e_b)
+            log(f"[pool] T={T} B={B} H={H} {name}: forward err {e_f:.2e}, "
+                f"backward err {e_b:.2e} (rtol {tol['rtol']:.1e}); two runs "
+                f"bit-equal")
+            if not on_card:
+                continue
+            run = {"iters": 5, "batch": 10}
+            row = {"T": T, "B": B, "H": H, "dtype": name}
+            for d, kernel, plain, backward in (
+                    ("fwd", lambda: fp.fo_pool_forward(gx, c0),
+                     lambda: fp.fo_pool_reference(gx, c0), False),
+                    ("bwd", lambda: fp.fo_pool_backward(gx, c0, cs, dh),
+                     lambda: fp.fo_pool_backward_reference(gx, c0, rcs, dh),
+                     True)):
+                row[f"{d}_ms"] = min(cuda_ms(kernel, **run) for _ in range(2))
+                row[f"{d}_plain_ms"] = cuda_ms(plain, 5)
+                row[f"{d}_bound_ms"] = 1e3 * pool_bound_s(T, B, H, name,
+                                                          backward)
+            log(f"[pool] T={T} B={B} {name}: forward {row['fwd_ms']:.4f} ms, "
+                f"plain {row['fwd_plain_ms']:.4f}, bound "
+                f"{row['fwd_bound_ms']:.4f}; backward {row['bwd_ms']:.4f} "
+                f"ms, plain {row['bwd_plain_ms']:.4f}, bound "
+                f"{row['bwd_bound_ms']:.4f}")
+            rows.append(row)
+    RESULTS["pool_err"] = worst
+    RESULTS["pool_shapes"] = rows
+
+
 # --------------------------------------------------------------------------
 # phase 6: the train step at full width
 # --------------------------------------------------------------------------
@@ -1609,6 +1698,55 @@ def _stats(results):
         return json.load(f), os.path.join(results, tag)
 
 
+def _pool_counts():
+    """(forward, backward) launches of the fo-pool kernel."""
+    from msnv_tpu_torch.kernels.fo_pool import (fo_pool_backward,
+                                                fo_pool_forward)
+    return fo_pool_forward.launches, fo_pool_backward.launches
+
+
+def _qrnn_cli(cli_train, args, work, chunks, sync, on_card, out):
+    """cli.train --qrnn true (run Q) on the loop's corpus and widths to 1
+    epoch, resumed to 2: the tag names qrnn, the losses are finite, it
+    resumes, and on a card every train step pools in the fo-pool kernel,
+    one launch a layer of a tier each way, as does every validation step
+    forward."""
+    from msnv_tpu_torch.training.trainer import Trainer
+    results = os.path.join(work, "results_q")
+    argv = args + ["--qrnn", "true", "--results_path", results]
+    clock = Clock(sync)
+    clock.wrap(Trainer, "evaluate")
+    before = _pool_counts()
+    t0 = time.perf_counter()
+    try:
+        run_cli(cli_train.main, argv + ["--epoch_limit", "1"])
+        resumed = run_cli(cli_train.main, argv + ["--epoch_limit", "2"])
+    finally:
+        clock.restore()
+    sync()
+    wall = time.perf_counter() - t0
+    fwd, bwd = (a - b for a, b in zip(_pool_counts(), before))
+    stats, exp_dir = _stats(results)
+    losses, evals = stats["training_loss"], len(clock.times["evaluate"])
+    pools = 4                                 # 2 tiers x n_rnn 2
+    log(f"[loop] run Q (--qrnn true): 1 + 1 epochs (resumed) in {wall:.1f}"
+        f" s, last epoch's losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"fo-pool launches forward {fwd}, backward {bwd} for {2 * chunks} "
+        f"train steps and {evals} evaluations of {chunks} chunks")
+    if "~qrnn:T" not in os.path.basename(exp_dir):
+        raise AssertionError(f"run Q's tag {os.path.basename(exp_dir)}")
+    if "resumed from" not in resumed:
+        raise AssertionError("run Q did not resume")
+    if len(losses) != chunks or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"run Q's losses {losses}")
+    if on_card and not (bwd == pools * 2 * chunks
+                        and fwd == pools * (2 + evals) * chunks):
+        raise AssertionError(f"run Q pooled outside the fo-pool kernel: "
+                             f"{fwd}, {bwd}")
+    out.update(qrnn_cli_s=wall, qrnn_pool_fwd_launches=fwd,
+               qrnn_pool_bwd_launches=bwd)
+
+
 def phase_loop(dev, dim, batch, seq_len, utts, frames):
     import shutil
     import tempfile
@@ -1756,6 +1894,8 @@ def phase_loop(dev, dim, batch, seq_len, utts, frames):
             f"every sweep persistent): "
             f"{statistics.median(clock.times['evaluate']):.3f} s (median of "
             f"{evals})")
+
+        _qrnn_cli(cli_train, args, work, chunks, sync, on_card, out)
 
         # evaluate: the last checkpoint of run A against its trainer
         last = os.path.join(dir_a, "checkpoints", sorted(
@@ -2660,11 +2800,19 @@ def phase_variants(dev, dim, gan_batch, batch, seq_len, channels, gen_batch,
                                 2, "bottleneck", out, "bottleneck")
     gru.append(counts)
     _check_sweeps(dev, neck.model, 2, "bottleneck step")
+    pools = _pool_counts()
     qrnn_params, qrnn_cfg, counts = _plain_steps(
         base.model, base.train, dev, batch, seq_len, 2, "samplernn qrnn",
         out, "qrnn", qrnn=True)
     if counts != (0, 0, 0, 0):
         raise AssertionError(f"a QRNN step launched GRU kernels: {counts}")
+    pools = tuple(a - b for a, b in zip(_pool_counts(), pools))
+    log(f"[variants] samplernn qrnn: fo-pool launches (fwd, bwd) {pools} "
+        f"in 2 steps")
+    if dev.type == "cuda" and pools != (8, 8):
+        raise AssertionError(f"a QRNN step pooled outside the fo-pool "
+                             f"kernel: {pools} launches in 2 steps")
+    out["qrnn_pool_launches"] = pools
 
     rate, windows = _generate_check(gan_params, gan_cfg, dev, gen_batch, 16,
                                     "gan", stream_frames=8)
@@ -4784,7 +4932,7 @@ def card_line():
 
 def build_kernels():
     """Phase 1: one nvcc process per source, all started together."""
-    from msnv_tpu_torch.kernels import gru_layer, sample_window
+    from msnv_tpu_torch.kernels import fo_pool, gru_layer, sample_window
     t0 = time.perf_counter()
     errors = []
 
@@ -4795,7 +4943,7 @@ def build_kernels():
             errors.append(e)
 
     threads = [threading.Thread(target=run, args=(m,))
-               for m in (sample_window, gru_layer)]
+               for m in (sample_window, gru_layer, fo_pool)]
     for th in threads:
         th.start()
     for th in threads:
@@ -4803,9 +4951,9 @@ def build_kernels():
     if errors:
         raise errors[0]
     RESULTS["build_s"] = time.perf_counter() - t0
-    log(f"[build] sample_window.cu and gru_layer.cu in "
+    log(f"[build] sample_window.cu, gru_layer.cu and fo_pool.cu in "
         f"{RESULTS['build_s']:.1f} s")
-    for mod in (sample_window, gru_layer):
+    for mod in (sample_window, gru_layer, fo_pool):
         kernel = ""
         for line in mod.build_log.splitlines():
             if "Compiling entry function" in line:
@@ -4955,7 +5103,35 @@ def kernel_entries():
                        "dtype": "float32", "mode": "philox"},
         "shapes": RESULTS["f32_shapes"],
     }
-    return [window, grid] + gru
+    # the fo-pool kernels (QRNN tiers) at the bottom tier's sweep (T 52,
+    # bf16, the QRNN train cell's); one launch is one layer's sweep, counted
+    # on the training loop's run Q (phase 7: train steps, and validation
+    # forward) and the variants' QRNN train steps (phase 9)
+    pools = []
+    for i, d in enumerate(("fwd", "bwd")):
+        row = next(r for r in RESULTS["pool_shapes"]
+                   if r["T"] == 52 and r["dtype"] == "bfloat16")
+        by_path = {"train_loop": RESULTS["loop"][f"qrnn_pool_{d}_launches"],
+                   "variants": RESULTS["variants"]["qrnn_pool_launches"][i]}
+        pools.append({
+            "name": f"fo_pool_{d}",
+            "route": "cuda",
+            "source": "msnv_tpu_torch/csrc/fo_pool.cu",
+            "replaces": None,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            # against the plain version in the same type, both types;
+            # largest |kernel - plain| over max(1, |plain|)
+            "max_abs_err": max(RESULTS["pool_err"][d],
+                               RESULTS["pool_err"][d + "_bf16"]),
+            "ms": row[f"{d}_ms"],
+            "plain_ms": row[f"{d}_plain_ms"],
+            "bound_ms": row[f"{d}_bound_ms"],
+            "library_ms": None,
+            "main_shape": {k: row[k] for k in ("T", "B", "H", "dtype")},
+            "shapes": RESULTS["pool_shapes"],
+        })
+    return [window, grid] + gru + pools
 
 
 def main(argv):
@@ -5015,6 +5191,9 @@ def main(argv):
            (13, 16, DIM), (52, 16, DIM), (5, 3, DIM), (4, 70, 128),
            (5, 70, DIM), (3, 8, 256), (3, 300, DIM))
           if not rehearse else ((3, 4, DIM), (5, 8, DIM), (5, 3, DIM)))
+    timed(5, "fo-pool", phase_pool, dev,
+          ((52, 128, DIM), (13, 128, DIM)) if not rehearse
+          else ((13, 4, DIM), (4, 3, DIM)))
     timed(6, "train", phase_train, exp, dev, 128 if not rehearse else 4,
           exp.train.seq_len if not rehearse else 2 * cfg.lookback, 6, 3)
     timed(7, "loop", phase_loop, dev, DIM, 128 if not rehearse else 2,

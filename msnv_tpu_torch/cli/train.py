@@ -8,7 +8,9 @@ Usage:
       [--bf16 true] [--device cuda|cpu] [--gru_impl auto|xla|pallas] ...
   torchrun --nproc_per_node N -m msnv_tpu_torch.cli.train ...   # N GPUs
 
-The same arguments as the JAX package's msnv-train. Builds the corpus
+The same arguments as the JAX package's msnv-train, and --qrnn true, which
+builds fo-pool QRNN frame tiers (the reference's `qrnn` option) in place of
+the GRUs and writes `qrnn:T` into the tag. Builds the corpus
 (cached, in the same cache files), the model and the train step, registers
 the monitor/validation/saver/stats plugins, resumes from the newest
 checkpoint (the JAX trainer's .npz format), and runs to --epoch_limit.
@@ -73,6 +75,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ulaw", type=parse_bool, default=True)
     p.add_argument("--q_levels", type=int, default=256)
     p.add_argument("--weight_norm", type=parse_bool, default=False)
+    p.add_argument("--qrnn", type=parse_bool, default=False,
+                   help="fo-pool QRNN frame tiers (ops/qrnn.py; the "
+                        "fused fo-pool kernel on a CUDA device) in place "
+                        "of the GRUs; written into the experiment's tag")
     p.add_argument("--seq_len", type=int, default=1040)
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--look_ahead", type=parse_bool, default=False)
@@ -188,7 +194,8 @@ def config_from_args(args, spk_dim: int,
             ulaw=args.ulaw, weight_norm=args.weight_norm,
             cond_dim=args.cond_dim, cond_len=args.cond_len, spk_dim=spk_dim,
             look_ahead=args.look_ahead, variant=args.variant,
-            ind_cond_dim=args.ind_cond_dim, gru_impl=gru_impl),
+            ind_cond_dim=args.ind_cond_dim, qrnn=args.qrnn,
+            gru_impl=gru_impl),
         train=TrainConfig(
             seq_len=args.seq_len, batch_size=args.batch_size,
             learning_rate=args.learning_rate, epoch_limit=args.epoch_limit,

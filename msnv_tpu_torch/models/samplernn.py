@@ -18,7 +18,8 @@ training/step.py, takes gradients through it): the sample MLP's input stage
 goes through ops/embed_conv.py, whose backward is reassociated through the
 fused table unless cfg.mlp_grad_impl is "direct", and with
 cfg.gru_impl="pallas" the tier GRUs' sweeps run in the fused kernel, forward
-and backward (kernels/gru_layer.py).
+and backward (kernels/gru_layer.py); QRNN tiers (cfg.qrnn) pool in the fused
+fo-pool kernel (kernels/fo_pool.py).
 
 Deliberate reference-quirk parity, as in the JAX package: tier inputs are
 `2 * dequantize(x)`, only the top tier is conditioned, the speaker
@@ -57,7 +58,8 @@ def dequantize(cfg: ModelConfig, x):
 # Recurrent-cell dispatch: GRU (default) or fo-pool QRNN (cfg.qrnn). Both
 # share the (n_layers, B, H) state layout, so everything downstream (TBPTT
 # state, learned-h0 reset, checkpoints) is cell-agnostic. A QRNN ignores
-# cfg.gru_impl: its loop is elementwise and has no kernel.
+# cfg.gru_impl: its sequence path is always the fused fo-pool
+# (kernels/fo_pool.py; the plain version on a CPU tensor).
 # --------------------------------------------------------------------------
 
 def rnn_init(cfg: ModelConfig, generator, n_layers, in_dim, hidden, *,

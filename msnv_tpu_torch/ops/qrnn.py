@@ -11,17 +11,22 @@ it selects a real alternative recurrence:
     h_t = o_t * c_t
 
 Every gate depends on the input alone, so a sequence's matmul work is one
-(B*T, d_in) x (d_in, 3H) product ahead of the loop over T, whose body is
-elementwise. Layout: a layer's w is (3H, d_in) with the gates in the order
-[z, f, o], b (3H,). Signatures mirror ops/gru.py (state (n_layers, B, H);
-the carried state is the cell c), so the tier plumbing, the TBPTT state,
-the learned-h0 reset and checkpoints are those of the GRU path.
+(B*T, d_in) x (d_in, 3H) product, and what follows it over T is the pool,
+which runs in the fused fo-pool kernel (kernels/fo_pool.py: one launch a
+layer each way on a CUDA tensor, its plain version on a CPU tensor; the
+gates' activations and the output gate inside it, c in float32). Layout: a
+layer's w is (3H, d_in) with the gates in the order [z, f, o], b (3H,).
+Signatures mirror ops/gru.py (state (n_layers, B, H); the carried state is
+the cell c), so the tier plumbing, the TBPTT state, the learned-h0 reset and
+checkpoints are those of the GRU path. `qrnn_cell` (a generation step)
+stays plain tensor code.
 """
 
 from __future__ import annotations
 
 import torch
 
+from msnv_tpu_torch.kernels.fo_pool import fo_pool
 from msnv_tpu_torch.ops.linear import lecun_uniform
 
 
@@ -48,13 +53,9 @@ def _gates(p, x):
 
 def _layer_apply(p, x, c0):
     """One QRNN layer. x (B, T, d_in), c0 (B, H) -> (y (B, T, H), cT)."""
-    z, f, o = _gates(p, x)                      # one matmul for all T
-    c = c0
-    cs = []
-    for t in range(x.shape[1]):
-        c = f[:, t] * c + (1.0 - f[:, t]) * z[:, t]
-        cs.append(c)
-    return o * torch.stack(cs, dim=1), c
+    g = torch.matmul(x, p["w"].T) + p["b"]      # one matmul for all T
+    y, cT = fo_pool(g, c0)
+    return y, cT.to(x.dtype)
 
 
 def qrnn_apply(params, x, c0):
