@@ -35,7 +35,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                 (the exchanges alone, with their bytes) / plain / bound,
                 one cluster through one pass at each width (8, 16, 24, 32
                 lanes: the cost of a sample step by width) and its empty
-                window, and float32
+                window, the test preset's window (fs0 4, dim 64, one CTA a
+                cluster) at B 1, 128 and 1024 and its empty window, the
+                bytes a lane's step pushes into its cluster, and float32
                 at B 1, 128 and 1024 grid / the grid's empty window (its
                 barriers alone) / plain / bound (split TF32, the FMA floor
                 beside it); the bounds are the benchmark's
@@ -714,6 +716,8 @@ def phase_kernel(params, batches, narrow):
                "clusters": plan.clusters,
                "lanes_per_cluster": plan.lanes_per_cluster,
                "width": plan.subtile, "passes": sw.plan_passes(plan),
+               "push_kib_per_lane_step": sw.resident_push_bytes(
+                   Q, DIM, plan.cluster) / 1024,
                "ms": ms,
                "alone_ms": alone, "empty_window_ms": empty,
                "plain_ms": plain, "bound_ms": bound,
@@ -726,8 +730,47 @@ def phase_kernel(params, batches, narrow):
             f"empty window {empty:.4f}, plain {plain:.4f}, bound "
             f"{bound:.5f}; given noise {noise_ms:.4f}")
     RESULTS["shapes"] = shapes
+    RESULTS["tiny_shapes"] = tiny_window_times(dev, run)
     RESULTS["widths"] = width_times(params, held, smem, run)
     RESULTS["f32_shapes"] = f32_window_times(params, run)
+
+
+# the test preset's window (tiny_unconditional: fs0 4, q 256, dim 64): one
+# CTA a cluster, whose partial logits (4 q bytes a lane) outweigh its x
+TINY = (4, 256, 64)
+
+
+def tiny_window_times(dev, run):
+    """Phase 2's rows at the test preset's shape, bf16, Philox mode: the
+    resident kernel (weights packed once), the better of two runs, and its
+    empty window, at B 1, 128 and 1024."""
+    import torch
+    from msnv_tpu_torch.kernels import sample_window as sw
+    fs0, q, dim = TINY
+    rows = []
+    for batch in (1, 128, 1024):
+        table, wh, bh, wo, bo, slots, buf, g = random_window_inputs(
+            fs0, q, dim, batch, torch.bfloat16, dev, seed=600 + batch)
+        packed = sw.resident_weights(wh, wo, fs0)
+        seed = torch.tensor([5], dtype=torch.int64, device=dev)
+        resident = lambda: sw.sample_window(                  # noqa: E731
+            table, wh, bh, wo, bo, slots, buf, seed=seed,     # noqa: B023
+            packed=packed)                                     # noqa: B023
+        ms = min(cuda_ms(resident, **run) for _ in range(2))
+        empty = cuda_ms(lambda: sw.empty_window(              # noqa: B023
+            batch, fs0, q, dim, dev), **run)
+        plan = sw._plan_on(dev, batch, fs0, q, dim, torch.bfloat16)
+        rows.append({"batch": batch, "fs0": fs0, "q": q, "dim": dim,
+                     "cluster": plan.cluster, "clusters": plan.clusters,
+                     "width": plan.subtile, "passes": sw.plan_passes(plan),
+                     "push_kib_per_lane_step": sw.resident_push_bytes(
+                         q, dim, plan.cluster) / 1024,
+                     "ms": ms, "empty_window_ms": empty})
+        log(f"[kernel] dim {dim} (fs0 {fs0}) B={batch} bf16: resident "
+            f"{ms:.4f} ms/window ({plan.clusters} clusters of "
+            f"{plan.cluster}, passes of {plan.subtile}), empty window "
+            f"{empty:.4f}")
+    return rows
 
 
 def width_times(params, held, smem, run):
@@ -5015,6 +5058,7 @@ def kernel_entries():
         "main_shape": {"batch": 1, "fs0": FS0, "q": Q, "dim": DIM,
                        "dtype": "bfloat16", "mode": "philox"},
         "shapes": RESULTS["shapes"],
+        "tiny_shapes": RESULTS["tiny_shapes"],
     }
     # the GRU kernels at the bottom tier's sweep (T 52), where a train step
     # spends most of its GRU time; one "launch" is one layer sweep, counted

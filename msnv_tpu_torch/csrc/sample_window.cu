@@ -36,61 +36,80 @@
 // cluster does. A cluster of C CTAs (16 at dim 1024: 16 x 160 KB) keeps W_h
 // and W_o for all fs0 steps and for every lane it walks through, in its
 // shared memory and its registers:
-//  - Each CTA owns dim / C output columns of W_h and q / C of W_o, all of
-//    the depth, so no partial sum crosses the SM-to-SM network. The caller
-//    packs the weights once (not per window) so that a CTA's slice is one
-//    contiguous block, already in the register order of the tensor cores'
-//    `mma`: one thread asks the TMA for what shared memory keeps in bulk
-//    copies reported to an mbarrier, and a product's thread fetches its
-//    whole A operand with one conflict-free 16-byte load.
+//  - CTA j owns dim / C output columns of W_h, all of its depth, and the
+//    same dim / C rows of W_o, all of its q columns: the rows that its own
+//    columns of h multiply. So h never leaves the CTA that made it: the CTA
+//    multiplies its columns of h by its rows of W_o, which gives a partial
+//    sum of every logit over its part of the depth, and sends each CTA the
+//    partial sums of the q / C logit columns that CTA owns. The owner adds
+//    the C parts (depth order, the bias first, in `sum_tree`'s fixed tree).
+//    Where the parts of all of a CTA's columns do not fit in its shared
+//    memory beside the rest (q large beside dim: 4 q C bytes a lane against
+//    the 2 dim of an x row), they go in rounds of its columns, each owner
+//    telling every CTA (an mbarrier arrival) when its buffer has room for
+//    the next; one round at every preset.
+//    The caller packs the weights once (not per window) so that a CTA's
+//    slice is one contiguous block, already in the register order of the
+//    tensor cores' `mma`: one thread asks the TMA for what shared memory
+//    keeps in bulk copies reported to an mbarrier, and a product's thread
+//    fetches its whole A operand with one conflict-free 16-byte load.
 //  - A cluster takes a contiguous share of the lanes and walks through it
 //    in passes of 8, 16, 24 or 32 lanes: up to four n-tiles of `mma.sync`
 //    m16n8k16 (bf16 in, f32 sums) that share one A operand, the lanes the
 //    narrow side (n = 8) of each, the weights' columns its 16 rows. A
 //    step's chain of exchanges and barriers is paid once for all its lanes,
 //    so a share walks through in as few passes as the width allows. 16
-//    warps split a product by 16-column
-//    tile and by depth; the partial sums over depth are added in a fixed
-//    order, the same at every width, so two runs, and two widths, give the
-//    same bits.
-//  - Shared memory holds a pass's activations beside the weights: a lane
-//    needs its x and h rows (2 x 2 KB at dim 1024), the partial sums, its
-//    noise and its samples, about 5.8 KB at dim 1024, C 16. 8 lanes of
-//    that fit beside all of W_h and W_o (160 KB), 32 beside W_o's 32 KB
-//    alone: in a wider pass the warps hold W_h's operand in registers
-//    instead. A warp's 16-column tile of W_h over its part of the depth is
-//    16 steps of 16 B a thread at dim 1024 (64 registers); it never
-//    changes within a launch. A pass of 8 NT lanes (NT > 1) holds 4 NT
-//    steps of it (all 16 at 32 lanes), and the rest stay in shared memory;
-//    its CTA has 16 warps and no other, so each thread has 128 registers.
-//    A pass of 8 lanes holds none, and its CTA has four more warps of 96
-//    registers that fetch the table rows and send x off the others' path
-//    (an 8-lane step is a chain of latencies, a wider one is not).
-//  - What crosses the network per sample is small and is pushed, not
-//    fetched (remote loads stall on the network's latency): every CTA
-//    computes its columns of x and of h for the live lanes and writes each
-//    into the shared memory of all C CTAs with `st.async` (eight columns
-//    of a lane, 16 bytes, a store), a store that
-//    reports its bytes to an mbarrier of the receiving CTA. A CTA goes on
-//    when the bytes it expects of a row have arrived (bounded wait, traps):
-//    three such exchanges per sample take the place of `__syncthreads`, at
-//    about a third of what a hardware cluster barrier costs in a cluster
-//    of 16. Each value is sent by several threads, each to a few of the
-//    CTAs, so no thread has many stores in a row. The third exchange is
-//    not the logits: every CTA adds the Gumbel noise of its own columns to
-//    its logits and sends each lane's best of them (value and class, first
-//    index on ties), 8 bytes a lane; every CTA then takes the best of the C
-//    bests (lowest class on ties), which is the argmax over all q columns
-//    since a CTA's columns are one block in rank order, so the new sample
-//    needs no fourth exchange. A cluster barrier at the start (every CTA
-//    runs, its mbarriers ready) and one at the end (nobody writes into the
+//    warps split a product by 16-column tile and by depth (the product with
+//    W_o at dim 1024, q 256, C 16: one tile of the logits a warp over the
+//    CTA's 4 steps of depth, the same shape as a warp's product with W_h);
+//    the partial sums are added in a fixed order, the same at every width,
+//    so two runs, and two widths, give the same bits.
+//  - Shared memory holds a pass's activations beside the weights: a lane needs
+//    its x row (2 KB at dim 1024) and its own columns of h, the partial sums of
+//    both products (the C parts of the CTA's own logits arrive from the
+//    cluster), its noise and its samples, about 5.5 KB at dim 1024, C 16. 8
+//    lanes of that fit beside all of W_h and W_o (160 KB), 32 beside W_o's 32
+//    KB alone: in a wider pass the warps hold W_h's operand in registers
+//    instead. A warp's 16-column tile of W_h over its part of the depth is 16
+//    steps of 16 B a thread at dim 1024 (64 registers); it never changes within
+//    a launch. A pass of 8 NT lanes (NT > 1) holds 4 NT steps of it (all 16 at
+//    32 lanes), and the rest stay in shared memory; its CTA has 16 warps and no
+//    other, so each thread has 128 registers. A pass of 8 lanes holds none, and
+//    its CTA has four more warps of 96 registers that fetch the table rows and
+//    send x off the others' path (an 8-lane step is a chain of latencies, a
+//    wider one is not).
+//  - What crosses the network per sample is small and is pushed, not fetched
+//    (remote loads stall on the network's latency), with `st.async`: a store
+//    into another CTA's shared memory that reports its bytes to an mbarrier of
+//    the receiving CTA. A CTA goes on when the bytes it expects of a row have
+//    arrived (bounded wait, traps): three such exchanges per sample take the
+//    place of `__syncthreads`, at about a third of what a hardware cluster
+//    barrier costs in a cluster of 16. (1) x: every CTA computes its columns of
+//    x for the live lanes and writes them into all C CTAs (eight columns of a
+//    lane, 16 bytes, a store; each value sent by several threads, each to a few
+//    of the CTAs, so no thread has many stores in a row). (2) The partial
+//    logits: each warp's tile of sums goes to the CTA that owns its columns,
+//    one 16-byte store a thread and n-tile (the four sums an mma leaves in a
+//    thread, two lanes of two columns, are one row of the owner's buffer, so a
+//    warp's stores fill 512 contiguous bytes). (3) Not the logits: every CTA
+//    adds the Gumbel noise of its own columns to its logits and sends each
+//    lane's best of them (value and class, first index on ties), 8 bytes a
+//    lane, into all CTAs; every CTA then takes the best of the C bests (lowest
+//    class on ties), which is the argmax over all q columns since a CTA's
+//    columns are one block in rank order, so the new sample needs no fourth
+//    exchange. A lane's step writes dim 2 C + q 4 C + 8 C^2 bytes into the
+//    cluster (50 KiB at dim 1024, q 256, C 16; sending h to every CTA instead
+//    of the partial logits took 66 KiB). A cluster barrier at the start (every
+//    CTA runs, its mbarriers ready) and one at the end (nobody writes into the
 //    shared memory of a CTA that is gone) are all that is left of them.
 //  - A step is a chain of short dependent pieces, so what counts is how
 //    few operations lie on it. x is the sum of fs0 table rows from L2 (in
 //    position order, f32) plus the slot row, and all but the last row are
-//    known a step ahead, so a thread fetches and adds those while it waits
-//    for the exchanges of x and h; when a sample is drawn, one table row
-//    and the slot row are all that is left to fetch.
+//    known a step ahead, so they are fetched and added while the cluster
+//    waits for its exchanges and multiplies (in a wider pass the later ones
+//    by `cp.async` into the x rows' bytes, which take no registers while
+//    the copies are under way); when a sample is drawn, one table row and
+//    the slot row are all that is left to fetch.
 // Which C, how many clusters and lanes each, and the width of a pass:
 // chosen by the caller from the shapes and the occupancy API's answer,
 // before the launch.
@@ -247,15 +266,16 @@ constexpr int kResWarps = 16;        // warps that multiply, reduce and draw
                                      // (and, in passes wider than 8 lanes,
                                      // gather): 128 registers a thread
 constexpr int kResThreads = kResWarps * 32;
-constexpr int kPushThreads = kResThreads / 2;  // send x and h while the
-                                               // others fetch table rows
+constexpr int kPushThreads = kResThreads / 2;  // send x while the others
+                                               // fetch table rows
 constexpr int kGatherThreads = 128;  // in passes of 8 lanes: four warps of
                                      // their own that fetch table rows and
                                      // send x (96 registers a thread)
-constexpr int kMaxOwnH = 64;         // columns of W_h a CTA may own: a
-                                     // pass of 32 lanes has at most one
-                                     // task of x and of h a thread
-constexpr int kMaxOwnO = 256;        // columns of W_o: a tile a warp
+constexpr int kMaxOwnH = 64;         // columns of W_h (rows of W_o) a CTA
+                                     // may own: a pass of 32 lanes has at
+                                     // most one task of x and of h a thread
+constexpr int kMaxOwnO = 256;        // logit columns a CTA may own: it
+                                     // adds their parts and draws
 constexpr int kActPad = 8;           // bf16 per activation row: rows of a
                                      // B fragment's 8 lanes fall in 8 banks
 constexpr int kRedPad = 4;           // floats per row of partial sums
@@ -313,71 +333,101 @@ __host__ __device__ inline int part_floats(int width, int n) {
 }
 
 // the mbarriers of a CTA: the weights' arrival, then one for each of the
-// three rows of values that the cluster's CTAs write into each other
-enum Bar { kBarWeights = 0, kBarX, kBarH, kBarBest, kBars };
+// three rows of values that the cluster's CTAs write into each other (x,
+// the partial logits, the bests), then the one on which the C owners of
+// the logits report that their buffers of parts have room for the next
+// round (C arrivals a phase)
+enum Bar { kBarWeights = 0, kBarX, kBarPart, kBarBest, kBarFree, kBars };
 
-// Shared memory of one CTA of a cluster of C in a pass of `width` lanes
-// (byte offsets): what is left of W_h's operand beside the threads'
-// registers (each warp's steps from `kreg` on, a block per warp), its
-// slice of W_o (packed), the pass's x and h rows (bf16, all of dim,
-// padded), the Gumbel noise of its own columns of the logits (f32), the
-// partial sums of a product over the depth split (those of the product
-// with W_o over the x rows where they fit there: x is not read again
-// before the next step's x, which the cluster's CTAs send only after every
-// CTA has read them), two buffers of the sums of a step's table rows but
-// the last (f32, a lane's columns of this CTA: the next step's are made
-// while this step's are read), the CTA's biases, each task's best of its
-// four columns, each CTA's best of its columns for each lane, the pass's
-// samples (the window, then the fs0 new ones), the mbarriers. Made on the
-// host and handed to the kernel as a parameter.
+// the shared memory a resident CTA's layout is made to fit: the most a CTA
+// of an H100 may ask for (227 KB)
+constexpr uint32_t kSmemFit = 232448;
+
+// Shared memory of one CTA of a cluster of C in a pass of `width` lanes (byte
+// offsets): what is left of W_h's operand beside the threads' registers (each
+// warp's steps from `kreg` on, a block per warp), its slice of W_o (packed),
+// the pass's x rows (bf16, all of dim, padded) and, in the same bytes, its own
+// columns of h (bf16, padded), each lane's best of each pair of its columns and
+// the staged table rows: x is read before h is made, and the next x comes from
+// CTAs that have drawn, so had this CTA's bests, which it sends after it has
+// read those. Then the Gumbel noise of its own columns of the logits (f32), the
+// partial sums of the product with W_h over its depth split, the parts of its
+// own logits that the cluster's CTAs send (f32; apart from the x rows, which a
+// slower CTA may still be multiplying when a faster one's parts land; in as
+// few rounds of mo / rounds columns as let the CTA fit kSmemFit: one at
+// every preset, more where q is large beside dim), two
+// buffers of the sums of a step's table rows but the last (f32, a lane's
+// columns of this CTA: the next step's are made while this step's are read),
+// the CTA's biases, each CTA's best of its columns for each lane, the pass's
+// samples (the window, then the fs0 new ones), the mbarriers. Made on the host
+// and handed to the kernel as a parameter.
 struct ResidentLayout {
-  int mh, mo;              // columns of W_h and of W_o that this CTA owns
+  int mh, mo;              // columns of W_h (rows of W_o) and logit columns
+                           // that this CTA owns
   int ksteps;              // dim / 16
-  int split_h, split_o;    // depth splits of the two products
+  int split_h, split_o;    // depth splits of the two products in a CTA
+  int parts;               // parts a logit's sum has: C x split_o
+  int rounds, mr;          // rounds in which the parts arrive, and the
+                           // columns of each (mo / rounds)
   int ksub;                // steps of W_h a warp multiplies
   int kreg;                // of them, held in registers
-  int act_ld;              // elements per row of x and h
+  int act_ld, h_ld;        // elements per row of x, of this CTA's h
   int tree;                // width of the logits' tree (sum_tree)
+  int staged;              // rows of the second half's share of the next
+                           // step's sum that its threads copy into the x
+                           // rows' bytes (cp.async) while they multiply
   uint32_t slice_bytes;    // of this CTA's slice of the packed weights
-  uint32_t wo_off, w_bytes, x_off, h_off, noise_off, red_off, redo_off,
-      ahead_off, bias_off, cand_off, best_off, seq_off, bar_off, total;
+  uint32_t wo_off, w_bytes, x_off, h_off, noise_off, red_off, part_off,
+      ahead_off, bias_off, cand_off, stage_off, best_off, seq_off, bar_off,
+      total;
   __host__ __device__ ResidentLayout(int fs0, int q, int dim, int C,
                                      int width) {
     mh = dim / C;
     mo = q / C;
     ksteps = dim / 16;
     split_h = depth_split(mh / 16, ksteps);
-    split_o = depth_split(mo / 16, ksteps);
+    split_o = depth_split(q / 16, mh / 16);
+    parts = C * split_o;
     ksub = ksteps / split_h;
     const int held = reg_steps(width);
     kreg = ksub < held ? ksub : held;
     act_ld = dim + kActPad;
-    tree = sum_tree(mo, split_o, C);
+    h_ld = mh + kActPad;
+    tree = sum_tree(mo, parts, C);
     slice_bytes = (uint32_t)(mh + mo) * dim * sizeof(bf16);
     wo_off = (uint32_t)(mh / 16) * (ksteps - split_h * kreg) * 512;
-    w_bytes = wo_off + (uint32_t)mo * dim * sizeof(bf16);
+    w_bytes = wo_off + (uint32_t)mh * q * sizeof(bf16);
     x_off = w_bytes;
-    h_off = x_off + width * act_ld * sizeof(bf16);
-    noise_off = h_off + width * act_ld * sizeof(bf16);
+    h_off = x_off;
+    cand_off = h_off + width * h_ld * sizeof(bf16);
+    const uint32_t x_rows = width * act_ld * sizeof(bf16),
+                   h_cand = cand_off - x_off + width * (mo / 2) * sizeof(uint2);
+    noise_off = x_off + (x_rows > h_cand ? x_rows : h_cand);
+    // beside h and the bests, the staged rows: [row][task], 16 bytes each
+    stage_off = x_off + h_cand;
+    const int later = fs0 - 1 - fs0 / 2;   // rows the second half adds
+    const uint32_t row_bytes = width * (mh / 8) * 16;
+    const int fit = x_rows > h_cand ? (x_rows - h_cand) / row_bytes : 0;
+    staged = width == kLanes ? 0 : later < fit ? later : fit;
     red_off = noise_off + width * mo * sizeof(float);
-    const uint32_t red_h =
-        split_h * part_floats(width, mh) * (uint32_t)sizeof(float);
-    const uint32_t red_o =
-        split_o * part_floats(width, mo) * (uint32_t)sizeof(float);
-    const bool over_x = red_o <= width * act_ld * sizeof(bf16);
-    redo_off = over_x ? x_off : red_off;
-    ahead_off = red_off + (over_x || red_h > red_o ? red_h : red_o);
-    bias_off = ahead_off + 2 * width * mh * sizeof(float);
-    cand_off = bias_off + (mh + mo) * sizeof(float);
-    best_off = cand_off + width * (mo / 4) * sizeof(uint2);
-    seq_off = best_off + width * C * sizeof(uint2);
-    bar_off = (seq_off + width * 2 * fs0 * sizeof(int) + 15) / 16 * 16;
-    total = bar_off + 8 * kBars;
+    part_off = red_off + split_h * part_floats(width, mh) * sizeof(float);
+    for (rounds = 1;; rounds *= 2) {
+      mr = mo / rounds;
+      ahead_off = part_off + parts * part_floats(width, mr) * sizeof(float);
+      bias_off = ahead_off + 2 * width * mh * sizeof(float);
+      best_off = bias_off + (mh + mo) * sizeof(float);
+      seq_off = best_off + width * C * sizeof(uint2);
+      bar_off = (seq_off + width * 2 * fs0 * sizeof(int) + 15) / 16 * 16;
+      total = bar_off + 8 * kBars;
+      // a round's columns stay whole 16-column tiles
+      if (total <= kSmemFit || mr % 32 != 0) break;
+    }
   }
 };
 
-// whether a cluster of C CTAs can split both weights in whole 16-column
-// tiles, few enough of them for a CTA's threads, and carry passes of
+// whether a cluster of C CTAs can split W_h in whole 16-column tiles, W_o
+// in the same 16-row blocks and the logits in whole 16-column tiles, few
+// enough of them for a CTA's threads, and carry passes of
 // `width` lanes (a multiple of 8 up to 32, at most one task of four
 // logits' columns a compute thread)
 __host__ bool resident_shape_ok(int fs0, int q, int dim, int C, int width) {
@@ -440,6 +490,16 @@ __device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, unsigned rank) {
                : "=r"(remote)
                : "r"(addr), "r"(rank));
   return remote;
+}
+
+// One arrival on an mbarrier of a CTA of the cluster (its address from
+// map_to_rank): what this CTA's threads read before it cannot see what the
+// other CTA writes after its wait on the phase ends.
+__device__ __forceinline__ void arrive_remote(uint32_t remote_bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          remote_bar)
+      : "memory");
 }
 
 // An asynchronous store into another CTA's shared memory that reports its
@@ -565,6 +625,18 @@ __device__ __forceinline__ void expect_bytes(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
+// One thread: the mbarriers from `first` on ready, one arrival a phase
+// each but kBarFree's C, and visible to the cluster.
+__device__ __forceinline__ void init_bars(uint32_t bars, int first,
+                                          unsigned C) {
+  for (int b = first; b < kBars; ++b)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bars +
+                                                                   8 * b),
+                 "r"(b == kBarFree ? C : 1u)
+                 : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
 __device__ __noinline__ void never_arrived(const char* what) {
   printf("sample_window: %s never arrived (CTA %d)\n", what, blockIdx.x);
   __trap();
@@ -631,9 +703,10 @@ __device__ __forceinline__ void request_resident_weights(
             lay.w_bytes - lay.wo_off, bar);
 }
 
-// One warp's share of a product: a 16-column tile of this CTA's columns
-// times a part of the depth, for the pass's NT n-tiles of 8 lanes.
-//   red[part][n][m] = sum over the part's k of act[n][k] * w[k][column m]
+// One warp's share of a product: task `task` is a 16-column tile of the
+// weight's columns (mt) times a part of the depth (s), for the pass's NT
+// n-tiles of 8 lanes:
+//   sum[n][m] = sum over the part's k of act[n][k] * w[k][column mt 16 + m]
 // The tile's operand for the part's first `kreg` 16-deep steps is in the
 // thread's registers; the others lie at `a` as 512-byte blocks, one per
 // step, in the mma's register order (a thread's 16 bytes at + 16 *
@@ -642,30 +715,29 @@ __device__ __forceinline__ void request_resident_weights(
 // steps and the odd ones (the steps past the last multiple of four into
 // the first), added at the end: the same sums, in the same order, at every
 // width. G n-tiles (1 or 2) at a time, so few sums are live beside W_h's
-// operand; each step's operand is fetched once for the G of them.
+// operand; each step's operand is fetched once for the G of them. Each
+// n-tile's sums go to `emit(*this, n-tile, v)`: v[0], v[1] are column
+// mt 16 + g of lanes 2 tig, 2 tig + 1 of the n-tile, v[2], v[3] column
+// + 8 of the same (g = lane / 4, tig = lane % 4); the whole warp calls it.
 template <int NT, int G>
 struct ProductTask {
   bool active;
+  int mt, s;            // the task's tile of columns and part of the depth
   uint32_t a, b, tile;  // shared-memory addresses of this thread's operands
-  float* out;           // where its four sums of n-tile 0 go
-  int ksub, kreg, ld, main;
+  int ksub, kreg, main;
   __device__ ProductTask(uint32_t frags, int mtiles, int ksteps, int split,
-                         int kreg_, uint32_t act, int act_ld, float* red,
-                         int ld_, int width) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+                         int kreg_, uint32_t act, int act_ld, int task) {
+    const int lane = threadIdx.x & 31;
     const int g = lane >> 2, tig = lane & 3;
-    active = warp < mtiles * split;
-    const int mt = warp % mtiles, s = warp / mtiles;
+    active = task < mtiles * split;
+    mt = task % mtiles;
+    s = task / mtiles;
     ksub = ksteps / split;
     kreg = kreg_;
     main = ksub & ~3;
-    ld = ld_;
     a = frags + ((mt * split + s) * (ksub - kreg) * 32 + lane) * 16;
     b = act + (g * act_ld + s * ksub * 16 + tig * 2) * (int)sizeof(bf16);
     tile = kLanes * act_ld * (int)sizeof(bf16);
-    // the thread holds columns mt * 16 + g (+ 8) of lanes 2 tig (+ 1)
-    out = red + (size_t)s * part_floats(width, ld - kRedPad) + 2 * tig * ld +
-          mt * 16 + g;
   }
   // step j of the part for n-tiles t0 .. t0 + G - 1 (where NT has them),
   // into the odd steps' chain or the other
@@ -684,8 +756,9 @@ struct ProductTask {
   }
   // KR steps from registers, the rest from shared memory in pairs; kAny:
   // any kreg and ksub, the chain of each step decided as it runs
-  template <int KR, bool kAny, int R>
-  __device__ __forceinline__ void sweep(const uint4 (&areg)[R]) const {
+  template <int KR, bool kAny, int R, class Emit>
+  __device__ __forceinline__ void sweep(const uint4 (&areg)[R],
+                                        const Emit& emit) const {
 #pragma unroll
     for (int t0 = 0; t0 < NT; t0 += G) {
       float c[G][2][4] = {};
@@ -731,11 +804,10 @@ struct ProductTask {
 #pragma unroll
       for (int u = 0; u < G; ++u) {
         if (t0 + u >= NT) continue;
-        float* const o = out + (size_t)(t0 + u) * kLanes * ld;
-        o[0] = c[u][0][0] + c[u][1][0];
-        o[ld] = c[u][0][1] + c[u][1][1];
-        o[8] = c[u][0][2] + c[u][1][2];
-        o[ld + 8] = c[u][0][3] + c[u][1][3];
+        const float v[4] = {c[u][0][0] + c[u][1][0], c[u][0][1] + c[u][1][1],
+                            c[u][0][2] + c[u][1][2],
+                            c[u][0][3] + c[u][1][3]};
+        emit(*this, t0 + u, v);
       }
     }
   }
@@ -743,15 +815,80 @@ struct ProductTask {
   // four (no steps past the last one), and all of the register array or
   // none of it used (a multiple of four steps left for shared memory).
   // (An array of one holds no steps: its sweep is not compiled.)
-  template <int R>
-  __device__ __forceinline__ void run(const uint4 (&areg)[R]) const {
+  template <int R, class Emit>
+  __device__ __forceinline__ void run(const uint4 (&areg)[R],
+                                      const Emit& emit) const {
     if (!active) return;
     if (R > 1 && main == ksub && kreg == R)
-      sweep<R, false>(areg);
+      sweep<R, false>(areg, emit);
     else if (main == ksub && kreg == 0)
-      sweep<0, false>(areg);
+      sweep<0, false>(areg, emit);
     else
-      sweep<0, true>(areg);
+      sweep<0, true>(areg, emit);
+  }
+};
+
+// A product's sums into this CTA's partial sums `red`, [part][lane][column]
+// (rows of `ld` floats, parts part_floats(width, ld - kRedPad) apart)
+struct StoreSums {
+  float* red;
+  int ld, width;
+  template <class Task>
+  __device__ __forceinline__ void operator()(const Task& p, int nt,
+                                             const float (&v)[4]) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+    float* const o = red + (size_t)p.s * part_floats(width, ld - kRedPad) +
+                     (nt * kLanes + 2 * tig) * ld + p.mt * 16 + g;
+    o[0] = v[0];
+    o[ld] = v[1];
+    o[8] = v[2];
+    o[ld + 8] = v[3];
+  }
+};
+
+// Where the value of lane l, column c of the mo logit columns a CTA owns
+// lies in a part of its buffer of parts (and in its noise): [16-column
+// tile][pair of lanes][c % 8][l % 2][c / 8 % 2], so that the four sums a
+// thread of a product holds (lanes 2 tig, 2 tig + 1 of columns g and g + 8
+// of a tile) are one 16-byte row, the first lane's two its first 8 bytes,
+// and so are the four an adding thread takes
+__host__ __device__ inline int pair_index(int l, int c, int width) {
+  return (((c / 16) * (width / 2) + l / 2) * 8 + c % 8) * 4 + l % 2 * 2 +
+         c / 8 % 2;
+}
+
+// The product with W_o's sums (a tile of 16 logit columns over this CTA's
+// rows of W_o, part `part0 + s` of the logits' depth) into the CTA that
+// owns the columns: its buffer of parts at this CTA's address `parts`,
+// which holds the round's mr columns from `first` of the owner's mo (parts
+// part_floats(width, mr) floats apart, `pair_index` in each), reported to
+// its mbarrier at this CTA's address `bar`: one 16-byte store a thread and
+// n-tile, 8 bytes where the pair's second lane is dead. Only the live lanes
+// (l < nl) are sent.
+struct PushParts {
+  uint32_t parts, bar;
+  int mo, mr, first, width, nl, part0;
+  template <class Task>
+  __device__ __forceinline__ void operator()(const Task& p, int nt,
+                                             const float (&v)[4]) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+    const int l = nt * kLanes + 2 * tig;
+    if (l >= nl) return;
+    const int col = p.mt * 16;
+    const unsigned owner = (unsigned)(col / mo);
+    const uint32_t at =
+        map_to_rank(parts + ((uint32_t)(part0 + p.s) * part_floats(width, mr) +
+                             pair_index(l, col % mo - first + g, width)) *
+                                (uint32_t)sizeof(float),
+                    owner);
+    const uint32_t rbar = map_to_rank(bar, owner);
+    if (l + 1 < nl)
+      st_async(at, make_uint4(__float_as_uint(v[0]), __float_as_uint(v[2]),
+                              __float_as_uint(v[1]), __float_as_uint(v[3])),
+               rbar);
+    else
+      st_async(at, make_uint2(__float_as_uint(v[0]), __float_as_uint(v[2])),
+               rbar);
   }
 };
 
@@ -814,6 +951,19 @@ __device__ __forceinline__ void reduce4_tree(const float* red, int split,
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       v[e] += __shfl_xor_sync(0xffffffffu, v[e], off);
+}
+
+// An asynchronous copy of 16 bytes from device memory into this CTA's
+// shared memory, which takes no register while it is under way; the thread
+// that asked waits for all of its copies with `wait_copies`.
+__device__ __forceinline__ void copy_async(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // eight columns from `col` of row `sample` of position p of the fused table
@@ -927,6 +1077,43 @@ __device__ __forceinline__ void add_rows(float* sums,
   store8(sums + l * mh + m, acc);
 }
 
+// Task u's rows first .. first + n - 1 of the window of step k into this
+// CTA's shared memory at `stage` ([row][task], `tasks` tasks), as copies
+// under way (copy_async)
+__device__ __forceinline__ void stage_rows(uint32_t stage,
+                                           const bf16* __restrict__ table,
+                                           const int* seq, int u, int tasks,
+                                           int k, int first, int n, int fs0,
+                                           int q, int dim, int mh,
+                                           unsigned rank) {
+  const int l = u / (mh / 8), m = u % (mh / 8) * 8;
+  const int* const w = seq + l * 2 * fs0 + k;
+  for (int i = 0; i < n; ++i) {
+    const int p = first + i;
+    copy_async(stage + (uint32_t)(i * tasks + u) * 16,
+               table + ((size_t)p * q + w[p]) * dim + (int)rank * mh + m);
+  }
+}
+
+// The same task's sums at `sums` plus its `n` staged rows (once its copies
+// have arrived), in position order, then its rows first + n .. last - 1
+// from device memory
+template <int G>
+__device__ __forceinline__ void add_staged_rows(
+    float* sums, uint32_t stage, const bf16* __restrict__ table,
+    const int* seq, int u, int tasks, int k, int first, int n, int last,
+    int fs0, int q, int dim, int mh, unsigned rank) {
+  const int l = u / (mh / 8), m = u % (mh / 8) * 8;
+  float acc[8];
+  load8(acc, sums + l * mh + m);
+  wait_copies();
+  for (int i = 0; i < n; ++i)
+    add_bf16x8(acc, lds128(stage + (uint32_t)(i * tasks + u) * 16));
+  add_table_rows<G>(acc, table, seq + l * 2 * fs0 + k, first + n, last, q,
+                    dim, (int)rank * mh + m);
+  store8(sums + l * mh + m, acc);
+}
+
 // x of step k for the task `to` sends (sample k - 1 is drawn): the sum of
 // the window's other rows at `cur`, its last row and the slot row, relu,
 // into the x rows of this thread's CTAs
@@ -962,32 +1149,36 @@ __device__ __forceinline__ void send_x(const Spread& to, const float* cur,
 //     before; this CTA's columns of x to all CTAs; fetch the rows of the
 //     next step's sum into the other of two buffers. Meanwhile the Gumbel
 //     noise of this CTA's own columns of the logits; wait for all of x
-//   product with W_h; h to all CTAs; wait for all of h; product with W_o;
-//     each lane's best of this CTA's columns (logit + noise, first index
-//     on ties) to all CTAs; wait for all of them; draw: the best of the C
-//     bests, which is the argmax over all q columns, since a CTA's columns
-//     are one block in rank order.
+//   product with W_h; this CTA's columns of h, kept here; product of them
+//     with this CTA's rows of W_o, each tile of partial logits to the CTA
+//     that owns its columns; wait for the C parts of this CTA's columns;
+//     add them; each lane's best of this CTA's columns (logit + noise,
+//     first index on ties) to all CTAs; wait for all of them; draw: the
+//     best of the C bests, which is the argmax over all q columns, since a
+//     CTA's columns are one block in rank order.
 // Who gathers: in a pass of 8 lanes, four more warps (kGatherThreads), off
 // the others' path: they wait at a barrier until a sample is drawn, send x
 // and fetch all of the next step's rows while the others multiply. In a
 // wider pass the 16 warps' registers hold W_h's operand, and no others fit
 // beside them: while the first half of the threads send x, the second half
-// fetch the first rows of the next step's sum, and while the first half
-// send h, the others fetch the rest.
+// fetch the first rows of the next step's sum; while the first half makes
+// h, the second half asks for the rest as copies into the x rows' bytes
+// (x is read by then, and the next x comes after this CTA's bests), and
+// adds them once it has sent its partial logits.
 // Only the live lanes of a pass are sent. A buffer is never written while
 // a CTA still reads it: x of the next step is sent by CTAs that have
 // drawn, so they had everyone's bests, which a CTA sends after its
-// products; h of the next step by CTAs that have all of the next x, sent
-// after the draw; the bests likewise after the next h. Within a CTA a
-// barrier stands between the reads of the x rows (product with W_h) and
-// the product with W_o, whose partial sums may lie over them, and between
-// the reads of h's partial sums and that product.
+// products and after it has added its parts; the parts of the next step by
+// CTAs that have all of the next x, sent after the draw; the bests
+// likewise after the parts. Within a CTA barriers stand between the
+// product with W_h and the reads of its partial sums, and between the
+// writes of h and the product with W_o, which reads them.
 // Registers: in a pass wider than 8 lanes every thread holds W_h's operand
 // (kreg steps, 16 B a step) for the whole launch, 64 of its 128 registers
 // at 32 lanes; the layout is a parameter, read where it is used, and what
 // lives from one step to the next lives in shared memory, so the rest fits
 // beside it.
-template <int NT>
+template <int NT, bool kRounds>
 __global__ void __launch_bounds__(kResThreads + (NT == 1 ? kGatherThreads
                                                          : 0), 1)
     window_resident(const bf16* __restrict__ table,
@@ -1012,17 +1203,25 @@ __global__ void __launch_bounds__(kResThreads + (NT == 1 ? kGatherThreads
   bf16* const hs = reinterpret_cast<bf16*>(rsm + lay.h_off);
   float* const gum = reinterpret_cast<float*>(rsm + lay.noise_off);
   float* const red = reinterpret_cast<float*>(rsm + lay.red_off);
-  float* const red_o = reinterpret_cast<float*>(rsm + lay.redo_off);
+  float* const parts = reinterpret_cast<float*>(rsm + lay.part_off);
   float* const sums = reinterpret_cast<float*>(rsm + lay.ahead_off);
   float* const bias = reinterpret_cast<float*>(rsm + lay.bias_off);
   uint2* const cand = reinterpret_cast<uint2*>(rsm + lay.cand_off);
   uint2* const bests = reinterpret_cast<uint2*>(rsm + lay.best_off);
   int* const seq = reinterpret_cast<int*>(rsm + lay.seq_off);
+  const uint32_t stage = smem_addr(rsm + lay.stage_off);
   const uint32_t bars = smem_addr(rsm + lay.bar_off);
   const uint32_t bar_w = bars + 8 * kBarWeights, bar_x = bars + 8 * kBarX,
-                 bar_h = bars + 8 * kBarH, bar_b = bars + 8 * kBarBest;
+                 bar_p = bars + 8 * kBarPart, bar_b = bars + 8 * kBarBest,
+                 bar_f = bars + 8 * kBarFree;
   const int tid = threadIdx.x;
   const int mh = lay.mh, mo = lay.mo;
+  // the rounds of the partial logits and the columns of each: one of all
+  // mo unless kRounds (a build of its own, so that the presets' one round
+  // costs nothing)
+  const int rounds = kRounds ? lay.rounds : 1, mr = kRounds ? lay.mr : mo;
+  // bytes of partial logits a live lane brings this CTA in a round
+  const uint32_t part_bytes = (uint32_t)lay.parts * mr * sizeof(float);
   const LaneShare share(batch, gridDim.x / C, blockIdx.x / C);
   const unsigned char* const slice = packed + (size_t)rank * lay.slice_bytes;
 
@@ -1033,15 +1232,11 @@ __global__ void __launch_bounds__(kResThreads + (NT == 1 ? kGatherThreads
     bias[i] = i < mh ? bh[rank * mh + i] : bo[rank * mo + i - mh];
   if (tid == 0) {
     const int nl = min(W, share.count);
-    for (int b = 0; b < kBars; ++b)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bars +
-                                                                    8 * b)
-                   : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    init_bars(bars, kBarWeights, C);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     request_resident_weights(smem_addr(rsm), slice, lay, bar_w);
     expect_bytes(bar_x, nl * dim * sizeof(bf16));
-    expect_bytes(bar_h, nl * dim * sizeof(bf16));
+    expect_bytes(bar_p, nl * part_bytes);
     expect_bytes(bar_b, nl * C * sizeof(uint2));
   }
   // every CTA of the cluster runs, its mbarriers ready, before any writes
@@ -1099,10 +1294,10 @@ __global__ void __launch_bounds__(kResThreads + (NT == 1 ? kGatherThreads
                                          : make_uint4(0, 0, 0, 0);
     }
     const uint4 none[1] = {make_uint4(0, 0, 0, 0)};
-    uint32_t parity = 0;
+    uint32_t parity = 0, pparity = 0, fparity = 0;
     bool weights_here = false;
     // the next step's table rows: the first `half` while x is on its way,
-    // the others while h is
+    // the others while the partial logits are
     const int half = fs0 / 2;
 
     // Each phase below takes the thread's index afresh (phase_thread) and
@@ -1162,7 +1357,7 @@ __global__ void __launch_bounds__(kResThreads + (NT == 1 ? kGatherThreads
               const int j = cls % 4;
               g = gumbel(j == 0 ? r.x : j == 1 ? r.y : j == 2 ? r.z : r.w);
             }
-            gum[l * mo + t % mo] = g;
+            gum[pair_index(l, t % mo, W)] = g;
           }
         }
         wait_for_bytes(bar_x, parity, "x");
@@ -1173,90 +1368,137 @@ __global__ void __launch_bounds__(kResThreads + (NT == 1 ? kGatherThreads
           weights_here = true;
         }
 
-        // this CTA's columns of h = relu(x @ W_h + b_h), to every CTA
+        // this CTA's columns of h = relu(x @ W_h + b_h), kept here
         ProductTask<NT, (NT <= 2 ? 2 : 1)>(smem_addr(rsm), mh / 16,
                                            lay.ksteps, lay.split_h, lay.kreg,
-                                           smem_addr(xs), lay.act_ld, red,
-                                           mh + kRedPad, W)
-            .run(areg);
+                                           smem_addr(xs), lay.act_ld,
+                                           threadIdx.x >> 5)
+            .run(areg, StoreSums{red, mh + kRedPad, W});
         compute_sync();
         {
-          // the senders of h: every thread where warps of their own
-          // gather, else the first half
-          constexpr int kSenders = kGather ? kResThreads : kPushThreads;
           const int t = phase_thread<NT>();
-          if (t < kSenders) {
-            const Spread to(t, kSenders, tasks, C);
-            if (to.active) {
-              const int l = to.task / (mh / 8), m = to.task % (mh / 8) * 8;
-              const int col = (int)rank * mh + m;
-              float h[8];
-              reduce8(red + l * (mh + kRedPad) + m, lay.split_h,
-                      part_floats(W, mh), bias + m, h);
+          if (!kGather && t >= kPushThreads) {
+            // the second half: the next step's other rows under way into
+            // the x rows' bytes (x is read) while it multiplies
+            if (t - kPushThreads < tasks && k + 1 < fs0)
+              stage_rows(stage, table, seq, t - kPushThreads, tasks, k + 1,
+                         half, lay.staged, fs0, q, dim, mh, rank);
+          } else if (t < tasks) {
+            const int l = t / (mh / 8), m = t % (mh / 8) * 8;
+            float h[8];
+            reduce8(red + l * (mh + kRedPad) + m, lay.split_h,
+                    part_floats(W, mh), bias + m, h);
 #pragma unroll
-              for (int e = 0; e < 8; ++e) h[e] = fmaxf(h[e], 0.f);
-              push(to, smem_addr(hs + l * lay.act_ld + col), bar_h,
-                   pack_bf16x8(h));
-            }
-          } else if (!kGather && t - kPushThreads < tasks && k + 1 < fs0) {
-            // the other rows of the next step's sum
-            add_rows<G>(sums + ((k + 1) & 1) * W * mh, table, seq,
-                        t - kPushThreads, k + 1, half, fs0 - 1, fs0, q, dim,
-                        mh, rank);
+            for (int e = 0; e < 8; ++e) h[e] = fmaxf(h[e], 0.f);
+            *reinterpret_cast<uint4*>(hs + l * lay.h_ld + m) =
+                pack_bf16x8(h);
           }
         }
-        wait_for_bytes(bar_h, parity, "h");
-        if (tid == 0 && after > 0)
-          expect_bytes(bar_h, after * dim * sizeof(bf16));
-        // the product with W_o overwrites the partial sums of h: every
-        // thread has read its own first (all of h having arrived here says
-        // only that the threads which send to this CTA have)
         compute_sync();
 
-        // this CTA's columns of the logits with their noise: each task's
-        // best of its four columns ...
-        ProductTask<NT, (NT >= 2 ? 2 : 1)>(smem_addr(rsm + lay.wo_off),
-                                           mo / 16, lay.ksteps, lay.split_o,
-                                           0, smem_addr(hs), lay.act_ld,
-                                           red_o, mo + kRedPad, W)
-            .run(none);
-        compute_sync();
-        {
-          const int t = phase_thread<NT>();
-          const TreeTasks to(t, kResThreads, nl * (mo / 4), lay.tree);
-          const int l = to.task / (mo / 4), m = to.task % (mo / 4) * 4;
-          float v[4];
-          reduce4_tree(red_o + l * (mo + kRedPad) + m, lay.split_o,
-                       part_floats(W, mo), lay.tree,
-                       *reinterpret_cast<const float4*>(bias + mh + m), to,
-                       v);
-          if (to.active && to.j == 0) {
-            const float4 g =
-                *reinterpret_cast<const float4*>(gum + l * mo + m);
-            const float sc[4] = {v[0] + g.x, v[1] + g.y, v[2] + g.z,
-                                 v[3] + g.w};
-            float best = -INFINITY;
-            int best_i = 0;
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (sc[e] > best) {
-                best = sc[e];
-                best_i = (int)rank * mo + m + e;
+        // the logits in rounds of mr of each owner's columns (one round
+        // where the cluster's parts of all mo fit at once)
+        for (int round = 0; round < rounds; ++round) {
+          const int first = round * mr;
+          if (kRounds && round > 0) {
+            // every owner has added the last round's parts
+            wait_for_bytes(bar_f, fparity, "room for the partial logits");
+            fparity ^= 1;
+          }
+          // its products with this CTA's rows of W_o: every tile of the
+          // round's partial logits to the CTA that owns its columns
+          {
+            const PushParts to{smem_addr(parts), bar_p, mo, mr, first, W, nl,
+                               (int)rank * lay.split_o};
+            const int per = mr / 16, tiles = per * (int)C;
+            for (int task = phase_thread<NT>() >> 5;
+                 task < tiles * lay.split_o; task += kResWarps) {
+              int ot = task;
+              if constexpr (kRounds) {
+                // tile i of the round: owner i / per's tile i % per from
+                // `first`
+                const int i = task % tiles;
+                ot = task / tiles * (q / 16) + i / per * (mo / 16) +
+                     first / 16 + i % per;
               }
-            cand[to.task] = as_best(best, best_i);
+              ProductTask<NT, (NT >= 2 ? 2 : 1)>(
+                  smem_addr(rsm + lay.wo_off), q / 16, mh / 16, lay.split_o,
+                  0, smem_addr(hs), lay.h_ld, ot)
+                  .run(none, to);
+            }
+          }
+          if constexpr (!kGather) {
+            // the other rows of the next step's sum
+            const int t = phase_thread<NT>();
+            if (round == 0 && t >= kPushThreads && t - kPushThreads < tasks &&
+                k + 1 < fs0)
+              add_staged_rows<G>(sums + ((k + 1) & 1) * W * mh, stage, table,
+                                 seq, t - kPushThreads, tasks, k + 1, half,
+                                 lay.staged, fs0 - 1, fs0, q, dim, mh, rank);
+          }
+          wait_for_bytes(bar_p, kRounds ? pparity : parity,
+                         "the partial logits");
+          pparity ^= 1;
+          {
+            const int lanes = round + 1 < rounds ? nl : after;
+            if (tid == 0 && lanes > 0) expect_bytes(bar_p, lanes * part_bytes);
+          }
+
+          // this CTA's columns of the logits with their noise: a task is
+          // two lanes (a pair) of two columns c and c + 8 of a tile, and
+          // leaves each lane's best of the two ...
+          {
+            const int t = phase_thread<NT>();
+            const TreeTasks to(t, kResThreads, (nl + 1) / 2 * (mr / 2),
+                               lay.tree);
+            const int lp = to.task / (mr / 2);
+            const int r = first / 2 + to.task % (mr / 2);
+            const int c = r / 8 * 16 + r % 8, at = pair_index(2 * lp, c, W);
+            float v[4];
+            reduce4_tree(parts + pair_index(2 * lp, c - first, W), lay.parts,
+                         part_floats(W, mr), lay.tree,
+                         make_float4(bias[mh + c], bias[mh + c + 8],
+                                     bias[mh + c], bias[mh + c + 8]),
+                         to, v);
+            if (to.active && to.j == 0) {
+              const float4 g = *reinterpret_cast<const float4*>(gum + at);
+              const float sc[4] = {v[0] + g.x, v[1] + g.y, v[2] + g.z,
+                                   v[3] + g.w};
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                if (2 * lp + e >= nl) continue;
+                float best = -INFINITY;
+                int best_i = 0;
+                if (sc[2 * e] > best) {
+                  best = sc[2 * e];
+                  best_i = (int)rank * mo + c;
+                }
+                if (sc[2 * e + 1] > best) {
+                  best = sc[2 * e + 1];
+                  best_i = (int)rank * mo + c + 8;
+                }
+                cand[(2 * lp + e) * (mo / 2) + r] = as_best(best, best_i);
+              }
+            }
+          }
+          compute_sync();
+          // this CTA's parts are read: room in it for every CTA's next round
+          if (kRounds && round + 1 < rounds) {
+            const int t = phase_thread<NT>();
+            if (t < (int)C) arrive_remote(map_to_rank(bar_f, t));
           }
         }
-        compute_sync();
         {
-          // ... each lane's best of this CTA's columns, to every CTA
+          // ... each lane's best of this CTA's columns (the largest, the
+          // lowest class on ties), to every CTA
           const int t = phase_thread<NT>();
           if (t < nl * (int)C) {
             const int l = t / (int)C, r = t % (int)C;
             float best = -INFINITY;
-            int best_i = 0;
-            for (int c = 0; c < mo / 4; ++c) {
-              const uint2 b = cand[l * (mo / 4) + c];
-              if (__uint_as_float(b.x) > best) {
+            int best_i = 0x7fffffff;
+            for (int c = 0; c < mo / 2; ++c) {
+              const uint2 b = cand[l * (mo / 2) + c];
+              if (beats(__uint_as_float(b.x), (int)b.y, best, best_i)) {
                 best = __uint_as_float(b.x);
                 best_i = (int)b.y;
               }
@@ -1307,9 +1549,11 @@ __global__ void __launch_bounds__(kResThreads + (NT == 1 ? kGatherThreads
 
 // What a resident window costs before it loads, multiplies or draws: per
 // sample and pass the three exchanges of the real kernel with their bytes
-// (x and h, 2 dim bytes a lane each, in 16-byte stores; each CTA's best,
-// 8 bytes a lane), every CTA waiting for all of each, on the same grid and
-// shared memory.
+// (x, 2 dim bytes a lane from the cluster into each CTA, in 16-byte
+// stores; each CTA's partial logits of every column into the column's
+// owner, 4 q bytes a lane and part, in 16-byte stores, in the real
+// kernel's rounds; each CTA's best, 8 bytes a lane), every CTA waiting for
+// all of each, on the same grid and shared memory.
 template <int NT>
 __global__ void __launch_bounds__(kResThreads, 1)
     window_empty(int batch, int fs0, int dim, const ResidentLayout lay) {
@@ -1317,26 +1561,29 @@ __global__ void __launch_bounds__(kResThreads, 1)
   extern __shared__ __align__(128) unsigned char rsm[];
   const unsigned C = cluster_size(), rank = cluster_rank();
   bf16* const xs = reinterpret_cast<bf16*>(rsm + lay.x_off);
-  bf16* const hs = reinterpret_cast<bf16*>(rsm + lay.h_off);
   uint2* const bests = reinterpret_cast<uint2*>(rsm + lay.best_off);
   const uint32_t bars = smem_addr(rsm + lay.bar_off);
-  const uint32_t bar_x = bars + 8 * kBarX, bar_h = bars + 8 * kBarH,
-                 bar_b = bars + 8 * kBarBest;
-  const int tid = threadIdx.x, mh = lay.mh;
+  const uint32_t bar_x = bars + 8 * kBarX, bar_p = bars + 8 * kBarPart,
+                 bar_b = bars + 8 * kBarBest, bar_f = bars + 8 * kBarFree;
+  const uint32_t parts = smem_addr(rsm + lay.part_off);
+  const int tid = threadIdx.x, mh = lay.mh, mr = lay.mr;
+  const uint32_t part_bytes = (uint32_t)lay.parts * mr * sizeof(float);
   const LaneShare share(batch, gridDim.x / C, blockIdx.x / C);
   if (tid == 0) {
     const int nl = min(W, share.count);
-    for (int b = kBarX; b < kBars; ++b)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bars +
-                                                                    8 * b)
-                   : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    init_bars(bars, kBarX, C);
     expect_bytes(bar_x, nl * dim * sizeof(bf16));
-    expect_bytes(bar_h, nl * dim * sizeof(bf16));
+    expect_bytes(bar_p, nl * part_bytes);
     expect_bytes(bar_b, nl * C * sizeof(uint2));
   }
   cluster_sync();
-  uint32_t parity = 0;
+  uint32_t parity = 0, pparity = 0, fparity = 0;
+  // the partial logits as the product with W_o sends them: a warp's task
+  // (a tile of 16 columns of the round, a part of this CTA's depth) goes to
+  // the tile's owner, a thread's four sums of a pair of lanes of each
+  // n-tile a store
+  const int per = mr / 16, tiles = per * (int)C, lane = tid & 31;
+  const int g = lane >> 2, l0 = 2 * (lane & 3);
   for (int sub = 0; sub < share.count; sub += W) {
     const int nl = min(W, share.count - sub);
     const int next_nl = min(W, share.count - sub - W);
@@ -1350,10 +1597,36 @@ __global__ void __launch_bounds__(kResThreads, 1)
       wait_for_bytes(bar_x, parity, "x of the empty window");
       if (tid == 0 && after > 0)
         expect_bytes(bar_x, after * dim * sizeof(bf16));
-      if (to.active) push(to, smem_addr(hs + at), bar_h, v);
-      wait_for_bytes(bar_h, parity, "h of the empty window");
-      if (tid == 0 && after > 0)
-        expect_bytes(bar_h, after * dim * sizeof(bf16));
+      for (int round = 0; round < lay.rounds; ++round) {
+        if (round > 0) {
+          wait_for_bytes(bar_f, fparity, "room in the empty window");
+          fparity ^= 1;
+        }
+        for (int task = tid >> 5; task < tiles * lay.split_o;
+             task += kResWarps)
+          for (int l = l0; l < nl; l += kLanes) {
+            const int s = task / tiles;
+            const unsigned owner = (unsigned)(task % tiles / per);
+            const uint32_t dst = map_to_rank(
+                parts + ((uint32_t)((int)rank * lay.split_o + s) *
+                             part_floats(W, mr) +
+                         pair_index(l, task % per * 16 + g, W)) *
+                            (uint32_t)sizeof(float),
+                owner);
+            if (l + 1 < nl)
+              st_async(dst, v, map_to_rank(bar_p, owner));
+            else
+              st_async(dst, make_uint2(v.x, v.y), map_to_rank(bar_p, owner));
+          }
+        wait_for_bytes(bar_p, pparity, "the parts of the empty window");
+        pparity ^= 1;
+        const int lanes = round + 1 < lay.rounds ? nl : after;
+        if (tid == 0 && lanes > 0) expect_bytes(bar_p, lanes * part_bytes);
+        if (round + 1 < lay.rounds) {
+          __syncthreads();
+          if (tid < (int)C) arrive_remote(map_to_rank(bar_f, tid));
+        }
+      }
       if (tid < nl * (int)C)
         st_async(map_to_rank(smem_addr(bests + tid / C * C + rank), tid % C),
                  make_uint2(k, sub), map_to_rank(bar_b, tid % C));
@@ -1394,13 +1667,20 @@ cudaError_t allow(const void* kernel, size_t smem, int cluster) {
   return err;
 }
 
+template <int NT>
+const void* resident_variant(bool rounds) {
+  return rounds ? reinterpret_cast<const void*>(window_resident<NT, true>)
+                : reinterpret_cast<const void*>(window_resident<NT, false>);
+}
+
 // the resident kernel and its empty window for passes of `width` lanes
-const void* resident_kernel(int width) {
+// (the kernel's build for partial logits in more than one round, or in one)
+const void* resident_kernel(int width, int rounds) {
   switch (width / kLanes) {
-    case 1: return reinterpret_cast<const void*>(window_resident<1>);
-    case 2: return reinterpret_cast<const void*>(window_resident<2>);
-    case 3: return reinterpret_cast<const void*>(window_resident<3>);
-    case 4: return reinterpret_cast<const void*>(window_resident<4>);
+    case 1: return resident_variant<1>(rounds > 1);
+    case 2: return resident_variant<2>(rounds > 1);
+    case 3: return resident_variant<3>(rounds > 1);
+    case 4: return resident_variant<4>(rounds > 1);
     default: return nullptr;
   }
 }
@@ -1817,8 +2097,9 @@ extern "C" {
 // CTAs, each walking through its share of the lanes in passes of `width`
 // (8, 16, 24 or 32). packed: `cluster` slices of (dim / cluster + q /
 // cluster) * dim bf16, slice r holding columns r * dim / cluster .. of W_h
-// and then r * q / cluster .. of W_o as [16-column tile][16-deep step][32
-// lanes][8 values] in the register order of mma m16n8k16's A operand.
+// (all of its depth) and then rows r * dim / cluster .. of W_o (all of its
+// q columns), each as [16-column tile][16-deep step][32 lanes][8 values]
+// in the register order of mma m16n8k16's A operand.
 // Exactly one of noise / seed is non-null. Strides in elements: lane b's
 // window at buf + b * buf_ld, its slot row of step k at slots + b *
 // slot_ld_b + k * slot_ld_k. Returns the cudaError_t of the launch (0 on
@@ -1836,7 +2117,7 @@ int sample_window_resident_launch(const void* table, const void* packed,
       clusters > batch || !resident_shape_ok(fs0, q, dim, cluster, width))
     return cudaErrorInvalidValue;
   const ResidentLayout lay(fs0, q, dim, cluster, width);
-  const void* kernel = resident_kernel(width);
+  const void* kernel = resident_kernel(width, lay.rounds);
   cudaError_t err = allow(kernel, lay.total, cluster);
   if (err != cudaSuccess) return err;
   ResidentLaunch launch(cluster, clusters, lay.total,
@@ -1885,7 +2166,7 @@ int sample_window_max_clusters(int fs0, int q, int dim, int cluster,
   if (!resident_shape_ok(fs0, q, dim, cluster, width))
     return -(int)cudaErrorInvalidValue;
   const ResidentLayout lay(fs0, q, dim, cluster, width);
-  const void* kernel = resident_kernel(width);
+  const void* kernel = resident_kernel(width, lay.rounds);
   cudaError_t err = allow(kernel, lay.total, cluster);
   if (err != cudaSuccess) return -(int)err;
   int sms = 0, dev = 0;

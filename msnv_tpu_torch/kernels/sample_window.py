@@ -15,18 +15,22 @@ products are tiny; what a step costs besides them decides. Two kernels:
 
 - "resident" (bf16): a thread-block cluster keeps W_h and W_o for the
   whole window (16 CTAs x 160 KB at dim 1024), each CTA owning a slice of
-  the output columns of both layers, brought in once from weights packed
-  once per sampler (`pack_window_weights`): W_o and what is left of W_h in
-  shared memory, the rest of W_h in the threads' registers. A cluster
-  walks through its share of the lanes in passes of 8, 16, 24 or 32 (one
-  to four n-tiles of the tensor cores' m16n8k16 that share the weights'
-  operand): a step's chain of exchanges and barriers is paid once for all
-  of its lanes, so the plan takes the fewest passes that shared memory
-  allows. x, h and each CTA's best class are pushed into every CTA's
-  shared memory by asynchronous stores that report to the receiver's
-  mbarrier (three exchanges per sample, no barrier); half of a CTA's
-  threads fetch the next step's table rows while the other half send
-  (see the source's header).
+  the output columns of W_h and the same rows of W_o, brought in once from
+  weights packed once per sampler (`pack_window_weights`): W_o and what is
+  left of W_h in shared memory, the rest of W_h in the threads' registers.
+  So a CTA's columns of h stay where they are made: it multiplies them by
+  its rows of W_o and sends each CTA the partial sums of the logit columns
+  that CTA owns, which adds the cluster's parts in a fixed order. A
+  cluster walks through its share of the lanes in passes of 8, 16, 24 or
+  32 (one to four n-tiles of the tensor cores' m16n8k16 that share the
+  weights' operand): a step's chain of exchanges and barriers is paid once
+  for all of its lanes, so the plan takes the fewest passes that shared
+  memory allows. x, the partial logits and each CTA's best class are
+  pushed into the CTAs' shared memory by asynchronous stores that report
+  to the receiver's mbarrier (three exchanges per sample, no barrier;
+  `resident_push_bytes` a lane's step); half of a CTA's threads fetch the
+  next step's table rows while the other half send (see the source's
+  header).
 - "grid" (float32, and bf16 widths no cluster holds): float32 W_h and W_o
   (5.24 MB at the canonical width) fit no cluster but the card's shared
   memory: the fewest CTAs that hold them (32 at dim 1024, "groups") keep
@@ -105,6 +109,9 @@ _ACT_PAD, _RED_PAD, _PART_PAD = 8, 4, 4
 # the most columns of W_h and of W_o that one of its CTAs owns (four columns
 # of a lane a gather thread; a 16-column tile a warp)
 _MAX_OWN_H, _MAX_OWN_O = 64, 256
+# the shared memory a CTA's layout is made to fit (the most a CTA of an
+# H100 may ask for): its partial logits come in as few rounds as allow it
+_SMEM_FIT = 232448
 # the grid kernel: threads per CTA, the lanes a CTA may multiply at once,
 # lanes a CTA draws and gathers at once, the fewest lanes a replica of the
 # weights takes
@@ -233,21 +240,43 @@ def sample_window_reference(table, wh, bh, wo, bo, slots, buf, noise):
 # the resident kernel's weights: packed once, a CTA's slice contiguous
 # --------------------------------------------------------------------------
 
+def _mma_a_order():
+    """(m, k) of the 8 values that each of a warp's 32 threads holds of the
+    16 x 16 operand A[m][k] of mma m16n8k16, shaped (32, 8): rows g =
+    thread / 4 and g + 8, depths 2 (thread % 4) + {0, 1} and + {8, 9}."""
+    thread = torch.arange(32)
+    m = (thread // 4)[:, None] + torch.tensor([0, 0, 8, 8, 0, 0, 8, 8])
+    k = 2 * (thread % 4)[:, None] + torch.tensor([0, 1, 0, 1, 8, 9, 8, 9])
+    return m, k
+
+
 def _fragment_index(depth: int, cols: int, cluster: int):
     """Flat indices into a (depth, cols) row-major weight, shaped (cluster,
     cols / cluster / 16, depth / 16, 32, 8): for each CTA of the cluster
     its 16-column tiles, for each tile its 16-deep steps, and for each step
     the 8 values that each of a warp's 32 threads holds of the 16 x 16
-    operand A[m][k] = w[16 step + k][column m] of mma m16n8k16: rows
-    g = thread / 4 and g + 8, depths 2 (thread % 4) + {0, 1} and + {8, 9}."""
-    thread = torch.arange(32)
-    m = (thread // 4)[:, None] + torch.tensor([0, 0, 8, 8, 0, 0, 8, 8])
-    k = 2 * (thread % 4)[:, None] + torch.tensor([0, 1, 0, 1, 8, 9, 8, 9])
+    operand A[m][k] = w[16 step + k][column m] of mma m16n8k16
+    (`_mma_a_order`). W_h's packing: a CTA owns columns."""
+    m, k = _mma_a_order()
     per = cols // cluster
     rank = torch.arange(cluster).view(-1, 1, 1, 1, 1)
     tile = torch.arange(per // 16).view(1, -1, 1, 1, 1)
     step = torch.arange(depth // 16).view(1, 1, -1, 1, 1)
     return (step * 16 + k) * cols + rank * per + tile * 16 + m
+
+
+def _row_fragment_index(depth: int, cols: int, cluster: int):
+    """The same for a CTA that owns rows: shaped (cluster, cols / 16, depth
+    / cluster / 16, 32, 8), CTA r's rows r depth / cluster .. over all of
+    the columns, as its 16-column tiles, each as its 16-deep steps in the
+    mma's operand order. W_o's packing: CTA r's rows are the ones its
+    columns of h multiply."""
+    m, k = _mma_a_order()
+    per = depth // cluster
+    rank = torch.arange(cluster).view(-1, 1, 1, 1, 1)
+    tile = torch.arange(cols // 16).view(1, -1, 1, 1, 1)
+    step = torch.arange(per // 16).view(1, 1, -1, 1, 1)
+    return (rank * per + step * 16 + k) * cols + tile * 16 + m
 
 
 def _check_packable(wh, wo, cluster):
@@ -261,27 +290,33 @@ def _check_packable(wh, wo, cluster):
     return dim, q
 
 
+def _window_index(dim: int, q: int, cluster: int):
+    """`_fragment_index` of W_h and `_row_fragment_index` of W_o, each
+    flattened to (cluster, its slice's elements)."""
+    return (_fragment_index(dim, dim, cluster).reshape(cluster, -1),
+            _row_fragment_index(dim, q, cluster).reshape(cluster, -1))
+
+
 @functools.lru_cache(maxsize=None)
-def _fragment_index_on(depth: int, cols: int, cluster: int, device):
-    """`_fragment_index` made once per device (10 MB of int64 at the
+def _window_index_on(dim: int, q: int, cluster: int, device):
+    """`_window_index` made once per device (10 MB of int64 at the
     canonical width: building it on the host for every pack would cost
     more than the gather)."""
-    return _fragment_index(depth, cols, cluster).to(device)
+    return tuple(t.to(device) for t in _window_index(dim, q, cluster))
 
 
 def pack_window_weights(wh, wo, cluster: int):
     """wh (dim, dim) and wo (dim, q) -> (cluster, (dim + q) / cluster * dim)
     in the order the resident kernel reads: row r is what CTA r of a
     cluster keeps in its shared memory, its dim / cluster columns of W_h
-    and then its q / cluster columns of W_o, each as [16-column tile]
-    [16-deep step][thread][8 values] (`_fragment_index`), so that one bulk
-    copy brings the slice in and a thread's operand is one 16-byte load."""
+    (`_fragment_index`) and then the same dim / cluster rows of W_o over all
+    q columns (`_row_fragment_index`), each as [16-column tile][16-deep
+    step][thread][8 values], so that one bulk copy brings the slice in and
+    a thread's operand is one 16-byte load."""
     dim, q = _check_packable(wh, wo, cluster)
-    dev = wh.device
-    parts = [w.contiguous().reshape(-1)[
-        _fragment_index_on(dim, n, cluster, dev)].reshape(cluster, -1)
-        for w, n in ((wh, dim), (wo, q))]
-    return torch.cat(parts, dim=1)
+    idx_h, idx_o = _window_index_on(dim, q, cluster, wh.device)
+    return torch.cat([wh.contiguous().reshape(-1)[idx_h],
+                      wo.contiguous().reshape(-1)[idx_o]], dim=1)
 
 
 def unpack_window_weights(packed, dim: int, q: int, cluster: int):
@@ -291,10 +326,10 @@ def unpack_window_weights(packed, dim: int, q: int, cluster: int):
         raise ValueError(f"packed weights have shape {tuple(packed.shape)}")
     split = dim // cluster * dim
     out = []
-    for part, n in ((packed[:, :split], dim), (packed[:, split:], q)):
+    for part, idx, n in zip((packed[:, :split], packed[:, split:]),
+                            _window_index(dim, q, cluster), (dim, q)):
         w = torch.empty(dim * n, dtype=packed.dtype, device=packed.device)
-        w[_fragment_index(dim, n, cluster).reshape(-1).to(packed.device)] = \
-            part.reshape(-1)
+        w[idx.reshape(-1).to(packed.device)] = part.reshape(-1)
         out.append(w.reshape(dim, n))
     return tuple(out)
 
@@ -384,28 +419,70 @@ def resident_smem_bytes(fs0: int, q: int, dim: int, cluster: int,
     """Shared memory of one CTA of the resident kernel in passes of `width`
     lanes: what its threads do not hold in registers of its slice of W_h
     (each warp's steps past the first 4 width / 8 in a pass wider than 8,
-    all of them in a pass of 8) and all of W_o, the
-    pass's x and h rows (bf16, padded), the Gumbel noise of its own columns
-    of the logits (f32), the partial sums of the products (those of W_o's
-    over the x rows where they fit there), two buffers of table-row sums
-    (f32, the CTA's columns of x), its biases, each task's and each CTA's
-    best class of a lane (8 bytes each), the window and the new samples,
-    four mbarriers."""
+    all of them in a pass of 8) and its rows of W_o, the pass's x rows (bf16,
+    padded) and in the same bytes, once x is read, its own columns of h
+    (bf16, padded) and a lane's best class of each pair of its columns (8
+    bytes), the Gumbel noise of its own columns of the logits (f32), the
+    partial sums of the product with W_h, the cluster's parts of its own
+    logits (f32, `_logit_parts` of them, of the columns of a round:
+    `resident_rounds`; not over the x rows, which a slower CTA may still be
+    multiplying when they land), two buffers of table-row sums (f32, the
+    CTA's columns of x), its biases, each CTA's best class of a lane (8
+    bytes), the window and the new samples, five mbarriers."""
+    return _resident_layout(fs0, q, dim, cluster, width)[0]
+
+
+def resident_rounds(fs0: int, q: int, dim: int, cluster: int,
+                    width: int) -> int:
+    """In how many rounds of its columns a CTA of the resident kernel takes
+    the cluster's parts of its logits: the fewest (1, 2, 4, ..., each round
+    whole 16-column tiles) with which the CTA fits `_SMEM_FIT`. 1 at every
+    preset; more where q is large beside dim, whose parts (4 q bytes a lane
+    and part) outgrow the x rows (2 dim)."""
+    return _resident_layout(fs0, q, dim, cluster, width)[1]
+
+
+def _resident_layout(fs0, q, dim, cluster, width):
     mh, mo, ksteps = dim // cluster, q // cluster, dim // 16
     split_h = _depth_split(mh // 16, ksteps)
     held = _REG_STEPS * width // SUBTILE if width > SUBTILE else 0
     kreg = min(ksteps // split_h, held)
-    weights = (mh // 16) * (ksteps - split_h * kreg) * 512 + mo * dim * 2
-    row = (dim + _ACT_PAD) * 2
-    acts = 2 * width * row + width * mo * 4
-    red_h = 4 * split_h * (width * (mh + _RED_PAD) + _PART_PAD)
-    red_o = 4 * _depth_split(mo // 16, ksteps) * (
-        width * (mo + _RED_PAD) + _PART_PAD)
-    red = red_h if red_o <= width * row else max(red_h, red_o)
+    weights = (mh // 16) * (ksteps - split_h * kreg) * 512 + mh * q * 2
+    # the x rows, and in the same bytes once x is read h and each lane's
+    # best of each pair of its columns; the noise
+    acts = width * max((dim + _ACT_PAD) * 2, (mh + _ACT_PAD) * 2
+                       + (mo // 2) * 8) + width * mo * 4
+    red = 4 * split_h * (width * (mh + _RED_PAD) + _PART_PAD)
     sums = 2 * width * mh * 4 + (mh + mo) * 4
-    bests = width * (mo // 4) * 8 + width * cluster * 8
+    bests = width * cluster * 8
     seq = width * 2 * fs0 * 4
-    return _align16(weights + acts + red + sums + bests + seq) + 4 * 8
+    rounds = 1
+    while True:
+        parts = 4 * _logit_parts(q, dim, cluster) * (
+            width * (mo // rounds + _RED_PAD) + _PART_PAD)
+        total = _align16(weights + acts + red + parts + sums + bests
+                         + seq) + 5 * 8
+        if total <= _SMEM_FIT or mo // rounds % 32:
+            return total, rounds
+        rounds *= 2
+
+
+def _logit_parts(q: int, dim: int, cluster: int) -> int:
+    """Parts a logit's sum has in the resident kernel: each CTA's rows of
+    W_o, split over its warps' depth as a product of q / 16 tiles and dim /
+    cluster / 16 steps is."""
+    return cluster * _depth_split(q // 16, dim // cluster // 16)
+
+
+def resident_push_bytes(q: int, dim: int, cluster: int) -> int:
+    """Bytes that one lane's sample step writes into the shared memory of a
+    resident cluster's CTAs, each CTA's own included: x (each CTA its dim /
+    cluster columns, bf16, into every CTA), the partial logits (every part
+    of every column, f32, into the CTA that owns the column) and each CTA's
+    best of its columns (8 bytes into every CTA): 50 KiB at dim 1024, q
+    256, cluster 16."""
+    return (dim * 2 * cluster + q * 4 * _logit_parts(q, dim, cluster)
+            + 8 * cluster * cluster)
 
 
 def _width_ok(q: int, cluster: int, width: int) -> bool:
@@ -839,10 +916,10 @@ def empty_window(batch, fs0, q, dim, device, dtype=torch.bfloat16):
     weights of `dtype` takes (resident or grid) through its exchanges and
     no other work: the cost of a window's step-to-step dependence alone,
     for timing beside the real kernel. Resident: per sample and pass the
-    three exchanges with their bytes (x and h, 2 dim bytes a lane each,
-    each CTA's best, 8), every CTA waiting for everyone's; grid: its 2 fs0
-    grid barriers. Returns the plan; raises where no kernel takes the
-    window."""
+    three exchanges with their bytes (x, the partial logits and each CTA's
+    best: `resident_push_bytes` a lane), every CTA waiting for everyone's;
+    grid: its 2 fs0 grid barriers. Returns the plan; raises where no
+    kernel takes the window."""
     plan = _plan_on(device, batch, fs0, q, dim, dtype)
     lib = build()
     stream = torch.cuda.current_stream(device).cuda_stream

@@ -9,7 +9,9 @@ that differs.
 Each `--source` (default the package's csrc/sample_window.cu) is built and
 driven in turn, in the order given (name one twice to interleave, e.g.
 old, new, new, old); an older source comes from git, e.g.
-`git show <commit>:msnv_tpu_torch/csrc/sample_window.cu > old.cu`. Full
+`git show <commit>:msnv_tpu_torch/csrc/sample_window.cu > old.cu`, and
+must read the weights as `pack_window_weights` packs them (a source from
+before each CTA owned rows of W_o, not columns, does not). Full
 width (fs0 20, q 256, dim 1024), bf16, unsharpened random weights, both
 noise modes, a bf16 matmul after every 7th window so that other kernels
 run in between. Prints one line per (source, batch, mode) and a JSON line

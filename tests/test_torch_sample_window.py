@@ -284,18 +284,24 @@ def test_resident_cluster_is_the_smallest_that_fits(dim, want):
 def test_resident_smem_formula_at_the_canonical_shape():
     # per width w: W_h's 16 steps a warp less the 4 w / 8 held in registers
     # in a pass wider than 8 (8 KB a step over the 16 warps; a pass of 8
-    # holds none), W_o (32 KB), x and h (w x 1032 bf16
-    # each), the CTA's own noise (w x 16 f32), W_h's partial sums (4 parts
-    # of w x 68 + 4 f32; W_o's, 16 of w x 20 + 4, lie over the x rows), two
-    # buffers of row sums (w x 64 f32 each), the biases (80 f32), each
-    # task's best (w x 4 x 8 B) and each CTA's (w x 16 x 8 B), w x 40
-    # samples, four mbarriers
+    # holds none), the CTA's 64 rows of W_o (32 KB), the x rows (w x 1032
+    # bf16; the CTA's h, w x 72 bf16, and each lane's best of each pair of
+    # its columns, w x 8 x 8 B, lie over them: no h rows of all of dim),
+    # the CTA's own noise (w x 16 f32), W_h's partial sums (4 parts of w x
+    # 68 + 4 f32), the 16 parts of its logits that the cluster sends (w x
+    # 20 + 4 f32 each; not over the x rows), two buffers of row sums (w x
+    # 64 f32 each), the biases (80 f32), each CTA's best (w x 16 x 8 B), w x
+    # 40 samples, five mbarriers; the parts of all 16 columns in one round
     for w in sw.RESIDENT_WIDTHS:
         held = w // 2 if w > 8 else 0
-        want = ((16 - held) * 8192 + 32768 + 2 * w * 2064 + w * 64
-                + 4 * (w * 272 + 16) + 2 * w * 256 + 320 + w * 32 + w * 128
-                + w * 160 + 32)
+        assert w * (72 * 2 + 8 * 8) <= w * 2064
+        want = ((16 - held) * 8192 + 32768 + w * 2064 + w * 64
+                + 4 * (w * 272 + 16) + 16 * 4 * (w * 20 + 4) + 2 * w * 256
+                + 320 + w * 128 + w * 160 + 40)
         assert sw.resident_smem_bytes(20, 256, 1024, 16, w) == want <= SMEM
+        assert sw.resident_rounds(20, 256, 1024, 16, w) == 1
+    # at 32 lanes the parts take 41 KB where the h rows took 66 KB
+    assert 16 * 4 * (32 * 20 + 4) == 41216 and 32 * 1032 * 2 == 66048
 
 
 # (fs0, q, dim, cluster): the two presets' windows (samplernn; three tiers)
@@ -308,7 +314,106 @@ def test_every_width_fits_an_h100_at_the_presets(fs0, q, dim, cluster):
     assert sw.resident_widths(fs0, q, dim, cluster, SMEM) == \
         list(sw.RESIDENT_WIDTHS)
     for w in sw.RESIDENT_WIDTHS:
-        assert sw.resident_smem_bytes(fs0, q, dim, cluster, w) <= SMEM
+        smem = sw.resident_smem_bytes(fs0, q, dim, cluster, w)
+        assert smem <= SMEM
+        assert sw.resident_rounds(fs0, q, dim, cluster, w) == 1
+        # the layout that sent h to every CTA, by the same formula: x and h
+        # rows of all of dim, the logits' parts over the x rows where they
+        # fit; every width takes less now
+        assert smem < _h_broadcast_smem(fs0, q, dim, cluster, w)
+
+
+def _h_broadcast_smem(fs0, q, dim, cluster, width):
+    """Shared memory of a CTA of the resident kernel when each CTA owned q
+    / cluster columns of W_o over all of dim and sent its columns of h to
+    every CTA: x and h rows of all of dim, the partial logits of its
+    columns (depth split over its warps) over the x rows where they fit."""
+    mh, mo, ks = dim // cluster, q // cluster, dim // 16
+    split_h, split_o = sw._depth_split(mh // 16, ks), sw._depth_split(
+        mo // 16, ks)
+    kreg = min(ks // split_h, 4 * width // 8 if width > 8 else 0)
+    row = (dim + 8) * 2
+    red_h = 4 * split_h * (width * (mh + 4) + 4)
+    red_o = 4 * split_o * (width * (mo + 4) + 4)
+    red = red_h if red_o <= width * row else max(red_h, red_o)
+    total = ((mh // 16) * (ks - split_h * kreg) * 512 + mo * dim * 2
+             + 2 * width * row + width * mo * 4 + red + 2 * width * mh * 4
+             + (mh + mo) * 4 + width * (mo // 4) * 8 + width * cluster * 8
+             + width * 2 * fs0 * 4)
+    return -(-total // 16) * 16 + 32
+
+
+def _h_broadcast_cluster_widths(fs0, q, dim):
+    for c in sw.CLUSTER_SIZES:
+        if (dim % (16 * c) or q % (16 * c) or dim // c > 64 or q // c > 256):
+            continue
+        widths = [w for w in sw.RESIDENT_WIDTHS if sw._width_ok(q, c, w)
+                  and _h_broadcast_smem(fs0, q, dim, c, w) <= SMEM]
+        if widths:
+            return c, widths
+    return 0, []
+
+
+@pytest.mark.parametrize("fs0", [1, 4, 20, 64])
+@pytest.mark.parametrize("q", [16, 64, 128, 256, 512, 1024])
+def test_every_shape_keeps_its_cluster_and_widths(fs0, q):
+    """Each shape that the resident kernel took when it sent h to every CTA
+    takes the same cluster and can run passes of every width it could: the
+    plan is the same (where q is large beside dim, with the partial logits
+    in rounds)."""
+    for dim in range(16, 1025, 16):
+        older, widths = _h_broadcast_cluster_widths(fs0, q, dim)
+        if not older:
+            continue
+        assert sw.resident_cluster(fs0, q, dim, SMEM) == older, dim
+        assert set(widths) <= set(sw.resident_widths(fs0, q, dim, older,
+                                                     SMEM)), dim
+
+
+# (fs0, q, dim, cluster, width, rounds): windows whose parts of all of a
+# CTA's logit columns do not fit beside the rest, and the three that do
+ROUNDS = [(20, 512, 1024, 16, 16, 2), (20, 512, 1024, 16, 24, 2),
+          (20, 1024, 768, 16, 8, 2), (20, 1024, 768, 16, 24, 4),
+          (20, 1024, 512, 8, 8, 8), (20, 1024, 512, 8, 16, 2),
+          (20, 512, 512, 8, 32, 2), (20, 512, 512, 8, 24, 1),
+          (20, 256, 1024, 16, 32, 1), (4, 128, 512, 8, 32, 1)]
+
+
+@pytest.mark.parametrize("fs0,q,dim,cluster,width,rounds", ROUNDS)
+def test_partial_logits_come_in_the_fewest_rounds_that_fit(
+        fs0, q, dim, cluster, width, rounds):
+    """The parts of a CTA's logits arrive in as few rounds of its columns
+    (whole 16-column tiles) as let the CTA fit an H100; each round halves
+    the parts' buffer, and the CTA's bytes otherwise stay."""
+    mo = q // cluster
+    assert sw.resident_rounds(fs0, q, dim, cluster, width) == rounds
+    assert mo // rounds % 16 == 0
+    smem = sw.resident_smem_bytes(fs0, q, dim, cluster, width)
+    assert smem <= SMEM
+    parts = sw._logit_parts(q, dim, cluster)
+
+    def part_bytes(r):
+        return 4 * parts * (width * (mo // r + 4) + 4)
+    if rounds > 1:
+        # one round fewer would not fit
+        assert smem + part_bytes(rounds // 2) - part_bytes(rounds) > SMEM
+
+
+@pytest.mark.parametrize("fs0,q,dim,cluster,kib", [
+    (20, 256, 1024, 16, 50.0), (4, 256, 512, 8, 16.5), (20, 256, 64, 1,
+                                                          1160 / 1024)])
+def test_push_bytes_formula(fs0, q, dim, cluster, kib):
+    """What a lane's sample step writes into a resident cluster's shared
+    memory: x (dim 2 C), the partial logits (q 4 C: C parts of each
+    column), the bests (8 C^2). Below the h that every CTA received before
+    (2 dim 2 C) where dim > 2 q, the same at dim = 2 q, above below it."""
+    assert sw.resident_cluster(fs0, q, dim, SMEM) == cluster
+    got = sw.resident_push_bytes(q, dim, cluster)
+    assert got == dim * 2 * cluster + q * 4 * cluster + 8 * cluster ** 2
+    assert got / 1024 == kib
+    before = 2 * dim * 2 * cluster + 8 * cluster ** 2
+    assert (got > before, got == before, got < before) == (
+        dim < 2 * q, dim == 2 * q, dim > 2 * q)
 
 
 def _older_cluster(fs0, q, dim):
@@ -362,6 +467,22 @@ def test_fragment_index_is_the_mma_operand_order():
     assert sorted(idx.reshape(-1).tolist()) == list(range(depth * cols))
 
 
+def test_row_fragment_index_is_the_mma_operand_order():
+    """CTA r's rows of W_o: thread t's value e of tile `tile`, step `step`
+    is A[m][k] = w[r depth / cluster + 16 step + k][16 tile + m], as in
+    `_fragment_index`, over all of the columns."""
+    depth, cols, cluster = 64, 32, 2
+    idx = sw._row_fragment_index(depth, cols, cluster)
+    assert idx.shape == (cluster, cols // 16, depth // cluster // 16, 32, 8)
+    for r, tile, step, t, e in [(0, 0, 0, 0, 0), (1, 1, 1, 31, 7),
+                                (0, 1, 0, 5, 2), (1, 0, 1, 18, 5)]:
+        m = t // 4 + 8 * ((e // 2) % 2)
+        k = 2 * (t % 4) + e % 2 + 8 * (e // 4)
+        row = r * (depth // cluster) + step * 16 + k
+        assert int(idx[r, tile, step, t, e]) == row * cols + tile * 16 + m
+    assert sorted(idx.reshape(-1).tolist()) == list(range(depth * cols))
+
+
 @pytest.mark.parametrize("dim,cluster", [(64, 1), (64, 4), (1024, 16)])
 def test_pack_unpack_window_weights(dim, cluster):
     q = 256
@@ -376,16 +497,17 @@ def test_pack_unpack_window_weights(dim, cluster):
     assert torch.equal(back_h.view(torch.int16), wh.view(torch.int16))
     assert torch.equal(back_o.view(torch.int16), wo.view(torch.int16))
     # a CTA's slice is one contiguous row: exactly its columns of W_h, then
-    # exactly its columns of W_o (packing element numbers shows which)
+    # exactly the same rows of W_o, all q columns (packing element numbers
+    # shows which)
     ids_h = torch.arange(dim * dim, dtype=torch.int32).reshape(dim, dim)
     ids_o = torch.arange(dim * q, dtype=torch.int32).reshape(dim, q)
     ids = sw.pack_window_weights(ids_h, ids_o, cluster)
-    mh, mo = dim // cluster, q // cluster
+    mh = dim // cluster
     for r in range(cluster):
         assert sorted(ids[r, :mh * dim].tolist()) == sorted(
             ids_h[:, r * mh:(r + 1) * mh].reshape(-1).tolist())
         assert sorted(ids[r, mh * dim:].tolist()) == sorted(
-            ids_o[:, r * mo:(r + 1) * mo].reshape(-1).tolist())
+            ids_o[r * mh:(r + 1) * mh, :].reshape(-1).tolist())
 
 
 def test_pack_rejects_a_cluster_that_cannot_split_the_columns():

@@ -4,7 +4,8 @@ names its widths, in both noise modes, and counts no launch; packing the
 weights for a sampler is refused the same way. The resident kernel, at
 every width of a pass its plan takes, draws the plain version's samples
 bit for bit on inputs whose sums are exact in float32 (so that no order of
-adding them can change a bit), in both noise modes; one launch adds its
+adding them can change a bit), in both noise modes, also where a logit's
+parts come in rounds (q 512 and 1024); one launch adds its
 lanes and passes to the counters as the plan says.
 
 Torch and the port only (no JAX), so that it runs where JAX is absent; on
@@ -65,16 +66,27 @@ def test_a_width_no_kernel_takes_is_refused(card, dtype, dim, q):
     assert [getattr(sw.sample_window, k) for k in COUNTERS] == before
 
 
-# (fs0, dim, B): the canonical shape at batches the plan walks through in
+# (fs0, dim, B, q): the canonical shape at batches the plan walks through in
 # passes of every width (on an H100 granting 7 clusters of 16: 8 up to 56
 # lanes, 16 at 100, 24 at 128 and 147, 32 at 1024), and the three-tier
-# model's windows
-EXACT = [(20, 1024, b) for b in (1, 8, 19, 24, 32, 33, 100, 147, 1024)] \
-    + [(4, 512, 128)]
+# model's windows; then q other than 256: at q 128 a logit has two parts
+# from each CTA (its depth split over two warps), and at q 512 and 1024 the
+# parts come in rounds (2, 2 to 4, 2 to 8 by width)
+EXACT = [(20, 1024, b, 256) for b in (1, 8, 19, 24, 32, 33, 100, 147, 1024)] \
+    + [(4, 512, 128, 256)] \
+    + [(4, 512, b, 128) for b in (1, 128)] \
+    + [(20, 1024, b, 512) for b in (1, 100, 300)] \
+    + [(4, 768, b, 1024) for b in (8, 140)] \
+    + [(20, 512, b, 1024) for b in (8, 256)]
 Q = 256
 
 
-def _exact_inputs(fs0, dim, batch, device):
+def _exact_id(case):
+    fs0, dim, batch, q = case
+    return f"{fs0}-{dim}-{batch}" + ("" if q == Q else f"-q{q}")
+
+
+def _exact_inputs(fs0, dim, batch, device, q=Q):
     """Window inputs on a grid of powers of two so that every sum the
     kernel and the plain version take is exact in float32: table and slot
     rows in {-1, 0, 1} / 8, W_h and W_o in {-1, 0, 1} / 32 (three in four
@@ -87,12 +99,12 @@ def _exact_inputs(fs0, dim, batch, device):
         if zeros:
             v = v * (torch.rand(shape, generator=g) >= zeros)
         return v * scale
-    table = grid(fs0 * Q, dim, scale=1 / 8)
+    table = grid(fs0 * q, dim, scale=1 / 8)
     slots = grid(batch, fs0, dim, scale=1 / 8)
     wh = grid(dim, dim, scale=1 / 32, zeros=0.75)
-    wo = grid(dim, Q, scale=1 / 32, zeros=0.75)
+    wo = grid(dim, q, scale=1 / 32, zeros=0.75)
     bh = grid(dim, scale=1 / 256)
-    bo = grid(Q, scale=1 / 8192)
+    bo = grid(q, scale=1 / 8192)
     # x: multiples of 1/8 up to fs0 + 1 eighths, exact in bf16; h: sums
     # of x * W_h on a grid of 1/256, then rounded to bf16 (still on it);
     # the logits on a grid of 1/8192. A partial sum is exact while its
@@ -102,7 +114,7 @@ def _exact_inputs(fs0, dim, batch, device):
     logit_max = float(h_max * wo.abs().sum(0).max() + bo.abs().max())
     assert x_max * 8 < 256 and h_max * 256 < 2 ** 24
     assert logit_max * 8192 < 2 ** 24
-    buf = torch.randint(0, Q, (batch, fs0), generator=g, dtype=torch.int32)
+    buf = torch.randint(0, q, (batch, fs0), generator=g, dtype=torch.int32)
     bf16 = torch.bfloat16
     return tuple(t.to(device) for t in (
         table.to(bf16), wh.to(bf16), bh, wo.to(bf16), bo, slots.to(bf16),
@@ -110,22 +122,25 @@ def _exact_inputs(fs0, dim, batch, device):
 
 
 @pytest.mark.parametrize("mode", ["noise", "seed"])
-@pytest.mark.parametrize("fs0,dim,batch", EXACT)
+@pytest.mark.parametrize("fs0,dim,batch,q", EXACT,
+                         ids=[_exact_id(c) for c in EXACT])
 def test_resident_equals_the_plain_version_bit_for_bit(card, fs0, dim,
-                                                       batch, mode):
-    args = _exact_inputs(fs0, dim, batch, card)
-    noise = sw.gumbel_noise((batch, fs0, Q),
+                                                       batch, q, mode):
+    args = _exact_inputs(fs0, dim, batch, card, q)
+    noise = sw.gumbel_noise((batch, fs0, q),
                             torch.Generator(device=card).manual_seed(batch),
                             card)
     seed = torch.tensor([batch + 11], dtype=torch.int64, device=card)
-    plan = sw._plan_on(card, batch, fs0, Q, dim, torch.bfloat16)
+    plan = sw._plan_on(card, batch, fs0, q, dim, torch.bfloat16)
     assert plan.path == "resident"
+    rounds = sw.resident_rounds(fs0, q, dim, plan.cluster, plan.subtile)
+    assert (rounds > 1) == (q >= 512), rounds
     before = sw.sample_window.resident
     if mode == "noise":
         got = sw.sample_window(*args, noise=noise)
     else:
         got = sw.sample_window(*args, seed=seed)
-        noise = sw.philox_gumbel_noise(seed, batch, fs0, Q)
+        noise = sw.philox_gumbel_noise(seed, batch, fs0, q)
     want = sw.sample_window_reference(*args, noise)
     torch.cuda.synchronize()
     assert sw.sample_window.resident == before + 1
@@ -133,7 +148,7 @@ def test_resident_equals_the_plain_version_bit_for_bit(card, fs0, dim,
         f"passes of {plan.subtile}: "
         f"{float((got != want).float().mean()):.4%} of the samples differ")
     # the draws are not all alike
-    assert int(torch.unique(got).numel()) > min(Q // 4, batch * fs0 // 4)
+    assert int(torch.unique(got).numel()) > min(q // 4, batch * fs0 // 4)
 
 
 @pytest.mark.parametrize("fs0,dim,batch", [(20, 1024, 1), (20, 1024, 128),
